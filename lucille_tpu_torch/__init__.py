@@ -1,0 +1,16 @@
+"""lucille_tpu_torch — the PyTorch/CUDA port of lucille_tpu.
+
+The port renders the ambient-occlusion frame end to end on one NVIDIA
+H100: RIB ingest and the scene description come from lucille_tpu's
+jax-free host layers (rib/, ri/, display/, imageio/, base/); everything
+that runs per ray is torch, and the two hot kernels — the dense closest
+hit of the eye rays and the fused AO occlusion gather — are CUDA C++
+written by hand for sm_90a (csrc/), built at first use by
+kernels/build.py and bound with ctypes.
+
+Every kernel wrapper has a plain torch twin with the same contract. A
+wrapper handed CPU tensors runs the twin; handed CUDA tensors it
+launches its kernel or raises.  The package never imports jax.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,218 @@
+"""Fused AO occlusion gather: lane ordering, the CUDA kernel's wrapper and
+its plain torch twin.
+
+Counterpart of lucille_tpu/accel/pallas_ao.py:453-681 (want_bits=False).
+Hit lanes are compacted to the front in the JAX package's exact order —
+a stable hit-first partition below 8 triangle tiles, the stable
+(normal octant, Morton cell) sort from 8 tiles — because the per-lane
+jitter is indexed by compacted slot: slot j reads jitter[:, j].  The
+counts are scattered back to raster order.
+
+The kernel is csrc/ao.cu; `ao_occlusion` launches it for CUDA tensors and
+runs `ao_occlusion_reference` on the compacted hit lanes for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lucille_tpu_torch.accel.isect import DET_EPS
+from lucille_tpu_torch.accel.pack import (
+    TC,
+    pack_boxes,
+    pack_occ,
+    pack_super_boxes,
+)
+from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
+
+R2_A1 = 0.7548776662466927  # R2 additive-recurrence constants (plastic
+R2_A2 = 0.5698402909980532  # number alpha, alpha^2), rounded to f32 in use
+STRATUM_CULL_MIN_TILES = 8  # lucille_tpu's switch to the Morton lane order
+
+COUNTS = LaunchCounts()
+
+
+def partition_order(hit: torch.Tensor):
+    """Stable partition of lane indices, hit lanes first.  Returns
+    (order (B,) i64, nhit () i32): lane order[j] fills compacted slot j."""
+    hit_i = hit.to(torch.int32)
+    nhit = hit_i.sum(dtype=torch.int32)
+    pos = torch.where(hit, torch.cumsum(hit_i, 0) - 1,
+                      nhit + torch.cumsum(1 - hit_i, 0) - 1)
+    order = torch.empty_like(pos, dtype=torch.int64)
+    order[pos.long()] = torch.arange(hit.shape[0], device=hit.device)
+    return order, nhit
+
+
+def _spread3(x: torch.Tensor) -> torch.Tensor:
+    """Interleave the low 8 bits of x with two zero bits (i32)."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def compaction_order(bbox_min, bbox_max, P_off, b2, hit, n_tri_tiles: int):
+    """Lane order for the compaction step (pallas_ao.py:462-489).  Below
+    STRATUM_CULL_MIN_TILES tiles: `partition_order`.  From there, hit
+    lanes are sorted stably by (shading-normal octant, Morton cell of the
+    shading point) so neighbouring slots hold nearby origins."""
+    if n_tri_tiles < STRATUM_CULL_MIN_TILES:
+        return partition_order(hit)
+    ext = torch.clamp_min(bbox_max - bbox_min, 1e-12)
+    q = ((P_off - bbox_min) / ext * 256.0).to(torch.int32).clamp(0, 255)
+    morton = ((_spread3(q[:, 0]) << 2) | (_spread3(q[:, 1]) << 1)
+              | _spread3(q[:, 2]))
+    octant = ((b2[:, 0] > 0).to(torch.int32) * 4
+              + (b2[:, 1] > 0).to(torch.int32) * 2
+              + (b2[:, 2] > 0).to(torch.int32))
+    key = torch.where(hit, octant * (1 << 24) + morton,
+                      torch.full_like(morton, 1 << 29))
+    order = torch.sort(key, stable=True).indices
+    return order, hit.to(torch.int32).sum(dtype=torch.int32)
+
+
+def ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
+                 nphi: int) -> torch.Tensor:
+    """Occlusion counts for a wavefront of primary hits.
+
+    P_off, b0, b1, b2: (B, 3) f32 offset shading points and orthonormal
+    basis (b2 = shading normal); hit: (B,) bool; jitter: (2, B) f32
+    uniforms, column j belonging to compacted slot j.  Returns (B,) f32:
+    how many of the ntheta * nphi strata are occluded (0 where not hit)."""
+    B = P_off.shape[0]
+    if tuple(jitter.shape) != (2, B) or jitter.dtype != torch.float32:
+        raise ValueError(f"jitter: need (2, {B}) f32, got "
+                         f"{tuple(jitter.shape)} {jitter.dtype}")
+    if ntheta < 1 or nphi < 1:
+        raise ValueError(f"ntheta, nphi must be >= 1, got {ntheta}, {nphi}")
+    tris = pack_occ(scene)
+    boxes = pack_boxes(scene)
+    order, nhit = compaction_order(scene.bbox_min, scene.bbox_max, P_off, b2,
+                                   hit, boxes.shape[1])
+    rays = torch.cat([P_off, b0, b1, b2], dim=1)[order].T.contiguous()
+    jitter = jitter.contiguous()
+    dev = P_off.device
+    if dev.type == "cuda":
+        occ_sorted = ao_occlusion_kernel(
+            tris, boxes, pack_super_boxes(boxes), rays, jitter, nhit,
+            ntheta, nphi,
+        )
+    elif dev.type == "cpu":
+        n = int(nhit)
+        occ_sorted = torch.zeros(B, device=dev)
+        occ_sorted[:n] = ao_occlusion_reference(
+            tris, rays[:, :n], jitter[:, :n], ntheta, nphi
+        )
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    occ = torch.empty_like(occ_sorted)
+    occ[order] = occ_sorted
+    return occ
+
+
+def ao_occlusion_kernel(tris, boxes, sboxes, rays, jitter, nact, ntheta: int,
+                        nphi: int) -> torch.Tensor:
+    """Launch csrc/ao.cu on the current stream (CUDA tensors only).
+
+    rays (12, B) [P_off | b0 | b1 | b2] in compacted order, jitter (2, B),
+    nact () i32 on the device (lanes at or past it report 0)."""
+    B = rays.shape[1]
+    dev = rays.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    for name, a in (("tris", tris), ("boxes", boxes), ("sboxes", sboxes),
+                    ("rays", rays), ("jitter", jitter)):
+        if a.dtype != torch.float32 or not a.is_contiguous() or a.device != dev:
+            raise ValueError(f"{name}: need contiguous float32 on {dev}")
+    if tris.shape[0] != 16 or tris.shape[1] != boxes.shape[1] * TC:
+        raise ValueError(f"tris {tuple(tris.shape)} / boxes "
+                         f"{tuple(boxes.shape)} mismatch")
+    if rays.shape[0] != 12 or tuple(jitter.shape) != (2, B):
+        raise ValueError(f"rays {tuple(rays.shape)} / jitter "
+                         f"{tuple(jitter.shape)} mismatch")
+    if nact.dtype != torch.int32 or nact.numel() != 1 or nact.device != dev:
+        raise ValueError("nact: need one int32 on the rays' device")
+    occ = torch.empty(B, dtype=torch.float32, device=dev)
+    lib = library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lt_ao_occlusion(
+            rays.data_ptr(), jitter.data_ptr(), B, nact.data_ptr(),
+            tris.data_ptr(), tris.shape[1], boxes.data_ptr(), boxes.shape[1],
+            sboxes.data_ptr(), sboxes.shape[1], ntheta, nphi,
+            1.0 / ntheta, 1.0 / nphi, occ.data_ptr(), stream,
+        )
+    check("lt_ao_occlusion", err)
+    COUNTS.kernel += 1
+    return occ
+
+
+def stratum_directions(basis, u01, ntheta: int, nphi: int):
+    """The kernel's stratified cosine directions (pallas_ao.py:172-194).
+
+    basis (9, n) [b0 | b1 | b2]; u01 (2, n).  Yields (s, (dx, dy, dz)) for
+    s = 0 .. ntheta*nphi - 1, each component (n,) f32."""
+    for s in range(ntheta * nphi):
+        sh0 = np.float32(s) * np.float32(R2_A1)
+        sh1 = np.float32(s) * np.float32(R2_A2)
+        u0 = u01[0] + float(sh0 - np.floor(sh0))
+        u0 = u0 - torch.floor(u0)
+        u1 = u01[1] + float(sh1 - np.floor(sh1))
+        u1 = u1 - torch.floor(u1)
+        z0 = (u0 + float(s % ntheta)) * (1.0 / ntheta)
+        z1 = (u1 + float(s // ntheta)) * (1.0 / nphi)
+        cos_t = torch.sqrt(z0)
+        phi = z1 * (2.0 * np.pi)
+        lx = torch.cos(phi) * cos_t
+        ly = torch.sin(phi) * cos_t
+        lz = torch.sqrt(torch.clamp_min(1.0 - z0, 0.0))
+        yield s, tuple(lx * basis[c] + ly * basis[3 + c] + lz * basis[6 + c]
+                       for c in range(3))
+
+
+def ao_occlusion_reference(tris, rays, u01, ntheta: int, nphi: int,
+                           lane_chunk: int = 16384) -> torch.Tensor:
+    """Plain torch twin for lanes that all hit: rays (12, n) [P_off | b0 |
+    b1 | b2], u01 (2, n) each lane's own uniforms.  Every stratum against
+    every triangle with the signed-volume test in the kernel's operation
+    order (occlusion_test_reference, pallas_ao.py:428-450).  Returns (n,)
+    f32 occluded-stratum counts."""
+    COUNTS.plain += 1
+    n = rays.shape[1]
+    n_tiles = tris.shape[1] // TC
+    out = torch.zeros(n, device=rays.device)
+    for lo in range(0, n, lane_chunk):
+        hi = min(n, lo + lane_chunk)
+        ox, oy, oz = (rays[c, lo:hi][None, :] for c in range(3))
+        dirs = list(stratum_directions(rays[3:12, lo:hi], u01[:, lo:hi],
+                                       ntheta, nphi))
+        occluded = torch.zeros((len(dirs), hi - lo), dtype=torch.bool,
+                               device=rays.device)
+        for k in range(n_tiles):
+            tile = tris[:, k * TC : (k + 1) * TC]
+            col = [tile[r][:, None] for r in range(12)]  # (TC, 1)
+            pax, pay, paz = col[0] - ox, col[1] - oy, col[2] - oz
+            pbx, pby, pbz = col[3] - ox, col[4] - oy, col[5] - oz
+            pcx, pcy, pcz = col[6] - ox, col[7] - oy, col[8] - oz
+            nx, ny, nz = col[9], col[10], col[11]
+            cbcx = pby * pcz - pbz * pcy
+            cbcy = pbz * pcx - pbx * pcz
+            cbcz = pbx * pcy - pby * pcx
+            ccax = pcy * paz - pcz * pay
+            ccay = pcz * pax - pcx * paz
+            ccaz = pcx * pay - pcy * pax
+            s_n = pax * nx + pay * ny + paz * nz
+            for s, (dx, dy, dz) in dirs:
+                U = dx * cbcx + dy * cbcy + dz * cbcz
+                V = dx * ccax + dy * ccay + dz * ccaz
+                dn = dx * nx + dy * ny + dz * nz
+                W = dn - U - V
+                inside = ((torch.minimum(torch.minimum(U, V), W) >= 0.0)
+                          | (torch.maximum(torch.maximum(U, V), W) <= 0.0))
+                hit = inside & (s_n * dn > 0.0) & (dn.abs() > DET_EPS)
+                occluded[s] |= hit.any(dim=0)
+        out[lo:hi] = occluded.sum(dim=0).to(torch.float32)
+    return out

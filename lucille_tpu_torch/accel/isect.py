@@ -1,0 +1,143 @@
+"""Dense closest hit: the CUDA kernel's wrapper and its plain torch twin.
+
+Counterpart of lucille_tpu/accel/pallas_isect.py:270-387.  The kernel is
+csrc/isect.cu; `closest_hit` launches it for CUDA tensors and runs
+`closest_hit_reference` for CPU tensors.
+
+Counters (the port's own definition; only nrays is held to lucille_tpu):
+``ntrav`` is the number of (warp of 32 rays, 128-triangle tile) pairs
+tested, ``ntests`` = ntrav * 128 * 32 ray-triangle tests.  The kernel
+skips a tile for a warp none of whose rays reaches the tile's box; the
+plain twin skips nothing, so it reports every pair.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lucille_tpu_torch.accel.pack import TC
+from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
+
+DET_EPS = 1.0e-14  # the reference's |det| floor (bvh.c:746)
+WARP = 32
+BLOCK = 256  # rays per CUDA block (csrc/isect.cu)
+
+COUNTS = LaunchCounts()
+
+
+def _check_inputs(tris, boxes, org, dirn):
+    dev = tris.device
+    for name, a in (("tris", tris), ("boxes", boxes), ("org", org),
+                    ("dirn", dirn)):
+        if a.dtype != torch.float32 or not a.is_contiguous():
+            raise ValueError(f"{name}: need contiguous float32, got {a.dtype}")
+        if a.device != dev:
+            raise ValueError(f"{name} on {a.device}, tris on {dev}")
+    if tris.dim() != 2 or tris.shape[0] != 16 or tris.shape[1] % TC:
+        raise ValueError(f"tris: need (16, k*{TC}), got {tuple(tris.shape)}")
+    if tuple(boxes.shape) != (8, tris.shape[1] // TC):
+        raise ValueError(f"boxes: need (8, {tris.shape[1] // TC}), "
+                         f"got {tuple(boxes.shape)}")
+    if org.dim() != 2 or org.shape[1] != 3 or dirn.shape != org.shape:
+        raise ValueError(f"org/dirn: need (B, 3), got {tuple(org.shape)}, "
+                         f"{tuple(dirn.shape)}")
+
+
+def closest_hit(tris, boxes, org, dirn) -> dict:
+    """tris (16, Npad) [v0|e1|e2] and boxes (8, n_tiles) from accel/pack;
+    org, dirn (B, 3) f32.  Returns {t, u, v (B,) f32, tri (B,) i32 (-1 on
+    a miss), ntrav () i64}."""
+    _check_inputs(tris, boxes, org, dirn)
+    if org.device.type == "cpu":
+        return closest_hit_reference(tris, org, dirn)
+    if org.device.type != "cuda":
+        raise ValueError(f"unsupported device {org.device}")
+    return closest_hit_kernel(tris, boxes, org, dirn)
+
+
+def closest_hit_kernel(tris, boxes, org, dirn) -> dict:
+    """Launch csrc/isect.cu on the current stream (CUDA tensors only)."""
+    _check_inputs(tris, boxes, org, dirn)
+    if org.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {org.device}")
+    B = org.shape[0]
+    dev = org.device
+    t = torch.empty(B, dtype=torch.float32, device=dev)
+    u = torch.empty(B, dtype=torch.float32, device=dev)
+    v = torch.empty(B, dtype=torch.float32, device=dev)
+    tri = torch.empty(B, dtype=torch.int32, device=dev)
+    n_blocks = -(-B // BLOCK)
+    ntile = torch.empty(n_blocks * (BLOCK // WARP), dtype=torch.int32,
+                        device=dev)
+    lib = library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lt_closest_hit(
+            org.data_ptr(), dirn.data_ptr(), B, tris.data_ptr(),
+            tris.shape[1], boxes.data_ptr(), boxes.shape[1], t.data_ptr(),
+            u.data_ptr(), v.data_ptr(), tri.data_ptr(), ntile.data_ptr(),
+            stream,
+        )
+    check("lt_closest_hit", err)
+    COUNTS.kernel += 1
+    return {"t": t, "u": u, "v": v, "tri": tri,
+            "ntrav": ntile.sum(dtype=torch.int64)}
+
+
+def closest_hit_reference(tris, org, dirn, ray_chunk: int = 65536) -> dict:
+    """Plain torch twin: every ray against every tile, the tile's
+    Moller-Trumbore chain in the kernel's operation order, the lowest
+    index among equal t (argmin takes the first minimum within a tile,
+    the strict t < t_best across tiles)."""
+    COUNTS.plain += 1
+    B = org.shape[0]
+    n_tiles = tris.shape[1] // TC
+    dev = org.device
+    t_all = torch.full((B,), float("inf"), device=dev)
+    u_all = torch.zeros(B, device=dev)
+    v_all = torch.zeros(B, device=dev)
+    tri_all = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    for lo in range(0, B, ray_chunk):
+        hi = min(B, lo + ray_chunk)
+        o = [org[lo:hi, c : c + 1] for c in range(3)]  # (b, 1)
+        ox, oy, oz = o
+        dx, dy, dz = (dirn[lo:hi, c : c + 1] for c in range(3))
+        t_best = t_all[lo:hi]
+        u_best = u_all[lo:hi]
+        v_best = v_all[lo:hi]
+        tri_best = tri_all[lo:hi]
+        for k in range(n_tiles):
+            tile = tris[:, k * TC : (k + 1) * TC]
+            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+                tile[r][None, :] for r in range(9)
+            )
+            px = dy * e2z - dz * e2y
+            py = dz * e2x - dx * e2z
+            pz = dx * e2y - dy * e2x
+            a = e1x * px + e1y * py + e1z * pz
+            valid = a.abs() > DET_EPS
+            inva = torch.where(valid, 1.0 / torch.where(valid, a, 1.0), 0.0)
+            sx = ox - v0x
+            sy = oy - v0y
+            sz = oz - v0z
+            qx = sy * e1z - sz * e1y
+            qy = sz * e1x - sx * e1z
+            qz = sx * e1y - sy * e1x
+            u = (sx * px + sy * py + sz * pz) * inva
+            v = (qx * dx + qy * dy + qz * dz) * inva
+            t = (e2x * qx + e2y * qy + e2z * qz) * inva
+            hit = (valid & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+                   & (u + v <= 1.0) & (t > 0.0) & (t < t_best[:, None]))
+            t_m = torch.where(hit, t, float("inf"))
+            tc, j = torch.min(t_m, dim=1)  # first index among equal minima
+            better = tc < t_best
+            rows = torch.arange(hi - lo, device=dev)
+            t_best.copy_(torch.where(better, tc, t_best))
+            u_best.copy_(torch.where(better, u[rows, j], u_best))
+            v_best.copy_(torch.where(better, v[rows, j], v_best))
+            tri_best.copy_(torch.where(better, (j + k * TC).to(torch.int32),
+                                       tri_best))
+    n_warps = -(-B // WARP)
+    return {"t": t_all, "u": u_all, "v": v_all, "tri": tri_all,
+            "ntrav": torch.tensor(n_warps * n_tiles, dtype=torch.int64,
+                                  device=dev)}

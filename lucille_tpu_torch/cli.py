@@ -1,0 +1,156 @@
+"""Command-line renderer for the port: the `lsh` flags the AO slice honours.
+
+    python -m lucille_tpu_torch.cli scene.rib -o out.hdr [--device cuda]
+
+    --output FILE      override the display name
+    --pixelsamples N   override PixelSamples
+    --gather-rays N    AO gather rays (ntheta = nphi = int(sqrt(N)))
+    --tile N           tile size, default 64
+    --order O          spiral|scanline|zorder|hilbert
+    --accel A          auto|pallas (the dense accel; lucille_tpu's other
+                       accels are refused)
+    --width/--height   override the image size
+    --stats --verbose  ray statistics, progress
+    --device D         cuda (default) or cpu
+
+lucille_tpu's --mesh, --coordinator, --num-processes, --process-id,
+--recover and every --method other than ao are refused with a message.
+CLI overrides are applied at WorldBegin through the backdoor callback,
+as lucille_tpu's CLI does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+REFUSED = {
+    "mesh": "multi-device tile sharding",
+    "coordinator": "multi-host rendering",
+    "num_processes": "multi-host rendering",
+    "process_id": "multi-host rendering",
+}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="lucille-tpu-torch",
+        description="RenderMan-style AO renderer on PyTorch/CUDA",
+    )
+    p.add_argument("rib", help="RIB scene file")
+    p.add_argument("--output", "-o", help="override output file name")
+    p.add_argument("--pixelsamples", type=int, help="subpixel samples per axis")
+    p.add_argument("--gather-rays", type=int, help="AO gather rays")
+    p.add_argument("--tile", type=int, default=64, help="tile size (default 64)")
+    p.add_argument("--order", choices=["spiral", "scanline", "zorder", "hilbert"],
+                   help="tile order (default spiral)")
+    p.add_argument("--accel",
+                   choices=["auto", "bvh", "grid", "bruteforce", "mxu", "pallas"],
+                   help="accel override; auto and pallas (the dense accel) "
+                        "are ported")
+    p.add_argument("--method", help="integrator; only 'ao' is ported")
+    p.add_argument("--width", type=int, help="override image width")
+    p.add_argument("--height", type=int, help="override image height")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--stats", action="store_true", help="print ray statistics")
+    p.add_argument("--verbose", "-v", action="store_true")
+    for name in REFUSED:
+        p.add_argument("--" + name.replace("_", "-"), default=None,
+                       help="not supported by the port")
+    p.add_argument("--recover", action="store_true",
+                   help="not supported by the port")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_argparser()
+    args = p.parse_args(argv)
+    for name, what in REFUSED.items():
+        if getattr(args, name) is not None:
+            p.error(f"--{name.replace('_', '-')}: {what} is not ported")
+    if args.recover:
+        p.error("--recover: tile checkpoints are not ported")
+    if args.method is not None and args.method.lower() != "ao":
+        p.error(f"--method {args.method}: not ported (only 'ao' is)")
+    if args.accel not in (None, "auto", "pallas"):
+        p.error(f"--accel {args.accel}: not ported (only the dense accel, "
+                "'auto' or 'pallas'; ROADMAP Queue 1)")
+
+    from lucille_tpu.base.timer import get_timer
+    from lucille_tpu.display.drivers import get_display_driver
+    from lucille_tpu.ri.api import RiState
+    from lucille_tpu.rib.parser import parse_rib_file
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    def apply_overrides(state: RiState):
+        """Backdoor world_begin callback (lsh main.c:213-241)."""
+        opt = state.options
+        if args.pixelsamples is not None:
+            state.PixelSamples(args.pixelsamples, args.pixelsamples)
+        if args.gather_rays is not None:
+            opt.gather_nsamples = args.gather_rays
+        if args.accel is not None:
+            opt.accel_method = args.accel
+        if args.method is not None:
+            opt.render_method = args.method
+        if args.order is not None:
+            opt.bucket_order = args.order
+        if args.width is not None or args.height is not None:
+            state.Format(args.width or opt.width, args.height or opt.height)
+        if args.output is not None:
+            disp = opt.current_display()
+            disp.name = args.output
+            if disp.driver == "framebuffer":
+                disp.driver = "file"
+        opt.tile_size = args.tile
+
+    timer = get_timer()
+    state = RiState()
+    state.world_begin_cb = apply_overrides
+    timer.start("RIB parsing")
+    try:
+        parse_rib_file(args.rib, state)
+    except FileNotFoundError:
+        print(f"lucille-tpu-torch: cannot open '{args.rib}'", file=sys.stderr)
+        return 1
+    timer.end("RIB parsing")
+    if state.world_block == 0:
+        return 0  # no WorldBegin/WorldEnd: nothing to render
+
+    desc = state.scene
+    opt = desc.options
+    renderer = Renderer(desc, tile_size=opt.tile_size, device=args.device)
+
+    drivers = []
+    for d in opt.displays or [None]:
+        if d is None:
+            drv = get_display_driver("framebuffer")
+            drv.open("untitled.hdr", opt.width, opt.height)
+        else:
+            drv = get_display_driver(d.driver)
+            drv.open(d.name, opt.width, opt.height)
+        drivers.append(drv)
+
+    def tile_cb(x0, y0, tile):
+        for drv in drivers:
+            drv.write(x0, y0, tile)
+
+    def progress_cb(frac):
+        for drv in drivers:
+            drv.progress(frac)
+        if args.verbose:
+            print(f"\r{frac * 100:3.0f}%", end="", flush=True)
+
+    renderer.render_frame(tile_cb=tile_cb, progress_cb=progress_cb)
+    if args.verbose:
+        print()
+    for drv in drivers:
+        drv.close()
+    if args.stats or args.verbose:
+        print(renderer.stats.report())
+        print(timer.dump())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

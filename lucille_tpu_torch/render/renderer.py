@@ -1,0 +1,187 @@
+"""Frame renderer: the AO tile loop on one torch device.
+
+Counterpart of lucille_tpu/render/renderer.py:41-152 and :269-591 for a
+single device:
+
+- the image is cut into full-size tiles (edge tiles are rendered past the
+  image edge and cropped on the host), so every tile traces
+  B = tile_w * tile_h * S eye rays;
+- per tile: Hammersley subpixel positions -> eye rays -> the AO
+  integrator (kernels 1 and 2) -> per-subsample pixel-filter weights;
+- every tile is enqueued on the device before the first is pulled back,
+  then tiles reach the display callbacks in tile-list (spiral) order;
+- the crop window keeps tiles on the full-frame grid, and the AO jitter
+  is drawn per tile origin, so cropped pixels equal the full render's;
+- counters per tile: nrays (as lucille_tpu counts them), ntests, ntrav.
+
+Scenes that need what the port does not have yet raise
+NotImplementedError: displacement, textures, atmosphere, imager, sunsky
+light, depth of field, any integrator other than AO.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from lucille_tpu.base.log import LOG_INFO, log
+from lucille_tpu.base.stats import RenderStats
+from lucille_tpu.base.timer import get_timer
+from lucille_tpu_torch.device import resolve_device
+from lucille_tpu_torch.render.film import subsample_filter_table
+from lucille_tpu_torch.render.tiles import tile_list
+from lucille_tpu_torch.ri.camera import generate_rays
+from lucille_tpu_torch.sampling.hammersley import subpixel_samples
+from lucille_tpu_torch.sampling.jitter import TileSampler
+from lucille_tpu_torch.scene.compile import compile_scene
+from lucille_tpu_torch.transport.dispatch import get_integrator
+
+
+def unsupported_features(desc) -> list[str]:
+    """What in the scene the port cannot render yet (empty if nothing)."""
+    out = []
+    for g in desc.geoms:
+        a = g.attrs
+        if a.displacement:
+            out.append(f"displacement shader {a.displacement!r}")
+        if a.material.texture:
+            out.append(f"texture {a.material.texture!r}")
+        if a.atmosphere:
+            out.append(f"atmosphere shader {a.atmosphere!r}")
+    if desc.options.imager:
+        out.append(f"imager {desc.options.imager!r}")
+    out += [f"{li.type} light" for li in desc.lights if li.type == "sunsky"]
+    if desc.camera is not None and desc.camera.dof_active:
+        out.append("depth of field")
+    return sorted(set(out))
+
+
+def tile_eye_rays(camera, x0: int, y0: int, tile_w: int, tile_h: int,
+                  subpixel: torch.Tensor):
+    """Eye rays of one full-size tile, (tile_h, tile_w, S) raster-major:
+    pixel corner + subpixel offset (S, 2) in f32, as lucille_tpu's tile
+    kernel forms them.  Returns (org, dirn), each (B, 3)."""
+    dev = subpixel.device
+    xs = torch.arange(tile_w, dtype=torch.float32, device=dev) + float(x0)
+    ys = torch.arange(tile_h, dtype=torch.float32, device=dev) + float(y0)
+    shape = (tile_h, tile_w, subpixel.shape[0])
+    fx = (xs[None, :, None] + subpixel[:, 0][None, None, :]).expand(shape)
+    fy = (ys[:, None, None] + subpixel[:, 1][None, None, :]).expand(shape)
+    return generate_rays(camera, fx.reshape(-1), fy.reshape(-1))
+
+
+class Renderer:
+    """Holds the compiled scene, camera and sampler; renders frames.
+
+    sampler: callable (x0, y0, n) -> (2, n) f32 AO jitter on `device`;
+    defaults to TileSampler(seed, device)."""
+
+    def __init__(self, desc, tile_size: int = 64, device="cuda",
+                 sampler: Optional[Callable] = None, seed: int = 0):
+        missing = unsupported_features(desc)
+        if missing:
+            raise NotImplementedError(
+                "not ported yet (ROADMAP Queue 1): " + ", ".join(missing)
+            )
+        self.desc = desc
+        self.tile_size = int(tile_size)
+        self.device = resolve_device(device)
+        self.integrator = get_integrator(desc.options.render_method)
+        timer = get_timer()
+        timer.start("Scene compile")
+        self.scene = compile_scene(desc, self.device)
+        timer.end("Scene compile")
+        self.camera = desc.camera
+        self.sampler = sampler or TileSampler(seed, self.device)
+        self.stats = RenderStats()
+
+    def _tile(self, x0, y0, tile_w, tile_h, jitter, weights):
+        """One full-size tile -> ((tile_h, tile_w, 3) image, counters
+        [ntests, ntrav, nrays] i64), both still on the device."""
+        S = jitter.shape[0]
+        dev = self.device
+        org, dirn = tile_eye_rays(self.camera, x0, y0, tile_w, tile_h, jitter)
+        ao_jitter = self.sampler(x0, y0, org.shape[0])
+        radiance, aux = self.integrator(
+            self.scene, org, dirn, ao_jitter,
+            gather_nsamples=self.desc.options.gather_nsamples,
+        )
+        r = radiance.reshape(tile_h, tile_w, S, 3)
+        img = torch.sum(r * weights[None, None, :, None], dim=2)
+        counters = torch.stack([
+            torch.as_tensor(aux["ntests"], dtype=torch.int64, device=dev),
+            torch.as_tensor(aux["ntrav"], dtype=torch.int64, device=dev),
+            torch.as_tensor(aux["nrays"], dtype=torch.int64, device=dev),
+        ])
+        return img, counters
+
+    def render_frame(self, tile_cb: Optional[Callable] = None,
+                     progress_cb: Optional[Callable] = None) -> np.ndarray:
+        """Render the frame; returns (H, W, 3) f32 in raster order (row 0
+        is raster y 0; the hdr file driver flips)."""
+        opt = self.desc.options
+        W, H = opt.width, opt.height
+        disp = opt.current_display()
+        xsamples = int(disp.sampling_rates[0])
+        ysamples = int(disp.sampling_rates[1])
+        jitter_np, _instance = subpixel_samples(xsamples, ysamples)
+        jitter = torch.tensor(jitter_np, dtype=torch.float32,
+                              device=self.device)
+        weights = torch.from_numpy(
+            subsample_filter_table(opt.pixel_filter, jitter_np,
+                                   *opt.pixel_filter_width)
+        ).to(self.device)
+
+        # RiCropWindow -> raster rect [ceil(W*xmin), ceil(W*xmax) - 1]
+        cxmin, cxmax, cymin, cymax = self.camera.crop_window
+        crop_px0 = max(0, int(np.ceil(W * cxmin)))
+        crop_px1 = min(W, max(crop_px0 + 1, int(np.ceil(W * cxmax))))
+        crop_py0 = max(0, int(np.ceil(H * cymin)))
+        crop_py1 = min(H, max(crop_py0 + 1, int(np.ceil(H * cymax))))
+        cropped = (crop_px0, crop_py0, crop_px1, crop_py1) != (0, 0, W, H)
+
+        tile_w = tile_h = self.tile_size
+        tiles = tile_list(W, H, self.tile_size, opt.bucket_order)
+        if cropped:
+            tiles = [
+                (x0, y0, i, j) for (x0, y0, i, j) in tiles
+                if x0 < crop_px1 and x0 + tile_w > crop_px0
+                and y0 < crop_py1 and y0 + tile_h > crop_py0
+            ]
+
+        image = np.zeros((H, W, 3), dtype=np.float32)
+        timer = get_timer()
+        timer.start("Render frame")
+        # enqueue every tile first: the device runs ahead of the pulls
+        pending = [
+            self._tile(x0, y0, tile_w, tile_h, jitter, weights)
+            for (x0, y0, _i, _j) in tiles
+        ]
+        totals = np.zeros(3, dtype=np.int64)
+        for ti, ((x0, y0, _i, _j), (img, counters)) in enumerate(
+            zip(tiles, pending)
+        ):
+            th = min(tile_h, H - y0)
+            tw = min(tile_w, W - x0)
+            tile_np = img.cpu().numpy()
+            totals += counters.cpu().numpy()
+            if cropped:
+                wy0, wy1 = max(y0, crop_py0), min(y0 + th, crop_py1)
+                wx0, wx1 = max(x0, crop_px0), min(x0 + tw, crop_px1)
+                image[wy0:wy1, wx0:wx1] = tile_np[
+                    wy0 - y0 : wy1 - y0, wx0 - x0 : wx1 - x0
+                ]
+            else:
+                image[y0 : y0 + th, x0 : x0 + tw] = tile_np[:th, :tw]
+            if tile_cb:
+                tile_cb(x0, y0, tile_np[:th, :tw])
+            if progress_cb:
+                progress_cb((ti + 1) / len(tiles))
+        self.stats.render_seconds += timer.end("Render frame")
+        self.stats.add(nrays=int(totals[2]), ntriangle_tests=int(totals[0]),
+                       ntraversals=int(totals[1]))
+        log(LOG_INFO, "frame done: %d tiles, %.2f Mrays/s", len(tiles),
+            self.stats.mrays_per_sec)
+        return image

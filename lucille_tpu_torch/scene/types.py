@@ -1,0 +1,100 @@
+"""Device scene representation: padded SoA tensors.
+
+The counterpart of lucille_tpu/scene/types.py for the dense path: flat
+per-triangle arrays indexed by triangle id (pad entries are all-zero
+triangles that no intersector can hit), the material table, the scene
+bounds and the scene-relative ray epsilon.  Floats are f32, integers
+i32, on one explicit device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class SceneTensors:
+    # triangles (padded to n_pad)
+    tri_v0: torch.Tensor  # (N, 3) f32
+    tri_e1: torch.Tensor  # (N, 3) f32  v1 - v0
+    tri_e2: torch.Tensor  # (N, 3) f32  v2 - v0
+    geom_id: torch.Tensor  # (N,) i32 -> material row
+
+    # per-corner shading attributes, already per triangle
+    n0: torch.Tensor  # (N, 3) f32
+    n1: torch.Tensor
+    n2: torch.Tensor
+    st0: torch.Tensor  # (N, 2) f32
+    st1: torch.Tensor
+    st2: torch.Tensor
+    c0: torch.Tensor  # (N, 3) f32 vertex colour, default 1
+    c1: torch.Tensor
+    c2: torch.Tensor
+
+    # material table, one row per geom
+    mat_kd: torch.Tensor  # (G,) f32
+    mat_ks: torch.Tensor
+    mat_kt: torch.Tensor
+    mat_ior: torch.Tensor
+    mat_color: torch.Tensor  # (G, 3) f32
+    mat_texture: torch.Tensor  # (G,) i32, -1 = none
+    mat_emission: torch.Tensor  # (G, 3) f32
+    mat_roughness: torch.Tensor  # (G,) f32
+
+    # bounds and epsilon
+    bbox_min: torch.Tensor  # (3,) f32
+    bbox_max: torch.Tensor  # (3,) f32
+    eps: torch.Tensor  # () f32
+
+    # static metadata
+    n_tris: int = 0  # real triangle count
+    n_pad: int = 0  # padded count
+    n_geoms: int = 0
+    accel: str = "dense"  # Morton-sorted 128-triangle tiles (the only accel)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_v0.device
+
+
+ARRAY_FIELDS = tuple(
+    f.name for f in fields(SceneTensors) if f.type == "torch.Tensor"
+)
+STATIC_FIELDS = ("n_tris", "n_pad", "n_geoms")
+# lucille_tpu's name for the same triangle layout
+DENSE_ACCELS = ("dense", "pallas")
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    elif a.dtype.kind in "iu":
+        a = a.astype(np.int32)
+    else:
+        raise TypeError(f"unsupported scene array dtype {a.dtype}")
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def from_numpy(scene_arrays, device) -> SceneTensors:
+    """Any object carrying the dense fields as NumPy arrays (the JAX
+    package's SceneArrays, or this package's compile output) -> tensors
+    on `device`, f32/i32, same field names.  Only the dense layout
+    (Morton-sorted tiles) carries over; a tile-BVH scene raises."""
+    if scene_arrays.accel not in DENSE_ACCELS:
+        raise NotImplementedError(
+            f"accel {scene_arrays.accel!r}: only the dense accel is ported "
+            "(ROADMAP Queue 1: large-scene AO on the tile BVH)"
+        )
+    kwargs = {f: _to_tensor(getattr(scene_arrays, f), device)
+              for f in ARRAY_FIELDS}
+    kwargs.update({f: getattr(scene_arrays, f) for f in STATIC_FIELDS})
+    return SceneTensors(**kwargs)
+
+
+def to_numpy(scene: SceneTensors) -> dict:
+    """Array fields back on the host, as a {name: ndarray} dict."""
+    return {f: getattr(scene, f).cpu().numpy() for f in ARRAY_FIELDS}

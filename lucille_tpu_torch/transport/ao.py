@@ -1,0 +1,99 @@
+"""Ambient-occlusion integrator, in torch.
+
+Counterpart of lucille_tpu/transport/ao.py:35-195 and :335-376 without
+the sunsky gather: eye ray -> closest hit (kernel 1) -> interpolated
+shading normal, Frisvad basis, eps-offset origin -> fused stratified
+occlusion gather (kernel 2) -> ``Lo = (S - occluded) / S`` modulated by
+the interpolated vertex colour; misses return the background.
+
+The per-lane jitter is an input: (2, B) uniforms from the renderer's
+sampler, column j belonging to compacted hit slot j.  Norms and sums are
+written as explicit left-to-right products so they round as the JAX
+package's do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lucille_tpu_torch.accel.ao import ao_occlusion
+from lucille_tpu_torch.accel.dispatch import closest_hit
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """|x| over the last axis (size 3), keepdim, summed left to right."""
+    return torch.sqrt(x[..., 0:1] * x[..., 0:1] + x[..., 1:2] * x[..., 1:2]
+                      + x[..., 2:3] * x[..., 2:3])
+
+
+def ortho_basis(n: torch.Tensor):
+    """Branchless Frisvad/Duff frame (b0, b1, n) for unit normals (B, 3),
+    continuous in n except at n = (0, 0, -1)."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    s = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = torch.clamp(-1.0 / (s + nz), -1e3, 1e3)
+    b = nx * ny * a
+    b0 = torch.stack([1.0 + s * nx * nx * a, s * b, -s * nx], dim=-1)
+    b1 = torch.stack([b, s + ny * ny * a, -ny], dim=-1)
+    b0 = b0 / torch.clamp_min(_norm(b0), 1e-20)
+    b1 = b1 / torch.clamp_min(_norm(b1), 1e-20)
+    return b0, b1, n
+
+
+def _interp_normal(scene, res) -> torch.Tensor:
+    """Barycentric vertex-normal interpolation at the hits, normalized."""
+    tri = torch.clamp_min(res["tri"], 0).long()
+    u = res["u"][..., None]
+    v = res["v"][..., None]
+    n = (1.0 - u - v) * scene.n0[tri] + u * scene.n1[tri] + v * scene.n2[tri]
+    return n / torch.clamp_min(_norm(n), 1e-20)
+
+
+def ao_radiance(scene, org, dirn, jitter, ntheta: int, nphi: int,
+                background: float = 0.0):
+    """AO radiance for a wavefront of eye rays org, dirn (B, 3) f32.
+    Returns (radiance (B, 3), aux with hit mask, t and the counters)."""
+    res = closest_hit(scene, org, dirn)
+    P_off, b0, b1, b2 = shading_frame(scene, org, dirn, res)
+    hit = res["hit"]
+    occ = ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi)
+    return _finish(scene, res, hit, occ, ntheta * nphi, background,
+                   org.shape[0])
+
+
+def shading_frame(scene, org, dirn, res):
+    """The gather's inputs at the eye hits: eps-offset shading point and
+    the orthonormal basis (b0, b1, b2 = shading normal), each (B, 3)."""
+    t = torch.where(res["hit"], res["t"], 0.0)
+    P = org + t[..., None] * dirn
+    Ns = _interp_normal(scene, res)
+    b0, b1, b2 = ortho_basis(Ns)
+    return P + Ns * scene.eps, b0, b1, b2
+
+
+def _modulate(scene, res, hit, radiance):
+    """Vertex-colour modulation at the hit (ambientocclusion.c:393-400)."""
+    tri = torch.clamp_min(res["tri"], 0).long()
+    u = res["u"][..., None]
+    v = res["v"][..., None]
+    w = 1.0 - u - v
+    cs = w * scene.c0[tri] + u * scene.c1[tri] + v * scene.c2[tri]
+    return radiance * torch.where(hit[..., None], cs, 1.0)
+
+
+def _finish(scene, res, hit, occ, nsamples: int, background: float, B: int):
+    """Occlusion count -> radiance, plus the counters.  nrays counts an eye
+    ray for every lane and S gather rays for every hit (raytrace.c:43)."""
+    lo = (nsamples - occ) / nsamples
+    radiance = torch.where(hit, lo, background)[..., None] * torch.ones(
+        (1, 3), dtype=torch.float32, device=occ.device
+    )
+    radiance = _modulate(scene, res, hit, radiance)
+    aux = {
+        "hit": hit,
+        "nrays": B + hit.sum(dtype=torch.int64) * nsamples,
+        "ntests": res["ntests"],
+        "ntrav": res["ntrav"],
+        "t": res["t"],
+    }
+    return radiance, aux

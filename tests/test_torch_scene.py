@@ -1,0 +1,187 @@
+"""The port's scene compile and host layers against lucille_tpu.
+
+Also home of the scene helpers the other test_torch_* files import: the
+bundled AO scene (tests/golden/sunsky_scene.rib without its sunsky light,
+the reference's ambient_occlusion.rib, 322 triangles) and bench_large's
+procedural heightfield.
+"""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+
+BUNDLED_RIB = REPO / "tests" / "golden" / "sunsky_scene.rib"
+
+
+def bundled_rib_text() -> str:
+    lines = BUNDLED_RIB.read_text().splitlines(keepends=True)
+    return "".join(l for l in lines if 'AreaLightSource "sunsky"' not in l)
+
+
+def _finish_state(s, width, height, pixelsamples, gather, accel):
+    if width is not None:
+        s.Format(width, height)
+    if pixelsamples is not None:
+        s.PixelSamples(pixelsamples, pixelsamples)
+    if gather is not None:
+        s.options.gather_nsamples = gather
+    s.options.accel_method = accel
+    return s
+
+
+def bundled_state(width=None, height=None, pixelsamples=None, gather=None,
+                  accel="pallas"):
+    from lucille_tpu.ri.api import RiState
+    from lucille_tpu.rib.parser import parse_rib
+
+    s = RiState()
+    parse_rib(bundled_rib_text(), s)
+    return _finish_state(s, width, height, pixelsamples, gather, accel)
+
+
+def heightfield_state(n, width=None, height=None, pixelsamples=None,
+                      gather=None, accel="pallas"):
+    from bench_large import heightfield_scene
+
+    return _finish_state(heightfield_scene(n), width, height, pixelsamples,
+                         gather, accel)
+
+
+SCENES = {
+    "bundled": lambda: bundled_state(),
+    "heightfield35": lambda: heightfield_state(35),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_compile_matches_jax_exactly(name):
+    """Every dense-path array equal, bit for bit (after lucille_tpu's own
+    device_put cast to f32/i32): triangle ids compare exactly."""
+    from lucille_tpu.scene.compile import compile_scene as jax_compile
+    from lucille_tpu_torch.scene.compile import compile_scene
+    from lucille_tpu_torch.scene.types import ARRAY_FIELDS, from_numpy
+
+    desc = SCENES[name]().scene
+    ref = jax_compile(desc)
+    assert ref.accel == "pallas"
+    got = compile_scene(desc, "cpu")
+    want = from_numpy(ref, "cpu")
+    for f in ARRAY_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a, b), f
+    assert (got.n_tris, got.n_pad, got.n_geoms) == (
+        ref.n_tris, ref.n_pad, ref.n_geoms)
+    if name == "heightfield35":
+        assert (got.n_tris, got.n_pad) == (2312, 2560)  # 20 tiles of 128
+    else:
+        assert (got.n_tris, got.n_pad) == (322, 512)
+
+
+def test_from_numpy_round_trips():
+    from lucille_tpu.scene.compile import compile_scene as jax_compile
+    from lucille_tpu_torch.scene.types import ARRAY_FIELDS, from_numpy, to_numpy
+
+    ref = jax_compile(bundled_state().scene)
+    back = to_numpy(from_numpy(ref, "cpu"))
+    assert set(back) == set(ARRAY_FIELDS)
+    for f in ARRAY_FIELDS:
+        a = np.asarray(getattr(ref, f))
+        a = a.astype(np.float32 if a.dtype.kind == "f" else np.int32)
+        np.testing.assert_array_equal(back[f], a, err_msg=f)
+
+
+def test_accel_choice_by_count_and_refusals():
+    from lucille_tpu_torch.scene.compile import compile_scene
+
+    auto = compile_scene(bundled_state(accel="auto").scene, "cpu")
+    dense = compile_scene(bundled_state().scene, "cpu")
+    assert torch.equal(auto.tri_v0, dense.tri_v0)
+    assert auto.accel == "dense"
+    # 91^2 * 2 = 16562 triangles: above the dense accel's range
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        compile_scene(heightfield_state(92, accel="auto").scene, "cpu")
+    for accel in ("bvh", "pbvh", "grid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            compile_scene(bundled_state(accel=accel).scene, "cpu")
+
+
+@pytest.mark.parametrize("xs,ys", [(1, 1), (2, 2), (3, 3), (4, 2), (5, 3)])
+def test_subpixel_samples_exact(xs, ys):
+    from lucille_tpu.sampling.hammersley import subpixel_samples as ref
+    from lucille_tpu_torch.sampling.hammersley import subpixel_samples
+
+    for a, b in zip(subpixel_samples(xs, ys), ref(xs, ys)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize(
+    "name", ["box", "triangle", "gaussian", "catmull-rom", "sinc", "nope"])
+def test_filter_table_exact(name):
+    from lucille_tpu.render.film import subsample_filter_table as ref
+    from lucille_tpu_torch.render.film import subsample_filter_table
+    from lucille_tpu_torch.sampling.hammersley import subpixel_samples
+
+    jit, _ = subpixel_samples(3, 3)
+    for widths in ((2.0, 2.0), (1.0, 3.0)):
+        np.testing.assert_array_equal(
+            subsample_filter_table(name, jit, *widths),
+            ref(name, jit, *widths))
+
+
+@pytest.mark.parametrize("order", ["spiral", "scanline", "zorder", "hilbert"])
+def test_tile_list_exact(order):
+    from lucille_tpu.render.tiles import tile_list as ref
+    from lucille_tpu_torch.render.tiles import tile_list
+
+    for w, h, t in ((640, 480, 240), (48, 32, 16), (100, 37, 16), (7, 300, 64)):
+        assert tile_list(w, h, t, order) == ref(w, h, t, order)
+
+
+def _ortho_camera():
+    from lucille_tpu.ri.camera import ORTHOGRAPHIC, Camera
+
+    cam = Camera(horizontal_resolution=64, vertical_resolution=48)
+    cam.camera_projection = ORTHOGRAPHIC
+    rng = np.random.default_rng(11)
+    w2c = np.eye(4)
+    w2c[:3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    w2c[3, :3] = rng.normal(size=3)
+    cam.setup(w2c, "lh")
+    return cam
+
+
+@pytest.mark.parametrize("proj", ["perspective", "orthographic"])
+def test_generate_rays_close(proj):
+    """f32 rays within 1e-6 of the JAX version on the same raster
+    positions (the operation order is the same; XLA may still round a
+    reduction differently)."""
+    import jax.numpy as jnp
+
+    from lucille_tpu_torch.ri.camera import generate_rays
+
+    cam = bundled_state(64, 48).camera if proj == "perspective" else _ortho_camera()
+    assert cam.camera_projection == proj
+    rng = np.random.default_rng(3)
+    px = rng.uniform(0, 64, 999).astype(np.float32)
+    py = rng.uniform(0, 48, 999).astype(np.float32)
+    o_ref, d_ref = cam.generate_rays(jnp.asarray(px), jnp.asarray(py))
+    o, d = generate_rays(cam, torch.from_numpy(px), torch.from_numpy(py))
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_ref), rtol=0, atol=1e-6)
+
+
+def test_generate_rays_refuses_depth_of_field():
+    from lucille_tpu_torch.ri.camera import generate_rays
+
+    cam = bundled_state(64, 48).camera
+    cam.fstop, cam.focal_length, cam.focal_distance = 2.8, 0.05, 10.0
+    with pytest.raises(NotImplementedError):
+        generate_rays(cam, torch.zeros(4), torch.zeros(4))
