@@ -27,7 +27,24 @@ Phases (each raises on failure, so the exit code is non-zero):
    (tests/golden/ao_80x60_ref.hdr), held to tests/test_render.py's bound;
 5. the dense path's upper range: the heightfield at 160x120, 2x2, 64 rays,
    with the same checks and timing;
-6. a JSON line of per-kernel results, the card's line, and last
+6. the tile-BVH kernels against their plain twins on the first 128x128x4
+   tile of bench_large's heightfield at n = 256 (130,050 triangles) and
+   n = 724 (1,045,458): the closest hit on the tile's eye rays, the
+   any-hit on its 8x8-strata gather rays with the sampler's jitter.  The
+   kernels run the whole tile; the twins (brute force over every
+   triangle) a slice of rays.  Tolerances: hit masks equal on all but
+   1e-4 of the rays, triangle ids on all but 1e-3 (exact ties in t
+   across leaves), t/u/v within 1e-6 relative; occlusion equal on all
+   but 1e-4 of the rays;
+7. the large-scene frames: both heightfields at bench_large's
+   configuration, uncut (160x120, 2x2 samples, 64 AO rays, tile 128),
+   with the checks of phase 4 (both BVH kernels launched, no dense
+   kernel, no twin), the warm frame seconds and Mrays/s, and the host's
+   scene, compile and tile-BVH build seconds;
+8. the heightfield at n = 91 rendered on the dense tiles and on the tile
+   BVH: the two draw their jitter differently (compacted slot against
+   raster lane), so only the means over hit pixels are held, within 0.01;
+9. a JSON line of per-kernel results, the card's line, and last
    {"ok": true, "device": {...}}.
 
 It needs no jax, one card, and the repository around it: run from a
@@ -46,6 +63,17 @@ ROOT = Path(__file__).resolve().parent
 # rendered frames, beside the kernel build (both gitignored)
 OUT = ROOT / "lucille_tpu_torch" / "_build" / "smoke"
 TILE = 240
+# kernel name -> (source, the TPU kernel it replaces)
+SOURCES = {
+    "closest_hit": ("lucille_tpu_torch/csrc/isect.cu",
+                    "lucille_tpu/accel/pallas_isect.py:57"),
+    "ao_occlusion": ("lucille_tpu_torch/csrc/ao.cu",
+                     "lucille_tpu/accel/pallas_ao.py:109"),
+    "bvh_closest_hit": ("lucille_tpu_torch/csrc/bvh.cu",
+                        "lucille_tpu/accel/pallas_bvh.py:310"),
+    "bvh_any_hit": ("lucille_tpu_torch/csrc/bvh.cu",
+                    "lucille_tpu/accel/pallas_bvh.py:598"),
+}
 
 
 def bundled_state(width, height, pixelsamples=None, gather=None):
@@ -67,14 +95,24 @@ def bundled_state(width, height, pixelsamples=None, gather=None):
     return s
 
 
-def heightfield_state(n, width, height, pixelsamples, gather):
+def heightfield_state(n, width, height, pixelsamples, gather, accel="auto"):
     from bench_large import heightfield_scene
 
     s = heightfield_scene(n)
     s.Format(width, height)
     s.PixelSamples(pixelsamples, pixelsamples)
     s.options.gather_nsamples = gather
+    s.options.accel_method = accel
     return s
+
+
+def counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from lucille_tpu_torch.accel import ao, bvh_isect, isect
+
+    return {"closest_hit": isect.COUNTS, "ao_occlusion": ao.COUNTS,
+            "bvh_closest_hit": bvh_isect.CLOSEST_COUNTS,
+            "bvh_any_hit": bvh_isect.ANY_COUNTS}
 
 
 def cuda_ms(fn, reps):
@@ -90,6 +128,19 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """(fn(), milliseconds of that one run on the card)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def check_kernels(label, desc, tile, n_slice, results):
@@ -192,36 +243,38 @@ def check_kernels(label, desc, tile, n_slice, results):
          "plain_ms": plain_ms})
 
 
-def render_checked(label, desc, tile, out_name):
-    """Phases 4/5: warm-up, then one counted frame through the display
-    driver into an .hdr that is read back and checked, then best of 2."""
+def render_checked(label, r, out_name, path):
+    """Phases 4, 5 and 7 on Renderer r: warm-up, then one counted frame
+    through the display driver into an .hdr that is read back and
+    checked, then best of 2.  `path` names the kernels the frame must
+    launch; every other kernel must launch none, and no twin may run.
+    Returns the counted frame's launches of the path's kernels."""
     import numpy as np
     import torch
 
     from lucille_tpu.display.drivers import get_display_driver
     from lucille_tpu.imageio.rgbe import read_hdr
-    from lucille_tpu_torch.accel import ao, isect
-    from lucille_tpu_torch.render.renderer import Renderer
 
-    r = Renderer(desc, tile_size=tile, device="cuda")
     r.render_frame()  # warm-up
     torch.cuda.synchronize()
-    isect.COUNTS.reset()
-    ao.COUNTS.reset()
+    counts = counters()
+    for c in counts.values():
+        c.reset()
     OUT.mkdir(parents=True, exist_ok=True)
-    path = OUT / out_name
+    path_file = OUT / out_name
     drv = get_display_driver("file")
-    opt = desc.options
-    drv.open(str(path), opt.width, opt.height)
+    opt = r.desc.options
+    drv.open(str(path_file), opt.width, opt.height)
     r.render_frame(tile_cb=drv.write)
     drv.close()
-    launches = {"closest_hit": isect.COUNTS.kernel,
-                "ao_occlusion": ao.COUNTS.kernel}
-    if min(launches.values()) <= 0:
+    launches = {k: c.kernel for k, c in counts.items()}
+    if min(launches[k] for k in path) <= 0:
         raise AssertionError(f"{label}: a kernel was not launched: {launches}")
-    if isect.COUNTS.plain or ao.COUNTS.plain:
+    if any(launches[k] for k in counts if k not in path):
+        raise AssertionError(f"{label}: a kernel off the path ran: {launches}")
+    if any(c.plain for c in counts.values()):
         raise AssertionError(f"{label}: a plain twin ran on the card")
-    img = read_hdr(path)
+    img = read_hdr(path_file)
     if img.shape != (opt.height, opt.width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{label}: bad image {img.shape}")
     mean = float(img.mean())
@@ -237,13 +290,154 @@ def render_checked(label, desc, tile, out_name):
         times.append(time.perf_counter() - t0)
         nrays = r.stats.nrays
     best = min(times)
+    launches = {k: launches[k] for k in path}
     print(f"[{label}] {opt.width}x{opt.height}, "
           f"{int(opt.current_display().sampling_rates[0])}^2 samples, "
-          f"{opt.gather_nsamples} AO rays, tile {tile}: image mean {mean:.4f}, "
-          f"launches {launches}; frame {best:.4f} s (samples "
-          f"{[round(t, 4) for t in times]}), {nrays} rays, "
-          f"{nrays / best / 1e6:.1f} Mrays/s", flush=True)
-    return r, launches
+          f"{opt.gather_nsamples} AO rays, tile {r.tile_size}, accel "
+          f"{r.scene.accel}: image mean {mean:.4f}, launches {launches}; "
+          f"frame {best:.4f} s (samples {[round(t, 4) for t in times]}), "
+          f"{nrays} rays, {nrays / best / 1e6:.1f} Mrays/s", flush=True)
+    return launches
+
+
+def build_renderer(label, make_state, tile):
+    """A Renderer on the card, with the host's seconds for the scene
+    description, the compile, and the tile-BVH build inside it."""
+    from lucille_tpu.base.timer import get_timer
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    t0 = time.perf_counter()
+    desc = make_state().scene
+    t1 = time.perf_counter()
+    bvh0 = get_timer().elapsed("BVH Construction")
+    r = Renderer(desc, tile_size=tile, device="cuda")
+    t2 = time.perf_counter()
+    bvh = get_timer().elapsed("BVH Construction") - bvh0
+    sc = r.scene
+    print(f"[{label}] host: scene description {t1 - t0:.3f} s, compile "
+          f"{t2 - t1:.3f} s (tile BVH build {bvh:.3f} s); {sc.n_tris} "
+          f"triangles in {sc.n_pad} slots, accel {sc.accel}, {sc.n_nodes} "
+          f"nodes, depth {sc.tree_depth}, {sc.leaf_tiles_max} tiles per "
+          f"leaf at most", flush=True)
+    return r
+
+
+def check_bvh_kernels(label, r, n_closest, n_any, results):
+    """Phase 6 for one scene: both tile-BVH kernels on the scene's first
+    tile against their plain twins.  Appends to results[name]."""
+    import torch
+
+    from lucille_tpu_torch.accel import bvh_isect
+    from lucille_tpu_torch.accel.bvh_ao import conetile_rays
+    from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.accel.pack import pack_tris
+    from lucille_tpu_torch.render.renderer import tile_eye_rays
+    from lucille_tpu_torch.render.tiles import tile_list
+    from lucille_tpu_torch.sampling.hammersley import subpixel_samples
+    from lucille_tpu_torch.transport.ao import shading_frame
+
+    scene, opt, tile = r.scene, r.desc.options, r.tile_size
+    xs, ys = (int(v) for v in opt.current_display().sampling_rates)
+    sub = torch.tensor(subpixel_samples(xs, ys)[0], dtype=torch.float32,
+                       device="cuda")
+    x0, y0, _i, _j = tile_list(opt.width, opt.height, tile,
+                               opt.bucket_order)[0]
+    org, dirn = tile_eye_rays(r.camera, x0, y0, tile, tile, sub)
+    B = org.shape[0]
+    tris, nodes, depth = pack_tris(scene), scene.nodes, scene.tree_depth
+    inf = lambda n: torch.full((n,), float("inf"), device="cuda")  # noqa: E731
+
+    # -- tile-BVH closest hit on the eye rays
+    got = bvh_isect.bvh_closest_hit(tris, nodes, org, dirn, depth=depth)
+    hits = torch.nonzero(got["tri"] >= 0)[:, 0]  # centre the slice on them
+    mid = int(hits[len(hits) // 2]) if len(hits) else B // 2
+    lo = min(max(0, mid - n_closest // 2), max(0, B - n_closest))
+    sl = slice(lo, lo + n_closest)
+    ref, plain_ms = timed(lambda: bvh_isect.bvh_closest_hit_reference(
+        tris, org[sl], dirn[sl], inf(n_closest)))
+    tri_k, tri_r = got["tri"][sl], ref["tri"]
+    hit_differ = ((tri_k >= 0) != (tri_r >= 0)).float().mean().item()
+    differ = (tri_k != tri_r).float().mean().item()
+    same = (tri_k == tri_r) & (tri_r >= 0)
+    err = 0.0
+    for k in ("t", "u", "v"):
+        a, b = got[k][sl][same], ref[k][same]
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+        err = max([err, *(a - b).abs().tolist()])
+    if not same.any():
+        raise AssertionError(f"{label} bvh_closest_hit: no hit in the slice")
+    if hit_differ > 1e-4 or differ > 1e-3:
+        raise AssertionError(f"{label} bvh_closest_hit: hit differs on "
+                             f"{hit_differ:.2e}, tri on {differ:.2e}")
+    ms = cuda_ms(lambda: bvh_isect.bvh_closest_hit(tris, nodes, org, dirn,
+                                                   depth=depth), 5)
+    ms_slice = cuda_ms(lambda: bvh_isect.bvh_closest_hit(
+        tris, nodes, org[sl], dirn[sl], depth=depth), 5)
+    hit_rate = (got["tri"] >= 0).float().mean().item()
+    print(f"[{label}] bvh_closest_hit: {B} eye rays, hit rate "
+          f"{hit_rate:.4f}, {int(got['ntrav'])} node visits, "
+          f"{int(got['ntests'])} triangle tests; on {n_closest} rays tri "
+          f"differs on {differ:.2e}, max |t,u,v err| {err:.3e}; kernel "
+          f"{ms:.3f} ms ({ms_slice:.3f} ms on the slice), plain "
+          f"{plain_ms:.3f} ms on the slice", flush=True)
+    results["bvh_closest_hit"].append(
+        {"scene": label, "rays": B, "ms": ms, "slice": n_closest,
+         "ms_slice": ms_slice, "plain_ms": plain_ms, "max_abs_err": err,
+         "tri_differs": differ})
+
+    # -- tile-BVH any-hit on the tile's gather rays, 8x8 strata
+    res = closest_hit(scene, org, dirn)
+    hit = res["hit"]
+    P_off, b0, b1, b2 = shading_frame(scene, org, dirn, res)
+    jitter = r.sampler(x0, y0, B)
+    oo, dd, _order, _layout = conetile_rays(scene, P_off, b0, b1, b2, hit,
+                                            jitter, 8, 8)
+    R = oo.shape[0]
+    got = bvh_isect.bvh_any_hit(tris, nodes, oo, dd, depth=depth)
+    live = int(hit.sum()) * 64  # the live gather rays lead the layout
+    lo = max(0, live // 2 - n_any // 2)
+    sl = slice(lo, lo + n_any)
+    ref, plain_ms = timed(lambda: bvh_isect.bvh_any_hit_reference(
+        tris, oo[sl], dd[sl], inf(n_any)))
+    frac = (got["occ"][sl] != ref["occ"]).float().mean().item()
+    if frac > 1e-4:
+        raise AssertionError(f"{label} bvh_any_hit: {frac:.2e} of rays differ")
+    ms = cuda_ms(lambda: bvh_isect.bvh_any_hit(tris, nodes, oo, dd,
+                                               depth=depth), 3)
+    ms_slice = cuda_ms(lambda: bvh_isect.bvh_any_hit(
+        tris, nodes, oo[sl], dd[sl], depth=depth), 5)
+    print(f"[{label}] bvh_any_hit: {R} gather rays ({live} live), occluded "
+          f"{got['occ'][:live].float().mean().item():.4f}, "
+          f"{int(got['ntrav'])} node visits, {int(got['ntests'])} triangle "
+          f"tests; on {n_any} rays {frac:.2e} differ; kernel {ms:.3f} ms "
+          f"({ms_slice:.3f} ms on the slice), plain {plain_ms:.3f} ms on "
+          f"the slice", flush=True)
+    results["bvh_any_hit"].append(
+        {"scene": label, "rays": R, "ms": ms, "slice": n_any,
+         "ms_slice": ms_slice, "plain_ms": plain_ms,
+         "max_abs_err": float(frac > 0), "differs": frac})
+
+
+def cross_check_accels():
+    """Phase 8: the n = 91 heightfield on the dense tiles and on the tile
+    BVH; means over the pixels both render as hits, within 0.01."""
+    import numpy as np
+
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    imgs = {}
+    for accel in ("pallas", "bvh"):
+        r = Renderer(heightfield_state(91, 160, 120, 2, 64, accel).scene,
+                     tile_size=128, device="cuda")
+        imgs[r.scene.accel] = r.render_frame()
+    dense, bvh = imgs["dense"], imgs["pbvh"]
+    lit = (dense[..., 0] > 0) & (bvh[..., 0] > 0)
+    gap = abs(float(dense[lit].mean()) - float(bvh[lit].mean()))
+    print(f"[cross-check] heightfield91 dense vs tile BVH: means over "
+          f"{lit.mean():.4f} of the pixels {dense[lit].mean():.5f} and "
+          f"{bvh[lit].mean():.5f}, gap {gap:.5f} (< 0.01)", flush=True)
+    if not (lit.mean() > 0.2 and gap < 0.01):
+        raise AssertionError("the dense and tile-BVH frames disagree")
 
 
 def main() -> int:
@@ -281,13 +475,16 @@ def main() -> int:
                   results)
 
     # 4. the headline frame, and the golden check at 80x60
-    _r, launches = render_checked(
-        "headline", bundled_state(640, 480, 3, 64).scene, TILE,
-        "chip_smoke_ao_640x480.hdr")
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    dense = ("closest_hit", "ao_occlusion")
+    launches = render_checked(
+        "headline", Renderer(bundled_state(640, 480, 3, 64).scene,
+                             tile_size=TILE, device="cuda"),
+        "chip_smoke_ao_640x480.hdr", dense)
     import numpy as np
 
     from lucille_tpu.imageio.rgbe import read_hdr
-    from lucille_tpu_torch.render.renderer import Renderer
 
     golden = read_hdr(ROOT / "tests" / "golden" / "ao_80x60_ref.hdr")
     img = Renderer(bundled_state(80, 60).scene, tile_size=32,
@@ -300,19 +497,33 @@ def main() -> int:
         raise AssertionError("the port's frame disagrees with CPU-lucille's")
 
     # 5. the dense path's upper range
-    render_checked("heightfield91", heightfield_state(91, 160, 120, 2, 64).scene,
-                   128, "chip_smoke_heightfield91.hdr")
+    render_checked("heightfield91", Renderer(
+        heightfield_state(91, 160, 120, 2, 64).scene, tile_size=128,
+        device="cuda"), "chip_smoke_heightfield91.hdr", dense)
 
-    # 6. results
-    sources = {
-        "closest_hit": ("lucille_tpu_torch/csrc/isect.cu",
-                        "lucille_tpu/accel/pallas_isect.py:57"),
-        "ao_occlusion": ("lucille_tpu_torch/csrc/ao.cu",
-                         "lucille_tpu/accel/pallas_ao.py:109"),
-    }
+    # 6. and 7. the tile-BVH kernels, then the large-scene frames
+    bvh = ("bvh_closest_hit", "bvh_any_hit")
+    results.update({k: [] for k in bvh})
+    for n, n_closest, n_any in ((256, 16384, 32768), (724, 4096, 8192)):
+        label = f"heightfield{n}"
+        r = build_renderer(label, lambda: heightfield_state(n, 160, 120, 2,
+                                                            64), 128)
+        if r.scene.accel != "pbvh":
+            raise AssertionError(f"{label}: accel {r.scene.accel}")
+        check_bvh_kernels(label, r, n_closest, n_any, results)
+        got = render_checked(label, r, f"chip_smoke_{label}.hdr", bvh)
+        if n == 256:
+            launches.update(got)
+        for k in bvh:
+            results[k][-1]["frame_launches"] = got[k]
+
+    # 8. two accels, one scene
+    cross_check_accels()
+
+    # 9. results
     kernels = []
-    for name, (src, replaces) in sources.items():
-        head = results[name][0]  # the headline scene's tile
+    for name, (src, replaces) in SOURCES.items():
+        head = results[name][0]  # the headline / heightfield256 tile
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],

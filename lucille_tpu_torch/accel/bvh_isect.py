@@ -1,0 +1,180 @@
+"""Tile-BVH closest hit and any-hit: the CUDA kernels' wrappers and their
+plain torch twins.
+
+Counterparts of lucille_tpu/accel/pallas_bvh.py:310-590
+(`_bvh_closest_kernel`, `pallas_bvh_closest_hit`) and :598-807
+(`_bvh_anyhit_kernel`, `pallas_bvh_any_hit`).  The kernels are
+csrc/bvh.cu; `bvh_closest_hit` and `bvh_any_hit` launch them for CUDA
+tensors and run `bvh_closest_hit_reference` / `bvh_any_hit_reference`
+for CPU tensors.  The twins walk no tree: they test every triangle, with
+the kernels' arithmetic, so they answer the same question by the plain
+route.  Hits and occlusion do not depend on the order triangles are
+tested in; a triangle id can differ only at an exact tie in t across two
+leaves, where the kernel keeps the one it visited first and the twin the
+lowest slot.
+
+Counters (the port's own definition; only nrays is held to lucille_tpu):
+``ntrav`` is node visits summed over rays; ``ntests`` is leaf triangles
+tested, leaf tiles x 128, summed over rays; ``nmiss`` is 0, because the
+kernels read triangles from HBM through L2 and keep no tile cache whose
+misses lucille_tpu's counter would count.  The twins visit no node
+(ntrav 0) and test every slot for every ray.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lucille_tpu_torch.accel.isect import DET_EPS, closest_scan
+from lucille_tpu_torch.accel.pack import TC
+from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
+
+STACK = 64  # per-thread stack entries of csrc/bvh.cu
+BLOCK = 128  # rays per CUDA block
+WARP = 32
+
+CLOSEST_COUNTS = LaunchCounts()
+ANY_COUNTS = LaunchCounts()
+
+
+def _inputs(tris, nodes, org, dirn, tmax, depth):
+    """Checks the operands; returns tmax as a (B,) f32 tensor."""
+    dev = tris.device
+    for name, a in (("tris", tris), ("nodes", nodes), ("org", org),
+                    ("dirn", dirn)):
+        if a.dtype != torch.float32 or not a.is_contiguous():
+            raise ValueError(f"{name}: need contiguous float32, got {a.dtype}")
+        if a.device != dev:
+            raise ValueError(f"{name} on {a.device}, tris on {dev}")
+    if tris.dim() != 2 or tris.shape[0] != 16 or tris.shape[1] % TC:
+        raise ValueError(f"tris: need (16, k*{TC}), got {tuple(tris.shape)}")
+    if nodes.dim() != 2 or nodes.shape[1] != 8:
+        raise ValueError(f"nodes: need (M, 8), got {tuple(nodes.shape)}")
+    if org.dim() != 2 or org.shape[1] != 3 or dirn.shape != org.shape:
+        raise ValueError(f"org/dirn: need (B, 3), got {tuple(org.shape)}, "
+                         f"{tuple(dirn.shape)}")
+    if depth > STACK:
+        raise ValueError(f"tree depth {depth} exceeds the kernels' "
+                         f"{STACK}-entry stack")
+    B = org.shape[0]
+    if tmax is None:
+        return torch.full((B,), float("inf"), device=dev)
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev)
+    return torch.broadcast_to(tmax, (B,)).contiguous()
+
+
+def _launch(name, dev, *args):
+    lib = library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    check(name, err)
+
+
+def _stats(stats: torch.Tensor) -> dict:
+    s = stats.view(-1, 2).sum(dim=0, dtype=torch.int64)
+    return {"ntrav": s[0], "ntests": s[1] * TC}
+
+
+def bvh_closest_hit(tris, nodes, org, dirn, tmax=None, *, depth: int) -> dict:
+    """tris (16, Npad) [v0|e1|e2] from pack_tris, nodes (M, 8) from
+    pack_nodes with the tree's depth; org, dirn (B, 3) f32; tmax None
+    (unbounded), a float or (B,).  Returns {t (tmax on a miss), u, v (B,)
+    f32, tri (B,) i32 slot (-1 on a miss), ntrav, ntests () i64}."""
+    tmax = _inputs(tris, nodes, org, dirn, tmax, depth)
+    if org.device.type == "cpu":
+        return bvh_closest_hit_reference(tris, org, dirn, tmax)
+    if org.device.type != "cuda":
+        raise ValueError(f"unsupported device {org.device}")
+    B = org.shape[0]
+    dev = org.device
+    t = torch.empty(B, dtype=torch.float32, device=dev)
+    u = torch.empty(B, dtype=torch.float32, device=dev)
+    v = torch.empty(B, dtype=torch.float32, device=dev)
+    tri = torch.empty(B, dtype=torch.int32, device=dev)
+    stats = torch.empty(2 * -(-B // BLOCK) * (BLOCK // WARP),
+                        dtype=torch.int32, device=dev)
+    _launch("lt_bvh_closest_hit", dev, org.data_ptr(), dirn.data_ptr(),
+            tmax.data_ptr(), B, tris.data_ptr(), tris.shape[1],
+            nodes.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(),
+            tri.data_ptr(), stats.data_ptr())
+    CLOSEST_COUNTS.kernel += 1
+    return {"t": t, "u": u, "v": v, "tri": tri, **_stats(stats)}
+
+
+def bvh_any_hit(tris, nodes, org, dirn, tmax=None, *, depth: int) -> dict:
+    """Operands as bvh_closest_hit.  Returns {occ (B,) bool: some triangle
+    is hit with 0 < t < tmax, ntrav, ntests () i64}."""
+    tmax = _inputs(tris, nodes, org, dirn, tmax, depth)
+    if org.device.type == "cpu":
+        return bvh_any_hit_reference(tris, org, dirn, tmax)
+    if org.device.type != "cuda":
+        raise ValueError(f"unsupported device {org.device}")
+    B = org.shape[0]
+    dev = org.device
+    occ = torch.empty(B, dtype=torch.bool, device=dev)
+    stats = torch.empty(2 * -(-B // BLOCK) * (BLOCK // WARP),
+                        dtype=torch.int32, device=dev)
+    _launch("lt_bvh_any_hit", dev, org.data_ptr(), dirn.data_ptr(),
+            tmax.data_ptr(), B, tris.data_ptr(), tris.shape[1],
+            nodes.data_ptr(), occ.data_ptr(), stats.data_ptr())
+    ANY_COUNTS.kernel += 1
+    return {"occ": occ, **_stats(stats)}
+
+
+def _plain_stats(tris, B, dev) -> dict:
+    return {"ntrav": torch.zeros((), dtype=torch.int64, device=dev),
+            "ntests": torch.tensor(B * tris.shape[1], dtype=torch.int64,
+                                   device=dev)}
+
+
+def bvh_closest_hit_reference(tris, org, dirn, tmax,
+                              ray_chunk: int = 65536) -> dict:
+    """Plain torch twin of the closest hit: every ray against every
+    triangle (isect.closest_scan), t_best starting at tmax (B,); the
+    lowest slot wins a tie."""
+    CLOSEST_COUNTS.plain += 1
+    res = closest_scan(tris, org, dirn, tmax, ray_chunk)
+    return {**res, **_plain_stats(tris, org.shape[0], org.device)}
+
+
+def bvh_any_hit_reference(tris, org, dirn, tmax,
+                          ray_chunk: int = 65536) -> dict:
+    """Plain torch twin of the any-hit: every ray against every triangle
+    with the kernel's division-free signed-volume test, in its operation
+    order (pallas_bvh.py:648-672)."""
+    ANY_COUNTS.plain += 1
+    B = org.shape[0]
+    dev = org.device
+    occ = torch.zeros(B, dtype=torch.bool, device=dev)
+    for lo in range(0, B, ray_chunk):
+        hi = min(B, lo + ray_chunk)
+        ox, oy, oz = (org[lo:hi, c : c + 1] for c in range(3))
+        dx, dy, dz = (dirn[lo:hi, c : c + 1] for c in range(3))
+        tm = tmax[lo:hi, None]
+        for k in range(tris.shape[1] // TC):
+            tile = tris[:, k * TC : (k + 1) * TC]
+            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+                tile[r][None, :] for r in range(9)
+            )
+            px = dy * e2z - dz * e2y
+            py = dz * e2x - dx * e2z
+            pz = dx * e2y - dy * e2x
+            a = e1x * px + e1y * py + e1z * pz
+            sx = ox - v0x
+            sy = oy - v0y
+            sz = oz - v0z
+            qx = sy * e1z - sz * e1y
+            qy = sz * e1x - sx * e1z
+            qz = sx * e1y - sy * e1x
+            u = sx * px + sy * py + sz * pz
+            v = qx * dx + qy * dy + qz * dz
+            w = a - u - v
+            t = e2x * qx + e2y * qy + e2z * qz
+            inside = ((torch.minimum(torch.minimum(u, v), w) >= 0.0)
+                      | (torch.maximum(torch.maximum(u, v), w) <= 0.0))
+            ta = t * a
+            hit = (inside & (ta > 0.0) & (ta < tm * (a * a))
+                   & (a.abs() > DET_EPS))
+            occ[lo:hi] |= hit.any(dim=1)
+    return {"occ": occ, **_plain_stats(tris, B, dev)}

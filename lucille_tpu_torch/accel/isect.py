@@ -91,9 +91,24 @@ def closest_hit_reference(tris, org, dirn, ray_chunk: int = 65536) -> dict:
     the strict t < t_best across tiles)."""
     COUNTS.plain += 1
     B = org.shape[0]
+    res = closest_scan(tris, org, dirn,
+                       torch.full((B,), float("inf"), device=org.device),
+                       ray_chunk)
+    n_warps = -(-B // WARP)
+    res["ntrav"] = torch.tensor(n_warps * (tris.shape[1] // TC),
+                                dtype=torch.int64, device=org.device)
+    return res
+
+
+def closest_scan(tris, org, dirn, tmax, ray_chunk: int = 65536) -> dict:
+    """Nearest hit of every ray over every triangle with 0 < t < tmax
+    (B,), the lowest index winning a tie: {t (tmax on a miss), u, v,
+    tri (-1 on a miss)}.  The arithmetic of closest_hit_reference; the
+    tile-BVH twin shares it."""
+    B = org.shape[0]
     n_tiles = tris.shape[1] // TC
     dev = org.device
-    t_all = torch.full((B,), float("inf"), device=dev)
+    t_all = tmax.clone()
     u_all = torch.zeros(B, device=dev)
     v_all = torch.zeros(B, device=dev)
     tri_all = torch.full((B,), -1, dtype=torch.int32, device=dev)
@@ -137,7 +152,4 @@ def closest_hit_reference(tris, org, dirn, ray_chunk: int = 65536) -> dict:
             v_best.copy_(torch.where(better, v[rows, j], v_best))
             tri_best.copy_(torch.where(better, (j + k * TC).to(torch.int32),
                                        tri_best))
-    n_warps = -(-B // WARP)
-    return {"t": t_all, "u": u_all, "v": v_all, "tri": tri_all,
-            "ntrav": torch.tensor(n_warps * n_tiles, dtype=torch.int64,
-                                  device=dev)}
+    return {"t": t_all, "u": u_all, "v": v_all, "tri": tri_all}

@@ -1,13 +1,15 @@
-"""Triangle and box packs the dense kernels read.
+"""Triangle, box and node packs the kernels read.
 
 Counterparts of lucille_tpu/accel/pallas_isect.py:207-267 (`_pack`,
 `_pack_boxes`, `_pack_super_boxes`) and pallas_ao.py:511-526
 (`_pack_occ`).  Rows are components, columns triangles or tiles, so a
-kernel stages one 128-triangle tile with coalesced row reads.
+kernel stages one 128-triangle tile with coalesced row reads.  The tile
+BVH kernels read `pack_tris` too, and their nodes from `pack_nodes`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 TC = 128  # triangles per tile
@@ -86,3 +88,31 @@ def pack_super_boxes(boxes: torch.Tensor) -> torch.Tensor:
     out[0:3] = bmin.reshape(3, n_super, SUPER).amin(dim=2)
     out[3:6] = bmax.reshape(3, n_super, SUPER).amax(dim=2)
     return out
+
+
+def pack_nodes(scene) -> torch.Tensor:
+    """Tile-BVH nodes as (M, 8) f32, two 16-byte words a node, for
+    csrc/bvh.cu:
+
+        [min x, min y, min z, A | max x, max y, max z, C]
+
+    A and C are int32 bit patterns: a leaf has A = n_tiles > 0 and C =
+    first_tile; an inner node has A = -(split_axis + 1) and C = its
+    second child (the first is the next node, on the low side of the
+    split axis).  `scene` carries the node_*
+    fields on the host (NumPy arrays or CPU tensors); the pack is built
+    once, when the scene is compiled, on the CPU."""
+    from lucille_tpu_torch.accel.tile_bvh import node_arrays
+
+    nbox, nmeta = node_arrays(scene.node_bbmin, scene.node_bbmax,
+                              scene.node_skip, scene.node_first,
+                              scene.node_count)
+    m = nbox.shape[1]
+    out = np.zeros((m, 8), dtype=np.float32)
+    out[:, 0:3] = nbox[0:3].T
+    out[:, 4:7] = nbox[3:6].T
+    bits = out.view(np.int32)
+    leaf = nmeta[2] > 0
+    bits[:, 3] = np.where(leaf, nmeta[2], -(nmeta[4] + 1))
+    bits[:, 7] = np.where(leaf, nmeta[1], nmeta[3])
+    return torch.from_numpy(out)

@@ -7,8 +7,10 @@
     --gather-rays N    AO gather rays (ntheta = nphi = int(sqrt(N)))
     --tile N           tile size, default 64
     --order O          spiral|scanline|zorder|hilbert
-    --accel A          auto|pallas (the dense accel; lucille_tpu's other
-                       accels are refused)
+    --accel A          auto|pallas|bvh: auto picks the dense tiles up to
+                       16384 triangles and the tile BVH above; pallas
+                       asks for the dense tiles, bvh for the tile BVH
+                       (grid, bruteforce and mxu are refused)
     --width/--height   override the image size
     --stats --verbose  ray statistics, progress
     --device D         cuda (default) or cpu
@@ -46,8 +48,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="tile order (default spiral)")
     p.add_argument("--accel",
                    choices=["auto", "bvh", "grid", "bruteforce", "mxu", "pallas"],
-                   help="accel override; auto and pallas (the dense accel) "
-                        "are ported")
+                   help="accel override; auto (by triangle count), pallas "
+                        "(dense tiles) and bvh (tile BVH) are ported")
     p.add_argument("--method", help="integrator; only 'ao' is ported")
     p.add_argument("--width", type=int, help="override image width")
     p.add_argument("--height", type=int, help="override image height")
@@ -72,9 +74,9 @@ def main(argv=None) -> int:
         p.error("--recover: tile checkpoints are not ported")
     if args.method is not None and args.method.lower() != "ao":
         p.error(f"--method {args.method}: not ported (only 'ao' is)")
-    if args.accel not in (None, "auto", "pallas"):
-        p.error(f"--accel {args.accel}: not ported (only the dense accel, "
-                "'auto' or 'pallas'; ROADMAP Queue 1)")
+    if args.accel not in (None, "auto", "pallas", "bvh"):
+        p.error(f"--accel {args.accel}: not ported (only 'auto', 'pallas' "
+                "and 'bvh')")
 
     from lucille_tpu.base.timer import get_timer
     from lucille_tpu.display.drivers import get_display_driver

@@ -1,11 +1,13 @@
 """Build and bind the hand-written CUDA kernels.
 
 The sources under lucille_tpu_torch/csrc/ have a plain C interface.  At
-first use they are compiled with nvcc for sm_90a into one shared library
-under lucille_tpu_torch/_build/<source hash>/ and loaded with ctypes; a
-library already built from the same sources is reused.  Every pointer
-and the stream cross as c_void_p; every entry point returns
-cudaGetLastError() after its launch, and `check` raises on anything but 0.
+first use each is compiled with nvcc for sm_90a into an object file, all
+of them at once in parallel processes, and the objects are linked into
+one shared library under lucille_tpu_torch/_build/<source hash>/, loaded
+with ctypes; a library already built from the same sources is reused.
+Every pointer and the stream cross as c_void_p; every entry point
+returns cudaGetLastError() after its launch, and `check` raises on
+anything but 0.
 
 `--fmad=false` keeps nvcc from contracting a*b+c into one rounding, so
 the kernels round exactly as their plain torch twins do.
@@ -25,12 +27,11 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
-SOURCES = ("isect.cu", "ao.cu")
+SOURCES = ("isect.cu", "ao.cu", "bvh.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "--fmad=false",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,6 +44,11 @@ SIGNATURES = {
     # ntheta, nphi, inv_ntheta, inv_nphi, occ, stream
     "lt_ao_occlusion": (_P, _P, _I, _P, _P, _I, _P, _I, _P, _I,
                         _I, _I, _F, _F, _P, _P),
+    # org, dir, tmax, B, tris, npad, nodes, t, u, v, tri, stats, stream
+    "lt_bvh_closest_hit": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                           _P),
+    # org, dir, tmax, B, tris, npad, nodes, occ, stats, stream
+    "lt_bvh_any_hit": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
 }
 
 
@@ -89,23 +95,40 @@ def _source_hash() -> str:
 
 def build() -> tuple[Path, float, str]:
     """Compile the sources unless this exact build exists; returns
-    (library path, seconds spent compiling, nvcc log)."""
+    (library path, seconds spent compiling and linking, nvcc log)."""
     out_dir = BUILD_ROOT / _source_hash()
     so = out_dir / "liblucille_kernels.so"
     log_path = out_dir / "build.log"
     if so.exists():
         return so, 0.0, log_path.read_text() if log_path.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".tmp-{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    tag = f".tmp-{os.getpid()}"
+    objs = [out_dir / f"{Path(s).stem}{tag}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+    tmp = out_dir / f"liblucille_kernels{tag}.so"
+    if not failed:
+        proc = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = ["link"]
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, so)
     return so, seconds, log

@@ -7,7 +7,8 @@ single device:
   image edge and cropped on the host), so every tile traces
   B = tile_w * tile_h * S eye rays;
 - per tile: Hammersley subpixel positions -> eye rays -> the AO
-  integrator (kernels 1 and 2) -> per-subsample pixel-filter weights;
+  integrator (the accel's closest-hit and gather kernels) ->
+  per-subsample pixel-filter weights;
 - every tile is enqueued on the device before the first is pulled back,
   then tiles reach the display callbacks in tile-list (spiral) order;
 - the crop window keeps tiles on the full-frame grid, and the AO jitter

@@ -1,15 +1,23 @@
-"""Scene compiler: SceneDescription -> SceneTensors, dense accel only.
+"""Scene compiler: SceneDescription -> SceneTensors (dense or tile BVH).
 
 The host half is NumPy, copied from lucille_tpu/scene/compile.py's dense
-branch so that the arrays come out identical (triangle ids are compared
-exactly against the JAX package): triangle SoA in f32, geometric normals
-where none are given, per-corner st and colours, the centroid Morton sort
-that makes 128-triangle tiles spatially tight, zero-triangle padding to a
-multiple of PAD_MULTIPLE, the scene-relative epsilon and the material
-table.  The result is moved to the device once, by from_numpy.
+and pbvh branches so that the arrays come out identical (triangle ids are
+compared exactly against the JAX package): triangle SoA in f32, geometric
+normals where none are given, per-corner st and colours, then either
 
-`accel "auto"` decides by triangle count alone.  Scenes above
-AUTO_DENSE_MAX_TRIS, and the tile-BVH and grid accels, are not ported yet.
+- dense: the centroid Morton sort that makes 128-triangle tiles
+  spatially tight, or
+- pbvh: the tile BVH (accel/tile_bvh.py), every per-triangle array
+  scattered into its leaf slots, pad slots all-zero triangles,
+
+then zero-triangle padding to a multiple of PAD_MULTIPLE, the
+scene-relative epsilon and the material table.  The result is moved to
+the device once, by from_numpy.
+
+`accel "auto"` decides by triangle count alone: dense up to
+AUTO_DENSE_MAX_TRIS, the tile BVH above.  "pallas" asks for the dense
+tiles, "bvh" and "pbvh" for the tile BVH; lucille_tpu's grid, brute-force
+and MXU accels are not ported.
 """
 
 from __future__ import annotations
@@ -18,14 +26,14 @@ from types import SimpleNamespace
 
 import numpy as np
 
+from lucille_tpu.base.log import LOG_INFO, log
+from lucille_tpu.base.timer import get_timer
 from lucille_tpu.ri.types import SceneDescription
 from lucille_tpu_torch.scene.types import SceneTensors, from_numpy
 
 PAD_MULTIPLE = 256
 EPS_SCALE = 1.0e-4
 AUTO_DENSE_MAX_TRIS = 16384
-
-_NOT_PORTED = "ROADMAP Queue 1: large-scene AO on the tile BVH"
 
 
 def _morton_order(v0, v1, v2, bbmin, bbmax):
@@ -48,20 +56,19 @@ def _morton_order(v0, v1, v2, bbmin, bbmax):
     return np.argsort(code, kind="stable")
 
 
-def _resolve_accel(requested: str, n_tris: int) -> None:
+def _resolve_accel(requested: str, n_tris: int) -> str:
+    """The RIB's accel request -> "dense" or "pbvh"."""
     if requested == "auto":
-        if n_tris > AUTO_DENSE_MAX_TRIS:
-            raise NotImplementedError(
-                f"{n_tris} triangles is above the dense accel's "
-                f"{AUTO_DENSE_MAX_TRIS}; the tile BVH is not ported yet "
-                f"({_NOT_PORTED})"
-            )
-        return
-    if requested != "pallas":
-        raise NotImplementedError(
-            f"accel {requested!r} is not ported; use 'auto' or 'pallas' "
-            f"(the dense accel) ({_NOT_PORTED})"
-        )
+        return "pbvh" if n_tris > AUTO_DENSE_MAX_TRIS else "dense"
+    if requested == "pallas":
+        return "dense"
+    if requested in ("bvh", "pbvh"):
+        return "pbvh"
+    raise NotImplementedError(
+        f"accel {requested!r} is not ported; use 'auto', 'pallas' (the "
+        "dense tiles) or 'bvh' (the tile BVH); the grid is ROADMAP "
+        "Queue 1, item 8"
+    )
 
 
 def _per_triangle(g):
@@ -96,7 +103,7 @@ def _per_triangle(g):
 
 
 def compile_arrays(desc: SceneDescription) -> SimpleNamespace:
-    """The dense scene as host NumPy arrays (field names as SceneTensors)."""
+    """The scene as host NumPy arrays (field names as SceneTensors)."""
     geoms = [g for g in desc.geoms if g.ntriangles > 0]
     n_geoms = max(1, len(geoms))
     per = [_per_triangle(g) for g in geoms]
@@ -118,7 +125,7 @@ def compile_arrays(desc: SceneDescription) -> SimpleNamespace:
         st0 = st1 = st2 = np.zeros((0, 2))
         c0 = c1 = c2 = np.zeros((0, 3))
     n_tris = len(v0)
-    _resolve_accel(desc.options.accel_method, n_tris)
+    accel = _resolve_accel(desc.options.accel_method, n_tris)
 
     if n_tris:
         allv = np.concatenate([v0, v1, v2])
@@ -129,15 +136,44 @@ def compile_arrays(desc: SceneDescription) -> SimpleNamespace:
         bbmax = np.ones(3)
     eps = max(float(np.linalg.norm(bbmax - bbmin)), 1.0) * EPS_SCALE
 
-    if n_tris > 1:
-        order = _morton_order(v0, v1, v2, bbmin, bbmax)
-        v0, v1, v2 = v0[order], v1[order], v2[order]
-        geom_id = geom_id[order]
-        n0, n1, n2 = n0[order], n1[order], n2[order]
-        st0, st1, st2 = st0[order], st1[order], st2[order]
-        c0, c1, c2 = c0[order], c1[order], c2[order]
+    # lucille_tpu's placeholders where there is no tree
+    node_bbmin = node_bbmax = np.zeros((1, 3))
+    node_skip = np.ones(1, dtype=np.int32)
+    node_first = node_count = np.zeros(1, dtype=np.int32)
+    n_nodes, leaf_tiles_max = 0, 1
+    per_tri = [v0, v1, v2, geom_id, n0, n1, n2, st0, st1, st2, c0, c1, c2]
+    if accel == "pbvh" and n_tris > 0:
+        from lucille_tpu_torch.accel.tile_bvh import build_tile_bvh
 
-    n_pad = max(PAD_MULTIPLE, -(-max(n_tris, 1) // PAD_MULTIPLE) * PAD_MULTIPLE)
+        timer = get_timer()
+        timer.start("BVH Construction")
+        src, nbox, nmeta, n_nodes = build_tile_bvh(v0, v1, v2)
+        dt = timer.end("BVH Construction")
+        log(LOG_INFO, "tile BVH built: %d tris -> %d padded, %d nodes, "
+            "%.3f sec", n_tris, len(src), n_nodes, dt)
+        # per-triangle arrays into the leaf slots; pads become all-zero
+        # triangles that no intersector can hit
+        take = np.maximum(src, 0)
+        holes = src < 0
+
+        def scat(a):
+            out = np.ascontiguousarray(a[take])
+            out[holes] = 0
+            return out
+
+        per_tri = [scat(a) for a in per_tri]
+        node_bbmin, node_bbmax = nbox[0:3].T, nbox[3:6].T
+        node_skip, node_first, node_count = nmeta
+        leaf_tiles_max = int(nmeta[2].max())
+    else:
+        accel = "dense"
+        if n_tris > 1:
+            order = _morton_order(v0, v1, v2, bbmin, bbmax)
+            per_tri = [a[order] for a in per_tri]
+    v0, v1, v2, geom_id, n0, n1, n2, st0, st1, st2, c0, c1, c2 = per_tri
+
+    # pbvh arrays are already tile-padded (len(v0) >= n_tris)
+    n_pad = max(PAD_MULTIPLE, -(-max(len(v0), 1) // PAD_MULTIPLE) * PAD_MULTIPLE)
 
     def pad(a):
         filler = np.zeros((n_pad - len(a),) + a.shape[1:], dtype=a.dtype)
@@ -172,11 +208,14 @@ def compile_arrays(desc: SceneDescription) -> SimpleNamespace:
         mat_kd=mat_kd, mat_ks=mat_ks, mat_kt=mat_kt, mat_ior=mat_ior,
         mat_color=mat_color, mat_texture=mat_texture,
         mat_emission=mat_emission, mat_roughness=mat_roughness,
+        node_bbmin=node_bbmin, node_bbmax=node_bbmax, node_skip=node_skip,
+        node_first=node_first, node_count=node_count,
         bbox_min=bbmin, bbox_max=bbmax, eps=np.float32(eps),
-        n_tris=n_tris, n_pad=n_pad, n_geoms=n_geoms, accel="dense",
+        n_tris=n_tris, n_pad=n_pad, n_geoms=n_geoms, n_nodes=n_nodes,
+        leaf_tiles_max=leaf_tiles_max, accel=accel,
     )
 
 
 def compile_scene(desc: SceneDescription, device) -> SceneTensors:
-    """SceneDescription -> SceneTensors on `device` (dense accel)."""
+    """SceneDescription -> SceneTensors on `device`."""
     return from_numpy(compile_arrays(desc), device)

@@ -1,10 +1,18 @@
 """Device scene representation: padded SoA tensors.
 
-The counterpart of lucille_tpu/scene/types.py for the dense path: flat
-per-triangle arrays indexed by triangle id (pad entries are all-zero
-triangles that no intersector can hit), the material table, the scene
-bounds and the scene-relative ray epsilon.  Floats are f32, integers
-i32, on one explicit device.
+The counterpart of lucille_tpu/scene/types.py for the port's two accels:
+flat per-triangle arrays indexed by triangle id (pad entries are all-zero
+triangles that no intersector can hit), the material table, the tile-BVH
+node arrays, the scene bounds and the scene-relative ray epsilon.  Floats
+are f32, integers i32, on one explicit device.
+
+- accel "dense": the triangles Morton-sorted into 128-triangle tiles
+  (lucille_tpu's "pallas"); the node arrays are lucille_tpu's one-entry
+  placeholders and n_nodes is 0.
+- accel "pbvh": the triangles in the tile BVH's leaf order, every leaf
+  padded to whole tiles; the node arrays are the tree, and `nodes` is
+  their pack for the kernels (accel/pack.pack_nodes), with the tree's
+  depth beside it.
 """
 
 from __future__ import annotations
@@ -53,7 +61,11 @@ class SceneTensors:
     n_tris: int = 0  # real triangle count
     n_pad: int = 0  # padded count
     n_geoms: int = 0
-    accel: str = "dense"  # Morton-sorted 128-triangle tiles (the only accel)
+    n_nodes: int = 0  # tile-BVH nodes, 0 on the dense accel
+    leaf_tiles_max: int = 1  # most tiles in one leaf
+    accel: str = "dense"  # "dense" or "pbvh" (module docstring)
+    nodes: torch.Tensor | None = None  # (M, 8) pack_nodes layout, pbvh only
+    tree_depth: int = 0  # depth of the deepest node, pbvh only
 
     @property
     def device(self) -> torch.device:
@@ -63,7 +75,7 @@ class SceneTensors:
 ARRAY_FIELDS = tuple(
     f.name for f in fields(SceneTensors) if f.type == "torch.Tensor"
 )
-STATIC_FIELDS = ("n_tris", "n_pad", "n_geoms")
+STATIC_FIELDS = ("n_tris", "n_pad", "n_geoms", "n_nodes", "leaf_tiles_max")
 # lucille_tpu's name for the same triangle layout
 DENSE_ACCELS = ("dense", "pallas")
 
@@ -80,19 +92,31 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def from_numpy(scene_arrays, device) -> SceneTensors:
-    """Any object carrying the dense fields as NumPy arrays (the JAX
+    """Any object carrying the scene fields as NumPy arrays (the JAX
     package's SceneArrays, or this package's compile output) -> tensors
-    on `device`, f32/i32, same field names.  Only the dense layout
-    (Morton-sorted tiles) carries over; a tile-BVH scene raises."""
-    if scene_arrays.accel not in DENSE_ACCELS:
+    on `device`, f32/i32, same field names.  The dense layout ("pallas"
+    or "dense") and the tile BVH ("pbvh") carry over; for the tile BVH
+    the node pack and the tree's depth are computed here, once.  Any
+    other accel raises."""
+    accel = scene_arrays.accel
+    extra = {}
+    if accel in DENSE_ACCELS:
+        accel = "dense"
+    elif accel == "pbvh" and scene_arrays.n_nodes > 0:
+        from lucille_tpu_torch.accel.pack import pack_nodes
+        from lucille_tpu_torch.accel.tile_bvh import tree_depth
+
+        nodes = pack_nodes(scene_arrays)
+        extra = {"nodes": nodes.to(device), "tree_depth": tree_depth(nodes)}
+    else:
         raise NotImplementedError(
-            f"accel {scene_arrays.accel!r}: only the dense accel is ported "
-            "(ROADMAP Queue 1: large-scene AO on the tile BVH)"
+            f"accel {accel!r} is not ported: the port has the dense tiles "
+            "and the tile BVH (the grid is ROADMAP Queue 1, item 8)"
         )
     kwargs = {f: _to_tensor(getattr(scene_arrays, f), device)
               for f in ARRAY_FIELDS}
     kwargs.update({f: getattr(scene_arrays, f) for f in STATIC_FIELDS})
-    return SceneTensors(**kwargs)
+    return SceneTensors(accel=accel, **kwargs, **extra)
 
 
 def to_numpy(scene: SceneTensors) -> dict:

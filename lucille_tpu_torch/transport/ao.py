@@ -1,15 +1,24 @@
 """Ambient-occlusion integrator, in torch.
 
 Counterpart of lucille_tpu/transport/ao.py:35-195 and :335-376 without
-the sunsky gather: eye ray -> closest hit (kernel 1) -> interpolated
-shading normal, Frisvad basis, eps-offset origin -> fused stratified
-occlusion gather (kernel 2) -> ``Lo = (S - occluded) / S`` modulated by
-the interpolated vertex colour; misses return the background.
+the sunsky gather: eye ray -> closest hit -> interpolated shading normal,
+Frisvad basis, eps-offset origin -> stratified occlusion gather ->
+``Lo = (S - occluded) / S`` modulated by the interpolated vertex colour;
+misses return the background.  The accel picks the kernels, as
+lucille_tpu/transport/ao.py:136-171 does:
+
+- dense: the dense closest hit (csrc/isect.cu) and the fused gather
+  (csrc/ao.cu);
+- pbvh: the tile-BVH closest hit and the cone-tiled gather through the
+  tile-BVH any-hit (csrc/bvh.cu); the gather's node visits and triangle
+  tests join the eye rays' counters.
 
 The per-lane jitter is an input: (2, B) uniforms from the renderer's
-sampler, column j belonging to compacted hit slot j.  Norms and sums are
-written as explicit left-to-right products so they round as the JAX
-package's do.
+sampler.  On the dense accel column j belongs to compacted hit slot j
+(the fused kernel's lane order); on the tile BVH it belongs to raster
+lane j, because lucille_tpu's `_stratified_dirs` draws its (2, B)
+uniforms on the unsorted wavefront.  Norms and sums are written as
+explicit left-to-right products so they round as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from lucille_tpu_torch.accel.ao import ao_occlusion
+from lucille_tpu_torch.accel.bvh_ao import bvh_ao_occlusion
 from lucille_tpu_torch.accel.dispatch import closest_hit
 
 
@@ -56,9 +66,15 @@ def ao_radiance(scene, org, dirn, jitter, ntheta: int, nphi: int,
     res = closest_hit(scene, org, dirn)
     P_off, b0, b1, b2 = shading_frame(scene, org, dirn, res)
     hit = res["hit"]
-    occ = ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi)
+    if scene.accel == "pbvh":
+        occ, gather = bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter,
+                                       ntheta, nphi)
+    else:
+        occ = ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta,
+                           nphi)
+        gather = {}
     return _finish(scene, res, hit, occ, ntheta * nphi, background,
-                   org.shape[0])
+                   org.shape[0], gather)
 
 
 def shading_frame(scene, org, dirn, res):
@@ -81,9 +97,14 @@ def _modulate(scene, res, hit, radiance):
     return radiance * torch.where(hit[..., None], cs, 1.0)
 
 
-def _finish(scene, res, hit, occ, nsamples: int, background: float, B: int):
+def _finish(scene, res, hit, occ, nsamples: int, background: float, B: int,
+            gather: dict):
     """Occlusion count -> radiance, plus the counters.  nrays counts an eye
-    ray for every lane and S gather rays for every hit (raytrace.c:43)."""
+    ray for every lane and S gather rays for every hit (raytrace.c:43);
+    `gather` adds the gather rays' ntests/ntrav to the eye rays'.
+    lucille_tpu's nmiss (tile-cache misses) is 0 by definition in the
+    port, which keeps no tile cache (accel/bvh_isect.py), so it is not
+    carried."""
     lo = (nsamples - occ) / nsamples
     radiance = torch.where(hit, lo, background)[..., None] * torch.ones(
         (1, 3), dtype=torch.float32, device=occ.device
@@ -92,8 +113,8 @@ def _finish(scene, res, hit, occ, nsamples: int, background: float, B: int):
     aux = {
         "hit": hit,
         "nrays": B + hit.sum(dtype=torch.int64) * nsamples,
-        "ntests": res["ntests"],
-        "ntrav": res["ntrav"],
+        "ntests": res["ntests"] + gather.get("ntests", 0),
+        "ntrav": res["ntrav"] + gather.get("ntrav", 0),
         "t": res["t"],
     }
     return radiance, aux

@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from test_intersect import _random_soup, _scene_from_tris
+from test_torch_scene import one_torch_thread  # noqa: F401
 
 
 def _soup(n_tris, seed=5):

@@ -12,6 +12,10 @@ their twins' operation order, so answers agree exactly except where the
 kernels' conservative culls or the device's cos/sin round a boundary case
 the other way: triangle ids on all but 1e-3 of the rays, t/u/v within
 1e-6 relative, occlusion counts on all but 1e-3 of the lanes and within 1.
+The tile-BVH kernels visit leaves in another order than their twins
+test slots, so a triangle id may also differ at an exact tie in t across
+two leaves (the ray onto a shared edge below); hits and occlusion do not
+depend on the order.
 """
 
 import numpy as np
@@ -24,8 +28,9 @@ def _need_card():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
 
-def _soup_scene(n, seed=5):
-    """n random triangles in a 10-unit box, as the dense scene on cuda."""
+def _soup_scene(n, seed=5, accel="pallas"):
+    """n random triangles in a 10-unit box, as a scene on cuda (the dense
+    tiles, or the tile BVH with accel="bvh")."""
     from lucille_tpu.ri.types import AttributeState, GeomData, SceneDescription
     from lucille_tpu_torch.scene.compile import compile_scene
 
@@ -36,8 +41,18 @@ def _soup_scene(n, seed=5):
     desc = SceneDescription()
     desc.geoms.append(GeomData(positions=pos, indices=idx.astype(np.int32),
                                attrs=AttributeState()))
-    desc.options.accel_method = "pallas"
+    desc.options.accel_method = accel
     return compile_scene(desc, "cuda")
+
+
+def _shell_rays(B, seed=0):
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(B, 3))
+    o = 12.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-4, 4, (B, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.tensor(o, dtype=torch.float32, device="cuda"),
+            torch.tensor(d, dtype=torch.float32, device="cuda"))
 
 
 @pytest.mark.gpu
@@ -51,13 +66,7 @@ def test_closest_hit_kernel_matches_plain(B):
     from lucille_tpu_torch.accel.pack import pack_boxes, pack_tris
 
     scene = _soup_scene(700)
-    rng = np.random.default_rng(0)
-    o = rng.normal(size=(B, 3))
-    o = 12.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
-    d = rng.uniform(-4, 4, (B, 3)) - o
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    o = torch.tensor(o, dtype=torch.float32, device="cuda")
-    d = torch.tensor(d, dtype=torch.float32, device="cuda")
+    o, d = _shell_rays(B)
     tris, boxes = pack_tris(scene), pack_boxes(scene)
     got = closest_hit_kernel(tris, boxes, o, d)
     ref = closest_hit_reference(tris, o, d)
@@ -106,3 +115,168 @@ def test_ao_kernel_matches_plain(n_tris, ntheta):
     assert ref.mean() > 1.0  # the case exercises occlusion
     diff = (got[:900] - ref).abs()
     assert diff.max() <= 1 and (diff != 0).float().mean() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bounded", [False, True])
+def test_bvh_closest_hit_kernel_matches_plain(bounded):
+    _need_card()
+    from lucille_tpu_torch.accel import bvh_isect
+    from lucille_tpu_torch.accel.pack import pack_tris
+
+    scene = _soup_scene(3000, accel="bvh")
+    assert scene.accel == "pbvh" and scene.n_nodes > 1
+    o, d = _shell_rays(4096)
+    tmax = torch.full((4096,), float("inf"), device="cuda")
+    if bounded:
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        tmax = 8.0 + 8.0 * torch.rand(4096, device="cuda", generator=gen)
+    tris = pack_tris(scene)
+    got = bvh_isect.bvh_closest_hit(tris, scene.nodes, o, d, tmax,
+                                    depth=scene.tree_depth)
+    ref = bvh_isect.bvh_closest_hit_reference(tris, o, d, tmax)
+    hit = got["tri"] >= 0
+    assert torch.equal(hit, ref["tri"] >= 0)
+    assert 0.1 < hit.float().mean() < 1.0
+    assert (got["tri"] != ref["tri"]).float().mean() <= 1e-3
+    same = (got["tri"] == ref["tri"]) & hit
+    for k in ("t", "u", "v"):
+        torch.testing.assert_close(got[k][same], ref[k][same], rtol=1e-6,
+                                   atol=1e-7)
+    assert torch.equal(got["t"][~hit], tmax[~hit])
+    assert int(got["ntrav"]) >= 4096 and int(got["ntests"]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bounded", [False, True])
+def test_bvh_any_hit_kernel_matches_plain(bounded):
+    """tmax = inf is the AO gather's case: inf * a^2 must behave as in
+    the twin (and in JAX)."""
+    _need_card()
+    from lucille_tpu_torch.accel import bvh_isect
+    from lucille_tpu_torch.accel.pack import pack_tris
+
+    scene = _soup_scene(3000, accel="bvh")
+    rng = np.random.default_rng(1)
+    o = torch.tensor(rng.uniform(-4, 4, (5000, 3)), dtype=torch.float32,
+                     device="cuda")
+    d = torch.nn.functional.normalize(torch.tensor(
+        rng.normal(size=(5000, 3)), dtype=torch.float32, device="cuda"),
+        dim=-1)
+    tmax = (torch.tensor(rng.uniform(0.5, 12, 5000), dtype=torch.float32,
+                         device="cuda") if bounded else None)
+    tris = pack_tris(scene)
+    got = bvh_isect.bvh_any_hit(tris, scene.nodes, o, d, tmax,
+                                depth=scene.tree_depth)
+    ref = bvh_isect.bvh_any_hit_reference(
+        tris, o, d, torch.full((5000,), float("inf"), device="cuda")
+        if tmax is None else tmax)
+    assert 0.1 < ref["occ"].float().mean() < 0.95
+    assert (got["occ"] != ref["occ"]).float().mean() <= 1e-3
+
+
+def _flat_grid_desc(n):
+    """n x n unit squares in the plane z = 0, two triangles each, as a
+    scene description asking for the tile BVH: every shared edge is
+    exactly representable."""
+    from lucille_tpu.ri.types import AttributeState, GeomData, SceneDescription
+
+    xs, ys = np.meshgrid(np.arange(n + 1), np.arange(n + 1))
+    pos = np.stack([xs, ys, np.zeros_like(xs)], -1).reshape(-1, 3)
+    a = (np.arange(n)[None, :] + (n + 1) * np.arange(n)[:, None]).ravel()
+    idx = np.concatenate([np.stack([a, a + 1, a + n + 2], -1),
+                          np.stack([a, a + n + 2, a + n + 1], -1)])
+    desc = SceneDescription()
+    desc.geoms.append(GeomData(positions=pos.astype(np.float32),
+                               indices=idx.astype(np.int32),
+                               attrs=AttributeState()))
+    desc.options.accel_method = "bvh"
+    return desc
+
+
+def shared_edge_ray(tri_v0, tri_e1, tri_e2):
+    """Two slots in different leaf tiles that share an edge, and a ray
+    straight down onto the edge's midpoint: ((lo, hi) slots, origin (3,),
+    direction (3,)).  Both triangles report t = 5 exactly."""
+    from lucille_tpu_torch.accel.pack import TC
+
+    v0 = np.asarray(tri_v0)
+    corners = np.stack([v0, v0 + np.asarray(tri_e1),
+                        v0 + np.asarray(tri_e2)], 1)
+    edges = {}
+    for slot in np.flatnonzero(np.any(corners != 0, axis=(1, 2))):
+        for i, j in ((0, 1), (1, 2), (2, 0)):
+            key = tuple(sorted((tuple(corners[slot, i]),
+                                tuple(corners[slot, j]))))
+            edges.setdefault(key, []).append(int(slot))
+    (a, b), pair = next((k, sorted(s)) for k, s in edges.items()
+                        if len(s) == 2 and s[0] // TC != s[1] // TC)
+    org = np.array([(a[0] + b[0]) / 2, (a[1] + b[1]) / 2, 5.0], np.float32)
+    return tuple(pair), org, np.array([0.0, 0.0, -1.0], np.float32)
+
+
+@pytest.mark.gpu
+def test_bvh_kernels_on_a_shared_edge_tie():
+    """A ray straight down onto an edge shared by two triangles in
+    different leaves: the twin keeps the lower slot, the kernel the one
+    its walk meets first; both report t = 5."""
+    _need_card()
+    from lucille_tpu_torch.accel import bvh_isect
+    from lucille_tpu_torch.accel.pack import pack_tris
+    from lucille_tpu_torch.scene.compile import compile_scene
+
+    scene = compile_scene(_flat_grid_desc(16), "cuda")  # 512 triangles
+    pair, o, d = shared_edge_ray(scene.tri_v0.cpu(), scene.tri_e1.cpu(),
+                                 scene.tri_e2.cpu())
+    o = torch.tensor(o[None], device="cuda")
+    d = torch.tensor(d[None], device="cuda")
+    tris = pack_tris(scene)
+    got = bvh_isect.bvh_closest_hit(tris, scene.nodes, o, d,
+                                    depth=scene.tree_depth)
+    ref = bvh_isect.bvh_closest_hit_reference(
+        tris, o, d, torch.full((1,), float("inf"), device="cuda"))
+    assert float(got["t"][0]) == float(ref["t"][0]) == 5.0
+    assert int(ref["tri"][0]) == pair[0]
+    assert int(got["tri"][0]) in pair
+    occ = bvh_isect.bvh_any_hit(tris, scene.nodes, o, d,
+                                depth=scene.tree_depth)["occ"]
+    assert bool(occ[0])
+
+
+@pytest.mark.gpu
+def test_bvh_ao_gather_matches_plain():
+    """The whole cone-tiled gather on the card (ray assembly, the any-hit
+    kernel, the sum back to raster order) against the any-hit twin on the
+    same gather rays; B = 1000 is not a multiple of the origin group."""
+    _need_card()
+    from lucille_tpu_torch.accel import bvh_ao, bvh_isect
+    from lucille_tpu_torch.accel.pack import pack_tris
+    from lucille_tpu_torch.transport.ao import ortho_basis
+
+    scene = _soup_scene(3000, accel="bvh")
+    rng = np.random.default_rng(1)
+    P = torch.tensor(rng.uniform(-4, 4, (1000, 3)), dtype=torch.float32,
+                     device="cuda")
+    N = torch.nn.functional.normalize(torch.tensor(
+        rng.normal(size=(1000, 3)), dtype=torch.float32, device="cuda"),
+        dim=-1)
+    b0, b1, b2 = ortho_basis(N)
+    hit = torch.tensor(rng.uniform(size=1000) < 0.8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    jitter = torch.rand((2, 1000), device="cuda", generator=gen)
+    bvh_isect.ANY_COUNTS.reset()
+    occ, stats = bvh_ao.bvh_ao_occlusion(scene, P, b0, b1, b2, hit, jitter,
+                                         4, 4)
+    assert bvh_isect.ANY_COUNTS.kernel == 1 and bvh_isect.ANY_COUNTS.plain == 0
+    oo, dd, order, (NG, S, G, Bpad) = bvh_ao.conetile_rays(
+        scene, P, b0, b1, b2, hit, jitter, 4, 4)
+    ref = bvh_isect.bvh_any_hit_reference(
+        pack_tris(scene), oo, dd, torch.full((S * Bpad,), float("inf"),
+                                             device="cuda"))["occ"]
+    want = torch.zeros(Bpad, device="cuda")
+    want[order] = ref.float().reshape(NG, S, G).sum(dim=1).reshape(-1)
+    want = want[:1000] * hit.float()
+    diff = (occ - want).abs()
+    assert want[hit].mean() > 0.5
+    assert diff.max() <= 1 and (diff != 0).float().mean() <= 1e-3
+    assert torch.all(occ[~hit] == 0) and int(stats["ntrav"]) > 0

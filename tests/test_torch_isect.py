@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from test_intersect import _random_soup, _scene_from_tris
 from test_torch_scene import bundled_state
+from test_torch_scene import one_torch_thread  # noqa: F401
 
 
 def _soup_scene():

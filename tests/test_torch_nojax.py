@@ -1,6 +1,7 @@
 """The port runs without jax, picks its device explicitly, and launches
 no kernel on the CPU."""
 
+import json
 import os
 import subprocess
 import sys
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_scene import one_torch_thread  # noqa: F401
 from test_torch_scene import REPO, bundled_rib_text, bundled_state
 
 # jax blocked before the port is imported; if a startup hook preloaded it
@@ -24,36 +26,87 @@ _SCRIPT = textwrap.dedent("""
     added = {k for k, v in sys.modules.items() if v is not None} - before
     bad = sorted(k for k in added if k == "jax" or k.startswith("jax."))
     assert not bad, bad
-    from lucille_tpu_torch.accel import ao, isect
-    assert isect.COUNTS.kernel == 0 and ao.COUNTS.kernel == 0
-    assert isect.COUNTS.plain > 0 and ao.COUNTS.plain > 0
-    print("NOJAX-OK", rc, len(added))
+    import json
+    from lucille_tpu_torch.accel import ao, bvh_isect, isect
+    counts = {name: (c.kernel, c.plain) for name, c in (
+        ("closest_hit", isect.COUNTS), ("ao_occlusion", ao.COUNTS),
+        ("bvh_closest_hit", bvh_isect.CLOSEST_COUNTS),
+        ("bvh_any_hit", bvh_isect.ANY_COUNTS))}
+    print("NOJAX-OK", rc, len(added), json.dumps(counts))
 """)
 
 
-def test_cli_renders_without_jax(tmp_path):
+def _render_without_jax(tmp_path, rib_text, *argv):
+    """The CLI in a fresh interpreter where jax cannot be imported: (the
+    image, {wrapper: (kernel launches, plain twin calls)})."""
     from lucille_tpu.imageio.rgbe import read_hdr
 
-    rib = tmp_path / "ao.rib"
-    rib.write_text(bundled_rib_text())
-    out = tmp_path / "ao.hdr"
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    rib = tmp_path / "scene.rib"
+    rib.write_text(rib_text)
+    out = tmp_path / "out.hdr"
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", _SCRIPT, str(rib), "-o", str(out),
          "--device", "cpu", "--width", "32", "--height", "24",
-         "--pixelsamples", "1", "--gather-rays", "9", "--tile", "16"],
+         "--pixelsamples", "1", "--gather-rays", "9", "--tile", "16",
+         *argv],
         capture_output=True, text=True, cwd=str(tmp_path), env=env,
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "NOJAX-OK 0" in proc.stdout
+    line = next(l for l in proc.stdout.splitlines()
+                if l.startswith("NOJAX-OK 0 "))
+    counts = json.loads(line.split(" ", 3)[3])
+    counts = {k: tuple(v) for k, v in counts.items()}
     img = read_hdr(out)
     assert img.shape == (24, 32, 3) and np.isfinite(img).all()
     assert 0.0 < img.mean() < 1.0
+    return img, counts
+
+
+def test_cli_renders_without_jax(tmp_path):
+    _img, counts = _render_without_jax(tmp_path, bundled_rib_text())
+    assert counts["closest_hit"][0] == counts["ao_occlusion"][0] == 0
+    assert counts["closest_hit"][1] > 0 and counts["ao_occlusion"][1] > 0
+    assert counts["bvh_closest_hit"] == counts["bvh_any_hit"] == (0, 0)
+
+
+def _heightfield_rib(n: int) -> str:
+    """bench_large's heightfield terrain and camera as RIB text: one
+    PointsPolygons of (n - 1)^2 quads."""
+    from bench_large import heightfield_scene
+
+    s = heightfield_scene(n)
+    g = s.scene.geoms[0]
+    P = np.asarray(g.positions)
+    quads = np.asarray(g.indices).reshape(-1, 6)[:, [0, 1, 2, 5]]
+    fmt = lambda a: " ".join(f"{x:.9g}" for x in np.ravel(a))  # noqa: E731
+    return (
+        'Projection "perspective" "fov" [45.0]\n'
+        'Orientation "rh"\n'
+        "ConcatTransform [0.994530 0.008385 -0.104111 0.000000 "
+        "0.052799 0.819679 0.570385 0.000000 "
+        "0.090120 -0.572762 0.814753 0.000000 "
+        "-0.000009 -0.000015 -15.529361 1.000000 ]\n"
+        "WorldBegin\n"
+        f"PointsPolygons [{fmt(np.full(len(quads), 4))}] [{fmt(quads)}] "
+        f'"P" [{fmt(P)}]\n'
+        "WorldEnd\n"
+    )
+
+
+def test_cli_renders_a_pbvh_heightfield_without_jax(tmp_path):
+    """--accel bvh puts a small heightfield (12^2 quads, 288 triangles) on
+    the tile BVH: both BVH twins run, no dense wrapper, no kernel."""
+    _img, counts = _render_without_jax(tmp_path, _heightfield_rib(13),
+                                       "--accel", "bvh")
+    assert counts["bvh_closest_hit"][0] == counts["bvh_any_hit"][0] == 0
+    assert counts["bvh_closest_hit"][1] > 0 and counts["bvh_any_hit"][1] > 0
+    assert counts["closest_hit"] == counts["ao_occlusion"] == (0, 0)
 
 
 @pytest.mark.parametrize("argv", [["--mesh", "4"], ["--recover"],
-                                  ["--method", "whitted"], ["--accel", "bvh"],
+                                  ["--method", "whitted"], ["--accel", "grid"],
                                   ["--coordinator", "localhost:1234"]])
 def test_cli_refuses_unported_flags(argv, capsys):
     from lucille_tpu_torch.cli import main

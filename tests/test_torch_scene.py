@@ -20,6 +20,18 @@ if str(REPO) not in sys.path:
 BUNDLED_RIB = REPO / "tests" / "golden" / "sunsky_scene.rib"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one CPU thread for the module (every test_torch_* module
+    imports this fixture).  The plain twins run many small ops; with an
+    intra-op thread pool in each of the suite's parallel workers the
+    cores are oversubscribed and those ops slow down many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def bundled_rib_text() -> str:
     lines = BUNDLED_RIB.read_text().splitlines(keepends=True)
     return "".join(l for l in lines if 'AreaLightSource "sunsky"' not in l)
@@ -57,32 +69,47 @@ def heightfield_state(n, width=None, height=None, pixelsamples=None,
 SCENES = {
     "bundled": lambda: bundled_state(),
     "heightfield35": lambda: heightfield_state(35),
+    "heightfield35_bvh": lambda: heightfield_state(35, accel="bvh"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_compile_matches_jax_exactly(name):
-    """Every dense-path array equal, bit for bit (after lucille_tpu's own
-    device_put cast to f32/i32): triangle ids compare exactly."""
+    """Every array equal, bit for bit (after lucille_tpu's own device_put
+    cast to f32/i32), on the dense tiles and on the tile BVH: triangle
+    ids compare exactly.  from_numpy of lucille_tpu's pbvh SceneArrays
+    gives the port's own compile, node pack and tree depth included."""
     from lucille_tpu.scene.compile import compile_scene as jax_compile
     from lucille_tpu_torch.scene.compile import compile_scene
-    from lucille_tpu_torch.scene.types import ARRAY_FIELDS, from_numpy
+    from lucille_tpu_torch.scene.types import (
+        ARRAY_FIELDS,
+        STATIC_FIELDS,
+        from_numpy,
+    )
 
     desc = SCENES[name]().scene
     ref = jax_compile(desc)
-    assert ref.accel == "pallas"
+    bvh = name.endswith("_bvh")
+    assert ref.accel == ("pbvh" if bvh else "pallas")
     got = compile_scene(desc, "cpu")
     want = from_numpy(ref, "cpu")
+    assert got.accel == want.accel == ("pbvh" if bvh else "dense")
     for f in ARRAY_FIELDS:
         a, b = getattr(got, f), getattr(want, f)
         assert a.dtype == b.dtype and a.shape == b.shape, f
         assert torch.equal(a, b), f
-    assert (got.n_tris, got.n_pad, got.n_geoms) == (
-        ref.n_tris, ref.n_pad, ref.n_geoms)
-    if name == "heightfield35":
-        assert (got.n_tris, got.n_pad) == (2312, 2560)  # 20 tiles of 128
+    for f in STATIC_FIELDS:
+        assert getattr(got, f) == getattr(ref, f) == getattr(want, f), f
+    expect = {"bundled": (322, 512, 0), "heightfield35": (2312, 2560, 0),
+              # leaves padded to whole tiles: 24 tiles of 128
+              "heightfield35_bvh": (2312, 3072, 47)}[name]
+    assert (got.n_tris, got.n_pad, got.n_nodes) == expect
+    if bvh:
+        assert torch.equal(got.nodes.view(torch.int32),
+                           want.nodes.view(torch.int32))
+        assert got.tree_depth == want.tree_depth > 0
     else:
-        assert (got.n_tris, got.n_pad) == (322, 512)
+        assert got.nodes is None and want.nodes is None
 
 
 def test_from_numpy_round_trips():
@@ -99,16 +126,25 @@ def test_from_numpy_round_trips():
 
 
 def test_accel_choice_by_count_and_refusals():
-    from lucille_tpu_torch.scene.compile import compile_scene
+    """auto: dense tiles up to 16384 triangles, the tile BVH above (by
+    count alone, on any device); bvh and pbvh ask for the tile BVH; the
+    grid, brute-force and MXU accels are refused."""
+    from lucille_tpu_torch.scene.compile import compile_arrays, compile_scene
 
     auto = compile_scene(bundled_state(accel="auto").scene, "cpu")
     dense = compile_scene(bundled_state().scene, "cpu")
     assert torch.equal(auto.tri_v0, dense.tri_v0)
     assert auto.accel == "dense"
-    # 91^2 * 2 = 16562 triangles: above the dense accel's range
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_scene(heightfield_state(92, accel="auto").scene, "cpu")
-    for accel in ("bvh", "pbvh", "grid"):
+    # 90^2 * 2 = 16200 triangles: the dense accel's upper range;
+    # 91^2 * 2 = 16562: above it
+    assert compile_arrays(heightfield_state(91, accel="auto").scene
+                          ).accel == "dense"
+    big = compile_arrays(heightfield_state(92, accel="auto").scene)
+    assert (big.accel, big.n_tris) == ("pbvh", 16562)
+    for accel in ("bvh", "pbvh"):
+        assert compile_scene(bundled_state(accel=accel).scene,
+                             "cpu").accel == "pbvh"
+    for accel in ("grid", "bruteforce", "mxu"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             compile_scene(bundled_state(accel=accel).scene, "cpu")
 
