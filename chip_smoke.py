@@ -1,33 +1,47 @@
 #!/usr/bin/env python3
 """Smoke run of lucille_tpu_torch on one CUDA card: the quickest proof that
-the port builds, is right and renders its main path on the GPU.
+the port builds, is right and renders its main paths on the GPU.
 
     python3 chip_smoke.py
 
-Phases (each raises on failure, so the exit code is non-zero):
+Every scene is parsed from RIB text by the port's own front end
+(lucille_tpu_torch.rib / .ri); the script imports nothing of lucille_tpu
+and needs no jax.  Phases (each raises on failure, so the exit code is
+non-zero):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build the CUDA kernels from lucille_tpu_torch/csrc with nvcc (seconds,
    and ptxas's register report);
-3. each kernel against its plain torch twin at the main path's shapes:
-   the bundled AO scene's first 240x240 tile at 3x3 samples (518,400 eye
-   rays; 322 triangles in 4 tiles) and one 128x128x4 tile of the
+3. each dense kernel against its plain torch twin at the main paths'
+   shapes: the bundled scene's first 240x240 tile at 3x3 samples (518,400
+   eye rays; 322 triangles in 4 tiles) and one 128x128x4 tile of the
    16,200-triangle heightfield (128 tiles, 8 supertiles, Morton lane
    order).  The kernels run the whole tile; the twins are compared on a
    slice of lanes, each lane with the AO jitter the whole tile gives it.
-   Tolerances: hit/tri equal on all but 1e-4 of the lanes, t/u/v within
-   1e-6 relative; occlusion counts equal on all but 1e-4 of the lanes
-   and within 1 there;
-4. the headline frame (what bench.py times for lucille_tpu): the bundled
-   scene at 640x480, 3x3 samples, 64 AO rays, tile 240, rendered by the
-   port's Renderer on the card into an .hdr through lucille_tpu's display
-   driver and read back: finite, mean in (0, 1), both kernels launched,
-   no plain twin called; the warm frame seconds (best of 2) and Mrays/s;
-   then the same renderer at 80x60 against CPU-lucille's own frame
-   (tests/golden/ao_80x60_ref.hdr), held to tests/test_render.py's bound;
-5. the dense path's upper range: the heightfield at 160x120, 2x2, 64 rays,
-   with the same checks and timing;
-6. the tile-BVH kernels against their plain twins on the first 128x128x4
+   The closest hit on the eye rays; the AO gather's counts and its
+   per-stratum bits; the any-hit on the hit lanes' shadow rays toward the
+   scene's sun (the sunsky gather's sun ray), on the bundled tile also
+   with a random finite tmax, on the heightfield with the hit mask as the
+   active mask.  Tolerances: hit/tri equal on all but 1e-4 of the lanes,
+   t/u/v within 1e-6 relative; occlusion counts equal on all but 1e-4 of
+   the lanes and within 1 there; bits and any-hit answers equal on all
+   but 1e-4 of the lanes / rays;
+4. the headline frames (bench.py's configurations for lucille_tpu): the
+   bundled scene at 640x480, 3x3 samples, 64 AO rays, tile 240, rendered
+   by the port's Renderer on the card into an .hdr through the port's
+   display driver and read back: finite, mean in range, the path's
+   kernels launched, no other kernel, no plain twin; the warm frame
+   seconds (best of 2) and Mrays/s.  First as shipped, with its sunsky
+   light (the sunsky gather: closest hit, AO gather with bits, dense
+   any-hit), then without it (plain AO: closest hit, AO gather);
+5. the 80x60 frames against CPU-lucille's own: plain AO against
+   tests/golden/ao_80x60_ref.hdr (tests/test_render.py's bound), sunsky
+   AO with the reference's turbidity-0 sun against
+   tests/golden/sunsky_80x60_ref.hdr (tests/test_sunsky_golden.py's
+   bounds);
+6. the dense path's upper range: the heightfield at 160x120, 2x2, 64 rays,
+   with the checks and timing of phase 4;
+7. the tile-BVH kernels against their plain twins on the first 128x128x4
    tile of bench_large's heightfield at n = 256 (130,050 triangles) and
    n = 724 (1,045,458): the closest hit on the tile's eye rays, the
    any-hit on its 8x8-strata gather rays with the sampler's jitter.  The
@@ -36,19 +50,26 @@ Phases (each raises on failure, so the exit code is non-zero):
    1e-4 of the rays, triangle ids on all but 1e-3 (exact ties in t
    across leaves), t/u/v within 1e-6 relative; occlusion equal on all
    but 1e-4 of the rays;
-7. the large-scene frames: both heightfields at bench_large's
+8. the large-scene frames: both heightfields at bench_large's
    configuration, uncut (160x120, 2x2 samples, 64 AO rays, tile 128),
    with the checks of phase 4 (both BVH kernels launched, no dense
    kernel, no twin), the warm frame seconds and Mrays/s, and the host's
-   scene, compile and tile-BVH build seconds;
-8. the heightfield at n = 91 rendered on the dense tiles and on the tile
+   scene, compile and tile-BVH build seconds; then the n = 256 terrain
+   under the bundled scene's sunsky line (the sunsky gather on the tile
+   BVH);
+9. the heightfield at n = 91 rendered on the dense tiles and on the tile
    BVH: the two draw their jitter differently (compacted slot against
    raster lane), so only the means over hit pixels are held, within 0.01;
-9. a JSON line of per-kernel results, the card's line, and last
-   {"ok": true, "device": {...}}.
+10. a JSON line of per-kernel results (each with the least time the card
+   could take for its work, `bound_ms`, from the counts below), the
+   card's line, and last {"ok": true, "device": {...}}.
 
-It needs no jax, one card, and the repository around it: run from a
-directory holding only this file, it fails.
+It needs one card and the repository around it: run from a directory
+holding only this file, it fails.
+
+The heightfield is a copy of bench_large.heightfield_scene's terrain and
+camera (`heightfield_grid`, `HEIGHTFIELD_CAMERA`); the tests hold the two
+equal.
 """
 
 from __future__ import annotations
@@ -59,7 +80,10 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
+BUNDLED_RIB = ROOT / "tests" / "golden" / "sunsky_scene.rib"
 # rendered frames, beside the kernel build (both gitignored)
 OUT = ROOT / "lucille_tpu_torch" / "_build" / "smoke"
 TILE = 240
@@ -67,24 +91,63 @@ TILE = 240
 SOURCES = {
     "closest_hit": ("lucille_tpu_torch/csrc/isect.cu",
                     "lucille_tpu/accel/pallas_isect.py:57"),
+    "any_hit": ("lucille_tpu_torch/csrc/isect.cu",
+                "lucille_tpu/accel/pallas_isect.py:390"),
     "ao_occlusion": ("lucille_tpu_torch/csrc/ao.cu",
                      "lucille_tpu/accel/pallas_ao.py:109"),
+    "ao_occlusion_bits": ("lucille_tpu_torch/csrc/ao.cu",
+                          "lucille_tpu/accel/pallas_ao.py:109"),
     "bvh_closest_hit": ("lucille_tpu_torch/csrc/bvh.cu",
                         "lucille_tpu/accel/pallas_bvh.py:310"),
     "bvh_any_hit": ("lucille_tpu_torch/csrc/bvh.cu",
                     "lucille_tpu/accel/pallas_bvh.py:598"),
 }
 
+# The card's peaks for bound_ms (NVIDIA H100 SXM data sheet, at 700 W):
+# f32 outside the tensor cores, and HBM3.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# f32 operations, read from csrc/ (a divide, min, max or compare counts as
+# one): a Moller-Trumbore test (isect.cu Ray::hits, bvh.cu closest), the
+# BVH any-hit's signed-volume test, one (stratum, triangle) test of the AO
+# gather, a ray against a tile's box, a tile-BVH node visit (two child
+# boxes and the ordering).
+MT_OPS, SV_OPS, AO_OPS, SLAB_OPS, NODE_OPS = 56, 58, 30, 25, 56
 
-def bundled_state(width, height, pixelsamples=None, gather=None):
-    """tests/golden/sunsky_scene.rib without its sunsky light: the
-    reference's ambient_occlusion.rib (322 triangles), parsed in memory."""
-    from lucille_tpu.ri.api import RiState
-    from lucille_tpu.rib.parser import parse_rib
+HEIGHTFIELD_CAMERA = (
+    'Projection "perspective" "fov" [45.0]\n'
+    'Orientation "rh"\n'
+    "ConcatTransform [0.994530 0.008385 -0.104111 0.000000 "
+    "0.052799 0.819679 0.570385 0.000000 "
+    "0.090120 -0.572762 0.814753 0.000000 "
+    "-0.000009 -0.000015 -15.529361 1.000000 ]\n"
+)
 
-    rib = ROOT / "tests" / "golden" / "sunsky_scene.rib"
-    text = "".join(l for l in rib.read_text().splitlines(keepends=True)
-                   if 'AreaLightSource "sunsky"' not in l)
+
+def front_end():
+    """The port's (RiState, parse_rib)."""
+    from lucille_tpu_torch.ri.api import RiState
+    from lucille_tpu_torch.rib.parser import parse_rib
+
+    return RiState, parse_rib
+
+
+def sunsky_line() -> str:
+    """The bundled scene's AreaLightSource "sunsky" line."""
+    return next(l for l in BUNDLED_RIB.read_text().splitlines()
+                if 'AreaLightSource "sunsky"' in l)
+
+
+def bundled_state(width, height, pixelsamples=None, gather=None,
+                  sunsky=True, api=None):
+    """tests/golden/sunsky_scene.rib, the reference's
+    ambient_occlusion.rib (322 triangles) with its sunsky light (as
+    shipped), or without that line for plain AO; parsed in memory."""
+    RiState, parse_rib = api or front_end()
+    text = BUNDLED_RIB.read_text()
+    if not sunsky:
+        text = "".join(l for l in text.splitlines(keepends=True)
+                       if 'AreaLightSource "sunsky"' not in l)
     s = RiState()
     parse_rib(text, s)
     s.Format(width, height)
@@ -95,12 +158,46 @@ def bundled_state(width, height, pixelsamples=None, gather=None):
     return s
 
 
-def heightfield_state(n, width, height, pixelsamples, gather, accel="auto"):
-    from bench_large import heightfield_scene
+def heightfield_grid(n: int):
+    """bench_large.heightfield_scene's analytic terrain: ((n*n, 3) f32
+    vertices, ((n-1)^2, 4) i64 quads)."""
+    i = np.arange(n, dtype=np.float32)
+    x = -5.0 + 10.0 * i / (n - 1)
+    xx, zz = np.meshgrid(x, x)  # zz varies along rows like the C driver
+    yy = 0.5 * np.sin(1.3 * xx) * np.cos(1.1 * zz) + 0.25 * np.sin(
+        2.7 * xx + 1.0
+    ) * np.sin(1.9 * zz)
+    P = np.stack([xx, yy, zz], axis=-1).reshape(-1, 3).astype(np.float32)
+    jj, ii = np.meshgrid(
+        np.arange(n - 1, dtype=np.int64), np.arange(n - 1, dtype=np.int64),
+        indexing="ij",
+    )
+    a = jj * n + ii
+    quads = np.stack([a, a + 1, a + n + 1, a + n], axis=-1).reshape(-1, 4)
+    return P, quads
 
-    s = heightfield_scene(n)
+
+def heightfield_state(n, width=160, height=120, pixelsamples=2, gather=64,
+                      accel="auto", sunsky=False, api=None):
+    """bench_large's scene: the camera parsed from RIB text, the terrain
+    handed to RiPointsPolygons as one mesh (identity transform), and
+    optionally the bundled scene's sunsky line."""
+    RiState, parse_rib = api or front_end()
+    P, quads = heightfield_grid(n)
+    s = RiState()
+    parse_rib(HEIGHTFIELD_CAMERA, s)
     s.Format(width, height)
     s.PixelSamples(pixelsamples, pixelsamples)
+    s.WorldBegin()
+    if sunsky:
+        parse_rib(f"AttributeBegin\n{sunsky_line()}\nAttributeEnd\n", s)
+    s.AttributeBegin()
+    s.Transform(np.eye(4).reshape(-1))
+    s.PointsPolygons(
+        np.full(len(quads), 4, np.int64), quads.reshape(-1), {"P": P}
+    )
+    s.AttributeEnd()
+    s.WorldEnd()
     s.options.gather_nsamples = gather
     s.options.accel_method = accel
     return s
@@ -110,7 +207,8 @@ def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
     from lucille_tpu_torch.accel import ao, bvh_isect, isect
 
-    return {"closest_hit": isect.COUNTS, "ao_occlusion": ao.COUNTS,
+    return {"closest_hit": isect.COUNTS, "any_hit": isect.ANY_COUNTS,
+            "ao_occlusion": ao.COUNTS, "ao_occlusion_bits": ao.BITS_COUNTS,
             "bvh_closest_hit": bvh_isect.CLOSEST_COUNTS,
             "bvh_any_hit": bvh_isect.ANY_COUNTS}
 
@@ -143,14 +241,40 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the f32 operations over the peak rate."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def tiles_reached(boxes, org, dirn, tmax):
+    """(B, n_tiles) bool: the ray reaches the tile's box before tmax (the
+    kernels' slab test).  A tile of padding alone (an empty box, min +inf
+    and max -inf) is never reached: no ray needs it."""
+    import torch
+
+    inv = 1.0 / torch.where(dirn.abs() > 1e-20, dirn, 1e-20)
+    lo = (boxes[0:3].T[None] - org[:, None]) * inv[:, None]
+    hi = (boxes[3:6].T[None] - org[:, None]) * inv[:, None]
+    tn = torch.minimum(lo, hi).amax(dim=-1)
+    tf = torch.maximum(lo, hi).amin(dim=-1)
+    filled = (boxes[0:3] <= boxes[3:6]).all(dim=0)[None]
+    return filled & (tn <= tf) & (tf > 0) & (tn < tmax[:, None])
+
+
 def check_kernels(label, desc, tile, n_slice, results):
-    """Phase 3 for one scene: both kernels on the scene's first tile
+    """Phase 3 for one scene: the dense kernels on the scene's first tile
     against their plain twins.  Appends to results[name]."""
     import torch
 
     from lucille_tpu_torch.accel import ao, isect
     from lucille_tpu_torch.accel.dispatch import closest_hit
     from lucille_tpu_torch.accel.pack import (
+        TC,
         pack_boxes,
         pack_occ,
         pack_super_boxes,
@@ -173,12 +297,12 @@ def check_kernels(label, desc, tile, n_slice, results):
     B = org.shape[0]
     lo = max(0, B // 2 - n_slice // 2)
     sl = slice(lo, lo + n_slice)
-    n_tiles = scene.n_pad // 128
+    n_tiles = scene.n_pad // TC
     print(f"[{label}] {scene.n_tris} triangles, {n_tiles} tiles, tile "
           f"({x0},{y0}) {tile}x{tile}x{xs * ys} = {B} eye rays, "
           f"slice {n_slice}", flush=True)
 
-    # -- kernel 1: closest hit
+    # -- the closest hit
     tris, boxes = pack_tris(scene), pack_boxes(scene)
     got = isect.closest_hit_kernel(tris, boxes, org, dirn)
     ref = isect.closest_hit_reference(tris, org[sl], dirn[sl])
@@ -196,64 +320,153 @@ def check_kernels(label, desc, tile, n_slice, results):
     ms = cuda_ms(lambda: isect.closest_hit_kernel(tris, boxes, org, dirn), 10)
     plain_ms = cuda_ms(lambda: isect.closest_hit_reference(tris, org, dirn), 1)
     hit_rate = (got["tri"] >= 0).float().mean().item()
+    # the work this data needs: every triangle of every tile a ray reaches
+    # before its closest hit (the kernel's own count, warp-granular,
+    # also counts lanes dragged through tiles they never reach)
+    inf = torch.full((B,), float("inf"), device="cuda")
+    t_end = torch.where(got["tri"] >= 0, torch.nextafter(got["t"], inf), inf)
+    tests = int(tiles_reached(boxes, org, dirn, t_end).sum()) * TC
+    kernel_tests = int(got["ntrav"]) * TC * isect.WARP
+    work = bound(B * (24 + 16) + scene.n_pad * 36 + n_tiles * 32,
+                 tests * MT_OPS + B * n_tiles * SLAB_OPS)
     print(f"[{label}] closest_hit: hit rate {hit_rate:.4f}, tri differs on "
-          f"{differ:.2e} of the slice, max |t,u,v err| {err:.3e}; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+          f"{differ:.2e} of the slice, max |t,u,v err| {err:.3e}; "
+          f"{tests} triangle tests needed, {kernel_tests} done; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{work['bound_ms']:.3f} ms ({work['bound_by']})", flush=True)
     results["closest_hit"].append(
-        {"scene": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        {"scene": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "tests": tests, "kernel_tests": kernel_tests, **work})
 
-    # -- kernel 2: AO gather, 8x8 strata, the jitter of the whole tile
+    # -- the AO gather, 8x8 strata, the jitter of the whole tile: counts
+    # and per-stratum bits against one run of the twin
     res = closest_hit(scene, org, dirn)
     hit = res["hit"]
     P_off, b0, b1, b2 = shading_frame(scene, org, dirn, res)
     jitter = r.sampler(x0, y0, B)
     occ = ao.ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, 8, 8)
+    occ_b, bits, u01 = ao.ao_occlusion_bits(scene, P_off, b0, b1, b2, hit,
+                                            jitter, 8, 8)
+    if not torch.equal(occ, occ_b):
+        raise AssertionError("ao_occlusion_bits: counts differ from the "
+                             "plain gather's")
+    if not torch.equal(ao.unpack_bits(bits, 64).sum(dim=0).float(), occ):
+        raise AssertionError("ao_occlusion_bits: bits disagree with counts")
     order, nhit = ao.compaction_order(scene.bbox_min, scene.bbox_max, P_off,
                                       b2, hit, n_tiles)
-    slot = torch.empty_like(order)
-    slot[order] = torch.arange(B, device="cuda")
     lanes = torch.arange(B, device="cuda")[sl]
     lanes = lanes[hit[lanes]]
     frame = torch.cat([P_off, b0, b1, b2], dim=1)
     tris_o = pack_occ(scene)
-    ref_occ = ao.ao_occlusion_reference(
-        tris_o, frame[lanes].T.contiguous(), jitter[:, slot[lanes]], 8, 8,
-        lane_chunk=65536)
+    ref_occ, ref_bits = ao.ao_occlusion_reference(
+        tris_o, frame[lanes].T.contiguous(), u01[:, lanes], 8, 8,
+        lane_chunk=65536, want_bits=True)
     torch.cuda.synchronize()
     diff = (occ[lanes] - ref_occ).abs()
     frac = (diff != 0).float().mean().item()
     if diff.max().item() > 1 or frac > 1e-4:
         raise AssertionError(f"ao_occlusion: {frac:.2e} of lanes differ, "
                              f"max {diff.max().item()}")
-    if torch.any(occ[sl][~hit[sl]] != 0):
+    if torch.any(occ[sl][~hit[sl]] != 0) or torch.any(bits[:, ~hit] != 0):
         raise AssertionError("ao_occlusion: a missed lane has occlusion")
+    bits_frac = (bits[:, lanes] != ref_bits).any(dim=0).float().mean().item()
+    if bits_frac > 1e-4:
+        raise AssertionError(f"ao_occlusion_bits: {bits_frac:.2e} of lanes "
+                             "differ")
     rays = frame[order].T.contiguous()
     sboxes = pack_super_boxes(boxes)
-    ms = cuda_ms(lambda: ao.ao_occlusion_kernel(
-        tris_o, boxes, sboxes, rays, jitter, nhit, 8, 8), 5)
     n = int(nhit)
-    plain_ms = cuda_ms(lambda: ao.ao_occlusion_reference(
-        tris_o, rays[:, :n], jitter[:, :n], 8, 8, lane_chunk=65536), 1)
-    print(f"[{label}] ao_occlusion: {n} hit lanes, mean occluded "
-          f"{occ[hit].mean().item():.3f}/64, {len(lanes)} compared, "
-          f"{frac:.2e} differ; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
-          flush=True)
-    results["ao_occlusion"].append(
-        {"scene": label, "max_abs_err": diff.max().item(), "ms": ms,
-         "plain_ms": plain_ms})
+    # the work this data needs: an open stratum tests every triangle of
+    # every tile its direction reaches, an occluded one its occluder;
+    # one box test per open stratum and tile
+    hl = torch.nonzero(hit)[:, 0]
+    open_ = ~ao.unpack_bits(bits[:, hl], 64)
+    dirs = ao.stratum_directions(b0[hl], b1[hl], b2[hl], u01[:, hl], 8, 8)
+    inf_h = torch.full((len(hl),), float("inf"), device="cuda")
+    reached = sum(
+        (tiles_reached(boxes, P_off[hl], dirs[s], inf_h).sum(dim=1)
+         * open_[s]).sum() for s in range(64))
+    n_open = int(open_.sum())
+    ao_tests = int(reached) * TC + (64 * len(hl) - n_open)
+    ao_ops = float(ao_tests * AO_OPS + n_open * n_tiles * SLAB_OPS)
+    del dirs
+    ao_bytes = B * (48 + 8 + 4) + scene.n_pad * 48 + n_tiles * 32
+    for name, want_bits, err_ in (("ao_occlusion", False, diff.max().item()),
+                                  ("ao_occlusion_bits", True,
+                                   float(bits_frac > 0))):
+        ms = cuda_ms(lambda: ao.ao_occlusion_kernel(
+            tris_o, boxes, sboxes, rays, jitter, nhit, 8, 8, want_bits), 5)
+        plain_ms = cuda_ms(lambda: ao.ao_occlusion_reference(
+            tris_o, rays[:, :n], jitter[:, :n], 8, 8, lane_chunk=65536,
+            want_bits=want_bits), 1)
+        work = bound(ao_bytes + (B * 8 if want_bits else 0), ao_ops)
+        print(f"[{label}] {name}: {n} hit lanes, mean occluded "
+              f"{occ[hit].mean().item():.3f}/64, {len(lanes)} compared, "
+              f"counts differ on {frac:.2e}, bits on {bits_frac:.2e}; "
+              f"{ao_tests} stratum-triangle tests needed; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{work['bound_ms']:.3f} ms ({work['bound_by']})", flush=True)
+        results[name].append(
+            {"scene": label, "max_abs_err": err_, "ms": ms,
+             "plain_ms": plain_ms, "tests": ao_tests, **work})
+
+    # -- the any-hit: the hit lanes' shadow rays toward the scene's sun
+    sun = next(li for li in r.lights if li.type == "sun")
+    wi = torch.tensor(sun.direction, dtype=torch.float32, device="cuda")
+    wi = (wi / torch.sqrt(torch.sum(wi * wi))).expand_as(P_off).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    diag = float(torch.linalg.norm(scene.bbox_max - scene.bbox_min))
+    finite = diag * torch.rand(B, device="cuda", generator=gen)
+    cases = [("", None, inf, hit)]
+    if label == "bundled":
+        cases.append((", finite tmax", finite, finite, hit))
+    worst, entry = 0.0, None
+    for what, tmax_arg, tmax, active in cases:
+        got = isect.any_hit(tris, boxes, P_off, wi, tmax_arg, active)["occ"]
+        ref = isect.any_hit_reference(tris, P_off[sl], wi[sl], tmax[sl],
+                                      active[sl])["occ"]
+        torch.cuda.synchronize()
+        frac = (got[sl] != ref).float().mean().item()
+        if frac > 1e-4:
+            raise AssertionError(f"any_hit{what}: {frac:.2e} of rays differ")
+        # a kernel that always answers one way must not pass
+        slice_occ = ref[active[sl]].float().mean().item()
+        if not 0.01 < slice_occ < 0.99:
+            raise AssertionError(f"any_hit{what}: the slice's live rays are "
+                                 f"{slice_occ:.4f} occluded")
+        if torch.any(got[~active]):
+            raise AssertionError("any_hit: a dead ray reports occlusion")
+        worst = max(worst, frac)
+        ms = cuda_ms(lambda: isect.any_hit(tris, boxes, P_off, wi, tmax_arg,
+                                           active), 10)
+        plain_ms = cuda_ms(lambda: isect.any_hit_reference(
+            tris, P_off, wi, tmax, active), 1)
+        reach = tiles_reached(boxes, P_off, wi, tmax) & active[:, None]
+        tests = float(torch.where(got, 1, reach.sum(dim=1) * TC).sum())
+        work = bound(B * (24 + 4 + 1 + 1) + scene.n_pad * 36 + n_tiles * 32,
+                     tests * MT_OPS + float(active.sum()) * n_tiles * SLAB_OPS)
+        print(f"[{label}] any_hit{what}: {int(active.sum())} live sun rays "
+              f"of {B}, occluded {got[active].float().mean().item():.4f} "
+              f"(the slice's {slice_occ:.4f}); {frac:.2e} of the slice "
+              f"differ; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {work['bound_ms']:.4f} ms "
+              f"({work['bound_by']})", flush=True)
+        if entry is None:
+            entry = {"scene": label, "ms": ms, "plain_ms": plain_ms, **work}
+    results["any_hit"].append({**entry, "max_abs_err": float(worst > 0)})
 
 
 def render_checked(label, r, out_name, path):
-    """Phases 4, 5 and 7 on Renderer r: warm-up, then one counted frame
+    """Phases 4, 6 and 8 on Renderer r: warm-up, then one counted frame
     through the display driver into an .hdr that is read back and
     checked, then best of 2.  `path` names the kernels the frame must
     launch; every other kernel must launch none, and no twin may run.
-    Returns the counted frame's launches of the path's kernels."""
-    import numpy as np
+    Returns (the counted frame's launches of the path's kernels, best
+    frame seconds)."""
     import torch
 
-    from lucille_tpu.display.drivers import get_display_driver
-    from lucille_tpu.imageio.rgbe import read_hdr
+    from lucille_tpu_torch.display.drivers import get_display_driver
+    from lucille_tpu_torch.imageio.rgbe import read_hdr
 
     r.render_frame()  # warm-up
     torch.cuda.synchronize()
@@ -278,7 +491,8 @@ def render_checked(label, r, out_name, path):
     if img.shape != (opt.height, opt.width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{label}: bad image {img.shape}")
     mean = float(img.mean())
-    if not 0.0 < mean < 1.0:
+    sunsky = any(li.type == "sunsky" for li in r.lights)
+    if not 0.0 < mean < (1e6 if sunsky else 1.0):
         raise AssertionError(f"{label}: image mean {mean}")
     times, nrays = [], 0
     for _ in range(2):
@@ -294,16 +508,17 @@ def render_checked(label, r, out_name, path):
     print(f"[{label}] {opt.width}x{opt.height}, "
           f"{int(opt.current_display().sampling_rates[0])}^2 samples, "
           f"{opt.gather_nsamples} AO rays, tile {r.tile_size}, accel "
-          f"{r.scene.accel}: image mean {mean:.4f}, launches {launches}; "
-          f"frame {best:.4f} s (samples {[round(t, 4) for t in times]}), "
-          f"{nrays} rays, {nrays / best / 1e6:.1f} Mrays/s", flush=True)
-    return launches
+          f"{r.scene.accel}{', sunsky' if sunsky else ''}: image mean "
+          f"{mean:.4f}, launches {launches}; frame {best:.4f} s (samples "
+          f"{[round(t, 4) for t in times]}), {nrays} rays, "
+          f"{nrays / best / 1e6:.1f} Mrays/s", flush=True)
+    return launches, best
 
 
 def build_renderer(label, make_state, tile):
     """A Renderer on the card, with the host's seconds for the scene
     description, the compile, and the tile-BVH build inside it."""
-    from lucille_tpu.base.timer import get_timer
+    from lucille_tpu_torch.base.timer import get_timer
     from lucille_tpu_torch.render.renderer import Renderer
 
     t0 = time.perf_counter()
@@ -323,7 +538,7 @@ def build_renderer(label, make_state, tile):
 
 
 def check_bvh_kernels(label, r, n_closest, n_any, results):
-    """Phase 6 for one scene: both tile-BVH kernels on the scene's first
+    """Phase 7 for one scene: both tile-BVH kernels on the scene's first
     tile against their plain twins.  Appends to results[name]."""
     import torch
 
@@ -346,6 +561,7 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     B = org.shape[0]
     tris, nodes, depth = pack_tris(scene), scene.nodes, scene.tree_depth
     inf = lambda n: torch.full((n,), float("inf"), device="cuda")  # noqa: E731
+    static_bytes = scene.n_pad * 36 + nodes.shape[0] * 32
 
     # -- tile-BVH closest hit on the eye rays
     got = bvh_isect.bvh_closest_hit(tris, nodes, org, dirn, depth=depth)
@@ -374,16 +590,19 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     ms_slice = cuda_ms(lambda: bvh_isect.bvh_closest_hit(
         tris, nodes, org[sl], dirn[sl], depth=depth), 5)
     hit_rate = (got["tri"] >= 0).float().mean().item()
+    work = bound(B * (28 + 16) + static_bytes,
+                 int(got["ntests"]) * MT_OPS + int(got["ntrav"]) * NODE_OPS)
     print(f"[{label}] bvh_closest_hit: {B} eye rays, hit rate "
           f"{hit_rate:.4f}, {int(got['ntrav'])} node visits, "
           f"{int(got['ntests'])} triangle tests; on {n_closest} rays tri "
           f"differs on {differ:.2e}, max |t,u,v err| {err:.3e}; kernel "
           f"{ms:.3f} ms ({ms_slice:.3f} ms on the slice), plain "
-          f"{plain_ms:.3f} ms on the slice", flush=True)
+          f"{plain_ms:.3f} ms on the slice, bound {work['bound_ms']:.3f} ms "
+          f"({work['bound_by']})", flush=True)
     results["bvh_closest_hit"].append(
         {"scene": label, "rays": B, "ms": ms, "slice": n_closest,
          "ms_slice": ms_slice, "plain_ms": plain_ms, "max_abs_err": err,
-         "tri_differs": differ})
+         "tri_differs": differ, **work})
 
     # -- tile-BVH any-hit on the tile's gather rays, 8x8 strata
     res = closest_hit(scene, org, dirn)
@@ -406,28 +625,68 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
                                                depth=depth), 3)
     ms_slice = cuda_ms(lambda: bvh_isect.bvh_any_hit(
         tris, nodes, oo[sl], dd[sl], depth=depth), 5)
+    work = bound(R * (28 + 1) + static_bytes,
+                 int(got["ntests"]) * SV_OPS + int(got["ntrav"]) * NODE_OPS)
     print(f"[{label}] bvh_any_hit: {R} gather rays ({live} live), occluded "
           f"{got['occ'][:live].float().mean().item():.4f}, "
           f"{int(got['ntrav'])} node visits, {int(got['ntests'])} triangle "
           f"tests; on {n_any} rays {frac:.2e} differ; kernel {ms:.3f} ms "
           f"({ms_slice:.3f} ms on the slice), plain {plain_ms:.3f} ms on "
-          f"the slice", flush=True)
+          f"the slice, bound {work['bound_ms']:.3f} ms ({work['bound_by']})",
+          flush=True)
     results["bvh_any_hit"].append(
         {"scene": label, "rays": R, "ms": ms, "slice": n_any,
          "ms_slice": ms_slice, "plain_ms": plain_ms,
-         "max_abs_err": float(frac > 0), "differs": frac})
+         "max_abs_err": float(frac > 0), "differs": frac, **work})
+
+
+def check_goldens():
+    """Phase 5: the port's 80x60 frames against CPU-lucille's."""
+    from lucille_tpu_torch.imageio.rgbe import read_hdr
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    golden = read_hdr(ROOT / "tests" / "golden" / "ao_80x60_ref.hdr")
+    img = Renderer(bundled_state(80, 60, sunsky=False).scene, tile_size=32,
+                   device="cuda").render_frame()
+    diff = np.abs(golden - img[::-1]).mean(axis=-1)
+    print(f"[golden] AO 80x60 against CPU-lucille: mean |diff| "
+          f"{diff.mean():.5f} (< 0.01), pixels > 0.1: "
+          f"{(diff > 0.1).mean():.5f} (< 0.005)", flush=True)
+    if not (diff.mean() < 0.01 and (diff > 0.1).mean() < 0.005):
+        raise AssertionError("the port's AO frame disagrees with CPU-lucille's")
+
+    # the reference shades its sun with turbidity 0 (an unset field,
+    # lucille_tpu/lights/sunsky.py:278-288)
+    desc = bundled_state(80, 60).scene
+    sky = next(li.sunsky for li in desc.lights if li.type == "sunsky")
+    for li in desc.lights:
+        if li.type == "sun":
+            li.color = sky.sunlight_rgb(turbidity=0.0)
+    golden = read_hdr(ROOT / "tests" / "golden" / "sunsky_80x60_ref.hdr")
+    img = Renderer(desc, tile_size=32, device="cuda").render_frame()[::-1]
+    gl, ml = golden.mean(-1), img.mean(-1)
+    hit = ml > 0
+    corr = np.corrcoef(gl.ravel(), ml.ravel())[0, 1]
+    ratio = img[hit].mean(0) / golden[hit].mean(0)
+    rel = (np.abs(ml - gl) / np.maximum(gl, 1.0))[hit].mean()
+    print(f"[golden] sunsky 80x60 against CPU-lucille: correlation "
+          f"{corr:.5f} (> 0.995), channel ratios "
+          f"{[round(float(x), 4) for x in ratio]} (0.90-1.05), mean "
+          f"relative error {rel:.4f} (< 0.08)", flush=True)
+    if not (corr > 0.995 and (ratio > 0.90).all() and (ratio < 1.05).all()
+            and rel < 0.08):
+        raise AssertionError("the port's sunsky frame disagrees with "
+                             "CPU-lucille's")
 
 
 def cross_check_accels():
-    """Phase 8: the n = 91 heightfield on the dense tiles and on the tile
+    """Phase 9: the n = 91 heightfield on the dense tiles and on the tile
     BVH; means over the pixels both render as hits, within 0.01."""
-    import numpy as np
-
     from lucille_tpu_torch.render.renderer import Renderer
 
     imgs = {}
     for accel in ("pallas", "bvh"):
-        r = Renderer(heightfield_state(91, 160, 120, 2, 64, accel).scene,
+        r = Renderer(heightfield_state(91, accel=accel).scene,
                      tile_size=128, device="cuda")
         imgs[r.scene.accel] = r.render_frame()
     dense, bvh = imgs["dense"], imgs["pbvh"]
@@ -448,6 +707,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from lucille_tpu_torch.kernels import build
+    from lucille_tpu_torch.render.renderer import Renderer
 
     # 1. the card
     smi = subprocess.run(
@@ -466,69 +726,72 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas: " + line.strip())
 
-    # 3. kernels against their plain twins at the main path's shapes
-    results = {"closest_hit": [], "ao_occlusion": []}
+    # 3. the dense kernels against their plain twins at the main paths'
+    # shapes (the scenes with their sun, which only the any-hit reads)
+    results = {k: [] for k in SOURCES}
     check_kernels("bundled", bundled_state(640, 480, 3, 64).scene, TILE,
                   65536, results)
     check_kernels("heightfield91",
-                  heightfield_state(91, 160, 120, 2, 64).scene, 128, 32768,
+                  heightfield_state(91, sunsky=True).scene, 128, 32768,
                   results)
 
-    # 4. the headline frame, and the golden check at 80x60
-    from lucille_tpu_torch.render.renderer import Renderer
-
+    # 4. the headline frames: the bundled scene as shipped (sunsky AO),
+    # then plain AO
+    launches = {}
+    sunsky_path = ("closest_hit", "ao_occlusion_bits", "any_hit")
+    got, _ = render_checked(
+        "headline-sunsky", Renderer(bundled_state(640, 480, 3, 64).scene,
+                                    tile_size=TILE, device="cuda"),
+        "chip_smoke_sunsky_640x480.hdr", sunsky_path)
+    launches.update(got)
     dense = ("closest_hit", "ao_occlusion")
-    launches = render_checked(
-        "headline", Renderer(bundled_state(640, 480, 3, 64).scene,
-                             tile_size=TILE, device="cuda"),
+    got, _ = render_checked(
+        "headline-ao", Renderer(bundled_state(640, 480, 3, 64,
+                                              sunsky=False).scene,
+                                tile_size=TILE, device="cuda"),
         "chip_smoke_ao_640x480.hdr", dense)
-    import numpy as np
+    launches["ao_occlusion"] = got["ao_occlusion"]
 
-    from lucille_tpu.imageio.rgbe import read_hdr
+    # 5. the goldens at 80x60
+    check_goldens()
 
-    golden = read_hdr(ROOT / "tests" / "golden" / "ao_80x60_ref.hdr")
-    img = Renderer(bundled_state(80, 60).scene, tile_size=32,
-                   device="cuda").render_frame()
-    diff = np.abs(golden - img[::-1]).mean(axis=-1)
-    print(f"[golden] 80x60 against CPU-lucille: mean |diff| "
-          f"{diff.mean():.5f} (< 0.01), pixels > 0.1: "
-          f"{(diff > 0.1).mean():.5f} (< 0.005)", flush=True)
-    if not (diff.mean() < 0.01 and (diff > 0.1).mean() < 0.005):
-        raise AssertionError("the port's frame disagrees with CPU-lucille's")
-
-    # 5. the dense path's upper range
+    # 6. the dense path's upper range
     render_checked("heightfield91", Renderer(
-        heightfield_state(91, 160, 120, 2, 64).scene, tile_size=128,
-        device="cuda"), "chip_smoke_heightfield91.hdr", dense)
+        heightfield_state(91).scene, tile_size=128, device="cuda"),
+        "chip_smoke_heightfield91.hdr", dense)
 
-    # 6. and 7. the tile-BVH kernels, then the large-scene frames
+    # 7. and 8. the tile-BVH kernels, then the large-scene frames
     bvh = ("bvh_closest_hit", "bvh_any_hit")
-    results.update({k: [] for k in bvh})
     for n, n_closest, n_any in ((256, 16384, 32768), (724, 4096, 8192)):
         label = f"heightfield{n}"
-        r = build_renderer(label, lambda: heightfield_state(n, 160, 120, 2,
-                                                            64), 128)
+        r = build_renderer(label, lambda: heightfield_state(n), 128)
         if r.scene.accel != "pbvh":
             raise AssertionError(f"{label}: accel {r.scene.accel}")
         check_bvh_kernels(label, r, n_closest, n_any, results)
-        got = render_checked(label, r, f"chip_smoke_{label}.hdr", bvh)
+        got, _ = render_checked(label, r, f"chip_smoke_{label}.hdr", bvh)
         if n == 256:
             launches.update(got)
         for k in bvh:
             results[k][-1]["frame_launches"] = got[k]
+    render_checked("heightfield256-sunsky", build_renderer(
+        "heightfield256-sunsky", lambda: heightfield_state(256, sunsky=True),
+        128), "chip_smoke_heightfield256_sunsky.hdr", bvh)
 
-    # 8. two accels, one scene
+    # 9. two accels, one scene
     cross_check_accels()
 
-    # 9. results
+    # 10. results
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         head = results[name][0]  # the headline / heightfield256 tile
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
+            **{k: head[k] for k in keys},
             "max_abs_err": max(x["max_abs_err"] for x in results[name]),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            # no PyTorch call intersects rays with triangles
+            "library_ms": None,
             "by_scene": results[name],
         })
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,23 @@
 """Fused AO occlusion gather: lane ordering, the CUDA kernel's wrapper and
 its plain torch twin.
 
-Counterpart of lucille_tpu/accel/pallas_ao.py:453-681 (want_bits=False).
+Counterpart of lucille_tpu/accel/pallas_ao.py:453-681, both outputs.
 Hit lanes are compacted to the front in the JAX package's exact order —
 a stable hit-first partition below 8 triangle tiles, the stable
 (normal octant, Morton cell) sort from 8 tiles — because the per-lane
 jitter is indexed by compacted slot: slot j reads jitter[:, j].  The
 counts are scattered back to raster order.
 
-The kernel is csrc/ao.cu; `ao_occlusion` launches it for CUDA tensors and
-runs `ao_occlusion_reference` on the compacted hit lanes for CPU tensors.
+`ao_occlusion_bits` (pallas_ao_occlusion_bits) returns, beside the
+counts, which strata are occluded — ceil(S/32) int32 rows, bit s % 32 of
+row s // 32 for stratum s — and the jitter, both scattered back to
+raster order, so that the sunsky gather can recompute each stratum's
+direction (`stratum_directions`, the kernel's own formula) and weight
+the open ones by the sky.
+
+The kernel is csrc/ao.cu; `ao_occlusion` and `ao_occlusion_bits` launch
+it for CUDA tensors and run `ao_occlusion_reference` on the compacted
+hit lanes for CPU tensors.
 """
 
 from __future__ import annotations
@@ -29,8 +37,13 @@ from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 R2_A1 = 0.7548776662466927  # R2 additive-recurrence constants (plastic
 R2_A2 = 0.5698402909980532  # number alpha, alpha^2), rounded to f32 in use
 STRATUM_CULL_MIN_TILES = 8  # lucille_tpu's switch to the Morton lane order
+# lucille_tpu runs the fused gather on scenes of at most this many (padded)
+# triangles (pallas_ao.py:102, its VMEM budget); above it its sunsky gather
+# scans the strata with another jitter, which the port does not copy
+MAX_TRIS_FOR_MEGAKERNEL = 131072
 
-COUNTS = LaunchCounts()
+COUNTS = LaunchCounts()  # the counts alone
+BITS_COUNTS = LaunchCounts()  # the counts with the per-stratum bits
 
 
 def partition_order(hit: torch.Tensor):
@@ -74,14 +87,10 @@ def compaction_order(bbox_min, bbox_max, P_off, b2, hit, n_tri_tiles: int):
     return order, hit.to(torch.int32).sum(dtype=torch.int32)
 
 
-def ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
-                 nphi: int) -> torch.Tensor:
-    """Occlusion counts for a wavefront of primary hits.
-
-    P_off, b0, b1, b2: (B, 3) f32 offset shading points and orthonormal
-    basis (b2 = shading normal); hit: (B,) bool; jitter: (2, B) f32
-    uniforms, column j belonging to compacted slot j.  Returns (B,) f32:
-    how many of the ntheta * nphi strata are occluded (0 where not hit)."""
+def _gather(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int, nphi: int,
+            want_bits: bool):
+    """The compacted gather: (order, occ (B,) and, with want_bits, bits
+    (ceil(S/32), B) i32, both in compacted order)."""
     B = P_off.shape[0]
     if tuple(jitter.shape) != (2, B) or jitter.dtype != torch.float32:
         raise ValueError(f"jitter: need (2, {B}) f32, got "
@@ -96,29 +105,72 @@ def ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     jitter = jitter.contiguous()
     dev = P_off.device
     if dev.type == "cuda":
-        occ_sorted = ao_occlusion_kernel(
+        out = ao_occlusion_kernel(
             tris, boxes, pack_super_boxes(boxes), rays, jitter, nhit,
-            ntheta, nphi,
+            ntheta, nphi, want_bits,
         )
     elif dev.type == "cpu":
         n = int(nhit)
-        occ_sorted = torch.zeros(B, device=dev)
-        occ_sorted[:n] = ao_occlusion_reference(
-            tris, rays[:, :n], jitter[:, :n], ntheta, nphi
-        )
+        ref = ao_occlusion_reference(tris, rays[:, :n], jitter[:, :n],
+                                     ntheta, nphi, want_bits=want_bits)
+        occ = torch.zeros(B, device=dev)
+        if want_bits:
+            occ[:n] = ref[0]
+            bits = torch.zeros((ref[1].shape[0], B), dtype=torch.int32,
+                               device=dev)
+            bits[:, :n] = ref[1]
+            out = (occ, bits)
+        else:
+            occ[:n] = ref
+            out = occ
     else:
         raise ValueError(f"unsupported device {dev}")
+    return order, out
+
+
+def ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
+                 nphi: int) -> torch.Tensor:
+    """Occlusion counts for a wavefront of primary hits.
+
+    P_off, b0, b1, b2: (B, 3) f32 offset shading points and orthonormal
+    basis (b2 = shading normal); hit: (B,) bool; jitter: (2, B) f32
+    uniforms, column j belonging to compacted slot j.  Returns (B,) f32:
+    how many of the ntheta * nphi strata are occluded (0 where not hit)."""
+    order, occ_sorted = _gather(scene, P_off, b0, b1, b2, hit, jitter,
+                                ntheta, nphi, False)
     occ = torch.empty_like(occ_sorted)
     occ[order] = occ_sorted
     return occ
 
 
+def ao_occlusion_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
+                      nphi: int):
+    """The gather with its per-stratum output (pallas_ao_occlusion_bits,
+    pallas_ao.py:557-571,667-681).  Operands as ao_occlusion.  Returns
+    (occ (B,) f32, bits (ceil(S/32), B) i32, u01 (2, B) f32), all in
+    raster order: bit s % 32 of bits[s // 32, b] is set when stratum s of
+    lane b is occluded (0 where not hit), and u01[:, b] is the jitter
+    column lane b's strata were drawn from (the column of its compacted
+    slot)."""
+    order, (occ_sorted, bits_sorted) = _gather(
+        scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi, True)
+    occ = torch.empty_like(occ_sorted)
+    occ[order] = occ_sorted
+    bits = torch.empty_like(bits_sorted)
+    bits[:, order] = bits_sorted
+    u01 = torch.empty_like(jitter)
+    u01[:, order] = jitter
+    return occ, bits, u01
+
+
 def ao_occlusion_kernel(tris, boxes, sboxes, rays, jitter, nact, ntheta: int,
-                        nphi: int) -> torch.Tensor:
+                        nphi: int, want_bits: bool = False):
     """Launch csrc/ao.cu on the current stream (CUDA tensors only).
 
     rays (12, B) [P_off | b0 | b1 | b2] in compacted order, jitter (2, B),
-    nact () i32 on the device (lanes at or past it report 0)."""
+    nact () i32 on the device (lanes at or past it report 0).  Returns occ
+    (B,) f32, or (occ, bits (ceil(S/32), B) i32) with want_bits, in
+    compacted order."""
     B = rays.shape[1]
     dev = rays.device
     if dev.type != "cuda":
@@ -136,6 +188,8 @@ def ao_occlusion_kernel(tris, boxes, sboxes, rays, jitter, nact, ntheta: int,
     if nact.dtype != torch.int32 or nact.numel() != 1 or nact.device != dev:
         raise ValueError("nact: need one int32 on the rays' device")
     occ = torch.empty(B, dtype=torch.float32, device=dev)
+    bits = (torch.empty((-(-ntheta * nphi // 32), B), dtype=torch.int32,
+                        device=dev) if want_bits else None)
     lib = library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -143,54 +197,90 @@ def ao_occlusion_kernel(tris, boxes, sboxes, rays, jitter, nact, ntheta: int,
             rays.data_ptr(), jitter.data_ptr(), B, nact.data_ptr(),
             tris.data_ptr(), tris.shape[1], boxes.data_ptr(), boxes.shape[1],
             sboxes.data_ptr(), sboxes.shape[1], ntheta, nphi,
-            1.0 / ntheta, 1.0 / nphi, occ.data_ptr(), stream,
+            1.0 / ntheta, 1.0 / nphi, occ.data_ptr(),
+            None if bits is None else bits.data_ptr(), stream,
         )
     check("lt_ao_occlusion", err)
+    if want_bits:
+        BITS_COUNTS.kernel += 1
+        return occ, bits
     COUNTS.kernel += 1
     return occ
 
 
-def stratum_directions(basis, u01, ntheta: int, nphi: int):
-    """The kernel's stratified cosine directions (pallas_ao.py:172-194).
+def stratum_directions(b0, b1, b2, u01, ntheta: int, nphi: int):
+    """The kernel's stratified cosine directions (pallas_ao.py:172-194),
+    every stratum of every lane at once: (S, n, 3) f32 for lanes with
+    basis b0, b1, b2 (n, 3) and uniforms u01 (2, n).  Stratum s shifts the
+    lane's pair by the R2 Cranley-Patterson offsets frac(s * a1),
+    frac(s * a2) and maps it into cell (s % ntheta, s // ntheta):
+    cos_t = sqrt(z0), phi = 2 pi z1, lz = sqrt(max(1 - z0, 0)).  Every
+    operation rounds in f32 as the kernel's does."""
+    S = ntheta * nphi
+    dev = b0.device
+    s = torch.arange(S, dtype=torch.float32, device=dev)
+    sh0 = s * R2_A1
+    sh0 = sh0 - torch.floor(sh0)
+    sh1 = s * R2_A2
+    sh1 = sh1 - torch.floor(sh1)
+    u0 = u01[0][None, :] + sh0[:, None]
+    u0 = u0 - torch.floor(u0)
+    u1 = u01[1][None, :] + sh1[:, None]
+    u1 = u1 - torch.floor(u1)
+    si = torch.arange(S, dtype=torch.int32, device=dev)
+    fi = (si % ntheta).to(torch.float32)
+    fj = (si // ntheta).to(torch.float32)
+    z0 = (fi[:, None] + u0) * (1.0 / ntheta)
+    z1 = (fj[:, None] + u1) * (1.0 / nphi)
+    cos_t = torch.sqrt(z0)
+    phi = (2.0 * np.pi) * z1
+    lx = torch.cos(phi) * cos_t
+    ly = torch.sin(phi) * cos_t
+    lz = torch.sqrt(torch.clamp_min(1.0 - z0, 0.0))
+    return (lx[..., None] * b0[None] + ly[..., None] * b1[None]
+            + lz[..., None] * b2[None])
 
-    basis (9, n) [b0 | b1 | b2]; u01 (2, n).  Yields (s, (dx, dy, dz)) for
-    s = 0 .. ntheta*nphi - 1, each component (n,) f32."""
-    for s in range(ntheta * nphi):
-        sh0 = np.float32(s) * np.float32(R2_A1)
-        sh1 = np.float32(s) * np.float32(R2_A2)
-        u0 = u01[0] + float(sh0 - np.floor(sh0))
-        u0 = u0 - torch.floor(u0)
-        u1 = u01[1] + float(sh1 - np.floor(sh1))
-        u1 = u1 - torch.floor(u1)
-        z0 = (u0 + float(s % ntheta)) * (1.0 / ntheta)
-        z1 = (u1 + float(s // ntheta)) * (1.0 / nphi)
-        cos_t = torch.sqrt(z0)
-        phi = z1 * (2.0 * np.pi)
-        lx = torch.cos(phi) * cos_t
-        ly = torch.sin(phi) * cos_t
-        lz = torch.sqrt(torch.clamp_min(1.0 - z0, 0.0))
-        yield s, tuple(lx * basis[c] + ly * basis[3 + c] + lz * basis[6 + c]
-                       for c in range(3))
+
+def pack_bits(flags: torch.Tensor) -> torch.Tensor:
+    """(S, n) bool per-stratum flags -> (ceil(S/32), n) i32 rows, bit
+    s % 32 of row s // 32 for stratum s."""
+    S, n = flags.shape
+    rows = -(-S // 32)
+    f = torch.zeros((rows * 32, n), dtype=torch.int64, device=flags.device)
+    f[:S] = flags.to(torch.int64)
+    weight = torch.ones(32, dtype=torch.int64, device=flags.device) << (
+        torch.arange(32, device=flags.device))
+    words = (f.reshape(rows, 32, n) * weight[None, :, None]).sum(dim=1)
+    # the unsigned 32-bit word as the int32 with the same bits
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
+        torch.int32)
+
+
+def unpack_bits(bits: torch.Tensor, S: int) -> torch.Tensor:
+    """(ceil(S/32), n) i32 rows -> (S, n) bool flags (pack_bits' inverse)."""
+    s = torch.arange(S, device=bits.device)
+    return ((bits[s // 32] >> (s % 32)[:, None].to(torch.int32)) & 1) == 1
 
 
 def ao_occlusion_reference(tris, rays, u01, ntheta: int, nphi: int,
-                           lane_chunk: int = 16384) -> torch.Tensor:
+                           lane_chunk: int = 16384, want_bits: bool = False):
     """Plain torch twin for lanes that all hit: rays (12, n) [P_off | b0 |
     b1 | b2], u01 (2, n) each lane's own uniforms.  Every stratum against
     every triangle with the signed-volume test in the kernel's operation
     order (occlusion_test_reference, pallas_ao.py:428-450).  Returns (n,)
-    f32 occluded-stratum counts."""
-    COUNTS.plain += 1
+    f32 occluded-stratum counts, or with want_bits (counts, (ceil(S/32),
+    n) i32 bits)."""
+    (BITS_COUNTS if want_bits else COUNTS).plain += 1
     n = rays.shape[1]
+    S = ntheta * nphi
     n_tiles = tris.shape[1] // TC
-    out = torch.zeros(n, device=rays.device)
+    occluded = torch.zeros((S, n), dtype=torch.bool, device=rays.device)
     for lo in range(0, n, lane_chunk):
         hi = min(n, lo + lane_chunk)
         ox, oy, oz = (rays[c, lo:hi][None, :] for c in range(3))
-        dirs = list(stratum_directions(rays[3:12, lo:hi], u01[:, lo:hi],
-                                       ntheta, nphi))
-        occluded = torch.zeros((len(dirs), hi - lo), dtype=torch.bool,
-                               device=rays.device)
+        dirs = stratum_directions(*(rays[3 * c : 3 * c + 3, lo:hi].T
+                                    for c in (1, 2, 3)),
+                                  u01[:, lo:hi], ntheta, nphi)
         for k in range(n_tiles):
             tile = tris[:, k * TC : (k + 1) * TC]
             col = [tile[r][:, None] for r in range(12)]  # (TC, 1)
@@ -205,7 +295,8 @@ def ao_occlusion_reference(tris, rays, u01, ntheta: int, nphi: int,
             ccay = pcz * pax - pcx * paz
             ccaz = pcx * pay - pcy * pax
             s_n = pax * nx + pay * ny + paz * nz
-            for s, (dx, dy, dz) in dirs:
+            for s in range(S):
+                dx, dy, dz = (dirs[s, :, c][None, :] for c in range(3))
                 U = dx * cbcx + dy * cbcy + dz * cbcz
                 V = dx * ccax + dy * ccay + dz * ccaz
                 dn = dx * nx + dy * ny + dz * nz
@@ -213,6 +304,6 @@ def ao_occlusion_reference(tris, rays, u01, ntheta: int, nphi: int,
                 inside = ((torch.minimum(torch.minimum(U, V), W) >= 0.0)
                           | (torch.maximum(torch.maximum(U, V), W) <= 0.0))
                 hit = inside & (s_n * dn > 0.0) & (dn.abs() > DET_EPS)
-                occluded[s] |= hit.any(dim=0)
-        out[lo:hi] = occluded.sum(dim=0).to(torch.float32)
-    return out
+                occluded[s, lo:hi] |= hit.any(dim=0)
+    counts = occluded.sum(dim=0).to(torch.float32)
+    return (counts, pack_bits(occluded)) if want_bits else counts

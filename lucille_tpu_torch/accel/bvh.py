@@ -17,8 +17,8 @@ bvh.c:1231, surface-area metric bvh.c:1191), emitted as flat arrays:
   triangle permutation is returned so callers reorder their arrays.
 
 ``build_bvh`` prefers the C++ builder (native/bvh_builder.cpp, loaded
-through lucille_tpu.native.loader, which imports no jax) and falls back
-to the NumPy build below, exactly as the original does.
+through the port's native/loader.py) and falls back to the NumPy build
+below, exactly as the original does.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def build_bvh(v0, v1, v2, leaf_size: int = 8, use_native: bool = True) -> BVH:
     10-50x faster on big scenes), falling back to the NumPy implementation
     below (identical output layout and invariants)."""
     if use_native:
-        from lucille_tpu.native.loader import native_build_bvh
+        from lucille_tpu_torch.native.loader import native_build_bvh
 
         out = native_build_bvh(v0, v1, v2, leaf_size)
         if out is not None:

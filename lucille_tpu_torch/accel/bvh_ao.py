@@ -5,9 +5,10 @@ Counterpart of lucille_tpu/accel/pallas_bvh.py:965-1233 in its default
 "cone" mode (`pallas_bvh_ao_occlusion` -> `_pallas_bvh_ao_conetiled`):
 
 - every hit lane gets S = ntheta * nphi stratified cosine directions
-  (`stratified_dirs`, the same f32 formulas as `_stratified_dirs`), drawn
-  from its own two uniforms: column j of the (2, B) jitter belongs to
-  raster lane j, not to a compacted slot as on the dense accel;
+  (accel/ao.stratum_directions, the dense kernel's f32 formulas, which
+  are `_stratified_dirs`' too), drawn from its own two uniforms: column
+  j of the (2, B) jitter belongs to raster lane j, not to a compacted
+  slot as on the dense accel;
 - origins are ordered by accel/ao.compaction_order's Morton branch
   (hit lanes first, by normal octant and Morton cell), the strata
   permuted into cone-adjacent runs of K (`stratum_tile_perm`), and the
@@ -19,7 +20,10 @@ Counterpart of lucille_tpu/accel/pallas_bvh.py:965-1233 in its default
 - missed lanes are parked outside the scene bounds, pointing away, so
   their rays leave at the root;
 - the tile-BVH any-hit (accel/bvh_isect.py) traces the rays, and the
-  occluded strata are summed per lane and scattered back to raster order.
+  occluded strata are summed per lane and scattered back to raster order;
+- under a sunsky light (`bvh_ao_sunsky`, pallas_bvh.py:1236-1268) the
+  same rays' visibility weights the sky radiance along each direction
+  instead, summed per lane the same way.
 
 Nothing here waits on the device: the live-lane count never leaves it,
 so the renderer can enqueue every tile before it pulls the first.
@@ -32,41 +36,12 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lucille_tpu_torch.accel.ao import R2_A1, R2_A2, compaction_order
+from lucille_tpu_torch.accel.ao import compaction_order, stratum_directions
 from lucille_tpu_torch.accel.bvh_isect import WARP
 from lucille_tpu_torch.accel.dispatch import any_hit
 
 CONE_K = 4  # strata per warp: lucille_tpu's measured default (_cone_k)
 MORTON_TILES = 1 << 20  # selects compaction_order's Morton branch
-
-
-def stratified_dirs(b0, b1, b2, u01, ntheta: int, nphi: int) -> torch.Tensor:
-    """All S = ntheta * nphi stratified hemisphere directions of every
-    lane, (S, B, 3): the lane's uniforms u01 (2, B) Cranley-Patterson
-    rotated per stratum by the R2 sequence (pallas_bvh.py:1018-1058)."""
-    S = ntheta * nphi
-    dev = b0.device
-    s = torch.arange(S, dtype=torch.float32, device=dev)
-    sh0 = s * R2_A1
-    sh0 = sh0 - torch.floor(sh0)
-    sh1 = s * R2_A2
-    sh1 = sh1 - torch.floor(sh1)
-    u0 = u01[0][None, :] + sh0[:, None]
-    u0 = u0 - torch.floor(u0)
-    u1 = u01[1][None, :] + sh1[:, None]
-    u1 = u1 - torch.floor(u1)
-    si = torch.arange(S, dtype=torch.int32, device=dev)
-    fi = (si % ntheta).to(torch.float32)
-    fj = (si // ntheta).to(torch.float32)
-    z0 = (fi[:, None] + u0) * (1.0 / ntheta)
-    z1 = (fj[:, None] + u1) * (1.0 / nphi)
-    cos_t = torch.sqrt(z0)
-    phi = (2.0 * np.pi) * z1
-    lx = torch.cos(phi) * cos_t
-    ly = torch.sin(phi) * cos_t
-    lz = torch.sqrt(torch.clamp_min(1.0 - z0, 0.0))
-    return (lx[..., None] * b0[None] + ly[..., None] * b1[None]
-            + lz[..., None] * b2[None])
 
 
 def stratum_tile_perm(ntheta: int, nphi: int, K: int) -> np.ndarray:
@@ -125,7 +100,7 @@ def conetile_rays(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
         jitter = pad(jitter, dim=1)
     order, _nhit = compaction_order(scene.bbox_min, scene.bbox_max, P_off,
                                     b2, hit, MORTON_TILES)
-    d_all = stratified_dirs(b0, b1, b2, jitter, ntheta, nphi)
+    d_all = stratum_directions(b0, b1, b2, jitter, ntheta, nphi)
     diag = scene.bbox_max - scene.bbox_min
     o = torch.where(hit[:, None], P_off, (scene.bbox_min - diag - 1.0)[None])
     perm, away = _device_consts(ntheta, nphi, K, P_off.device)
@@ -162,3 +137,24 @@ def bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     occ[order] = occ_g.reshape(-1)
     stats = {"ntrav": res["ntrav"], "ntests": res["ntests"]}
     return occ[:B] * hit.to(torch.float32), stats
+
+
+def bvh_ao_sunsky(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
+                  nphi: int, sky):
+    """Sky radiance summed over each lane's unoccluded strata on a pbvh
+    scene (pallas_bvh_ao_sunsky): the cone-tiled gather rays of
+    bvh_ao_occlusion through the tile-BVH any-hit, vis x sky.sky_rgb of
+    the direction in the sky's z-up frame (the reference's y/z swap,
+    lightsource.c:152-155), summed over a lane's strata.  Operands as
+    bvh_ao_occlusion; sky: lights/sunsky.PreethamSunSky.  Returns (B, 3)
+    f32, 0 where not hit.  lucille_tpu drops this gather's counters
+    (transport/ao.py:227-229); so does the port."""
+    B = P_off.shape[0]
+    oo, dd, order, (NG, S, G, Bpad) = conetile_rays(
+        scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi)
+    vis = ~any_hit(scene, oo, dd)["occ"]
+    sky_rgb = sky.sky_rgb(dd[:, [0, 2, 1]])
+    col_g = (vis[:, None] * sky_rgb).reshape(NG, S, G, 3).sum(dim=1)
+    col = torch.empty((Bpad, 3), dtype=torch.float32, device=P_off.device)
+    col[order] = col_g.reshape(-1, 3)
+    return col[:B] * hit[:, None].to(torch.float32)

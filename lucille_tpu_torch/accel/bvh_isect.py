@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from lucille_tpu_torch.accel.isect import DET_EPS, closest_scan
+from lucille_tpu_torch.accel.isect import DET_EPS, closest_scan, ray_limits
 from lucille_tpu_torch.accel.pack import TC
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 
@@ -56,11 +56,7 @@ def _inputs(tris, nodes, org, dirn, tmax, depth):
     if depth > STACK:
         raise ValueError(f"tree depth {depth} exceeds the kernels' "
                          f"{STACK}-entry stack")
-    B = org.shape[0]
-    if tmax is None:
-        return torch.full((B,), float("inf"), device=dev)
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev)
-    return torch.broadcast_to(tmax, (B,)).contiguous()
+    return ray_limits(org, tmax)[0]
 
 
 def _launch(name, dev, *args):

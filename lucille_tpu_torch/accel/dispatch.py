@@ -46,16 +46,22 @@ def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
 
 
 def any_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
-            tmax=None) -> dict:
+            tmax=None, active=None) -> dict:
     """Whether each ray (B, 3) hits anything with 0 < t < tmax (None:
-    unbounded).  Returns {occ (B,) bool, ntrav, ntests}.  Served on the
-    tile BVH; the dense any-hit (kernel 2 of ROADMAP Queue 2,
-    pallas_isect.py:_anyhit_kernel) is still to port."""
-    if scene.accel != "pbvh":
-        raise NotImplementedError(
-            f"any-hit on accel {scene.accel!r}: the dense any-hit kernel "
-            "(pallas_isect.py:_anyhit_kernel) is not ported yet "
-            "(ROADMAP Queue 2)")
-    return bvh_isect.bvh_any_hit(pack_tris(scene), scene.nodes,
-                                 org.contiguous(), dirn.contiguous(), tmax,
-                                 depth=scene.tree_depth)
+    unbounded, a float or (B,)); active: None or a (B,) bool mask of the
+    rays that count, the others report False.  Returns {occ (B,) bool},
+    plus the tile BVH's ntrav and ntests.  On the dense tiles a dead ray
+    costs no work (csrc/isect.cu); the tile BVH traces it and masks the
+    answer, as lucille_tpu's BVH path ignores the mask
+    (lucille_tpu/accel/dispatch.py:48-65)."""
+    org, dirn = org.contiguous(), dirn.contiguous()
+    if scene.accel == "pbvh":
+        res = bvh_isect.bvh_any_hit(pack_tris(scene), scene.nodes, org, dirn,
+                                    tmax, depth=scene.tree_depth)
+        if active is not None:
+            res["occ"] = res["occ"] & active
+        return res
+    if scene.accel == "dense":
+        return isect.any_hit(pack_tris(scene), pack_boxes(scene), org, dirn,
+                             tmax, active)
+    raise NotImplementedError(f"accel {scene.accel!r} is not ported")

@@ -1,14 +1,20 @@
-"""Dense closest hit: the CUDA kernel's wrapper and its plain torch twin.
+"""Dense closest hit and any-hit: the CUDA kernels' wrappers and their
+plain torch twins.
 
-Counterpart of lucille_tpu/accel/pallas_isect.py:270-387.  The kernel is
-csrc/isect.cu; `closest_hit` launches it for CUDA tensors and runs
-`closest_hit_reference` for CPU tensors.
+Counterparts of lucille_tpu/accel/pallas_isect.py:270-387
+(`pallas_closest_hit`) and :472-552 (`pallas_any_hit`).  The kernels are
+csrc/isect.cu; `closest_hit` and `any_hit` launch them for CUDA tensors
+and run `closest_hit_reference` / `any_hit_reference` for CPU tensors.
+Both twins share the kernels' Moller-Trumbore arithmetic (`_mt_tile`,
+with the division by the determinant), not the BVH any-hit's
+division-free signed-volume test (accel/bvh_isect.py).
 
 Counters (the port's own definition; only nrays is held to lucille_tpu):
 ``ntrav`` is the number of (warp of 32 rays, 128-triangle tile) pairs
-tested, ``ntests`` = ntrav * 128 * 32 ray-triangle tests.  The kernel
-skips a tile for a warp none of whose rays reaches the tile's box; the
-plain twin skips nothing, so it reports every pair.
+tested by the closest hit, ``ntests`` = ntrav * 128 * 32 ray-triangle
+tests.  The kernel skips a tile for a warp none of whose rays reaches
+the tile's box; the plain twin skips nothing, so it reports every pair.
+The any-hit counts nothing, as lucille_tpu's does not.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ DET_EPS = 1.0e-14  # the reference's |det| floor (bvh.c:746)
 WARP = 32
 BLOCK = 256  # rays per CUDA block (csrc/isect.cu)
 
-COUNTS = LaunchCounts()
+COUNTS = LaunchCounts()  # the closest hit
+ANY_COUNTS = LaunchCounts()
 
 
 def _check_inputs(tris, boxes, org, dirn):
@@ -100,6 +107,39 @@ def closest_hit_reference(tris, org, dirn, ray_chunk: int = 65536) -> dict:
     return res
 
 
+def _mt_tile(tile, o, d):
+    """Moller-Trumbore of rays o, d (each a list of three (b, 1) columns)
+    against one (16, TC) tile [v0 | e1 | e2] in the kernels' operation
+    order: (valid |det| > DET_EPS, u, v, t), each (b, TC)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+        tile[r][None, :] for r in range(9)
+    )
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    a = e1x * px + e1y * py + e1z * pz
+    valid = a.abs() > DET_EPS
+    inva = torch.where(valid, 1.0 / torch.where(valid, a, 1.0), 0.0)
+    sx = ox - v0x
+    sy = oy - v0y
+    sz = oz - v0z
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    u = (sx * px + sy * py + sz * pz) * inva
+    v = (qx * dx + qy * dy + qz * dz) * inva
+    t = (e2x * qx + e2y * qy + e2z * qz) * inva
+    return valid, u, v, t
+
+
+def _hit(valid, u, v, t, t_lim):
+    """The kernels' hit test, 0 < t < t_lim ((b, 1))."""
+    return (valid & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+            & (t > 0.0) & (t < t_lim))
+
+
 def closest_scan(tris, org, dirn, tmax, ray_chunk: int = 65536) -> dict:
     """Nearest hit of every ray over every triangle with 0 < t < tmax
     (B,), the lowest index winning a tie: {t (tmax on a miss), u, v,
@@ -115,34 +155,14 @@ def closest_scan(tris, org, dirn, tmax, ray_chunk: int = 65536) -> dict:
     for lo in range(0, B, ray_chunk):
         hi = min(B, lo + ray_chunk)
         o = [org[lo:hi, c : c + 1] for c in range(3)]  # (b, 1)
-        ox, oy, oz = o
-        dx, dy, dz = (dirn[lo:hi, c : c + 1] for c in range(3))
+        d = [dirn[lo:hi, c : c + 1] for c in range(3)]
         t_best = t_all[lo:hi]
         u_best = u_all[lo:hi]
         v_best = v_all[lo:hi]
         tri_best = tri_all[lo:hi]
         for k in range(n_tiles):
-            tile = tris[:, k * TC : (k + 1) * TC]
-            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-                tile[r][None, :] for r in range(9)
-            )
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            a = e1x * px + e1y * py + e1z * pz
-            valid = a.abs() > DET_EPS
-            inva = torch.where(valid, 1.0 / torch.where(valid, a, 1.0), 0.0)
-            sx = ox - v0x
-            sy = oy - v0y
-            sz = oz - v0z
-            qx = sy * e1z - sz * e1y
-            qy = sz * e1x - sx * e1z
-            qz = sx * e1y - sy * e1x
-            u = (sx * px + sy * py + sz * pz) * inva
-            v = (qx * dx + qy * dy + qz * dz) * inva
-            t = (e2x * qx + e2y * qy + e2z * qz) * inva
-            hit = (valid & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-                   & (u + v <= 1.0) & (t > 0.0) & (t < t_best[:, None]))
+            valid, u, v, t = _mt_tile(tris[:, k * TC : (k + 1) * TC], o, d)
+            hit = _hit(valid, u, v, t, t_best[:, None])
             t_m = torch.where(hit, t, float("inf"))
             tc, j = torch.min(t_m, dim=1)  # first index among equal minima
             better = tc < t_best
@@ -153,3 +173,82 @@ def closest_scan(tris, org, dirn, tmax, ray_chunk: int = 65536) -> dict:
             tri_best.copy_(torch.where(better, (j + k * TC).to(torch.int32),
                                        tri_best))
     return {"t": t_all, "u": u_all, "v": v_all, "tri": tri_all}
+
+
+def ray_limits(org, tmax, active=None):
+    """tmax None (unbounded), a float or (B,) -> contiguous (B,) f32;
+    active None or (B,) bool -> contiguous (B,) bool or None."""
+    B, dev = org.shape[0], org.device
+    if tmax is None:
+        tmax = torch.full((B,), float("inf"), device=dev)
+    else:
+        tmax = torch.broadcast_to(
+            torch.as_tensor(tmax, dtype=torch.float32, device=dev), (B,)
+        ).contiguous()
+    if active is not None:
+        if active.dtype != torch.bool or tuple(active.shape) != (B,):
+            raise ValueError(f"active: need ({B},) bool, got "
+                             f"{tuple(active.shape)} {active.dtype}")
+        if active.device != dev:
+            raise ValueError(f"active on {active.device}, rays on {dev}")
+        active = active.contiguous()
+    return tmax, active
+
+
+def any_hit(tris, boxes, org, dirn, tmax=None, active=None) -> dict:
+    """tris (16, Npad) [v0|e1|e2] and boxes (8, n_tiles) from accel/pack;
+    org, dirn (B, 3) f32; tmax None (unbounded), a float or (B,); active
+    None or (B,) bool.  Returns {occ (B,) bool: some triangle is hit with
+    0 < t < tmax; False for a ray that is not active}."""
+    _check_inputs(tris, boxes, org, dirn)
+    tmax, active = ray_limits(org, tmax, active)
+    if org.device.type == "cpu":
+        return any_hit_reference(tris, org, dirn, tmax, active)
+    if org.device.type != "cuda":
+        raise ValueError(f"unsupported device {org.device}")
+    return any_hit_kernel(tris, boxes, org, dirn, tmax, active)
+
+
+def any_hit_kernel(tris, boxes, org, dirn, tmax, active=None) -> dict:
+    """Launch csrc/isect.cu's any-hit on the current stream (CUDA tensors
+    only); tmax (B,) f32, active None or (B,) bool."""
+    _check_inputs(tris, boxes, org, dirn)
+    if org.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {org.device}")
+    tmax, active = ray_limits(org, tmax, active)
+    B = org.shape[0]
+    dev = org.device
+    occ = torch.empty(B, dtype=torch.bool, device=dev)
+    lib = library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lt_any_hit(
+            org.data_ptr(), dirn.data_ptr(), tmax.data_ptr(),
+            None if active is None else active.data_ptr(), B,
+            tris.data_ptr(), tris.shape[1], boxes.data_ptr(), boxes.shape[1],
+            occ.data_ptr(), stream,
+        )
+    check("lt_any_hit", err)
+    ANY_COUNTS.kernel += 1
+    return {"occ": occ}
+
+
+def any_hit_reference(tris, org, dirn, tmax, active=None,
+                      ray_chunk: int = 65536) -> dict:
+    """Plain torch twin of the any-hit: every ray against every triangle
+    with the kernel's Moller-Trumbore test and 0 < t < tmax (B,), an
+    any-reduce over the triangles; inactive rays report False."""
+    ANY_COUNTS.plain += 1
+    B = org.shape[0]
+    occ = torch.zeros(B, dtype=torch.bool, device=org.device)
+    for lo in range(0, B, ray_chunk):
+        hi = min(B, lo + ray_chunk)
+        o = [org[lo:hi, c : c + 1] for c in range(3)]  # (b, 1)
+        d = [dirn[lo:hi, c : c + 1] for c in range(3)]
+        t_lim = tmax[lo:hi, None]
+        for k in range(tris.shape[1] // TC):
+            valid, u, v, t = _mt_tile(tris[:, k * TC : (k + 1) * TC], o, d)
+            occ[lo:hi] |= _hit(valid, u, v, t, t_lim).any(dim=1)
+    if active is not None:
+        occ &= active
+    return {"occ": occ}

@@ -15,6 +15,8 @@
     --stats --verbose  ray statistics, progress
     --device D         cuda (default) or cpu
 
+A scene with an AreaLightSource "sunsky" renders the reference's sunsky
+AO (sky radiance over the open strata plus the sun), on either accel.
 lucille_tpu's --mesh, --coordinator, --num-processes, --process-id,
 --recover and every --method other than ao are refused with a message.
 CLI overrides are applied at WorldBegin through the backdoor callback,
@@ -78,10 +80,10 @@ def main(argv=None) -> int:
         p.error(f"--accel {args.accel}: not ported (only 'auto', 'pallas' "
                 "and 'bvh')")
 
-    from lucille_tpu.base.timer import get_timer
-    from lucille_tpu.display.drivers import get_display_driver
-    from lucille_tpu.ri.api import RiState
-    from lucille_tpu.rib.parser import parse_rib_file
+    from lucille_tpu_torch.base.timer import get_timer
+    from lucille_tpu_torch.display.drivers import get_display_driver
+    from lucille_tpu_torch.ri.api import RiState
+    from lucille_tpu_torch.rib.parser import parse_rib_file
     from lucille_tpu_torch.render.renderer import Renderer
 
     def apply_overrides(state: RiState):

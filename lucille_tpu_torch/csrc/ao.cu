@@ -1,10 +1,13 @@
 // Fused ambient-occlusion gather, hand-written for Hopper (sm_90a).
 //
-// Replaces: lucille_tpu/accel/pallas_ao.py:_ao_kernel (:109) with
-// want_bits=False, the Pallas TPU kernel behind pallas_ao_occlusion.  Same
-// contract: for each compacted hit lane j < nact, the number of its
-// S = ntheta * nphi stratified cosine directions that hit a triangle;
-// 0 for lanes at or past nact.  Stratum s of lane j uses the lane's two
+// Replaces: lucille_tpu/accel/pallas_ao.py:_ao_kernel (:109), the Pallas
+// TPU kernel behind pallas_ao_occlusion (want_bits=False) and
+// pallas_ao_occlusion_bits (want_bits=True).  Same contract: for each
+// compacted hit lane j < nact, the number of its S = ntheta * nphi
+// stratified cosine directions that hit a triangle; 0 for lanes at or past
+// nact.  With the bits output (template flag kWantBits) also which of them:
+// ceil(S / 32) int32 rows in compacted lane order, bit s % 32 of row s / 32
+// set when stratum s is occluded, every row 0 for lanes at or past nact.  Stratum s of lane j uses the lane's two
 // uniforms (u0, u1) = jitter[:, j], shifted by the R2 Cranley-Patterson
 // offsets frac(s * a1), frac(s * a2); cos_t = sqrt((i + u0) / ntheta),
 // phi = 2 pi (j' + u1) / nphi, lz = sqrt(max(1 - z0, 0)), rotated into the
@@ -26,6 +29,9 @@
 //     computed once per (triangle, lane) and reused by the chunk's strata;
 //   * a per-lane mask of still-unoccluded strata lets an occluded stratum
 //     drop out, and a lane whose chunk is fully occluded stops testing;
+//     with kWantBits each finished chunk's 16 occluded bits go into a
+//     register row, stored when it is full (CH divides 32, so a chunk never
+//     straddles two rows); the plain instantiations compile none of it;
 //   * culls per lane, all conservative: a tangent-plane test against the
 //     16-tile supertile box and then the tile box (hemisphere directions
 //     satisfy d . n >= 0, so a box wholly below the lane's tangent plane
@@ -72,19 +78,26 @@ __device__ __forceinline__ bool above_plane(const float* __restrict__ box,
   return (cx - ox) * nx + (cy - oy) * ny + (cz - oz) * nz >= 0.f;
 }
 
-template <bool kStratumCull>
+template <bool kStratumCull, bool kWantBits>
 __global__ void __launch_bounds__(AO_BLOCK)
 ao_kernel(const float* __restrict__ rays, const float* __restrict__ jit, int B,
           const int* __restrict__ nact, const float* __restrict__ tris,
           int npad, const float* __restrict__ boxes, int n_tiles,
           const float* __restrict__ sboxes, int n_super, int ntheta, int nphi,
-          float inv_nt, float inv_np, float* __restrict__ occ_out) {
+          float inv_nt, float inv_np, float* __restrict__ occ_out,
+          int* __restrict__ bits_out) {
   __shared__ float s[12][TC];  // v0, v1, v2, n of one tile, component-major
 
   const int i = blockIdx.x * AO_BLOCK + threadIdx.x;
   const int n_live = *nact;
+  const int S = ntheta * nphi;
   if (blockIdx.x * AO_BLOCK >= n_live) {  // block-uniform: no live lane
-    if (i < B) occ_out[i] = 0.f;
+    if (i < B) {
+      occ_out[i] = 0.f;
+      if constexpr (kWantBits) {
+        for (int row = 0; row * 32 < S; ++row) bits_out[(size_t)row * B + i] = 0;
+      }
+    }
     return;
   }
   const bool live = i < n_live;
@@ -96,8 +109,8 @@ ao_kernel(const float* __restrict__ rays, const float* __restrict__ jit, int B,
   const float u0l = live ? jit[i] : 0.f;
   const float u1l = live ? jit[(size_t)B + i] : 0.f;
 
-  const int S = ntheta * nphi;
   int occluded = 0;
+  unsigned row_bits = 0u;  // kWantBits: the occluded bits of the open row
   for (int c0 = 0; c0 < S; c0 += CH) {
     float wx[CH], wy[CH], wz[CH];
     unsigned pending = 0u;  // bit q: stratum c0 + q not yet occluded
@@ -203,29 +216,55 @@ ao_kernel(const float* __restrict__ rays, const float* __restrict__ jit, int B,
       }
     }
     occluded += __popc(valid & ~pending);
+    if constexpr (kWantBits) {
+      row_bits |= (valid & ~pending) << (c0 & 31);
+      if (((c0 + CH) & 31) == 0 || c0 + CH >= S) {  // the row is complete
+        if (i < B) bits_out[(size_t)(c0 >> 5) * B + i] = (int)row_bits;
+        row_bits = 0u;
+      }
+    }
   }
   if (i < B) occ_out[i] = live ? (float)occluded : 0.f;
 }
 
+template <bool kWantBits>
+void launch(bool stratum_cull, int grid, cudaStream_t s, const float* rays,
+            const float* jit, int B, const int* nact, const float* tris,
+            int npad, const float* boxes, int n_tiles, const float* sboxes,
+            int n_super, int ntheta, int nphi, float inv_nt, float inv_np,
+            float* occ, int* bits) {
+  if (stratum_cull) {
+    ao_kernel<true, kWantBits><<<grid, AO_BLOCK, 0, s>>>(
+        rays, jit, B, nact, tris, npad, boxes, n_tiles, sboxes, n_super,
+        ntheta, nphi, inv_nt, inv_np, occ, bits);
+  } else {
+    ao_kernel<false, kWantBits><<<grid, AO_BLOCK, 0, s>>>(
+        rays, jit, B, nact, tris, npad, boxes, n_tiles, sboxes, n_super,
+        ntheta, nphi, inv_nt, inv_np, occ, bits);
+  }
+}
+
 }  // namespace
 
+// bits: ceil(S / 32) x B int32 rows, or null for the counts alone
 extern "C" int lt_ao_occlusion(const float* rays, const float* jit, int B,
                                const int* nact, const float* tris, int npad,
                                const float* boxes, int n_tiles,
                                const float* sboxes, int n_super, int ntheta,
                                int nphi, float inv_ntheta, float inv_nphi,
-                               float* occ, void* stream) {
+                               float* occ, int* bits, void* stream) {
   if (B <= 0) return 0;
   const int grid = (B + AO_BLOCK - 1) / AO_BLOCK;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_tiles >= STRATUM_CULL_MIN_TILES) {
-    ao_kernel<true><<<grid, AO_BLOCK, 0, s>>>(
-        rays, jit, B, nact, tris, npad, boxes, n_tiles, sboxes, n_super,
-        ntheta, nphi, inv_ntheta, inv_nphi, occ);
+  const bool cull = n_tiles >= STRATUM_CULL_MIN_TILES;
+  if (bits != nullptr) {
+    launch<true>(cull, grid, s, rays, jit, B, nact, tris, npad, boxes,
+                 n_tiles, sboxes, n_super, ntheta, nphi, inv_ntheta,
+                 inv_nphi, occ, bits);
   } else {
-    ao_kernel<false><<<grid, AO_BLOCK, 0, s>>>(
-        rays, jit, B, nact, tris, npad, boxes, n_tiles, sboxes, n_super,
-        ntheta, nphi, inv_ntheta, inv_nphi, occ);
+    launch<false>(cull, grid, s, rays, jit, B, nact, tris, npad, boxes,
+                  n_tiles, sboxes, n_super, ntheta, nphi, inv_ntheta,
+                  inv_nphi, occ, bits);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,129 @@
+"""Display driver implementations + registry.
+
+Interface mirrors ri_display_drv_t (src/render/render.c:224-279):
+``open(name, width, height)``, ``write(x0, y0, tile)``, ``close()``,
+``progress()``.  Tiles arrive as (th, tw, 3) float32 host arrays — the
+bucket_write equivalent (render.c:919-983).
+
+The port's copy of lucille_tpu/display/drivers.py: the same code, with its
+imports pointed at lucille_tpu_torch's own host modules, except that the
+socket and OpenEXR drivers raise NotImplementedError (the port has no
+copy of lucille_tpu/display/sockdrv.py or imageio/exr.py yet) and the
+framebuffer driver falls back to file output at once.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from lucille_tpu_torch.base.log import LOG_INFO, LOG_WARN, log, log_once
+from lucille_tpu_torch.base.registry import Registry
+
+
+class DisplayDriver:
+    name = "null"
+
+    def open(self, fname: str, width: int, height: int) -> bool:
+        self.fname = fname
+        self.width = width
+        self.height = height
+        return True
+
+    def write(self, x0: int, y0: int, tile: np.ndarray) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    def progress(self, fraction: float) -> None:
+        pass
+
+
+class NullDriver(DisplayDriver):
+    """Discard pixels (benchmark runs)."""
+
+
+class FileDriver(DisplayDriver):
+    """Accumulate the frame and write a Radiance .hdr on close.
+
+    Equivalent to hdrdrv.c:24-95 ("file" is an alias for "hdr",
+    render.c:259-268).  Float/HDR output is vertically flipped exactly as
+    the reference's bucket_write does (``screenheight - y - 1``,
+    render.c:944-946), so our .hdr matches lucille's byte layout.
+    Non-.hdr extensions dispatch through imageio.save_image (PNG/PFM).
+    """
+
+    name = "file"
+
+    def open(self, fname, width, height):
+        super().open(fname, width, height)
+        self.buffer = np.zeros((height, width, 3), dtype=np.float32)
+        return True
+
+    def write(self, x0, y0, tile):
+        th, tw = tile.shape[:2]
+        # raster row y lands at file row (height - y - 1)
+        y1 = self.height - y0
+        self.buffer[y1 - th : y1, x0 : x0 + tw] = tile[::-1]
+
+    def close(self):
+        from lucille_tpu_torch.imageio.loader import save_image
+
+        fname = self.fname
+        if "." not in fname:
+            fname += ".hdr"
+        save_image(fname, self.buffer)
+        log(LOG_INFO, "wrote %s (%dx%d)", fname, self.width, self.height)
+
+
+class FramebufferDriver(FileDriver):
+    """Live preview driver (the reference's framebufferdrv.c GL window).
+
+    lucille_tpu routes it to its socket driver and a spawned viewer; the
+    port has no copy of those yet, so it takes the reference's fallback
+    chain at once (render.c:430-513: unavailable driver -> "file") and
+    the frame lands in a .hdr.
+    """
+
+    name = "framebuffer"
+
+    def open(self, fname, width, height):
+        log_once(
+            LOG_WARN,
+            "framebuffer display: no live viewer in the port; falling back "
+            "to file output",
+        )
+        if not fname or fname == "framebuffer":
+            fname = "framebuffer_out.hdr"
+        return super().open(fname, width, height)
+
+
+def _not_ported(name: str):
+    def factory():
+        raise NotImplementedError(
+            f"the {name!r} display driver is not ported yet (ROADMAP Queue 1)")
+
+    return factory
+
+
+_registry: Registry = Registry("display")
+
+
+def register_display_driver(name: str, factory) -> None:
+    _registry.register(name, factory)
+
+
+def get_display_driver(name: str) -> DisplayDriver:
+    """Lookup with the reference's fallback chain: unknown -> file."""
+    factory = _registry.lookup(name, fallback="file")
+    return factory()
+
+
+# default registrations (ri_render_init, render.c:224-279)
+register_display_driver("file", FileDriver)
+register_display_driver("hdr", FileDriver)
+register_display_driver("framebuffer", FramebufferDriver)
+register_display_driver("fb", FramebufferDriver)
+register_display_driver("null", NullDriver)
+for _name in ("openexr", "exr", "socket"):
+    register_display_driver(_name, _not_ported(_name))

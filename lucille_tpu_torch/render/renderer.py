@@ -13,11 +13,15 @@ single device:
   then tiles reach the display callbacks in tile-list (spiral) order;
 - the crop window keeps tiles on the full-frame grid, and the AO jitter
   is drawn per tile origin, so cropped pixels equal the full render's;
-- counters per tile: nrays (as lucille_tpu counts them), ntests, ntrav.
+- counters per tile: nrays (as lucille_tpu counts them), ntests, ntrav;
+- the light tables are built once (lucille_tpu/render/renderer.py:
+  209-211) and handed to the integrator: a sunsky light turns the AO
+  gather into the sunsky gather.
 
 Scenes that need what the port does not have yet raise
-NotImplementedError: displacement, textures, atmosphere, imager, sunsky
-light, depth of field, any integrator other than AO.
+NotImplementedError: displacement, textures, atmosphere, imager, a light
+with an environment texture, sunsky AO on the dense tiles above
+131,072 triangles, depth of field, any integrator other than AO.
 """
 
 from __future__ import annotations
@@ -27,16 +31,18 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from lucille_tpu.base.log import LOG_INFO, log
-from lucille_tpu.base.stats import RenderStats
-from lucille_tpu.base.timer import get_timer
+from lucille_tpu_torch.base.log import LOG_INFO, log
+from lucille_tpu_torch.base.stats import RenderStats
+from lucille_tpu_torch.base.timer import get_timer
 from lucille_tpu_torch.device import resolve_device
+from lucille_tpu_torch.lights.tables import build_light_tables
 from lucille_tpu_torch.render.film import subsample_filter_table
 from lucille_tpu_torch.render.tiles import tile_list
 from lucille_tpu_torch.ri.camera import generate_rays
 from lucille_tpu_torch.sampling.hammersley import subpixel_samples
 from lucille_tpu_torch.sampling.jitter import TileSampler
 from lucille_tpu_torch.scene.compile import compile_scene
+from lucille_tpu_torch.transport.ao import sunsky_unported
 from lucille_tpu_torch.transport.dispatch import get_integrator
 
 
@@ -53,7 +59,8 @@ def unsupported_features(desc) -> list[str]:
             out.append(f"atmosphere shader {a.atmosphere!r}")
     if desc.options.imager:
         out.append(f"imager {desc.options.imager!r}")
-    out += [f"{li.type} light" for li in desc.lights if li.type == "sunsky"]
+    out += [f"{li.type} light texture {li.texture!r}" for li in desc.lights
+            if li.type in ("dome", "ibl") and li.texture]
     if desc.camera is not None and desc.camera.dof_active:
         out.append("depth of field")
     return sorted(set(out))
@@ -95,6 +102,12 @@ class Renderer:
         self.scene = compile_scene(desc, self.device)
         timer.end("Scene compile")
         self.camera = desc.camera
+        self.lights = build_light_tables(desc)
+        if any(li.type == "sunsky" and li.sunsky is not None
+               for li in self.lights):
+            refusal = sunsky_unported(self.scene)
+            if refusal:
+                raise NotImplementedError(refusal)
         self.sampler = sampler or TileSampler(seed, self.device)
         self.stats = RenderStats()
 
@@ -106,7 +119,7 @@ class Renderer:
         org, dirn = tile_eye_rays(self.camera, x0, y0, tile_w, tile_h, jitter)
         ao_jitter = self.sampler(x0, y0, org.shape[0])
         radiance, aux = self.integrator(
-            self.scene, org, dirn, ao_jitter,
+            self.scene, self.lights, org, dirn, ao_jitter,
             gather_nsamples=self.desc.options.gather_nsamples,
         )
         r = radiance.reshape(tile_h, tile_w, S, 3)

@@ -26,9 +26,9 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from lucille_tpu.base.log import LOG_INFO, log
-from lucille_tpu.base.timer import get_timer
-from lucille_tpu.ri.types import SceneDescription
+from lucille_tpu_torch.base.log import LOG_INFO, log
+from lucille_tpu_torch.base.timer import get_timer
+from lucille_tpu_torch.ri.types import SceneDescription
 from lucille_tpu_torch.scene.types import SceneTensors, from_numpy
 
 PAD_MULTIPLE = 256
@@ -56,7 +56,7 @@ def _morton_order(v0, v1, v2, bbmin, bbmax):
     return np.argsort(code, kind="stable")
 
 
-def _resolve_accel(requested: str, n_tris: int) -> str:
+def resolve_accel(requested: str, n_tris: int) -> str:
     """The RIB's accel request -> "dense" or "pbvh"."""
     if requested == "auto":
         return "pbvh" if n_tris > AUTO_DENSE_MAX_TRIS else "dense"
@@ -125,7 +125,7 @@ def compile_arrays(desc: SceneDescription) -> SimpleNamespace:
         st0 = st1 = st2 = np.zeros((0, 2))
         c0 = c1 = c2 = np.zeros((0, 3))
     n_tris = len(v0)
-    accel = _resolve_accel(desc.options.accel_method, n_tris)
+    accel = resolve_accel(desc.options.accel_method, n_tris)
 
     if n_tris:
         allv = np.concatenate([v0, v1, v2])

@@ -1,11 +1,11 @@
 """Ambient-occlusion integrator, in torch.
 
-Counterpart of lucille_tpu/transport/ao.py:35-195 and :335-376 without
-the sunsky gather: eye ray -> closest hit -> interpolated shading normal,
-Frisvad basis, eps-offset origin -> stratified occlusion gather ->
-``Lo = (S - occluded) / S`` modulated by the interpolated vertex colour;
-misses return the background.  The accel picks the kernels, as
-lucille_tpu/transport/ao.py:136-171 does:
+Counterpart of lucille_tpu/transport/ao.py:35-283 and :335-376: eye ray
+-> closest hit -> interpolated shading normal, Frisvad basis, eps-offset
+origin -> stratified occlusion gather -> ``Lo = (S - occluded) / S``
+modulated by the interpolated vertex colour; misses return the
+background.  The accel picks the kernels, as lucille_tpu/transport/
+ao.py:136-171 does:
 
 - dense: the dense closest hit (csrc/isect.cu) and the fused gather
   (csrc/ao.cu);
@@ -13,21 +13,40 @@ lucille_tpu/transport/ao.py:136-171 does:
   tile-BVH any-hit (csrc/bvh.cu); the gather's node visits and triangle
   tests join the eye rays' counters.
 
+Under a sunsky light the gather is the reference's sunsky AO
+(`_gather_sunsky`, ambientocclusion.c:154-332): the Preetham sky
+radiance summed over each lane's unoccluded strata, plus, per "sun"
+light, one shadow ray toward the sun (the dense any-hit, or the tile
+BVH's) that adds the sun's colour where it is open; ``Lo = col / (pi
+S)``, then the same modulation.  On the dense accel the fused gather's
+per-stratum bits say which strata are open (`ao_occlusion_bits`) and the
+directions are recomputed with the kernel's formula; on the tile BVH the
+cone-tiled gather rays carry the sky directly (`bvh_ao_sunsky`).
+
 The per-lane jitter is an input: (2, B) uniforms from the renderer's
-sampler.  On the dense accel column j belongs to compacted hit slot j
-(the fused kernel's lane order); on the tile BVH it belongs to raster
-lane j, because lucille_tpu's `_stratified_dirs` draws its (2, B)
-uniforms on the unsorted wavefront.  Norms and sums are written as
-explicit left-to-right products so they round as the JAX package's do.
+sampler, the same draw for plain and sunsky AO.  On the dense accel
+column j belongs to compacted hit slot j (the fused kernel's lane
+order); on the tile BVH it belongs to raster lane j, because
+lucille_tpu's `_stratified_dirs` draws its (2, B) uniforms on the
+unsorted wavefront.  Norms and sums are written as explicit
+left-to-right products so they round as the JAX package's do.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from lucille_tpu_torch.accel.ao import ao_occlusion
-from lucille_tpu_torch.accel.bvh_ao import bvh_ao_occlusion
-from lucille_tpu_torch.accel.dispatch import closest_hit
+from lucille_tpu_torch.accel.ao import (
+    MAX_TRIS_FOR_MEGAKERNEL,
+    ao_occlusion,
+    ao_occlusion_bits,
+    stratum_directions,
+    unpack_bits,
+)
+from lucille_tpu_torch.accel.bvh_ao import bvh_ao_occlusion, bvh_ao_sunsky
+from lucille_tpu_torch.accel.dispatch import any_hit, closest_hit
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -60,12 +79,21 @@ def _interp_normal(scene, res) -> torch.Tensor:
 
 
 def ao_radiance(scene, org, dirn, jitter, ntheta: int, nphi: int,
-                background: float = 0.0):
+                background: float = 0.0, lights=()):
     """AO radiance for a wavefront of eye rays org, dirn (B, 3) f32.
+    lights: the light tables (lights/tables.py); a "sunsky" light with a
+    sky model switches to the sunsky gather, "sun" lights join it.
     Returns (radiance (B, 3), aux with hit mask, t and the counters)."""
     res = closest_hit(scene, org, dirn)
     P_off, b0, b1, b2 = shading_frame(scene, org, dirn, res)
     hit = res["hit"]
+    sunsky = next((li for li in lights
+                   if li.type == "sunsky" and li.sunsky is not None), None)
+    if sunsky is not None:
+        suns = [li for li in lights if li.type == "sun"]
+        return _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, jitter,
+                              ntheta, nphi, sunsky.sunsky, suns, background,
+                              org.shape[0])
     if scene.accel == "pbvh":
         occ, gather = bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter,
                                        ntheta, nphi)
@@ -95,6 +123,71 @@ def _modulate(scene, res, hit, radiance):
     w = 1.0 - u - v
     cs = w * scene.c0[tri] + u * scene.c1[tri] + v * scene.c2[tri]
     return radiance * torch.where(hit[..., None], cs, 1.0)
+
+
+def sunsky_unported(scene) -> str:
+    """Why the sunsky gather cannot run on this compiled scene, or "".
+    Above MAX_TRIS_FOR_MEGAKERNEL padded triangles on the dense tiles
+    lucille_tpu leaves its fused gather for a per-stratum scan with a
+    jitter of its own (ao.py:230-257), which the port does not copy."""
+    if scene.accel == "dense" and scene.n_pad > MAX_TRIS_FOR_MEGAKERNEL:
+        return (f"sunsky AO on the dense tiles above "
+                f"{MAX_TRIS_FOR_MEGAKERNEL} triangles ({scene.n_pad}) is not "
+                "ported yet (ROADMAP Queue 1); use --accel bvh")
+    return ""
+
+
+def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, jitter, ntheta,
+                   nphi, sky, suns, background: float, B: int):
+    """Sunsky-AO gather (lucille_tpu/transport/ao.py:198-283): sky
+    radiance over the unoccluded strata, one shadow ray toward each sun
+    along +direction adding its colour unattenuated (no cosine,
+    contribution_from_sunlight), Lo = col / (pi S).  nrays counts an eye
+    ray per lane and S + len(suns) rays per hit (ao.py:275-277); the
+    gather's own counters are dropped, as lucille_tpu drops them."""
+    S = ntheta * nphi
+    refusal = sunsky_unported(scene)
+    if refusal:
+        raise NotImplementedError(refusal)
+    if scene.accel == "pbvh":
+        col = bvh_ao_sunsky(scene, P_off, b0, b1, b2, hit, jitter, ntheta,
+                            nphi, sky)
+    else:
+        col = _sunsky_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta,
+                           nphi, sky)
+    for sun in suns:
+        wi = torch.tensor(sun.direction, dtype=torch.float32,
+                          device=P_off.device)
+        wi = wi / torch.clamp_min(torch.sqrt(torch.sum(wi * wi)), 1e-20)
+        occ = any_hit(scene, P_off, wi.expand_as(P_off), active=hit)["occ"]
+        suncol = torch.tensor(sun.color, dtype=torch.float32,
+                              device=P_off.device) * sun.intensity
+        col = col + ((~occ) & hit).to(torch.float32)[:, None] * suncol
+    lo = col / (math.pi * S)
+    radiance = _modulate(scene, res, hit,
+                         torch.where(hit[..., None], lo, background))
+    aux = {
+        "hit": hit,
+        "nrays": B + hit.sum(dtype=torch.int64) * (S + len(suns)),
+        "ntests": res["ntests"],
+        "ntrav": res["ntrav"],
+        "t": res["t"],
+    }
+    return radiance, aux
+
+
+def _sunsky_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi, sky):
+    """The dense sky gather (lucille_tpu's _sunsky_megakernel, ao.py:
+    286-332): the fused gather's per-stratum bits, each stratum's
+    direction recomputed from the lane's jitter, the sky summed over the
+    open strata; all S strata at once, in the sky's z-up frame."""
+    _occ, bits, u01 = ao_occlusion_bits(scene, P_off, b0, b1, b2, hit,
+                                        jitter, ntheta, nphi)
+    S = ntheta * nphi
+    vis = ~unpack_bits(bits, S) & hit[None, :]  # (S, B)
+    d = stratum_directions(b0, b1, b2, u01, ntheta, nphi)  # (S, B, 3)
+    sky_rgb = sky.sky_rgb(d[..., [0, 2, 1]])
+    return (vis[..., None] * sky_rgb).sum(dim=0)
 
 
 def _finish(scene, res, hit, occ, nsamples: int, background: float, B: int,

@@ -4,8 +4,9 @@ Counterpart of lucille_tpu/transport/dispatch.py:18-35.  The port has
 the AO integrator only (the reference's hardwired default, render.c:803);
 every other method raises.
 
-Contract: fn(scene, org, dirn, jitter, *, gather_nsamples) ->
-(radiance (B, 3), aux).
+Contract: fn(scene, lights, org, dirn, jitter, *, gather_nsamples) ->
+(radiance (B, 3), aux), as lucille_tpu's fn(scene, lights, org, dirn,
+key, ...) with the (2, B) jitter in place of the key.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ def get_integrator(name: str):
             "(ROADMAP Queue 1: shading wavefronts)"
         )
 
-    def ao_fn(scene, org, dirn, jitter, *, gather_nsamples: int = 64):
+    def ao_fn(scene, lights, org, dirn, jitter, *, gather_nsamples: int = 64):
         ntheta = max(1, int(math.sqrt(gather_nsamples)))
-        return ao_radiance(scene, org, dirn, jitter, ntheta, ntheta)
+        return ao_radiance(scene, org, dirn, jitter, ntheta, ntheta,
+                           lights=lights)
 
     return ao_fn

@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Where a frame's time goes on the card: one warm frame of a chip_smoke
+scene under torch.profiler (CPU + CUDA activity).
+
+    python3 profile_frame.py [cell ...]
+
+Cells (default: all): headline-sunsky and headline-ao (the bundled scene
+at 640x480, 3x3, 64 rays, tile 240, with and without its sunsky light),
+heightfield91 (dense, 160x120, 2x2, 64 rays, tile 128), heightfield256,
+heightfield256-sunsky and heightfield724 (the tile BVH, same frame).
+
+Per cell it prints the profiled frame's wall time (host clock around
+render_frame and a synchronize), the device busy time (the union of the
+device's kernel and copy intervals), the idle share 1 - busy / wall, the
+number of device operations, and the device time by operation name,
+largest first.  The profiler adds host cost, so the wall time here is
+above the unprofiled frame's.  The card's nvidia-smi name and power limit
+come first.  Needs one card; imports nothing of lucille_tpu.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import chip_smoke as cs
+
+CELLS = {
+    "headline-sunsky": (lambda: cs.bundled_state(640, 480, 3, 64), cs.TILE),
+    "headline-ao": (lambda: cs.bundled_state(640, 480, 3, 64, sunsky=False),
+                    cs.TILE),
+    "heightfield91": (lambda: cs.heightfield_state(91), 128),
+    "heightfield256": (lambda: cs.heightfield_state(256), 128),
+    "heightfield256-sunsky": (lambda: cs.heightfield_state(256, sunsky=True),
+                              128),
+    "heightfield724": (lambda: cs.heightfield_state(724), 128),
+}
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def profile(cell: str, top: int = 12) -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    make_state, tile = CELLS[cell]
+    r = Renderer(make_state().scene, tile_size=tile, device="cuda")
+    for _ in range(2):  # warm-up: the kernel build, caches, allocator
+        r.render_frame()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.render_frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in dev]
+    busy_ms = busy_us(spans) / 1e3
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name][1] += 1
+    print(f"[{cell}] profiled frame {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{len(dev)} device ops", flush=True)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ms:9.3f} ms  {n:5d}x  {name[:100]}")
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_frame: no CUDA card visible", file=sys.stderr)
+        return 1
+    cells = argv or list(CELLS)
+    unknown = [c for c in cells if c not in CELLS]
+    if unknown:
+        print(f"profile_frame: unknown cells {unknown}; know {list(CELLS)}",
+              file=sys.stderr)
+        return 2
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0], flush=True)
+    for cell in cells:
+        profile(cell)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

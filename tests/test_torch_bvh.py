@@ -44,7 +44,8 @@ def _soup(n_tris=700, seed=5):
 def _heightfield():
     from lucille_tpu.scene.compile import compile_scene
 
-    return compile_scene(heightfield_state(35, accel="bvh").scene).device_put()
+    return compile_scene(heightfield_state(35, accel="bvh", pkg="jax").scene
+                         ).device_put()
 
 
 def _heightfield_eye_rays(B, seed=1):
@@ -61,8 +62,9 @@ def _heightfield_eye_rays(B, seed=1):
 
 def _no_native(monkeypatch):
     """Both packages' build_bvh fall back to their NumPy builds."""
-    monkeypatch.setattr("lucille_tpu.native.loader.native_build_bvh",
-                        lambda *a, **k: None)
+    for pkg in ("lucille_tpu", "lucille_tpu_torch"):
+        monkeypatch.setattr(f"{pkg}.native.loader.native_build_bvh",
+                            lambda *a, **k: None)
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3])
@@ -278,7 +280,7 @@ def test_closest_twin_tie_goes_to_the_lowest_slot():
 def test_stratified_dirs_close(ntheta, nphi):
     from lucille_tpu.accel.pallas_bvh import _stratified_dirs
     from lucille_tpu.transport.ao import ortho_basis
-    from lucille_tpu_torch.accel.bvh_ao import stratified_dirs
+    from lucille_tpu_torch.accel.ao import stratum_directions
 
     rng = np.random.default_rng(6)
     N = rng.normal(size=(777, 3))
@@ -290,7 +292,8 @@ def test_stratified_dirs_close(ntheta, nphi):
                                        777))
     u01 = np.array(jax.random.uniform(key, (2, 777), dtype=jnp.float32))
     t = torch.from_numpy
-    got = stratified_dirs(t(b0), t(b1), t(b2), t(u01), ntheta, nphi).numpy()
+    got = stratum_directions(t(b0), t(b1), t(b2), t(u01), ntheta,
+                             nphi).numpy()
     assert got.shape == want.shape == (ntheta * nphi, 777, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
@@ -406,10 +409,21 @@ def test_wrappers_refuse_a_tree_deeper_than_the_stack():
 
 
 def test_dense_any_hit_is_not_ported():
+    """(Named when the dense any-hit was still to port.)  The dispatch now
+    serves any-hit on the dense tiles too: the same terrain on both accels
+    gives the same answers (the Moller-Trumbore and the signed-volume
+    tests agree but on edge-grazing rays), and the active mask reaches
+    both."""
     from lucille_tpu_torch.accel.dispatch import any_hit
     from lucille_tpu_torch.scene.compile import compile_scene
 
-    scene = compile_scene(heightfield_state(8).scene, "cpu")
-    assert scene.accel == "dense"
-    with pytest.raises(NotImplementedError, match="_anyhit_kernel"):
-        any_hit(scene, torch.zeros((4, 3)), torch.ones((4, 3)))
+    o, d = (torch.from_numpy(a) for a in _heightfield_eye_rays(1024))
+    active = torch.from_numpy(np.random.default_rng(2).uniform(size=1024)
+                              < 0.7)
+    occ = {}
+    for accel in ("pallas", "bvh"):
+        scene = compile_scene(heightfield_state(35, accel=accel).scene, "cpu")
+        occ[scene.accel] = any_hit(scene, o, d, 16.0, active)["occ"]
+    assert 0.1 < occ["dense"].float().mean() < 0.9
+    assert (occ["dense"] != occ["pbvh"]).float().mean() <= 0.005
+    assert not occ["dense"][~active].any() and not occ["pbvh"][~active].any()

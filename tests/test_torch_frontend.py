@@ -1,0 +1,222 @@
+"""The port's own host front end against lucille_tpu's, and the rule that
+the port imports nothing of the JAX package.
+
+Every RIB the port's tests render goes through both packages' parsers:
+the bundled scene as shipped (its sunsky light and the sun beside it),
+bench_large's heightfield, and small scenes with a sphere, a subdivision
+mesh, curves, and point, distant and area lights.  The scene
+descriptions must be equal: every geometry array, attribute and
+material, light record (the sky model's parameters included), the
+camera's ray constants and the options.  The copies are the same code,
+so equal means exactly equal.
+"""
+
+import ast
+import dataclasses
+
+import numpy as np
+import pytest
+
+from test_torch_nojax import _heightfield_rib
+from test_torch_scene import REPO, bundled_rib_text, front_end
+from test_torch_scene import one_torch_thread  # noqa: F401
+
+_CAMERA = (
+    'Display "out.hdr" "file" "rgb"\n'
+    "Format 64 48 1\n"
+    "PixelSamples 2 3\n"
+    'Projection "perspective" "fov" [40]\n'
+    'Orientation "rh"\n'
+    "ConcatTransform [1 0 0 0  0 1 0 0  0 0 1 0  0 -1 -6 1]\n"
+)
+
+SMALL = {
+    "sphere_point_light": _CAMERA + (
+        "WorldBegin\n"
+        'LightSource "pointlight" 1 "from" [1 4 2] "intensity" [30]\n'
+        "AttributeBegin\n"
+        "Translate 0 1 0\n"
+        'Color [0.8 0.5 0.2]\n'
+        "Sphere 1 -1 1 360\n"
+        "AttributeEnd\n"
+        'Polygon "P" [-3 0 -3  3 0 -3  3 0 3  -3 0 3]\n'
+        "WorldEnd\n"),
+    "subdivision_distant_light": _CAMERA + (
+        "WorldBegin\n"
+        'LightSource "distantlight" 1 "from" [0 5 0] "to" [1 0 1] '
+        '"lightcolor" [1 0.9 0.8]\n'
+        "AttributeBegin\n"
+        "Rotate 30 0 1 0\n"
+        'SubdivisionMesh "catmull-clark" [4 4 4 4 4 4] '
+        "[0 1 2 3  4 5 6 7  0 1 5 4  1 2 6 5  2 3 7 6  3 0 4 7] "
+        '"P" [ -1 -1 -1  1 -1 -1  1 1 -1  -1 1 -1  -1 -1 1  1 -1 1  1 1 1  '
+        "-1 1 1 ]\n"
+        "AttributeEnd\n"
+        "WorldEnd\n"),
+    "curves_area_light": _CAMERA + (
+        "WorldBegin\n"
+        "AttributeBegin\n"
+        'AreaLightSource "arealight" 1 "intensity" [4] "lightcolor" [1 1 1]\n'
+        'Polygon "P" [-1 3 -1  1 3 -1  1 3 1  -1 3 1]\n'
+        "AttributeEnd\n"
+        'PointsPolygons [4] [0 3 2 1] "P" [-3 0 -3  3 0 -3  3 0 3  -3 0 3]\n'
+        'Curves "cubic" [4 4] "nonperiodic" "P" [0 0 0  0.1 0.3 0  '
+        "0.2 0.6 0.1  0.2 0.9 0.2  1 0 0  1.1 0.3 0  1.2 0.6 0.1  "
+        '1.2 0.9 0.2] "constantwidth" [0.06]\n'
+        "WorldEnd\n"),
+}
+
+
+def _rib(name: str) -> str:
+    if name == "bundled_sunsky":
+        return bundled_rib_text(sunsky=True)
+    if name == "heightfield":
+        return _heightfield_rib(9)
+    return SMALL[name]
+
+
+def _parse(pkg: str, text: str):
+    RiState, parse_rib = front_end(pkg)
+    s = RiState()
+    parse_rib(text, s)
+    return s
+
+
+def assert_same(a, b, where="desc"):
+    """Equal field for field, across the two packages' classes: arrays
+    exactly, floats exactly, objects by their fields."""
+    if dataclasses.is_dataclass(a) or hasattr(a, "__dict__"):
+        assert type(a).__name__ == type(b).__name__, where
+        da = {k: v for k, v in vars(a).items() if not k.startswith("__")}
+        db = {k: v for k, v in vars(b).items() if not k.startswith("__")}
+        assert sorted(da) == sorted(db), where
+        for k in da:
+            assert_same(da[k], db[k], f"{where}.{k}")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    elif isinstance(a, dict):
+        assert sorted(a) == sorted(b), where
+        for k in a:
+            assert_same(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{where}[{i}]")
+    else:
+        assert a == b, (where, a, b)
+
+
+CASES = ["bundled_sunsky", "heightfield", *SMALL]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_front_end_parity(name):
+    """The same RIB text through each package's parser and RiState: the
+    same scene description, the same camera ray constants."""
+    text = _rib(name)
+    got, want = _parse("torch", text), _parse("jax", text)
+    assert got.world_block == want.world_block == 1
+    desc, ref = got.scene, want.scene
+    assert len(desc.geoms) == len(ref.geoms) > 0
+    assert_same(desc.geoms, ref.geoms, "geoms")
+    assert_same(desc.lights, ref.lights, "lights")
+    assert_same(desc.options, ref.options, "options")
+    assert_same(desc.camera, ref.camera, "camera")
+    for x, y in zip(desc.camera.ray_constants(), ref.camera.ray_constants()):
+        np.testing.assert_array_equal(x, y)
+    kinds = {g.kind for g in desc.geoms}
+    types = [li.type for li in desc.lights]
+    expect = {"bundled_sunsky": ({"polygon"}, ["sunsky", "sun"]),
+              "heightfield": ({"polygon"}, []),
+              "sphere_point_light": ({"sphere", "polygon"}, ["point"]),
+              "subdivision_distant_light": ({"subdiv"}, ["distant"]),
+              "curves_area_light": ({"polygon", "curves"}, ["area"])}[name]
+    assert (kinds, types) == expect
+
+
+def test_sunsky_light_records_match():
+    """The sunsky light's sky model and the sun light beside it: the
+    solar position, Perez coefficients, the sun's direction (with the
+    reference's y/z swap) and colour, from the port's own copy of the
+    model."""
+    sky, sun = _parse("torch", _rib("bundled_sunsky")).scene.lights
+    ref_sky, ref_sun = _parse("jax", _rib("bundled_sunsky")).scene.lights
+    assert type(sky.sunsky).__module__ == "lucille_tpu_torch.lights.sunsky"
+    assert sky.sunsky.turbidity == ref_sky.sunsky.turbidity == 2.2
+    assert_same(sky.sunsky, ref_sky.sunsky, "sunsky")
+    np.testing.assert_array_equal(sun.direction, ref_sun.direction)
+    np.testing.assert_array_equal(sun.color, ref_sun.color)
+    np.testing.assert_array_equal(sky.sunsky.sunlight_rgb(turbidity=0.0),
+                                  ref_sky.sunsky.sunlight_rgb(turbidity=0.0))
+
+
+def _imports(path):
+    """Top-level names of every module an import statement names."""
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """No module under lucille_tpu_torch/, nor chip_smoke.py or
+    profile_frame.py, imports jax, lucille_tpu or bench_large, at any
+    depth of the file (function-level imports included)."""
+    files = sorted((REPO / "lucille_tpu_torch").rglob("*.py"))
+    files += [REPO / "chip_smoke.py", REPO / "profile_frame.py"]
+    assert len(files) > 40
+    bad = [(str(p.relative_to(REPO)), m) for p in files for m in _imports(p)
+           if m in ("jax", "jaxlib", "lucille_tpu", "bench_large")]
+    assert not bad, bad
+
+
+def test_port_logs_under_its_own_name():
+    """The two packages keep two loggers: a level set on one leaves the
+    other as it was, and the port's lines carry the port's name."""
+    import logging
+
+    from lucille_tpu.base.log import get_logger as jax_logger
+    from lucille_tpu_torch.base.log import get_logger
+
+    port, ref = get_logger(), jax_logger()
+    assert port is not ref and port.name == "lucille_tpu_torch"
+    before = ref.level
+    port.setLevel(logging.ERROR)
+    try:
+        assert ref.level == before
+    finally:
+        port.setLevel(logging.INFO)
+    assert "[lucille_tpu_torch]" in port.handlers[0].formatter._fmt
+
+
+@pytest.mark.parametrize("what", ["load .tex", "save .exr", "socket",
+                                  "openexr"])
+def test_unported_image_formats_and_drivers_raise(what, tmp_path):
+    """The port has no copy of lucille_tpu's .tex and .exr codecs or its
+    socket driver: each refuses with NotImplementedError, never a
+    fallback that writes something else."""
+    from lucille_tpu_torch.display.drivers import get_display_driver
+    from lucille_tpu_torch.imageio.loader import load_image, save_image
+
+    with pytest.raises(NotImplementedError, match="not ported"):
+        if what == "load .tex":
+            load_image(tmp_path / "wood.tex")
+        elif what == "save .exr":
+            save_image(tmp_path / "out.exr", np.zeros((2, 2, 3), np.float32))
+        else:
+            get_display_driver(what)
+
+
+def test_framebuffer_falls_back_to_the_file_driver(tmp_path):
+    from lucille_tpu_torch.display.drivers import get_display_driver
+    from lucille_tpu_torch.imageio.rgbe import read_hdr
+
+    drv = get_display_driver("framebuffer")
+    drv.open(str(tmp_path / "fb.hdr"), 4, 2)
+    drv.write(0, 0, np.ones((2, 4, 3), np.float32))
+    drv.close()
+    np.testing.assert_allclose(read_hdr(tmp_path / "fb.hdr"), 1.0)

@@ -11,7 +11,9 @@ tests.)  Tolerances: the kernels are built with --fmad=false and follow
 their twins' operation order, so answers agree exactly except where the
 kernels' conservative culls or the device's cos/sin round a boundary case
 the other way: triangle ids on all but 1e-3 of the rays, t/u/v within
-1e-6 relative, occlusion counts on all but 1e-3 of the lanes and within 1.
+1e-6 relative, occlusion counts on all but 1e-3 of the lanes and within 1,
+the dense any-hit's answers and the AO gather's per-stratum bits on all
+but 1e-3 of the rays / lanes.
 The tile-BVH kernels visit leaves in another order than their twins
 test slots, so a triangle id may also differ at an exact tie in t across
 two leaves (the ray onto a shared edge below); hits and occlusion do not
@@ -31,7 +33,11 @@ def _need_card():
 def _soup_scene(n, seed=5, accel="pallas"):
     """n random triangles in a 10-unit box, as a scene on cuda (the dense
     tiles, or the tile BVH with accel="bvh")."""
-    from lucille_tpu.ri.types import AttributeState, GeomData, SceneDescription
+    from lucille_tpu_torch.ri.types import (
+        AttributeState,
+        GeomData,
+        SceneDescription,
+    )
     from lucille_tpu_torch.scene.compile import compile_scene
 
     rng = np.random.default_rng(seed)
@@ -118,6 +124,128 @@ def test_ao_kernel_matches_plain(n_tris, ntheta):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tmax", ["none", "scalar", "rows"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_any_hit_kernel_matches_plain(tmax, masked):
+    """The dense any-hit with no tmax, one tmax for all rays and a tmax row;
+    with an active mask, dead rays report False."""
+    _need_card()
+    from lucille_tpu_torch.accel.isect import any_hit, any_hit_reference
+    from lucille_tpu_torch.accel.pack import pack_boxes, pack_tris
+
+    scene = _soup_scene(1100)  # 9 tiles
+    B = 5000
+    rng = np.random.default_rng(1)
+    o = torch.tensor(rng.uniform(-4, 4, (B, 3)), dtype=torch.float32,
+                     device="cuda")
+    d = torch.nn.functional.normalize(torch.tensor(
+        rng.normal(size=(B, 3)), dtype=torch.float32, device="cuda"), dim=-1)
+    t_arg = {"none": None, "scalar": 3.0,
+             "rows": torch.tensor(rng.uniform(0.5, 12, B), dtype=torch.float32,
+                                  device="cuda")}[tmax]
+    active = (torch.tensor(rng.uniform(size=B) < 0.6, device="cuda")
+              if masked else None)
+    tris, boxes = pack_tris(scene), pack_boxes(scene)
+    got = any_hit(tris, boxes, o, d, t_arg, active)["occ"]
+    t_row = torch.broadcast_to(torch.as_tensor(
+        float("inf") if t_arg is None else t_arg, dtype=torch.float32,
+        device="cuda"), (B,)).contiguous()
+    ref = any_hit_reference(tris, o, d, t_row, active)["occ"]
+    assert 0.1 < ref.float().mean() < 0.9
+    assert (got != ref).float().mean() <= 1e-3
+    if masked:
+        assert not torch.any(got[~active])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tris,ntheta", [(400, 5), (1100, 8), (400, 16)])
+def test_ao_bits_kernel_matches_plain(n_tris, ntheta):
+    """The gather's bits output below and above the Morton-order threshold,
+    S = 25 (one part-filled row), 64 (two rows) and 256 (eight, for
+    --gather-rays 256): counts as
+    test_ao_kernel_matches_plain, bits on all but 1e-3 of the lanes, each
+    lane's count equal to its popcount, rows 0 at or past nact."""
+    _need_card()
+    from lucille_tpu_torch.accel import ao
+    from lucille_tpu_torch.accel.pack import (
+        pack_boxes,
+        pack_occ,
+        pack_super_boxes,
+    )
+    from lucille_tpu_torch.transport.ao import ortho_basis
+
+    scene = _soup_scene(n_tris)
+    rng = np.random.default_rng(1)
+    P = torch.tensor(rng.uniform(-4, 4, (1000, 3)), dtype=torch.float32,
+                     device="cuda")
+    N = torch.nn.functional.normalize(
+        torch.tensor(rng.normal(size=(1000, 3)), dtype=torch.float32,
+                     device="cuda"), dim=-1)
+    b0, b1, b2 = ortho_basis(N)
+    rays = torch.cat([P, b0, b1, b2], dim=1).T.contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    u01 = torch.rand((2, 1000), device="cuda", generator=gen)
+    tris, boxes = pack_occ(scene), pack_boxes(scene)
+    nact = torch.tensor(900, dtype=torch.int32, device="cuda")
+    S = ntheta * ntheta
+    occ, bits = ao.ao_occlusion_kernel(tris, boxes, pack_super_boxes(boxes),
+                                       rays, u01, nact, ntheta, ntheta,
+                                       want_bits=True)
+    ref_occ, ref_bits = ao.ao_occlusion_reference(
+        tris, rays[:, :900], u01[:, :900], ntheta, ntheta, want_bits=True)
+    assert bits.shape == (-(-S // 32), 1000) and bits.dtype == torch.int32
+    assert torch.all(occ[900:] == 0) and torch.all(bits[:, 900:] == 0)
+    assert torch.equal(ao.unpack_bits(bits, S).sum(dim=0).float(), occ)
+    assert ref_occ.mean() > 1.0
+    differ = (bits[:, :900] != ref_bits).any(dim=0)
+    assert differ.float().mean() <= 1e-3
+    plain = ao.ao_occlusion_kernel(tris, boxes, pack_super_boxes(boxes),
+                                   rays, u01, nact, ntheta, ntheta)
+    assert torch.equal(plain, occ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accel", ["pallas", "bvh"])
+def test_sunsky_frame_matches_plain(accel):
+    """The bundled scene as shipped (its sunsky light) rendered on the card
+    and on the CPU's plain twins with the same jitter: every pixel within
+    1e-3 of its value (relative, values in the thousands) but for at most
+    1% of them (a flipped stratum)."""
+    _need_card()
+    from pathlib import Path
+
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.ri.api import RiState
+    from lucille_tpu_torch.rib.parser import parse_rib
+
+    rib = Path(__file__).resolve().parent / "golden" / "sunsky_scene.rib"
+
+    def state():
+        s = RiState()
+        parse_rib(rib.read_text(), s)
+        s.Format(48, 32)
+        s.PixelSamples(2, 2)
+        s.options.gather_nsamples = 16
+        s.options.accel_method = accel
+        return s
+
+    def sampler(device):
+        def draw(x0, y0, n):
+            rng = np.random.default_rng([x0, y0])
+            return torch.tensor(rng.uniform(size=(2, n)), dtype=torch.float32,
+                                 device=device)
+        return draw
+
+    got = Renderer(state().scene, tile_size=16, device="cuda",
+                   sampler=sampler("cuda")).render_frame()
+    ref = Renderer(state().scene, tile_size=16, device="cpu",
+                   sampler=sampler("cpu")).render_frame()
+    assert ref.mean() > 100.0
+    rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)
+    assert (rel > 1e-3).mean() <= 0.01
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bounded", [False, True])
 def test_bvh_closest_hit_kernel_matches_plain(bounded):
     _need_card()
@@ -179,7 +307,11 @@ def _flat_grid_desc(n):
     """n x n unit squares in the plane z = 0, two triangles each, as a
     scene description asking for the tile BVH: every shared edge is
     exactly representable."""
-    from lucille_tpu.ri.types import AttributeState, GeomData, SceneDescription
+    from lucille_tpu_torch.ri.types import (
+        AttributeState,
+        GeomData,
+        SceneDescription,
+    )
 
     xs, ys = np.meshgrid(np.arange(n + 1), np.arange(n + 1))
     pos = np.stack([xs, ys, np.zeros_like(xs)], -1).reshape(-1, 3)

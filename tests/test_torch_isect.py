@@ -49,7 +49,7 @@ def _eye_rays(B):
 CASES = {
     "soup700": lambda: (_soup_scene(), *_soup_rays(512)),
     "bundled_eye": lambda: (
-        _scene_from_desc(bundled_state().scene), *_eye_rays(512)),
+        _scene_from_desc(bundled_state(pkg="jax").scene), *_eye_rays(512)),
 }
 
 
@@ -101,7 +101,8 @@ def test_pack_tris_and_boxes_match_jax():
     from lucille_tpu_torch.accel.pack import pack_boxes, pack_tris
     from lucille_tpu_torch.scene.types import from_numpy
 
-    for sc in (_soup_scene(), _scene_from_desc(bundled_state().scene)):
+    for sc in (_soup_scene(),
+               _scene_from_desc(bundled_state(pkg="jax").scene)):
         scene = from_numpy(sc, "cpu")
         tris, npad = _pack(sc)
         np.testing.assert_array_equal(pack_tris(scene).numpy(),

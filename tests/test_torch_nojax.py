@@ -1,5 +1,5 @@
-"""The port runs without jax, picks its device explicitly, and launches
-no kernel on the CPU."""
+"""The port runs without jax and without lucille_tpu, picks its device
+explicitly, and launches no kernel on the CPU."""
 
 import json
 import os
@@ -14,31 +14,36 @@ import torch
 from test_torch_scene import one_torch_thread  # noqa: F401
 from test_torch_scene import REPO, bundled_rib_text, bundled_state
 
-# jax blocked before the port is imported; if a startup hook preloaded it
-# anyway, hold the modules the port's import added to the same rule
+# jax, lucille_tpu and bench_large blocked before the port is imported;
+# if a startup hook preloaded one anyway, hold the modules the port's
+# import added to the same rule
 _SCRIPT = textwrap.dedent("""
     import sys
     before = {k for k, v in sys.modules.items() if v is not None}
-    if "jax" not in before:
-        sys.modules["jax"] = None
+    for blocked in ("jax", "lucille_tpu", "bench_large"):
+        if blocked not in before:
+            sys.modules[blocked] = None
     from lucille_tpu_torch.cli import main
     rc = main(sys.argv[1:])
     added = {k for k, v in sys.modules.items() if v is not None} - before
-    bad = sorted(k for k in added if k == "jax" or k.startswith("jax."))
+    bad = sorted(k for k in added if k.split(".")[0] in (
+        "jax", "lucille_tpu", "bench_large"))
     assert not bad, bad
     import json
     from lucille_tpu_torch.accel import ao, bvh_isect, isect
     counts = {name: (c.kernel, c.plain) for name, c in (
-        ("closest_hit", isect.COUNTS), ("ao_occlusion", ao.COUNTS),
+        ("closest_hit", isect.COUNTS), ("any_hit", isect.ANY_COUNTS),
+        ("ao_occlusion", ao.COUNTS), ("ao_occlusion_bits", ao.BITS_COUNTS),
         ("bvh_closest_hit", bvh_isect.CLOSEST_COUNTS),
         ("bvh_any_hit", bvh_isect.ANY_COUNTS))}
     print("NOJAX-OK", rc, len(added), json.dumps(counts))
 """)
 
 
-def _render_without_jax(tmp_path, rib_text, *argv):
-    """The CLI in a fresh interpreter where jax cannot be imported: (the
-    image, {wrapper: (kernel launches, plain twin calls)})."""
+def _render_without_jax(tmp_path, rib_text, *argv, max_mean=1.0):
+    """The CLI in a fresh interpreter where neither jax nor lucille_tpu
+    can be imported: (the image, {wrapper: (kernel launches, plain twin
+    calls)}); the image's mean lies in (0, max_mean)."""
     from lucille_tpu.imageio.rgbe import read_hdr
 
     rib = tmp_path / "scene.rib"
@@ -60,7 +65,7 @@ def _render_without_jax(tmp_path, rib_text, *argv):
     counts = {k: tuple(v) for k, v in counts.items()}
     img = read_hdr(out)
     assert img.shape == (24, 32, 3) and np.isfinite(img).all()
-    assert 0.0 < img.mean() < 1.0
+    assert 0.0 < img.mean() < max_mean
     return img, counts
 
 
@@ -69,26 +74,34 @@ def test_cli_renders_without_jax(tmp_path):
     assert counts["closest_hit"][0] == counts["ao_occlusion"][0] == 0
     assert counts["closest_hit"][1] > 0 and counts["ao_occlusion"][1] > 0
     assert counts["bvh_closest_hit"] == counts["bvh_any_hit"] == (0, 0)
+    assert counts["any_hit"] == counts["ao_occlusion_bits"] == (0, 0)
+
+
+@pytest.mark.parametrize("accel", [[], ["--accel", "bvh"]])
+def test_cli_renders_the_shipped_scene_without_jax(tmp_path, accel):
+    """tests/golden/sunsky_scene.rib as shipped, its sunsky light
+    included: the sunsky gather on the dense tiles (the closest hit, the
+    AO gather with bits, the any-hit of the sun ray; not the plain
+    gather) or on the tile BVH (both BVH twins), every one a twin."""
+    img, counts = _render_without_jax(
+        tmp_path, bundled_rib_text(sunsky=True), *accel, max_mean=1e5)
+    assert img.mean() > 100.0  # sky radiance, not an AO fraction
+    assert all(k == 0 for k, _p in counts.values())
+    used = {name for name, (_k, p) in counts.items() if p}
+    assert used == ({"bvh_closest_hit", "bvh_any_hit"} if accel else
+                    {"closest_hit", "ao_occlusion_bits", "any_hit"})
 
 
 def _heightfield_rib(n: int) -> str:
-    """bench_large's heightfield terrain and camera as RIB text: one
-    PointsPolygons of (n - 1)^2 quads."""
-    from bench_large import heightfield_scene
+    """bench_large's heightfield terrain and camera (chip_smoke's copy) as
+    RIB text: one PointsPolygons of (n - 1)^2 quads."""
+    from chip_smoke import HEIGHTFIELD_CAMERA, heightfield_grid
 
-    s = heightfield_scene(n)
-    g = s.scene.geoms[0]
-    P = np.asarray(g.positions)
-    quads = np.asarray(g.indices).reshape(-1, 6)[:, [0, 1, 2, 5]]
+    P, quads = heightfield_grid(n)
     fmt = lambda a: " ".join(f"{x:.9g}" for x in np.ravel(a))  # noqa: E731
     return (
-        'Projection "perspective" "fov" [45.0]\n'
-        'Orientation "rh"\n'
-        "ConcatTransform [0.994530 0.008385 -0.104111 0.000000 "
-        "0.052799 0.819679 0.570385 0.000000 "
-        "0.090120 -0.572762 0.814753 0.000000 "
-        "-0.000009 -0.000015 -15.529361 1.000000 ]\n"
-        "WorldBegin\n"
+        HEIGHTFIELD_CAMERA
+        + "WorldBegin\n"
         f"PointsPolygons [{fmt(np.full(len(quads), 4))}] [{fmt(quads)}] "
         f'"P" [{fmt(P)}]\n'
         "WorldEnd\n"

@@ -1,9 +1,12 @@
 """The port's scene compile and host layers against lucille_tpu.
 
 Also home of the scene helpers the other test_torch_* files import: the
-bundled AO scene (tests/golden/sunsky_scene.rib without its sunsky light,
-the reference's ambient_occlusion.rib, 322 triangles) and bench_large's
-procedural heightfield.
+bundled scene (tests/golden/sunsky_scene.rib, the reference's
+ambient_occlusion.rib, 322 triangles; without its sunsky light unless
+asked) and bench_large's procedural heightfield, each parsed by the
+port's own front end (pkg="torch") or by lucille_tpu's (pkg="jax"): the
+JAX package's functions get lucille_tpu's scene description, the port's
+get its own.
 """
 
 import sys
@@ -32,9 +35,25 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def bundled_rib_text() -> str:
-    lines = BUNDLED_RIB.read_text().splitlines(keepends=True)
-    return "".join(l for l in lines if 'AreaLightSource "sunsky"' not in l)
+def bundled_rib_text(sunsky: bool = False) -> str:
+    text = BUNDLED_RIB.read_text()
+    if sunsky:
+        return text
+    return "".join(l for l in text.splitlines(keepends=True)
+                   if 'AreaLightSource "sunsky"' not in l)
+
+
+def front_end(pkg: str):
+    """(RiState, parse_rib) of the port ("torch") or of lucille_tpu
+    ("jax")."""
+    if pkg == "jax":
+        from lucille_tpu.ri.api import RiState
+        from lucille_tpu.rib.parser import parse_rib
+    else:
+        assert pkg == "torch", pkg
+        from lucille_tpu_torch.ri.api import RiState
+        from lucille_tpu_torch.rib.parser import parse_rib
+    return RiState, parse_rib
 
 
 def _finish_state(s, width, height, pixelsamples, gather, accel):
@@ -49,27 +68,28 @@ def _finish_state(s, width, height, pixelsamples, gather, accel):
 
 
 def bundled_state(width=None, height=None, pixelsamples=None, gather=None,
-                  accel="pallas"):
-    from lucille_tpu.ri.api import RiState
-    from lucille_tpu.rib.parser import parse_rib
-
+                  accel="pallas", sunsky=False, pkg="torch"):
+    RiState, parse_rib = front_end(pkg)
     s = RiState()
-    parse_rib(bundled_rib_text(), s)
+    parse_rib(bundled_rib_text(sunsky), s)
     return _finish_state(s, width, height, pixelsamples, gather, accel)
 
 
 def heightfield_state(n, width=None, height=None, pixelsamples=None,
-                      gather=None, accel="pallas"):
-    from bench_large import heightfield_scene
+                      gather=None, accel="pallas", sunsky=False, pkg="torch"):
+    """bench_large's terrain through chip_smoke's copy of it (tests below
+    hold the copy equal to bench_large.heightfield_scene)."""
+    from chip_smoke import heightfield_state as hf
 
-    return _finish_state(heightfield_scene(n), width, height, pixelsamples,
-                         gather, accel)
+    s = hf(n, sunsky=sunsky, api=front_end(pkg))
+    return _finish_state(s, width, height, pixelsamples, gather, accel)
 
 
 SCENES = {
-    "bundled": lambda: bundled_state(),
-    "heightfield35": lambda: heightfield_state(35),
-    "heightfield35_bvh": lambda: heightfield_state(35, accel="bvh"),
+    "bundled": lambda pkg: bundled_state(pkg=pkg),
+    "heightfield35": lambda pkg: heightfield_state(35, pkg=pkg),
+    "heightfield35_bvh": lambda pkg: heightfield_state(35, accel="bvh",
+                                                       pkg=pkg),
 }
 
 
@@ -87,11 +107,10 @@ def test_compile_matches_jax_exactly(name):
         from_numpy,
     )
 
-    desc = SCENES[name]().scene
-    ref = jax_compile(desc)
+    ref = jax_compile(SCENES[name]("jax").scene)
     bvh = name.endswith("_bvh")
     assert ref.accel == ("pbvh" if bvh else "pallas")
-    got = compile_scene(desc, "cpu")
+    got = compile_scene(SCENES[name]("torch").scene, "cpu")
     want = from_numpy(ref, "cpu")
     assert got.accel == want.accel == ("pbvh" if bvh else "dense")
     for f in ARRAY_FIELDS:
@@ -116,7 +135,7 @@ def test_from_numpy_round_trips():
     from lucille_tpu.scene.compile import compile_scene as jax_compile
     from lucille_tpu_torch.scene.types import ARRAY_FIELDS, from_numpy, to_numpy
 
-    ref = jax_compile(bundled_state().scene)
+    ref = jax_compile(bundled_state(pkg="jax").scene)
     back = to_numpy(from_numpy(ref, "cpu"))
     assert set(back) == set(ARRAY_FIELDS)
     for f in ARRAY_FIELDS:
@@ -181,8 +200,11 @@ def test_tile_list_exact(order):
         assert tile_list(w, h, t, order) == ref(w, h, t, order)
 
 
-def _ortho_camera():
-    from lucille_tpu.ri.camera import ORTHOGRAPHIC, Camera
+def _ortho_camera(pkg):
+    if pkg == "jax":
+        from lucille_tpu.ri.camera import ORTHOGRAPHIC, Camera
+    else:
+        from lucille_tpu_torch.ri.camera import ORTHOGRAPHIC, Camera
 
     cam = Camera(horizontal_resolution=64, vertical_resolution=48)
     cam.camera_projection = ORTHOGRAPHIC
@@ -198,17 +220,25 @@ def _ortho_camera():
 def test_generate_rays_close(proj):
     """f32 rays within 1e-6 of the JAX version on the same raster
     positions (the operation order is the same; XLA may still round a
-    reduction differently)."""
+    reduction differently).  Each package sets up its own camera from the
+    same scene."""
     import jax.numpy as jnp
 
     from lucille_tpu_torch.ri.camera import generate_rays
 
-    cam = bundled_state(64, 48).camera if proj == "perspective" else _ortho_camera()
-    assert cam.camera_projection == proj
+    def camera(pkg):
+        if proj == "perspective":
+            return bundled_state(64, 48, pkg=pkg).camera
+        return _ortho_camera(pkg)
+
+    cam, ref_cam = camera("torch"), camera("jax")
+    assert cam.camera_projection == ref_cam.camera_projection == proj
+    for a, b in zip(cam.ray_constants(), ref_cam.ray_constants()):
+        np.testing.assert_array_equal(a, b)
     rng = np.random.default_rng(3)
     px = rng.uniform(0, 64, 999).astype(np.float32)
     py = rng.uniform(0, 48, 999).astype(np.float32)
-    o_ref, d_ref = cam.generate_rays(jnp.asarray(px), jnp.asarray(py))
+    o_ref, d_ref = ref_cam.generate_rays(jnp.asarray(px), jnp.asarray(py))
     o, d = generate_rays(cam, torch.from_numpy(px), torch.from_numpy(py))
     np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), rtol=0, atol=1e-6)
     np.testing.assert_allclose(d.numpy(), np.asarray(d_ref), rtol=0, atol=1e-6)
@@ -221,3 +251,25 @@ def test_generate_rays_refuses_depth_of_field():
     cam.fstop, cam.focal_length, cam.focal_distance = 2.8, 0.05, 10.0
     with pytest.raises(NotImplementedError):
         generate_rays(cam, torch.zeros(4), torch.zeros(4))
+
+
+@pytest.mark.parametrize("n,accel", [(35, "pallas"), (35, "bvh"), (92, "auto")])
+def test_heightfield_copy_equals_bench_large(n, accel):
+    """chip_smoke's copy of bench_large's terrain and camera gives
+    lucille_tpu the same compiled scene and camera as bench_large's own
+    heightfield_scene."""
+    from bench_large import heightfield_scene
+    from lucille_tpu.scene.compile import compile_scene as jax_compile
+
+    want = heightfield_scene(n)
+    want.options.accel_method = accel
+    got = heightfield_state(n, accel=accel, pkg="jax")
+    a, b = jax_compile(got.scene), jax_compile(want.scene)
+    for f in ("tri_v0", "tri_e1", "tri_e2", "n0", "n1", "n2", "node_skip",
+              "node_bbmin"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)),
+                                      np.asarray(getattr(b, f)), err_msg=f)
+    for x, y in zip(got.camera.ray_constants(), want.camera.ray_constants()):
+        np.testing.assert_array_equal(x, y)
+    assert (got.options.width, got.options.height) == (160, 120)
+    assert got.options.current_display().sampling_rates[0] == 2
