@@ -30,8 +30,9 @@ non-zero):
    bundled scene at 640x480, 3x3 samples, 64 AO rays, tile 240, rendered
    by the port's Renderer on the card into an .hdr through the port's
    display driver and read back: finite, mean in range, the path's
-   kernels launched, no other kernel, no plain twin; the warm frame
-   seconds (best of 2) and Mrays/s.  First as shipped, with its sunsky
+   kernels launched, no other kernel, no plain twin, no tile waiting on
+   the card while it is enqueued; the warm frame seconds (best of 2) and
+   Mrays/s.  First as shipped, with its sunsky
    light (the sunsky gather: closest hit, AO gather with bits, dense
    any-hit), then without it (plain AO: closest hit, AO gather);
 5. the 80x60 frames against CPU-lucille's own: plain AO against
@@ -49,7 +50,10 @@ non-zero):
    triangle) a slice of rays.  Tolerances: hit masks equal on all but
    1e-4 of the rays, triangle ids on all but 1e-3 (exact ties in t
    across leaves), t/u/v within 1e-6 relative; occlusion equal on all
-   but 1e-4 of the rays;
+   but 1e-4 of the rays.  Their bounds count the work the data needs
+   (`need_walk`: the tree walked near child first, real triangles only,
+   an any-hit stopping at its first hit), on every eye ray and on a
+   random sample of the gather rays;
 8. the large-scene frames: both heightfields at bench_large's
    configuration, uncut (160x120, 2x2 samples, 64 AO rays, tile 128),
    with the checks of phase 4 (both BVH kernels launched, no dense
@@ -60,7 +64,31 @@ non-zero):
 9. the heightfield at n = 91 rendered on the dense tiles and on the tile
    BVH: the two draw their jitter differently (compacted slot against
    raster lane), so only the means over hit pixels are held, within 0.01;
-10. a JSON line of per-kernel results (each with the least time the card
+10. the fused tile-BVH AO gather (kernel 6, LUCILLE_BVH_AO=fused) against
+   its plain twin on the first tile of both heightfields at 8x8 strata,
+   and of the n = 256 one at 2x2 strata with the inputs of a Whitted
+   frame's dome gather (its other layout: one warp a block); the kernel
+   on the whole tile, the twin on a slice of its compacted slots; counts
+   equal on all but 1e-4 of the slots and within 1; the bound from
+   `need_walk` on a random sample of the live slots, whose counts must
+   equal the kernel's.  Then both closest hits with a bounce
+   wavefront's active mask (half the rays live) against their twins
+   (phase 3's and 7's tolerances; dead rays report a miss);
+11. the integrator frames, each with the checks and timing of phase 4:
+   bench.py's `whitted` frame (the bundled scene without its sunsky line,
+   640x480, 3x3, tile 240: the default dome, so Whitted gathers it
+   through the dense AO gather), the same scene path traced, the bundled
+   scene as shipped under Whitted (the sky and the sun by shadow rays:
+   the dense any-hit), the n = 256 terrain under Whitted with the cone
+   gather and with the fused one, and both terrains' AO frames with the
+   fused gather;
+12. an 80x60 Whitted frame of the bundled scene on the card against the
+   same frame on the CPU (the plain twins), one numpy stream fed to
+   both: ray counts within 1e-3, pixels within 1e-3 on all but 1%;
+13. the fused gather's frames against the cone gather's (their jitter
+   belongs to compacted slots against raster lanes): means over hit
+   pixels within 0.01;
+14. a JSON line of per-kernel results (each with the least time the card
    could take for its work, `bound_ms`, from the counts below), the
    card's line, and last {"ok": true, "device": {...}}.
 
@@ -75,9 +103,11 @@ equal.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -101,6 +131,8 @@ SOURCES = {
                         "lucille_tpu/accel/pallas_bvh.py:310"),
     "bvh_any_hit": ("lucille_tpu_torch/csrc/bvh.cu",
                     "lucille_tpu/accel/pallas_bvh.py:598"),
+    "bvh_ao_fused": ("lucille_tpu_torch/csrc/bvh.cu",
+                     "lucille_tpu/accel/pallas_bvh.py:810"),
 }
 
 # The card's peaks for bound_ms (NVIDIA H100 SXM data sheet, at 700 W):
@@ -111,8 +143,12 @@ PEAK_BYTES = 3.35e12
 # one): a Moller-Trumbore test (isect.cu Ray::hits, bvh.cu closest), the
 # BVH any-hit's signed-volume test, one (stratum, triangle) test of the AO
 # gather, a ray against a tile's box, a tile-BVH node visit (two child
-# boxes and the ordering).
+# boxes and the ordering), and the fused gather's per-walk set-up (the
+# stratum's direction from the jitter and basis, and its reciprocals).
 MT_OPS, SV_OPS, AO_OPS, SLAB_OPS, NODE_OPS = 56, 58, 30, 25, 56
+DIR_OPS = 55
+# rays on which need_walk counts the tile-BVH any-hits' needed work
+N_NEED = 65536
 
 HEIGHTFIELD_CAMERA = (
     'Projection "perspective" "fov" [45.0]\n'
@@ -139,10 +175,11 @@ def sunsky_line() -> str:
 
 
 def bundled_state(width, height, pixelsamples=None, gather=None,
-                  sunsky=True, api=None):
+                  sunsky=True, api=None, method=None):
     """tests/golden/sunsky_scene.rib, the reference's
     ambient_occlusion.rib (322 triangles) with its sunsky light (as
-    shipped), or without that line for plain AO; parsed in memory."""
+    shipped), or without that line for plain AO; parsed in memory, and
+    rendered by `method` (default the RIB's, AO)."""
     RiState, parse_rib = api or front_end()
     text = BUNDLED_RIB.read_text()
     if not sunsky:
@@ -155,6 +192,8 @@ def bundled_state(width, height, pixelsamples=None, gather=None,
         s.PixelSamples(pixelsamples, pixelsamples)
     if gather is not None:
         s.options.gather_nsamples = gather
+    if method is not None:
+        s.options.render_method = method
     return s
 
 
@@ -178,7 +217,7 @@ def heightfield_grid(n: int):
 
 
 def heightfield_state(n, width=160, height=120, pixelsamples=2, gather=64,
-                      accel="auto", sunsky=False, api=None):
+                      accel="auto", sunsky=False, api=None, method=None):
     """bench_large's scene: the camera parsed from RIB text, the terrain
     handed to RiPointsPolygons as one mesh (identity transform), and
     optionally the bundled scene's sunsky line."""
@@ -200,17 +239,59 @@ def heightfield_state(n, width=160, height=120, pixelsamples=2, gather=64,
     s.WorldEnd()
     s.options.gather_nsamples = gather
     s.options.accel_method = accel
+    if method is not None:
+        s.options.render_method = method
     return s
 
 
 def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
-    from lucille_tpu_torch.accel import ao, bvh_isect, isect
+    from lucille_tpu_torch.accel import ao, bvh_ao, bvh_isect, isect
 
     return {"closest_hit": isect.COUNTS, "any_hit": isect.ANY_COUNTS,
             "ao_occlusion": ao.COUNTS, "ao_occlusion_bits": ao.BITS_COUNTS,
             "bvh_closest_hit": bvh_isect.CLOSEST_COUNTS,
-            "bvh_any_hit": bvh_isect.ANY_COUNTS}
+            "bvh_any_hit": bvh_isect.ANY_COUNTS,
+            "bvh_ao_fused": bvh_ao.FUSED_COUNTS}
+
+
+@contextmanager
+def bvh_ao_mode(mode: str):
+    """LUCILLE_BVH_AO set to `mode` inside the block (the tile BVH's
+    gathers read it at call time), restored after."""
+    saved = os.environ.get("LUCILLE_BVH_AO")
+    os.environ["LUCILLE_BVH_AO"] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("LUCILLE_BVH_AO", None)
+        else:
+            os.environ["LUCILLE_BVH_AO"] = saved
+
+
+@contextmanager
+def no_host_sync(r):
+    """Inside the block every tile Renderer r enqueues runs under torch's
+    sync debug mode "error": a tile that makes the host wait for the card
+    (a host-to-device copy, .item(), a boolean mask index) raises.  The
+    pulls of finished tiles lie outside the tiles and are not checked."""
+    import torch
+
+    tile = r._tile
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return tile(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    r._tile = strict
+    try:
+        yield
+    finally:
+        del r._tile
 
 
 def cuda_ms(fn, reps):
@@ -264,6 +345,144 @@ def tiles_reached(boxes, org, dirn, tmax):
     tf = torch.maximum(lo, hi).amin(dim=-1)
     filled = (boxes[0:3] <= boxes[3:6]).all(dim=0)[None]
     return filled & (tn <= tf) & (tf > 0) & (tn < tmax[:, None])
+
+
+def need_walk(tris, nodes, org, dirn, closest: bool, depth: int,
+              chunk: int = 16384) -> dict:
+    """The tile-BVH work rays org, dirn (R, 3) need, counted by walking
+    the tree in plain torch: each ray enters the root, at an inner node
+    tests both child boxes and enters the near child first (the one on
+    the low side of the split axis when the ray's direction along it is
+    >= 0), skipping a child it does not reach (the closest hit: whose
+    entry is not before its best t), as csrc/bvh.cu's kernels 4 and 5
+    walk; a leaf tests its real triangles in slot order (padding slots,
+    all zero, are no work), the any-hit (unbounded signed-volume test)
+    up to its first hit and then stopping, the closest hit
+    (Moller-Trumbore) every one.  Returns {"hit" (R,) bool (hit or
+    occluded), "inner" inner nodes entered, "nodes" nodes entered,
+    "tests" real triangles tested (Python ints)}."""
+    import torch
+
+    from lucille_tpu_torch.accel.pack import TC
+
+    R, dev = org.shape[0], org.device
+    inf = float("inf")
+    ints = nodes.view(torch.int32)
+    meta, link = ints[:, 3].long(), ints[:, 7].long()
+    lo, hi = nodes[:, 0:3], nodes[:, 4:7]
+    real = (tris[0:9] != 0).any(dim=0)
+    L = int(meta.max()) * TC
+    lane = torch.arange(L, device=dev)
+    inv = 1.0 / torch.where(dirn.abs() > 1e-20, dirn,
+                            torch.full_like(dirn, 1e-20))
+
+    def slab(n, rows):
+        t0 = (lo[n] - org[rows]) * inv[rows]
+        t1 = (hi[n] - org[rows]) * inv[rows]
+        return (torch.minimum(t0, t1).amax(dim=1),
+                torch.maximum(t0, t1).amin(dim=1))
+
+    cur = torch.zeros(R, dtype=torch.long, device=dev)
+    sp = torch.zeros(R, dtype=torch.long, device=dev)
+    stack = torch.zeros((R, depth + 1), dtype=torch.long, device=dev)
+    stack_tn = torch.zeros((R, depth + 1), device=dev)
+    t_best = torch.full((R,), inf, device=dev)
+    hit = torch.zeros(R, dtype=torch.bool, device=dev)
+    n_inner = n_nodes = 0
+    tests = torch.zeros((), dtype=torch.int64, device=dev)
+    while True:
+        idx = torch.nonzero(cur >= 0)[:, 0]
+        if idx.numel() == 0:
+            break
+        n_nodes += idx.numel()
+        c = cur[idx]
+        m = meta[c]
+        leaf = m > 0
+        nxt = torch.full_like(c, -1)
+
+        # inner nodes: both child boxes, the near child first
+        inner = ~leaf
+        ii, ci = idx[inner], c[inner]
+        n_inner += ii.numel()
+        c0, c1 = ci + 1, link[ci]
+        tn0, tf0 = slab(c0, ii)
+        tn1, tf1 = slab(c1, ii)
+        bound = t_best[ii] if closest else inf
+        r0 = (tn0 <= tf0) & (tf0 > 0) & (tn0 < bound)
+        r1 = (tn1 <= tf1) & (tf1 > 0) & (tn1 < bound)
+        near0 = dirn[ii, -m[inner] - 1] >= 0
+        near = torch.where(near0, c0, c1)
+        far = torch.where(near0, c1, c0)
+        rn = torch.where(near0, r0, r1)
+        rf = torch.where(near0, r1, r0)
+        push = rn & rf
+        pi = ii[push]
+        stack[pi, sp[pi]] = far[push]
+        stack_tn[pi, sp[pi]] = torch.where(near0, tn1, tn0)[push]
+        sp[pi] += 1
+        nxt[inner] = torch.where(rn, near, torch.where(rf, far, -1))
+
+        # leaves: the real triangles in slot order
+        li, cl = idx[leaf], c[leaf]
+        first, count = link[cl] * TC, m[leaf] * TC
+        stop = torch.zeros(li.numel(), dtype=torch.bool, device=dev)
+        for a in range(0, li.numel(), chunk):
+            rows = li[a : a + chunk]
+            inleaf = lane[None] < count[a : a + chunk, None]
+            k = torch.where(inleaf, first[a : a + chunk, None] + lane[None], 0)
+            rv = inleaf & real[k]
+            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
+                tris[r][k] for r in range(9))
+            ox, oy, oz = (org[rows, i : i + 1] for i in range(3))
+            dx, dy, dz = (dirn[rows, i : i + 1] for i in range(3))
+            px = dy * e2z - dz * e2y
+            py = dz * e2x - dx * e2z
+            pz = dx * e2y - dy * e2x
+            det = e1x * px + e1y * py + e1z * pz
+            sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+            qx = sy * e1z - sz * e1y
+            qy = sz * e1x - sx * e1z
+            qz = sx * e1y - sy * e1x
+            u = sx * px + sy * py + sz * pz
+            v = qx * dx + qy * dy + qz * dz
+            t = e2x * qx + e2y * qy + e2z * qz
+            if closest:
+                valid = det.abs() > 1e-14
+                inva = torch.where(valid, 1.0 / torch.where(valid, det, 1.0),
+                                   0.0)
+                u, v, t = u * inva, v * inva, t * inva
+                h = (valid & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1)
+                     & (t > 0) & (t < t_best[rows, None]) & rv)
+                t_best[rows] = torch.minimum(
+                    t_best[rows], torch.where(h, t, inf).amin(dim=1))
+                hit[rows] |= h.any(dim=1)
+                tests += rv.sum()
+            else:
+                w = det - u - v
+                inside = ((torch.minimum(torch.minimum(u, v), w) >= 0)
+                          | (torch.maximum(torch.maximum(u, v), w) <= 0))
+                h = inside & (t * det > 0) & (det.abs() > 1e-14) & rv
+                anyh = h.any(dim=1)
+                upto = torch.cumsum(rv, dim=1).gather(
+                    1, h.to(torch.int8).argmax(dim=1, keepdim=True))[:, 0]
+                tests += torch.where(anyh, upto, rv.sum(dim=1)).sum()
+                hit[rows] = anyh
+                stop[a : a + chunk] = anyh
+        nxt[leaf] = torch.where(stop, -2, -1)  # -2: occluded, walk ends
+        cur[idx] = nxt
+
+        # pop: the closest hit only a child still nearer than its best t
+        while True:
+            pi = torch.nonzero((cur == -1) & (sp > 0))[:, 0]
+            if pi.numel() == 0:
+                break
+            sp[pi] -= 1
+            cand = stack[pi, sp[pi]]
+            if closest:
+                cand = torch.where(stack_tn[pi, sp[pi]] < t_best[pi], cand, -1)
+            cur[pi] = cand
+    return {"hit": hit, "inner": n_inner, "nodes": n_nodes,
+            "tests": int(tests)}
 
 
 def check_kernels(label, desc, tile, n_slice, results):
@@ -343,7 +562,7 @@ def check_kernels(label, desc, tile, n_slice, results):
     res = closest_hit(scene, org, dirn)
     hit = res["hit"]
     P_off, b0, b1, b2 = shading_frame(scene, org, dirn, res)
-    jitter = r.sampler(x0, y0, B)
+    jitter = r.sampler(x0, y0).uniform((), (2, B))
     occ = ao.ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, 8, 8)
     occ_b, bits, u01 = ao.ao_occlusion_bits(scene, P_off, b0, b1, b2, hit,
                                             jitter, 8, 8)
@@ -460,9 +679,10 @@ def render_checked(label, r, out_name, path):
     """Phases 4, 6 and 8 on Renderer r: warm-up, then one counted frame
     through the display driver into an .hdr that is read back and
     checked, then best of 2.  `path` names the kernels the frame must
-    launch; every other kernel must launch none, and no twin may run.
+    launch; every other kernel must launch none, and no twin may run; no
+    tile of the counted frame may wait on the card (`no_host_sync`).
     Returns (the counted frame's launches of the path's kernels, best
-    frame seconds)."""
+    frame seconds, the counted frame as read back)."""
     import torch
 
     from lucille_tpu_torch.display.drivers import get_display_driver
@@ -478,7 +698,8 @@ def render_checked(label, r, out_name, path):
     drv = get_display_driver("file")
     opt = r.desc.options
     drv.open(str(path_file), opt.width, opt.height)
-    r.render_frame(tile_cb=drv.write)
+    with no_host_sync(r):
+        r.render_frame(tile_cb=drv.write)
     drv.close()
     launches = {k: c.kernel for k, c in counts.items()}
     if min(launches[k] for k in path) <= 0:
@@ -487,12 +708,12 @@ def render_checked(label, r, out_name, path):
         raise AssertionError(f"{label}: a kernel off the path ran: {launches}")
     if any(c.plain for c in counts.values()):
         raise AssertionError(f"{label}: a plain twin ran on the card")
-    img = read_hdr(path_file)
+    img = read_hdr(path_file)[::-1]  # the file driver flips rows
     if img.shape != (opt.height, opt.width, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{label}: bad image {img.shape}")
     mean = float(img.mean())
     sunsky = any(li.type == "sunsky" for li in r.lights)
-    if not 0.0 < mean < (1e6 if sunsky else 1.0):
+    if not 0.0 < mean <= (1e6 if sunsky else 1.0):
         raise AssertionError(f"{label}: image mean {mean}")
     times, nrays = [], 0
     for _ in range(2):
@@ -507,12 +728,13 @@ def render_checked(label, r, out_name, path):
     launches = {k: launches[k] for k in path}
     print(f"[{label}] {opt.width}x{opt.height}, "
           f"{int(opt.current_display().sampling_rates[0])}^2 samples, "
-          f"{opt.gather_nsamples} AO rays, tile {r.tile_size}, accel "
-          f"{r.scene.accel}{', sunsky' if sunsky else ''}: image mean "
-          f"{mean:.4f}, launches {launches}; frame {best:.4f} s (samples "
+          f"method {opt.render_method or 'ao'}, {opt.gather_nsamples} AO "
+          f"rays, tile {r.tile_size}, accel {r.scene.accel}"
+          f"{', sunsky' if sunsky else ''}: image mean {mean:.4f}, launches "
+          f"{launches}; frame {best:.4f} s (samples "
           f"{[round(t, 4) for t in times]}), {nrays} rays, "
           f"{nrays / best / 1e6:.1f} Mrays/s", flush=True)
-    return launches, best
+    return launches, best, img
 
 
 def build_renderer(label, make_state, tile):
@@ -590,11 +812,20 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     ms_slice = cuda_ms(lambda: bvh_isect.bvh_closest_hit(
         tris, nodes, org[sl], dirn[sl], depth=depth), 5)
     hit_rate = (got["tri"] >= 0).float().mean().item()
+    # the work the data needs: every eye ray walked near child first,
+    # real triangles only
+    need = need_walk(tris, nodes, org, dirn, True, depth)
+    need_differ = (need["hit"] != (got["tri"] >= 0)).float().mean().item()
+    if need_differ > 1e-4:
+        raise AssertionError(f"{label} need_walk: hit differs from the "
+                             f"closest hit's on {need_differ:.2e}")
     work = bound(B * (28 + 16) + static_bytes,
-                 int(got["ntests"]) * MT_OPS + int(got["ntrav"]) * NODE_OPS)
+                 need["tests"] * MT_OPS + need["inner"] * NODE_OPS)
     print(f"[{label}] bvh_closest_hit: {B} eye rays, hit rate "
-          f"{hit_rate:.4f}, {int(got['ntrav'])} node visits, "
-          f"{int(got['ntests'])} triangle tests; on {n_closest} rays tri "
+          f"{hit_rate:.4f}, {int(got['ntrav'])} node visits and "
+          f"{int(got['ntests'])} triangle tests done, {need['nodes']} "
+          f"visits ({need['inner']} inner) and {need['tests']} tests "
+          f"needed; on {n_closest} rays tri "
           f"differs on {differ:.2e}, max |t,u,v err| {err:.3e}; kernel "
           f"{ms:.3f} ms ({ms_slice:.3f} ms on the slice), plain "
           f"{plain_ms:.3f} ms on the slice, bound {work['bound_ms']:.3f} ms "
@@ -602,13 +833,16 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     results["bvh_closest_hit"].append(
         {"scene": label, "rays": B, "ms": ms, "slice": n_closest,
          "ms_slice": ms_slice, "plain_ms": plain_ms, "max_abs_err": err,
-         "tri_differs": differ, **work})
+         "tri_differs": differ, "kernel_ntrav": int(got["ntrav"]),
+         "kernel_ntests": int(got["ntests"]),
+         **{f"need_{k}": need[k] for k in ("inner", "nodes", "tests")},
+         **work})
 
     # -- tile-BVH any-hit on the tile's gather rays, 8x8 strata
     res = closest_hit(scene, org, dirn)
     hit = res["hit"]
     P_off, b0, b1, b2 = shading_frame(scene, org, dirn, res)
-    jitter = r.sampler(x0, y0, B)
+    jitter = r.sampler(x0, y0).uniform((), (2, B))
     oo, dd, _order, _layout = conetile_rays(scene, P_off, b0, b1, b2, hit,
                                             jitter, 8, 8)
     R = oo.shape[0]
@@ -625,19 +859,289 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
                                                depth=depth), 3)
     ms_slice = cuda_ms(lambda: bvh_isect.bvh_any_hit(
         tris, nodes, oo[sl], dd[sl], depth=depth), 5)
+    # the work the data needs, counted on a random sample of the rays and
+    # scaled to all R
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sample = torch.randperm(R, device="cuda", generator=gen)[:N_NEED]
+    need = need_walk(tris, nodes, oo[sample], dd[sample], False, depth)
+    need_differ = (need["hit"] != got["occ"][sample]).float().mean().item()
+    if need_differ > 1e-4:
+        raise AssertionError(f"{label} need_walk: occlusion differs from "
+                             f"the any-hit's on {need_differ:.2e}")
+    scale = R / len(sample)
     work = bound(R * (28 + 1) + static_bytes,
-                 int(got["ntests"]) * SV_OPS + int(got["ntrav"]) * NODE_OPS)
+                 scale * (need["tests"] * SV_OPS + need["inner"] * NODE_OPS))
     print(f"[{label}] bvh_any_hit: {R} gather rays ({live} live), occluded "
           f"{got['occ'][:live].float().mean().item():.4f}, "
-          f"{int(got['ntrav'])} node visits, {int(got['ntests'])} triangle "
-          f"tests; on {n_any} rays {frac:.2e} differ; kernel {ms:.3f} ms "
+          f"{int(got['ntrav'])} node visits and {int(got['ntests'])} "
+          f"triangle tests done, {scale * need['nodes']:.0f} visits "
+          f"({scale * need['inner']:.0f} inner) and "
+          f"{scale * need['tests']:.0f} tests needed (from {len(sample)} "
+          f"rays); on {n_any} rays {frac:.2e} differ; kernel {ms:.3f} ms "
           f"({ms_slice:.3f} ms on the slice), plain {plain_ms:.3f} ms on "
           f"the slice, bound {work['bound_ms']:.3f} ms ({work['bound_by']})",
           flush=True)
     results["bvh_any_hit"].append(
         {"scene": label, "rays": R, "ms": ms, "slice": n_any,
          "ms_slice": ms_slice, "plain_ms": plain_ms,
-         "max_abs_err": float(frac > 0), "differs": frac, **work})
+         "max_abs_err": float(frac > 0), "differs": frac,
+         "kernel_ntrav": int(got["ntrav"]),
+         "kernel_ntests": int(got["ntests"]), "need_sample": len(sample),
+         **{f"need_{k}": scale * need[k] for k in ("inner", "nodes", "tests")},
+         **work})
+
+
+def registers(log: str, kernel: str) -> int:
+    """ptxas's register count of the entry whose mangled name holds
+    `kernel` (the first such entry), from the build log."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            for nxt in lines[i + 1 :]:
+                if "Compiling entry" in nxt:
+                    break
+                if "Used " in nxt and "registers" in nxt:
+                    return int(nxt.split("Used ")[1].split()[0])
+    raise AssertionError(f"no ptxas report for {kernel}")
+
+
+def first_tile_rays(r):
+    """The eye rays of the scene's first tile on the card, and (x0, y0)."""
+    import torch
+
+    from lucille_tpu_torch.render.renderer import tile_eye_rays
+    from lucille_tpu_torch.render.tiles import tile_list
+    from lucille_tpu_torch.sampling.hammersley import subpixel_samples
+
+    opt, tile = r.desc.options, r.tile_size
+    xs, ys = (int(v) for v in opt.current_display().sampling_rates)
+    sub = torch.tensor(subpixel_samples(xs, ys)[0], dtype=torch.float32,
+                       device="cuda")
+    x0, y0, _i, _j = tile_list(opt.width, opt.height, tile,
+                               opt.bucket_order)[0]
+    org, dirn = tile_eye_rays(r.camera, x0, y0, tile, tile, sub)
+    return org, dirn, x0, y0
+
+
+def check_closest_active(label, r, n_slice, results):
+    """Phase 10: the scene's closest-hit kernel on its first tile with a
+    bounce wavefront's active mask (half the rays live) against its
+    twin; dead rays report a miss.  Appends to results[name]."""
+    import torch
+
+    from lucille_tpu_torch.accel import bvh_isect, isect
+    from lucille_tpu_torch.accel.pack import pack_boxes, pack_tris
+
+    scene = r.scene
+    org, dirn, _x0, _y0 = first_tile_rays(r)
+    B = org.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    active = torch.rand(B, device="cuda", generator=gen) < 0.5
+    tris = pack_tris(scene)
+    dense = scene.accel == "dense"
+    name = "closest_hit" if dense else "bvh_closest_hit"
+    if dense:
+        boxes = pack_boxes(scene)
+        launch = lambda a: isect.closest_hit(  # noqa: E731
+            tris, boxes, org, dirn, a)
+    else:
+        launch = lambda a: bvh_isect.bvh_closest_hit(  # noqa: E731
+            tris, scene.nodes, org, dirn, None, a, depth=scene.tree_depth)
+    got = launch(active)
+    hits = torch.nonzero(got["tri"] >= 0)[:, 0]
+    mid = int(hits[len(hits) // 2]) if len(hits) else B // 2
+    lo = min(max(0, mid - n_slice // 2), max(0, B - n_slice))
+    sl = slice(lo, lo + n_slice)
+    if dense:
+        ref = isect.closest_hit_reference(tris, org[sl], dirn[sl], active[sl])
+    else:
+        ref = bvh_isect.bvh_closest_hit_reference(
+            tris, org[sl], dirn[sl],
+            torch.full((n_slice,), float("inf"), device="cuda"), active[sl])
+    torch.cuda.synchronize()
+    if torch.any(got["tri"][~active] >= 0) or not torch.all(
+            torch.isinf(got["t"][~active])):
+        raise AssertionError(f"{label} {name}: a dead ray reports a hit")
+    tri_k, tri_r = got["tri"][sl], ref["tri"]
+    hit_differ = ((tri_k >= 0) != (tri_r >= 0)).float().mean().item()
+    differ = (tri_k != tri_r).float().mean().item()
+    same = (tri_k == tri_r) & (tri_r >= 0)
+    err = 0.0
+    for k in ("t", "u", "v"):
+        a, b = got[k][sl][same], ref[k][same]
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+        err = max(err, (a - b).abs().max().item() if len(a) else 0.0)
+    if hit_differ > 1e-4 or differ > (1e-4 if dense else 1e-3) or not (
+            same.any()):
+        raise AssertionError(f"{label} {name} with active: hit differs on "
+                             f"{hit_differ:.2e}, tri on {differ:.2e}")
+    all_live = torch.ones_like(active)
+    ms = cuda_ms(lambda: launch(active), 5)
+    ms_all = cuda_ms(lambda: launch(all_live), 5)
+    print(f"[{label}] {name} with active: {int(active.sum())} live of {B}, "
+          f"live hit rate {(got['tri'][active] >= 0).float().mean().item():.4f}"
+          f"; on {n_slice} rays tri differs on {differ:.2e}, max |t,u,v err| "
+          f"{err:.3e}; kernel {ms:.3f} ms (every ray live {ms_all:.3f} ms)",
+          flush=True)
+    results[name].append({"scene": f"{label}-active", "max_abs_err": err,
+                          "ms": ms, "ms_all_live": ms_all,
+                          "tri_differs": differ})
+
+
+def ao_gather_inputs(r):
+    """The AO frame's gather on the scene's first tile: (P_off, b0, b1,
+    b2, hit, the tile stream's (2, B) draw)."""
+    from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.transport.ao import shading_frame
+
+    org, dirn, x0, y0 = first_tile_rays(r)
+    res = closest_hit(r.scene, org, dirn)
+    P_off, b0, b1, b2 = shading_frame(r.scene, org, dirn, res)
+    return (P_off, b0, b1, b2, res["hit"],
+            r.sampler(x0, y0).uniform((), (2, org.shape[0])))
+
+
+def whitted_gather_inputs(r):
+    """The dome's hemisphere gather of a Whitted frame's first bounce on
+    the scene's first tile, as lights/sampling._hemisphere_occlusion
+    builds it: the eye hits' face-forwarded shading normals and their
+    basis, P + N eps, the hit mask, and the tile stream's (2, B) draw at
+    fold(0) (the bounce), fold(1000) (the first light)."""
+    from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.sampling.jitter import StreamKey
+    from lucille_tpu_torch.transport.ao import ortho_basis
+    from lucille_tpu_torch.transport.common import face_forward, interp_hit
+
+    org, dirn, x0, y0 = first_tile_rays(r)
+    res = closest_hit(r.scene, org, dirn)
+    h = interp_hit(r.scene, res, org, dirn)
+    N = face_forward(h["Ns"], dirn)
+    b0, b1, b2 = ortho_basis(N)
+    key = StreamKey(r.sampler(x0, y0)).fold(0).fold(1000)
+    return (h["P"] + N * r.scene.eps, b0, b1, b2, res["hit"],
+            key.uniform((2, org.shape[0])))
+
+
+def check_fused_gather(label, r, n_slots, results, inputs, ntheta=8, nphi=8):
+    """Phase 10: the fused gather (kernel 6) on the scene's first tile,
+    inputs (P_off, b0, b1, b2, hit, jitter) at ntheta x nphi strata,
+    against its plain twin on n_slots compacted slots, every slot
+    compared; its bound from the work need_walk counts on a random
+    sample of the live slots.  Appends to results["bvh_ao_fused"]."""
+    import torch
+
+    from lucille_tpu_torch.accel import bvh_ao
+    from lucille_tpu_torch.accel.ao import compaction_order, stratum_directions
+    from lucille_tpu_torch.accel.pack import pack_tris
+    from lucille_tpu_torch.kernels import build
+
+    scene = r.scene
+    P_off, b0, b1, b2, hit, jitter = inputs
+    B, S = P_off.shape[0], ntheta * nphi
+    order, nhit = compaction_order(scene.bbox_min, scene.bbox_max, P_off, b2,
+                                   hit, bvh_ao.MORTON_TILES)
+    rays = torch.cat([P_off, b0, b1, b2], dim=1)[order].T.contiguous()
+    tris, nodes, skip = pack_tris(scene), scene.nodes, scene.skip
+    launch = lambda: bvh_ao.bvh_ao_fused_kernel(  # noqa: E731
+        tris, nodes, skip, rays, jitter, nhit, ntheta, nphi)
+    occ, stats = launch()
+    n = int(nhit)
+    lo = max(0, n // 2 - n_slots // 2)
+    sl = slice(lo, lo + n_slots)
+    (ref, _st), plain_ms = timed(lambda: bvh_ao.bvh_ao_fused_reference(
+        tris, rays[:, sl], jitter[:, sl], ntheta, nphi))
+    diff = (occ[sl] - ref).abs()
+    frac = (diff != 0).float().mean().item()
+    if diff.max().item() > 1 or frac > 1e-4:
+        raise AssertionError(f"{label} bvh_ao_fused: {frac:.2e} of slots "
+                             f"differ, max {diff.max().item()}")
+    if torch.any(occ[n:] != 0):
+        raise AssertionError(f"{label} bvh_ao_fused: a slot past nact counts")
+    if not 0.01 * S < ref.mean().item() < 0.99 * S:
+        raise AssertionError(f"{label} bvh_ao_fused: the slice's mean "
+                             f"occlusion {ref.mean().item():.3f} of {S}")
+    ms = cuda_ms(launch, 3)
+    rays_s, jit_s = rays[:, sl].contiguous(), jitter[:, sl].contiguous()
+    n_s = torch.full((), n_slots, dtype=torch.int32, device="cuda")
+    ms_slice = cuda_ms(lambda: bvh_ao.bvh_ao_fused_kernel(
+        tris, nodes, skip, rays_s, jit_s, n_s, ntheta, nphi), 5)
+    ntrav, ntests = int(stats["ntrav"]), int(stats["ntests"])
+
+    # the work the data needs: a random sample of the live slots, every
+    # stratum of each walked near child first over real triangles, its
+    # counts equal to the kernel's; scaled to the n live slots
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    slots = torch.randperm(n, device="cuda", generator=gen)[:N_NEED // S]
+    dirs = stratum_directions(*(rays[3 * c : 3 * c + 3, slots].T
+                                for c in (1, 2, 3)),
+                              jitter[:, slots], ntheta, nphi)  # (S, m, 3)
+    o = rays[0:3, slots].T[None].expand(S, len(slots), 3).reshape(-1, 3)
+    need = need_walk(tris, nodes, o, dirs.reshape(-1, 3).contiguous(), False,
+                     scene.tree_depth)
+    counts = need["hit"].reshape(S, len(slots)).sum(dim=0).float()
+    need_differ = (counts != occ[slots]).float().mean().item()
+    if need_differ > 1e-4:
+        raise AssertionError(f"{label} need_walk: counts differ from the "
+                             f"fused gather's on {need_differ:.2e} of slots")
+    scale = n / len(slots)
+    work = bound(B * (48 + 8 + 4) + scene.n_pad * 36 + nodes.shape[0] * 36
+                 + S * 4,
+                 scale * (need["tests"] * SV_OPS + need["inner"] * NODE_OPS)
+                 + n * S * DIR_OPS)
+    regs = registers(build.library().log, "bvh_ao_kernel")
+    print(f"[{label}] bvh_ao_fused: {n} live slots of {B}, {ntheta}x{nphi} "
+          f"strata, mean occluded {occ[:n].mean().item():.3f}/{S}, {ntrav} "
+          f"node visits and {ntests} triangle tests done, "
+          f"{scale * need['nodes']:.0f} visits ({scale * need['inner']:.0f} "
+          f"inner) and {scale * need['tests']:.0f} tests needed (from "
+          f"{len(slots)} slots); on {n_slots} slots {frac:.2e} differ; "
+          f"{regs} registers; kernel {ms:.3f} ms ({ms_slice:.3f} ms on the "
+          f"slice), plain {plain_ms:.3f} ms on the slice, bound "
+          f"{work['bound_ms']:.3f} ms ({work['bound_by']})", flush=True)
+    results["bvh_ao_fused"].append(
+        {"scene": label, "strata": S, "lanes": B, "live": n, "ms": ms,
+         "slice": n_slots, "ms_slice": ms_slice, "plain_ms": plain_ms,
+         "registers": regs, "max_abs_err": diff.max().item(),
+         "differs": frac, "kernel_ntrav": ntrav, "kernel_ntests": ntests,
+         "need_sample": len(slots),
+         **{f"need_{k}": scale * need[k] for k in ("inner", "nodes", "tests")},
+         **work})
+
+
+def check_whitted_twins():
+    """Phase 12: an 80x60 Whitted frame of the bundled scene on the card
+    against the same frame on the CPU, one numpy stream fed to both."""
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.sampling.jitter import HostSampler
+
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        r = Renderer(bundled_state(80, 60, sunsky=False,
+                                   method="whitted").scene,
+                     tile_size=32, device=dev, sampler=HostSampler(0, dev))
+        frames[dev] = (r.render_frame(), r.stats.nrays)
+    (got, n_got), (ref, n_ref) = frames["cuda"], frames["cpu"]
+    off = (np.abs(got - ref) > 1e-3).mean()
+    print(f"[whitted-twins] 80x60 Whitted on the card against the CPU: "
+          f"{n_got} and {n_ref} rays, means {got.mean():.5f} and "
+          f"{ref.mean():.5f}, pixels off by > 1e-3: {off:.5f} (<= 0.01)",
+          flush=True)
+    if abs(n_got - n_ref) > 1e-3 * n_ref or off > 0.01 or not (
+            0.1 < ref.mean() < 1.0):
+        raise AssertionError("the card's Whitted frame disagrees with the "
+                             "plain twins'")
+
+
+def check_fused_against_cone(label, cone, fused, lit_from):
+    """Phase 13: means over the pixels `lit_from` renders as hits (AO
+    above 0), within 0.01."""
+    lit = lit_from[..., 0] > 0
+    gap = abs(float(cone[lit].mean()) - float(fused[lit].mean()))
+    print(f"[fused-vs-cone] {label}: means over {lit.mean():.4f} of the "
+          f"pixels {cone[lit].mean():.5f} (cone) and {fused[lit].mean():.5f} "
+          f"(fused), gap {gap:.5f} (< 0.01)", flush=True)
+    if not (lit.mean() > 0.2 and gap < 0.01):
+        raise AssertionError(f"{label}: the fused and cone frames disagree")
 
 
 def check_goldens():
@@ -739,13 +1243,13 @@ def main() -> int:
     # then plain AO
     launches = {}
     sunsky_path = ("closest_hit", "ao_occlusion_bits", "any_hit")
-    got, _ = render_checked(
+    got, _, _ = render_checked(
         "headline-sunsky", Renderer(bundled_state(640, 480, 3, 64).scene,
                                     tile_size=TILE, device="cuda"),
         "chip_smoke_sunsky_640x480.hdr", sunsky_path)
     launches.update(got)
     dense = ("closest_hit", "ao_occlusion")
-    got, _ = render_checked(
+    got, _, _ = render_checked(
         "headline-ao", Renderer(bundled_state(640, 480, 3, 64,
                                               sunsky=False).scene,
                                 tile_size=TILE, device="cuda"),
@@ -762,13 +1266,15 @@ def main() -> int:
 
     # 7. and 8. the tile-BVH kernels, then the large-scene frames
     bvh = ("bvh_closest_hit", "bvh_any_hit")
+    cone_imgs = {}
     for n, n_closest, n_any in ((256, 16384, 32768), (724, 4096, 8192)):
         label = f"heightfield{n}"
         r = build_renderer(label, lambda: heightfield_state(n), 128)
         if r.scene.accel != "pbvh":
             raise AssertionError(f"{label}: accel {r.scene.accel}")
         check_bvh_kernels(label, r, n_closest, n_any, results)
-        got, _ = render_checked(label, r, f"chip_smoke_{label}.hdr", bvh)
+        got, _, cone_imgs[n] = render_checked(
+            label, r, f"chip_smoke_{label}.hdr", bvh)
         if n == 256:
             launches.update(got)
         for k in bvh:
@@ -780,7 +1286,70 @@ def main() -> int:
     # 9. two accels, one scene
     cross_check_accels()
 
-    # 10. results
+    # 10. kernel 6 against its twin; both closest hits with an active mask
+    check_closest_active("bundled", Renderer(
+        bundled_state(640, 480, 3, 64, sunsky=False).scene, tile_size=TILE,
+        device="cuda"), 65536, results)
+    for n, n_slots in ((256, 256), (724, 64)):
+        r = build_renderer(f"heightfield{n}", lambda: heightfield_state(n),
+                           128)
+        check_fused_gather(f"heightfield{n}", r, n_slots, results,
+                           ao_gather_inputs(r))
+        if n == 256:
+            check_closest_active(f"heightfield{n}", r, 16384, results)
+    # kernel 6's other layout (2x2 strata: one warp of 8 slots x 4 strata
+    # a block), as the Whitted frame's dome gather runs it
+    r = build_renderer("heightfield256-whitted",
+                       lambda: heightfield_state(256, method="whitted"), 128)
+    check_fused_gather("heightfield256-whitted", r, 4096, results,
+                       whitted_gather_inputs(r), 2, 2)
+
+    # 11. the integrator frames
+    whitted = ("closest_hit", "ao_occlusion")
+    fused = ("bvh_closest_hit", "bvh_ao_fused")
+    frames = (
+        ("headline-whitted", lambda: bundled_state(
+            640, 480, 3, sunsky=False, method="whitted"), TILE, "cone",
+         whitted),
+        ("headline-pathtrace", lambda: bundled_state(
+            640, 480, 3, sunsky=False, method="pathtrace"), TILE, "cone",
+         ("closest_hit",)),
+        ("bundled-whitted-sunsky", lambda: bundled_state(
+            640, 480, 3, method="whitted"), TILE, "cone",
+         ("closest_hit", "any_hit")),
+        ("heightfield256-whitted", lambda: heightfield_state(
+            256, method="whitted"), 128, "cone", bvh),
+        ("heightfield256-whitted-fused", lambda: heightfield_state(
+            256, method="whitted"), 128, "fused", fused),
+        ("heightfield256-ao-fused", lambda: heightfield_state(256), 128,
+         "fused", fused),
+        ("heightfield724-ao-fused", lambda: heightfield_state(724), 128,
+         "fused", fused),
+    )
+    imgs = {}
+    for label, make_state, tile, mode, path in frames:
+        with bvh_ao_mode(mode):
+            got, _, imgs[label] = render_checked(
+                label, build_renderer(label, make_state, tile),
+                f"chip_smoke_{label}.hdr", path)
+        if label == "heightfield256-ao-fused":
+            launches["bvh_ao_fused"] = got["bvh_ao_fused"]
+            results["bvh_ao_fused"][0]["frame_launches"] = got["bvh_ao_fused"]
+
+    # 12. Whitted on the card against the plain twins
+    check_whitted_twins()
+
+    # 13. the fused gather's frames against the cone gather's
+    check_fused_against_cone("heightfield256 AO", cone_imgs[256],
+                             imgs["heightfield256-ao-fused"], cone_imgs[256])
+    check_fused_against_cone("heightfield724 AO", cone_imgs[724],
+                             imgs["heightfield724-ao-fused"], cone_imgs[724])
+    check_fused_against_cone("heightfield256 Whitted",
+                             imgs["heightfield256-whitted"],
+                             imgs["heightfield256-whitted-fused"],
+                             cone_imgs[256])
+
+    # 14. results
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -25,23 +25,50 @@ Counterpart of lucille_tpu/accel/pallas_bvh.py:965-1233 in its default
   same rays' visibility weights the sky radiance along each direction
   instead, summed per lane the same way.
 
+lucille_tpu's own switch picks the gather, read at call time as
+pallas_bvh.py:1001 reads it: ``LUCILLE_BVH_AO`` unset or "cone" runs the
+cone-tiled gather above, "rebinned" is refused (not ported), and any
+other value runs the fused gather (`bvh_ao_fused`, kernel 6,
+pallas_bvh.py:810 `_bvh_ao_kernel` behind `_pallas_bvh_ao_occlusion`):
+
+- hit lanes compacted by compaction_order's Morton branch, column j of
+  the (2, B) jitter belonging to compacted slot j (as on the dense
+  accel; the draw is the same (2, B) draw as the cone gather's);
+- for each live slot and stratum, the stratified direction built in the
+  kernel from the slot's basis and jitter (stratum_directions' f32
+  formulas) and an unbounded any-hit walk of the tile BVH with the
+  signed-volume test; the count of occluded strata, scattered back to
+  raster order (0 where not hit);
+- csrc/bvh.cu's `bvh_ao_kernel` for CUDA tensors, `bvh_ao_fused_reference`
+  (every stratum of every live slot against every triangle) for CPU
+  tensors.  Its counters: ntrav = node visits summed over the (slot,
+  stratum) walks, ntests = leaf tiles x 128; the twin visits no node and
+  tests every slot.
+
 Nothing here waits on the device: the live-lane count never leaves it,
 so the renderer can enqueue every tile before it pulls the first.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from lucille_tpu_torch.accel.ao import compaction_order, stratum_directions
-from lucille_tpu_torch.accel.bvh_isect import WARP
+from lucille_tpu_torch.accel.bvh_isect import WARP, occlusion_scan
 from lucille_tpu_torch.accel.dispatch import any_hit
+from lucille_tpu_torch.accel.pack import TC, pack_tris
+from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
+from lucille_tpu_torch.lights.sunsky import sky_frame
 
 CONE_K = 4  # strata per warp: lucille_tpu's measured default (_cone_k)
 MORTON_TILES = 1 << 20  # selects compaction_order's Morton branch
+FUSED_WARPS = 8  # the fused gather's most warps per block (csrc/bvh.cu)
+
+FUSED_COUNTS = LaunchCounts()  # the fused gather (kernel 6)
 
 
 def stratum_tile_perm(ntheta: int, nphi: int, K: int) -> np.ndarray:
@@ -114,21 +141,40 @@ def conetile_rays(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     return oo, dd, order, (NG, S, G, Bpad)
 
 
-def bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
-                     nphi: int):
-    """Occlusion counts for a wavefront of primary hits on a pbvh scene.
+def gather_mode() -> str:
+    """lucille_tpu's LUCILLE_BVH_AO switch, read at call time: "cone" (the
+    default) or "fused" (any other value); "rebinned" raises."""
+    mode = os.environ.get("LUCILLE_BVH_AO", "cone")
+    if mode == "rebinned":
+        raise NotImplementedError(
+            "LUCILLE_BVH_AO=rebinned: lucille_tpu's re-binned gather "
+            "(_pallas_bvh_ao_rebinned) is not ported (ROADMAP Queue 1)")
+    return "cone" if mode == "cone" else "fused"
 
-    P_off, b0, b1, b2: (B, 3) f32 offset shading points and orthonormal
-    basis (b2 = shading normal); hit: (B,) bool; jitter: (2, B) f32
-    uniforms, column j belonging to raster lane j.  Returns ((B,) f32
-    occluded-strata counts, 0 where not hit; {ntrav, ntests} of the
-    gather rays)."""
-    B = P_off.shape[0]
+
+def _check_gather(B, jitter, ntheta, nphi):
     if tuple(jitter.shape) != (2, B) or jitter.dtype != torch.float32:
         raise ValueError(f"jitter: need (2, {B}) f32, got "
                          f"{tuple(jitter.shape)} {jitter.dtype}")
     if ntheta < 1 or nphi < 1:
         raise ValueError(f"ntheta, nphi must be >= 1, got {ntheta}, {nphi}")
+
+
+def bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
+                     nphi: int):
+    """Occlusion counts for a wavefront of primary hits on a pbvh scene,
+    by the gather LUCILLE_BVH_AO selects (`gather_mode`).
+
+    P_off, b0, b1, b2: (B, 3) f32 offset shading points and orthonormal
+    basis (b2 = shading normal); hit: (B,) bool; jitter: (2, B) f32
+    uniforms, column j belonging to raster lane j (cone) or to compacted
+    slot j (fused).  Returns ((B,) f32 occluded-strata counts, 0 where
+    not hit; {ntrav, ntests} of the gather's walks)."""
+    B = P_off.shape[0]
+    _check_gather(B, jitter, ntheta, nphi)
+    if gather_mode() == "fused":
+        return bvh_ao_fused(scene, P_off, b0, b1, b2, hit, jitter, ntheta,
+                            nphi)
     oo, dd, order, (NG, S, G, Bpad) = conetile_rays(
         scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi)
     res = any_hit(scene, oo, dd)
@@ -153,8 +199,121 @@ def bvh_ao_sunsky(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     oo, dd, order, (NG, S, G, Bpad) = conetile_rays(
         scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi)
     vis = ~any_hit(scene, oo, dd)["occ"]
-    sky_rgb = sky.sky_rgb(dd[:, [0, 2, 1]])
+    sky_rgb = sky.sky_rgb(sky_frame(dd))
     col_g = (vis[:, None] * sky_rgb).reshape(NG, S, G, 3).sum(dim=1)
     col = torch.empty((Bpad, 3), dtype=torch.float32, device=P_off.device)
     col[order] = col_g.reshape(-1, 3)
     return col[:B] * hit[:, None].to(torch.float32)
+
+
+def bvh_ao_fused(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
+                 nphi: int):
+    """The fused gather (kernel 6; module docstring).  Operands and
+    result as bvh_ao_occlusion, with jitter column j belonging to
+    compacted slot j."""
+    B = P_off.shape[0]
+    _check_gather(B, jitter, ntheta, nphi)
+    order, nhit = compaction_order(scene.bbox_min, scene.bbox_max, P_off, b2,
+                                   hit, MORTON_TILES)
+    rays = torch.cat([P_off, b0, b1, b2], dim=1)[order].T.contiguous()
+    jitter = jitter.contiguous()
+    tris = pack_tris(scene)
+    dev = P_off.device
+    if dev.type == "cuda":
+        occ_s, stats = bvh_ao_fused_kernel(tris, scene.nodes, scene.skip,
+                                           rays, jitter, nhit, ntheta, nphi)
+    elif dev.type == "cpu":
+        n = int(nhit)
+        occ_s = torch.zeros(B, device=dev)
+        occ_s[:n], stats = bvh_ao_fused_reference(
+            tris, rays[:, :n], jitter[:, :n], ntheta, nphi)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    occ = torch.empty_like(occ_s)
+    occ[order] = occ_s
+    return occ, stats
+
+
+def fused_layout(S: int):
+    """(K strata per warp, warps per block) of the fused kernel: K as the
+    cone gather's (cone_layout), at most FUSED_WARPS warps of K x (32 / K)
+    (slot, stratum) walks each."""
+    K = cone_layout(S, 1)[0]
+    return K, min(S // K, FUSED_WARPS)
+
+
+def bvh_ao_fused_kernel(tris, nodes, skip, rays, jitter, nact, ntheta: int,
+                        nphi: int):
+    """Launch csrc/bvh.cu's fused gather on the current stream (CUDA
+    tensors only): rays (12, B) [P_off | b0 | b1 | b2] and jitter (2, B)
+    in compacted order, nact () i32 live slots on the device (slots at or
+    past it report 0).  Returns ((B,) f32 counts in compacted order,
+    {ntrav, ntests} () i64)."""
+    B = rays.shape[1]
+    dev = rays.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    for name, a in (("tris", tris), ("nodes", nodes), ("rays", rays),
+                    ("jitter", jitter)):
+        if a.dtype != torch.float32 or not a.is_contiguous() or a.device != dev:
+            raise ValueError(f"{name}: need contiguous float32 on {dev}")
+    if tris.shape[0] != 16 or tris.shape[1] % TC:
+        raise ValueError(f"tris: need (16, k*{TC}), got {tuple(tris.shape)}")
+    if nodes.dim() != 2 or nodes.shape[1] != 8:
+        raise ValueError(f"nodes: need (M, 8), got {tuple(nodes.shape)}")
+    if (skip is None or skip.dtype != torch.int32 or skip.device != dev
+            or tuple(skip.shape) != (nodes.shape[0],)):
+        raise ValueError(f"skip: need ({nodes.shape[0]},) int32 on {dev}")
+    if rays.shape[0] != 12 or tuple(jitter.shape) != (2, B):
+        raise ValueError(f"rays {tuple(rays.shape)} / jitter "
+                         f"{tuple(jitter.shape)} mismatch")
+    if nact.dtype != torch.int32 or nact.numel() != 1 or nact.device != dev:
+        raise ValueError("nact: need one int32 on the rays' device")
+    S = ntheta * nphi
+    K, warps = fused_layout(S)
+    G = WARP // K
+    perm = _device_consts(ntheta, nphi, K, dev)[0].to(torch.int32)
+    occ = torch.empty(B, dtype=torch.float32, device=dev)
+    stats = torch.empty(2 * -(-B // G), dtype=torch.int32, device=dev)
+    lib = library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lt_bvh_ao_fused(
+            rays.data_ptr(), jitter.data_ptr(), B, nact.data_ptr(),
+            tris.data_ptr(), tris.shape[1], nodes.data_ptr(), skip.data_ptr(),
+            nodes.shape[0], perm.data_ptr(), S, K, warps, ntheta,
+            1.0 / ntheta, 1.0 / nphi, occ.data_ptr(), stats.data_ptr(),
+            stream,
+        )
+    check("lt_bvh_ao_fused", err)
+    FUSED_COUNTS.kernel += 1
+    s = stats.view(-1, 2).sum(dim=0, dtype=torch.int64)
+    return occ, {"ntrav": s[0], "ntests": s[1] * TC}
+
+
+def bvh_ao_fused_reference(tris, rays, u01, ntheta: int, nphi: int,
+                           lane_chunk: int = 4096):
+    """Plain torch twin of the fused gather for slots that all hit: rays
+    (12, n) [P_off | b0 | b1 | b2], u01 (2, n) each slot's own uniforms.
+    Every stratum's direction (stratum_directions) against every
+    triangle with the kernel's unbounded signed-volume test
+    (bvh_isect.occlusion_scan).  Returns ((n,) f32 occluded-strata
+    counts, {ntrav 0, ntests: every slot for every walk})."""
+    FUSED_COUNTS.plain += 1
+    n = rays.shape[1]
+    S = ntheta * nphi
+    dev = rays.device
+    occ = torch.zeros(n, device=dev)
+    for lo in range(0, n, lane_chunk):
+        hi = min(n, lo + lane_chunk)
+        P = rays[0:3, lo:hi].T
+        dirs = stratum_directions(*(rays[3 * c : 3 * c + 3, lo:hi].T
+                                    for c in (1, 2, 3)),
+                                  u01[:, lo:hi], ntheta, nphi)
+        o = P[None].expand(S, hi - lo, 3).reshape(-1, 3)
+        hits = occlusion_scan(tris, o, dirs.reshape(-1, 3).contiguous())
+        occ[lo:hi] = hits.reshape(S, hi - lo).sum(dim=0).to(torch.float32)
+    stats = {"ntrav": torch.zeros((), dtype=torch.int64, device=dev),
+             "ntests": torch.tensor(n * S * tris.shape[1], dtype=torch.int64,
+                                    device=dev)}
+    return occ, stats

@@ -25,7 +25,12 @@ from __future__ import annotations
 
 import torch
 
-from lucille_tpu_torch.accel.isect import DET_EPS, closest_scan, ray_limits
+from lucille_tpu_torch.accel.isect import (
+    DET_EPS,
+    closest_scan,
+    live_scan,
+    ray_limits,
+)
 from lucille_tpu_torch.accel.pack import TC
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 
@@ -72,14 +77,18 @@ def _stats(stats: torch.Tensor) -> dict:
     return {"ntrav": s[0], "ntests": s[1] * TC}
 
 
-def bvh_closest_hit(tris, nodes, org, dirn, tmax=None, *, depth: int) -> dict:
+def bvh_closest_hit(tris, nodes, org, dirn, tmax=None, active=None, *,
+                    depth: int) -> dict:
     """tris (16, Npad) [v0|e1|e2] from pack_tris, nodes (M, 8) from
     pack_nodes with the tree's depth; org, dirn (B, 3) f32; tmax None
-    (unbounded), a float or (B,).  Returns {t (tmax on a miss), u, v (B,)
-    f32, tri (B,) i32 slot (-1 on a miss), ntrav, ntests () i64}."""
+    (unbounded), a float or (B,); active None or (B,) bool, the live rays
+    of a bounce wavefront.  Returns {t (tmax on a miss), u, v (B,) f32,
+    tri (B,) i32 slot (-1 on a miss), ntrav, ntests () i64}; a ray that
+    is not active walks nothing and reports a miss."""
     tmax = _inputs(tris, nodes, org, dirn, tmax, depth)
+    active = ray_limits(org, None, active)[1]
     if org.device.type == "cpu":
-        return bvh_closest_hit_reference(tris, org, dirn, tmax)
+        return bvh_closest_hit_reference(tris, org, dirn, tmax, active)
     if org.device.type != "cuda":
         raise ValueError(f"unsupported device {org.device}")
     B = org.shape[0]
@@ -91,7 +100,8 @@ def bvh_closest_hit(tris, nodes, org, dirn, tmax=None, *, depth: int) -> dict:
     stats = torch.empty(2 * -(-B // BLOCK) * (BLOCK // WARP),
                         dtype=torch.int32, device=dev)
     _launch("lt_bvh_closest_hit", dev, org.data_ptr(), dirn.data_ptr(),
-            tmax.data_ptr(), B, tris.data_ptr(), tris.shape[1],
+            tmax.data_ptr(), None if active is None else active.data_ptr(),
+            B, tris.data_ptr(), tris.shape[1],
             nodes.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(),
             tri.data_ptr(), stats.data_ptr())
     CLOSEST_COUNTS.kernel += 1
@@ -124,14 +134,19 @@ def _plain_stats(tris, B, dev) -> dict:
                                    device=dev)}
 
 
-def bvh_closest_hit_reference(tris, org, dirn, tmax,
+def bvh_closest_hit_reference(tris, org, dirn, tmax, active=None,
                               ray_chunk: int = 65536) -> dict:
-    """Plain torch twin of the closest hit: every ray against every
+    """Plain torch twin of the closest hit: every live ray against every
     triangle (isect.closest_scan), t_best starting at tmax (B,); the
-    lowest slot wins a tie."""
+    lowest slot wins a tie; a dead ray reports a miss at its tmax."""
     CLOSEST_COUNTS.plain += 1
-    res = closest_scan(tris, org, dirn, tmax, ray_chunk)
-    return {**res, **_plain_stats(tris, org.shape[0], org.device)}
+    res = live_scan(lambda o, d, tm: closest_scan(tris, o, d, tm, ray_chunk),
+                    org, dirn, tmax, active,
+                    {"t": 0.0, "u": 0.0, "v": 0.0, "tri": -1})
+    if active is not None:
+        res["t"] = torch.where(active, res["t"], tmax)
+    n_live = org.shape[0] if active is None else int(active.sum())
+    return {**res, **_plain_stats(tris, n_live, org.device)}
 
 
 def bvh_any_hit_reference(tris, org, dirn, tmax,
@@ -140,14 +155,23 @@ def bvh_any_hit_reference(tris, org, dirn, tmax,
     with the kernel's division-free signed-volume test, in its operation
     order (pallas_bvh.py:648-672)."""
     ANY_COUNTS.plain += 1
+    occ = occlusion_scan(tris, org, dirn, tmax, ray_chunk)
+    return {"occ": occ, **_plain_stats(tris, org.shape[0], org.device)}
+
+
+def occlusion_scan(tris, org, dirn, tmax=None,
+                   ray_chunk: int = 65536) -> torch.Tensor:
+    """(B,) bool: some triangle of the pack is hit by the division-free
+    signed-volume test with 0 < t < tmax (B,), or with 0 < t when tmax
+    is None (the fused AO gather's unbounded test, pallas_bvh.py:889-917).
+    The arithmetic of both any-hit twins, in the kernels' operation
+    order (pallas_bvh.py:648-672)."""
     B = org.shape[0]
-    dev = org.device
-    occ = torch.zeros(B, dtype=torch.bool, device=dev)
+    occ = torch.zeros(B, dtype=torch.bool, device=org.device)
     for lo in range(0, B, ray_chunk):
         hi = min(B, lo + ray_chunk)
         ox, oy, oz = (org[lo:hi, c : c + 1] for c in range(3))
         dx, dy, dz = (dirn[lo:hi, c : c + 1] for c in range(3))
-        tm = tmax[lo:hi, None]
         for k in range(tris.shape[1] // TC):
             tile = tris[:, k * TC : (k + 1) * TC]
             v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
@@ -170,7 +194,8 @@ def bvh_any_hit_reference(tris, org, dirn, tmax,
             inside = ((torch.minimum(torch.minimum(u, v), w) >= 0.0)
                       | (torch.maximum(torch.maximum(u, v), w) <= 0.0))
             ta = t * a
-            hit = (inside & (ta > 0.0) & (ta < tm * (a * a))
-                   & (a.abs() > DET_EPS))
+            hit = inside & (ta > 0.0) & (a.abs() > DET_EPS)
+            if tmax is not None:
+                hit &= ta < tmax[lo:hi, None] * (a * a)
             occ[lo:hi] |= hit.any(dim=1)
-    return {"occ": occ, **_plain_stats(tris, B, dev)}
+    return occ

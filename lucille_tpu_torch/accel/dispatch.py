@@ -14,22 +14,26 @@ from lucille_tpu_torch.accel.pack import TC, pack_boxes, pack_tris
 
 
 def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
-                tmax=None) -> dict:
+                tmax=None, active=None) -> dict:
     """Closest hit of rays (B, 3) against the scene, with 0 < t < tmax
-    (None: unbounded; the dense tiles take no tmax).  Returns the
+    (None: unbounded; the dense tiles take no tmax); active: None or the
+    (B,) bool live lanes of a bounce wavefront, a dead lane doing no work
+    and reporting a miss on both accels (lucille_tpu's dense path
+    compacts the live lanes, its BVH ignores the mask).  Returns the
     dispatch dict of lucille_tpu: t, u, v, tri (clamped to N - 1; -1 on a
     miss), hit, ntests, ntrav."""
     org, dirn = org.contiguous(), dirn.contiguous()
     if scene.accel == "pbvh":
         res = bvh_isect.bvh_closest_hit(pack_tris(scene), scene.nodes, org,
-                                        dirn, tmax, depth=scene.tree_depth)
+                                        dirn, tmax, active,
+                                        depth=scene.tree_depth)
     elif scene.accel == "dense":
         if tmax is not None:
             raise NotImplementedError(
                 "the dense closest hit takes no tmax (lucille_tpu serves it "
                 "with its MXU path, which is not ported)")
         res = isect.closest_hit(pack_tris(scene), pack_boxes(scene), org,
-                                dirn)
+                                dirn, active)
         res["ntests"] = res["ntrav"] * (TC * isect.WARP)
     else:
         raise NotImplementedError(f"accel {scene.accel!r} is not ported")

@@ -9,6 +9,11 @@ Both twins share the kernels' Moller-Trumbore arithmetic (`_mt_tile`,
 with the division by the determinant), not the BVH any-hit's
 division-free signed-volume test (accel/bvh_isect.py).
 
+A bounce wavefront passes its live-lane mask as `active` to either
+kernel: a dead ray does no work and reports a miss (closest hit) or
+False (any-hit), where lucille_tpu compacts the live rays to the front
+(accel/dispatch.py:22-41); the twins trace the live rays alone.
+
 Counters (the port's own definition; only nrays is held to lucille_tpu):
 ``ntrav`` is the number of (warp of 32 rays, 128-triangle tile) pairs
 tested by the closest hit, ``ntests`` = ntrav * 128 * 32 ray-triangle
@@ -50,23 +55,27 @@ def _check_inputs(tris, boxes, org, dirn):
                          f"{tuple(dirn.shape)}")
 
 
-def closest_hit(tris, boxes, org, dirn) -> dict:
+def closest_hit(tris, boxes, org, dirn, active=None) -> dict:
     """tris (16, Npad) [v0|e1|e2] and boxes (8, n_tiles) from accel/pack;
-    org, dirn (B, 3) f32.  Returns {t, u, v (B,) f32, tri (B,) i32 (-1 on
-    a miss), ntrav () i64}."""
+    org, dirn (B, 3) f32; active None or (B,) bool, the live rays of a
+    bounce wavefront.  Returns {t, u, v (B,) f32, tri (B,) i32 (-1 on a
+    miss), ntrav () i64}; a ray that is not active reports a miss (t
+    +inf, u = v = 0, tri -1)."""
     _check_inputs(tris, boxes, org, dirn)
+    active = ray_limits(org, None, active)[1]
     if org.device.type == "cpu":
-        return closest_hit_reference(tris, org, dirn)
+        return closest_hit_reference(tris, org, dirn, active)
     if org.device.type != "cuda":
         raise ValueError(f"unsupported device {org.device}")
-    return closest_hit_kernel(tris, boxes, org, dirn)
+    return closest_hit_kernel(tris, boxes, org, dirn, active)
 
 
-def closest_hit_kernel(tris, boxes, org, dirn) -> dict:
+def closest_hit_kernel(tris, boxes, org, dirn, active=None) -> dict:
     """Launch csrc/isect.cu on the current stream (CUDA tensors only)."""
     _check_inputs(tris, boxes, org, dirn)
     if org.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {org.device}")
+    active = ray_limits(org, None, active)[1]
     B = org.shape[0]
     dev = org.device
     t = torch.empty(B, dtype=torch.float32, device=dev)
@@ -80,7 +89,8 @@ def closest_hit_kernel(tris, boxes, org, dirn) -> dict:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lt_closest_hit(
-            org.data_ptr(), dirn.data_ptr(), B, tris.data_ptr(),
+            org.data_ptr(), dirn.data_ptr(),
+            None if active is None else active.data_ptr(), B, tris.data_ptr(),
             tris.shape[1], boxes.data_ptr(), boxes.shape[1], t.data_ptr(),
             u.data_ptr(), v.data_ptr(), tri.data_ptr(), ntile.data_ptr(),
             stream,
@@ -91,16 +101,19 @@ def closest_hit_kernel(tris, boxes, org, dirn) -> dict:
             "ntrav": ntile.sum(dtype=torch.int64)}
 
 
-def closest_hit_reference(tris, org, dirn, ray_chunk: int = 65536) -> dict:
-    """Plain torch twin: every ray against every tile, the tile's
+def closest_hit_reference(tris, org, dirn, active=None,
+                          ray_chunk: int = 65536) -> dict:
+    """Plain torch twin: every live ray against every tile, the tile's
     Moller-Trumbore chain in the kernel's operation order, the lowest
     index among equal t (argmin takes the first minimum within a tile,
-    the strict t < t_best across tiles)."""
+    the strict t < t_best across tiles); a ray that is not active
+    reports a miss."""
     COUNTS.plain += 1
     B = org.shape[0]
-    res = closest_scan(tris, org, dirn,
-                       torch.full((B,), float("inf"), device=org.device),
-                       ray_chunk)
+    inf = torch.full((B,), float("inf"), device=org.device)
+    res = live_scan(lambda o, d, tm: closest_scan(tris, o, d, tm, ray_chunk),
+                    org, dirn, inf, active,
+                    {"t": float("inf"), "u": 0.0, "v": 0.0, "tri": -1})
     n_warps = -(-B // WARP)
     res["ntrav"] = torch.tensor(n_warps * (tris.shape[1] // TC),
                                 dtype=torch.int64, device=org.device)
@@ -173,6 +186,23 @@ def closest_scan(tris, org, dirn, tmax, ray_chunk: int = 65536) -> dict:
             tri_best.copy_(torch.where(better, (j + k * TC).to(torch.int32),
                                        tri_best))
     return {"t": t_all, "u": u_all, "v": v_all, "tri": tri_all}
+
+
+def live_scan(scan, org, dirn, tmax, active, dead: dict) -> dict:
+    """scan(org, dirn, tmax) -> {name: (n,) tensor} run on the live rays
+    only (every ray when active is None); a dead ray's entries are the
+    `dead` fill values."""
+    if active is None:
+        return scan(org, dirn, tmax)
+    live = torch.nonzero(active)[:, 0]
+    got = scan(org[live], dirn[live], tmax[live])
+    out = {}
+    for k, v in got.items():
+        full = torch.full((org.shape[0],), dead[k], dtype=v.dtype,
+                          device=v.device)
+        full[live] = v
+        out[k] = full
+    return out
 
 
 def ray_limits(org, tmax, active=None):

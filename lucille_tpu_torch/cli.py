@@ -1,10 +1,12 @@
-"""Command-line renderer for the port: the `lsh` flags the AO slice honours.
+"""Command-line renderer for the port: the `lsh` flags the port honours.
 
     python -m lucille_tpu_torch.cli scene.rib -o out.hdr [--device cuda]
 
     --output FILE      override the display name
     --pixelsamples N   override PixelSamples
     --gather-rays N    AO gather rays (ntheta = nphi = int(sqrt(N)))
+    --method M         integrator: ao (default), whitted, pathtrace (also
+                       path, mlt); dirtmap and shader are refused
     --tile N           tile size, default 64
     --order O          spiral|scanline|zorder|hilbert
     --accel A          auto|pallas|bvh: auto picks the dense tiles up to
@@ -16,9 +18,12 @@
     --device D         cuda (default) or cpu
 
 A scene with an AreaLightSource "sunsky" renders the reference's sunsky
-AO (sky radiance over the open strata plus the sun), on either accel.
-lucille_tpu's --mesh, --coordinator, --num-processes, --process-id,
---recover and every --method other than ao are refused with a message.
+AO (sky radiance over the open strata plus the sun), on either accel; a
+scene without lights gets the reference's constant dome, which Whitted
+gathers through the AO kernels.  LUCILLE_BVH_AO=fused selects the fused
+tile-BVH AO gather, as it does for lucille_tpu.  lucille_tpu's --mesh,
+--coordinator, --num-processes, --process-id, --recover and the dirtmap
+and shader methods are refused with a message.
 CLI overrides are applied at WorldBegin through the backdoor callback,
 as lucille_tpu's CLI does.
 """
@@ -39,7 +44,7 @@ REFUSED = {
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="lucille-tpu-torch",
-        description="RenderMan-style AO renderer on PyTorch/CUDA",
+        description="RenderMan-style renderer on PyTorch/CUDA",
     )
     p.add_argument("rib", help="RIB scene file")
     p.add_argument("--output", "-o", help="override output file name")
@@ -52,7 +57,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["auto", "bvh", "grid", "bruteforce", "mxu", "pallas"],
                    help="accel override; auto (by triangle count), pallas "
                         "(dense tiles) and bvh (tile BVH) are ported")
-    p.add_argument("--method", help="integrator; only 'ao' is ported")
+    p.add_argument("--method",
+                   help="integrator: ao (default), whitted, pathtrace")
     p.add_argument("--width", type=int, help="override image width")
     p.add_argument("--height", type=int, help="override image height")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -74,8 +80,11 @@ def main(argv=None) -> int:
             p.error(f"--{name.replace('_', '-')}: {what} is not ported")
     if args.recover:
         p.error("--recover: tile checkpoints are not ported")
-    if args.method is not None and args.method.lower() != "ao":
-        p.error(f"--method {args.method}: not ported (only 'ao' is)")
+    from lucille_tpu_torch.transport.dispatch import UNPORTED
+
+    if args.method is not None and args.method.lower() in UNPORTED:
+        p.error(f"--method {args.method}: not ported "
+                f"({UNPORTED[args.method.lower()]})")
     if args.accel not in (None, "auto", "pallas", "bvh"):
         p.error(f"--accel {args.accel}: not ported (only 'auto', 'pallas' "
                 "and 'bvh')")

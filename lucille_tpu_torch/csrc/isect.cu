@@ -5,7 +5,9 @@
 //   * _isect_kernel (:57), behind pallas_closest_hit: per ray the nearest
 //     hit with 0 < t, Moller-Trumbore with |det| > 1e-14, u, v >= 0,
 //     u + v <= 1; among equal t the lowest triangle index wins; misses
-//     report t = +inf, u = v = 0, tri = -1.
+//     report t = +inf, u = v = 0, tri = -1.  An optional `active` mask
+//     marks the live rays of a bounce wavefront; a dead ray does no work
+//     and reports a miss.
 //   * _anyhit_kernel (:390), behind pallas_any_hit: per ray whether any
 //     triangle is hit with 0 < t < tmax (per-ray tmax, +inf unbounded),
 //     by the same Moller-Trumbore test; an optional `active` mask marks the
@@ -28,9 +30,11 @@
 //     tests a staged tile with every lane of such a warp, as the TPU
 //     kernel's block does; the any-hit drops a ray at its first hit, and a
 //     ray that is dead or already occluded neither reaches a box nor tests;
-//   * the any-hit needs no lane order: lucille_tpu compacts live rays to
-//     the front so that whole blocks can skip, but a thread here exits per
-//     ray, so dead rays stay where they are and cost one mask read;
+//   * neither kernel needs a lane order for its active mask: lucille_tpu
+//     compacts live rays to the front so that whole blocks can skip, but a
+//     dead ray here reaches no box, so dead rays stay where they are and
+//     cost one mask read (a warp or block of dead rays stages and tests
+//     nothing);
 //   * counters (closest hit only): ntile[w] is the number of tiles warp w
 //     tested; a tested tile is 128 x 32 ray-triangle tests.  The any-hit
 //     counts nothing, as lucille_tpu's does not.
@@ -127,7 +131,8 @@ __device__ __forceinline__ void stage_tile(float (*s)[TC],
 
 __global__ void __launch_bounds__(BLOCK)
 closest_hit_kernel(const float* __restrict__ org, const float* __restrict__ dir,
-                   int B, const float* __restrict__ tris, int npad,
+                   const unsigned char* __restrict__ active, int B,
+                   const float* __restrict__ tris, int npad,
                    const float* __restrict__ boxes, int n_tiles,
                    float* __restrict__ t_out, float* __restrict__ u_out,
                    float* __restrict__ v_out, int* __restrict__ tri_out,
@@ -135,11 +140,12 @@ closest_hit_kernel(const float* __restrict__ org, const float* __restrict__ dir,
   __shared__ float s[9][TC];  // v0, e1, e2 of one tile, component-major
 
   const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const bool live = i < B;
+  const bool live = i < B && (active == nullptr || active[i] != 0);
   Ray ray;
   ray.load(org, dir, i, live);
 
-  float t_best = INFINITY, u_best = 0.f, v_best = 0.f;
+  // a dead ray's bound of 0 admits no hit in a tile its warp tests
+  float t_best = live ? INFINITY : 0.f, u_best = 0.f, v_best = 0.f;
   int tri_best = -1;
   int ntested = 0;
 
@@ -165,8 +171,8 @@ closest_hit_kernel(const float* __restrict__ org, const float* __restrict__ dir,
     __syncthreads();
   }
 
-  if (live) {
-    t_out[i] = t_best;
+  if (i < B) {
+    t_out[i] = live ? t_best : INFINITY;
     u_out[i] = u_best;
     v_out[i] = v_best;
     tri_out[i] = tri_best;
@@ -210,14 +216,16 @@ any_hit_kernel(const float* __restrict__ org, const float* __restrict__ dir,
 
 }  // namespace
 
-extern "C" int lt_closest_hit(const float* org, const float* dir, int B,
+// active: B bytes (non-zero = live) or null (every ray live)
+extern "C" int lt_closest_hit(const float* org, const float* dir,
+                              const unsigned char* active, int B,
                               const float* tris, int npad, const float* boxes,
                               int n_tiles, float* t, float* u, float* v,
                               int* tri, int* ntile, void* stream) {
   if (B <= 0) return 0;
   const int grid = (B + BLOCK - 1) / BLOCK;
   closest_hit_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      org, dir, B, tris, npad, boxes, n_tiles, t, u, v, tri, ntile);
+      org, dir, active, B, tris, npad, boxes, n_tiles, t, u, v, tri, ntile);
   return static_cast<int>(cudaGetLastError());
 }
 

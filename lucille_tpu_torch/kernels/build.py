@@ -38,19 +38,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # org, dir, B, tris, npad, boxes, n_tiles, t, u, v, tri, ntile, stream
-    "lt_closest_hit": (_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P),
+    # org, dir, active, B, tris, npad, boxes, n_tiles, t, u, v, tri, ntile,
+    # stream
+    "lt_closest_hit": (_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
+                       _P),
     # org, dir, tmax, active, B, tris, npad, boxes, n_tiles, occ, stream
     "lt_any_hit": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P),
     # rays, jitter, B, nact, tris, npad, boxes, n_tiles, sboxes, n_super,
     # ntheta, nphi, inv_ntheta, inv_nphi, occ, bits, stream
     "lt_ao_occlusion": (_P, _P, _I, _P, _P, _I, _P, _I, _P, _I,
                         _I, _I, _F, _F, _P, _P, _P),
-    # org, dir, tmax, B, tris, npad, nodes, t, u, v, tri, stats, stream
-    "lt_bvh_closest_hit": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-                           _P),
+    # org, dir, tmax, active, B, tris, npad, nodes, t, u, v, tri, stats,
+    # stream
+    "lt_bvh_closest_hit": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,
+                           _P, _P),
     # org, dir, tmax, B, tris, npad, nodes, occ, stats, stream
     "lt_bvh_any_hit": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
+    # rays, jitter, B, nact, tris, npad, nodes, skip, n_nodes, perm, S, K,
+    # warps, ntheta, inv_ntheta, inv_nphi, occ, stats, stream
+    "lt_bvh_ao_fused": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _I,
+                        _I, _I, _F, _F, _P, _P, _P),
 }
 
 

@@ -1,0 +1,261 @@
+"""Direct-lighting estimators over the light tables, in torch.
+
+Counterpart of lucille_tpu/lights/sampling.py:30-201 and :301-355 (the
+reference's light sampling, light.h:73-100, and shader.c's diffuse() and
+specular() built-ins, shader.c:504-633): wavefront functions of shading
+points P and normals N (B, 3), one shadow wavefront per light sample,
+the per-light loop unrolled in Python.  Random numbers come from a
+`sampling/jitter.StreamKey` where lucille_tpu takes a `jax.random` key,
+folded at the same places.
+
+A constant dome light's hemisphere visibility is the AO gather's job, as
+in lucille_tpu (`_hemisphere_occlusion`): the dense tiles' fused gather
+(accel/ao.ao_occlusion, kernel 3) up to 131,072 padded triangles, the
+tile BVH's gather (accel/bvh_ao.bvh_ao_occlusion: the cone-tiled gather,
+or kernel 6 under LUCILLE_BVH_AO=fused) on pbvh scenes; anything else
+takes the cosine-weighted loop of shadow rays.  Lights with an
+environment texture are refused before rendering (textures and
+environment maps are ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import torch
+
+from lucille_tpu_torch.accel.ao import MAX_TRIS_FOR_MEGAKERNEL, ao_occlusion
+from lucille_tpu_torch.accel.bvh_ao import bvh_ao_occlusion
+from lucille_tpu_torch.accel.dispatch import any_hit
+from lucille_tpu_torch.device import const_vec
+from lucille_tpu_torch.lights.sunsky import sky_frame
+from lucille_tpu_torch.lights.tables import (
+    LIGHT_AREA,
+    LIGHT_DISTANT,
+    LIGHT_DOME,
+    LIGHT_IBL,
+    LIGHT_POINT,
+    LIGHT_SUN,
+    LIGHT_SUNSKY,
+)
+from lucille_tpu_torch.shading.reflection import _dot, cosweight_sample
+from lucille_tpu_torch.transport.ao import _norm, ortho_basis
+
+GATHER_LIGHTS = (LIGHT_DOME, LIGHT_AREA, LIGHT_SUNSKY, LIGHT_IBL)
+
+
+def _vec(x, like: torch.Tensor) -> torch.Tensor:
+    return const_vec(x, like.device)
+
+
+@lru_cache(maxsize=None)
+def _area_tables(light, device: torch.device):
+    """An area light's (area_cdf, v0, e1, e2) on `device`, copied once."""
+    return tuple(torch.from_numpy(light.tris[k]).to(device)
+                 for k in ("area_cdf", "v0", "e1", "e2"))
+
+
+def light_color(light, like: torch.Tensor) -> torch.Tensor:
+    """(3,) f32 colour x intensity."""
+    return _vec(light.color, like) * light.intensity
+
+
+def delta_direction(light, like: torch.Tensor) -> torch.Tensor:
+    """The unit direction toward a distant or sun light, broadcast to
+    like's (B, 3): a distant light stores the direction it shines (wi =
+    -direction), a sunlight the direction toward the sun (+direction,
+    lightsource.c:155-158)."""
+    sgn = 1.0 if light.type == LIGHT_SUN else -1.0
+    wi = sgn * _vec(light.direction, like)
+    return (wi / torch.clamp_min(_norm(wi), 1e-20)).expand(like.shape)
+
+
+def occlusion(scene, org, wi, tmax=None, active=None) -> torch.Tensor:
+    """(B,) f32 1 where the shadow ray is blocked (any_hit), else 0."""
+    return any_hit(scene, org, wi, tmax, active)["occ"].to(torch.float32)
+
+
+def _shadow(scene, P, N, wi, tmax=None, active=None) -> torch.Tensor:
+    """(B,) f32 visibility of a shadow ray from P + N eps along wi."""
+    return 1.0 - occlusion(scene, P + N * scene.eps, wi, tmax, active)
+
+
+def sample_area_light(light, u: torch.Tensor):
+    """Uniform points on an area light's triangles.  u: (B, 3) uniforms ->
+    (points (B, 3), normals (B, 3), pdf_area (B,))."""
+    tris = light.tris
+    cdf, v0, e1, e2 = _area_tables(light, u.device)
+    # torch's right=False is jnp.searchsorted's default, side="left"
+    ti = torch.clamp(torch.searchsorted(cdf, u[:, 0].contiguous()), 0,
+                     len(cdf) - 1)
+    # uniform barycentrics by the sqrt warp: b1 = 1 - sqrt(u1), b2 = u2 sqrt(u1)
+    su = torch.sqrt(torch.clamp_min(u[:, 1], 1e-12))
+    b1 = 1.0 - su
+    b2 = u[:, 2] * su
+    a, b = e1[ti], e2[ti]
+    pts = v0[ti] + b1[:, None] * a + b2[:, None] * b
+    nrm = torch.stack([
+        a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0],
+    ], dim=-1)
+    nrm = nrm / torch.clamp_min(_norm(nrm), 1e-20)
+    pdf_area = 1.0 / max(tris["total_area"], 1e-20)
+    return pts, nrm, torch.full((u.shape[0],), pdf_area, device=u.device)
+
+
+def _hemisphere_occlusion(scene, P, N, key, nsamples: int, active):
+    """Stratified hemisphere occlusion counts (B,) f32 through the AO
+    gathers (module docstring), or None where no gather serves the scene
+    or nsamples has no ntheta x nphi grid.  The gather's (2, B) jitter is
+    key.uniform((2, B)), as the TPU gathers draw uniform(key, (2, B))."""
+    nt = math.isqrt(nsamples)
+    while nt > 1 and nsamples % nt:
+        nt -= 1
+    nph = nsamples // nt
+    if nt * nph != nsamples:
+        return None
+    B = P.shape[0]
+    hit = active if active is not None else torch.ones(
+        B, dtype=torch.bool, device=P.device)
+    b0, b1, b2 = ortho_basis(N)
+    P_off = P + N * scene.eps
+    if scene.accel == "dense" and scene.tri_v0.shape[0] <= MAX_TRIS_FOR_MEGAKERNEL:
+        return ao_occlusion(scene, P_off, b0, b1, b2, hit,
+                            key.uniform((2, B)), nt, nph)
+    if scene.accel == "pbvh" and scene.n_nodes > 0:
+        return bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit,
+                                key.uniform((2, B)), nt, nph)[0]
+    return None
+
+
+def _cosweight_gather(scene, light, P, N, key, nsamples: int, active):
+    """Cosine-weighted hemisphere gather (ibl.c:53's cosweight sampler):
+    nsamples shadow rays, each weighted by pi (cos / pdf), the sky's
+    radiance along it for a sunsky light, else the light's colour."""
+    basis = ortho_basis(N)
+    total = torch.zeros_like(P)
+    col = light_color(light, P)
+    for si in range(nsamples):
+        ur = key.fold(si).uniform((P.shape[0], 2))
+        wi, _pdf = cosweight_sample(ur[:, 0], ur[:, 1], basis)
+        vis = _shadow(scene, P, N, wi, active=active)
+        if light.type == LIGHT_SUNSKY and light.sunsky is not None:
+            # the sky's z-up frame (lightsource.c:152-155)
+            li = light.sunsky.sky_rgb(sky_frame(wi))
+        else:
+            li = col[None, :]
+        total = total + vis[:, None] * li * math.pi
+    return total / nsamples
+
+
+def _area_geometry(light, P, u):
+    """(wi, r, r2, cos_l, pdf_a) of one sample u (B, 3) on an area light."""
+    pts, ln, pdf_a = sample_area_light(light, u)
+    d = pts - P
+    r2 = torch.clamp_min(_dot(d, d)[:, 0], 1e-10)
+    r = torch.sqrt(r2)
+    wi = d / r[:, None]
+    cos_l = torch.clamp_min(-_dot(ln, wi)[:, 0], 0.0)
+    return wi, r, r2, cos_l, pdf_a
+
+
+def light_contribution(scene, light, P, N, key, nsamples: int = 1,
+                       active=None) -> torch.Tensor:
+    """Shadowed incident light of one light, E = Li cos / pdf, (B, 3).
+    active: None or the (B,) live lanes; the shadow wavefronts trace
+    those alone."""
+    col = light_color(light, P)
+    if light.type in (LIGHT_DISTANT, LIGHT_SUN):
+        wi = delta_direction(light, P)
+        cos = torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+        return (cos * _shadow(scene, P, N, wi, active=active))[:, None] * col
+
+    if light.type == LIGHT_POINT:
+        d = _vec(light.position, P) - P
+        r2 = torch.clamp_min(_dot(d, d)[:, 0], 1e-12)
+        r = torch.sqrt(r2)
+        wi = d / r[:, None]
+        cos = torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+        # occluders beyond the light do not count
+        vis = _shadow(scene, P, N, wi, r - 2.0 * scene.eps, active)
+        return (cos * vis / r2)[:, None] * col
+
+    if light.type in (LIGHT_DOME, LIGHT_IBL) and light.env is not None:
+        raise NotImplementedError(
+            f"{light.type} light with an environment map: not ported "
+            "(ROADMAP Queue 1)")
+
+    if light.type == LIGHT_DOME:
+        # a constant dome's gather is hemisphere visibility, the AO gathers'
+        # job: E = col pi (visible fraction)
+        occ = _hemisphere_occlusion(scene, P, N, key, nsamples, active)
+        if occ is not None:
+            return (1.0 - occ / nsamples)[:, None] * col * math.pi
+
+    if light.type in (LIGHT_DOME, LIGHT_SUNSKY, LIGHT_IBL):
+        return _cosweight_gather(scene, light, P, N, key, nsamples, active)
+
+    if light.type == LIGHT_AREA and light.tris is not None:
+        total = torch.zeros_like(P)
+        for si in range(nsamples):
+            u = key.fold(si).uniform((P.shape[0], 3))
+            wi, r, r2, cos_l, pdf_a = _area_geometry(light, P, u)
+            cos_s = torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+            vis = _shadow(scene, P, N, wi, r - 2.0 * scene.eps, active)
+            g = cos_s * cos_l / r2
+            total = total + (vis * g / torch.clamp_min(pdf_a, 1e-20)
+                             )[:, None] * col
+        return total / nsamples
+
+    return torch.zeros_like(P)
+
+
+def shadow_rays_per_hit(lights, nsamples: int = 4) -> int:
+    """Shadow rays direct_diffuse and direct_specular trace per shaded
+    hit, for the raytrace.c:96 ray count."""
+    n = 0
+    for light in lights or ():
+        n += nsamples if light.type in GATHER_LIGHTS else 1
+        if light.type in (LIGHT_DISTANT, LIGHT_SUN, LIGHT_POINT):
+            n += 1  # direct_specular's highlight shadow ray
+    return n
+
+
+def direct_diffuse(scene, lights, P, N, key, nsamples: int = 4,
+                   active=None) -> torch.Tensor:
+    """diffuse(N) (shader.c:504): shadowed cosine lighting summed over the
+    lights, / pi, (B, 3)."""
+    total = torch.zeros_like(P)
+    for i, light in enumerate(lights):
+        n = nsamples if light.type in GATHER_LIGHTS else 1
+        total = total + light_contribution(scene, light, P, N,
+                                           key.fold(i + 1000), n,
+                                           active=active)
+    return total / math.pi
+
+
+def direct_specular(scene, lights, P, N, V, roughness, key,
+                    active=None) -> torch.Tensor:
+    """specular(N, V, roughness) (shader.c:529): a shadowed Blinn-style
+    highlight per distant, sun or point light, (B, 3)."""
+    total = torch.zeros_like(P)
+    inv_r = 1.0 / torch.clamp_min(torch.as_tensor(
+        roughness, dtype=torch.float32, device=P.device), 1e-3)
+    for light in lights:
+        if light.type in (LIGHT_DISTANT, LIGHT_SUN):
+            wi = delta_direction(light, P)
+        elif light.type == LIGHT_POINT:
+            d = _vec(light.position, P) - P
+            wi = d / torch.clamp_min(_norm(d), 1e-10)
+        else:
+            continue  # dome and area highlights are path tracing's
+        h = wi + V
+        h = h / torch.clamp_min(_norm(h), 1e-20)
+        ndoth = torch.clamp_min(_dot(N, h)[:, 0], 0.0)
+        cos = torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+        vis = _shadow(scene, P, N, wi, active=active)
+        total = total + (vis * (cos > 0) * torch.pow(ndoth, inv_r)
+                         )[:, None] * light_color(light, P)
+    return total

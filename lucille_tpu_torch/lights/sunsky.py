@@ -77,6 +77,13 @@ def _folded_basis() -> tuple:
                  for s in (S0, S1, S2))
 
 
+
+def sky_frame(d: torch.Tensor) -> torch.Tensor:
+    """Directions (..., 3) in the sky's z-up frame: y and z swapped (the
+    reference's lightsource.c:152-155).  Sliced on the device: a list
+    index would copy itself to the card and make the host wait."""
+    return torch.stack([d[..., 0], d[..., 2], d[..., 1]], dim=-1)
+
 @dataclass
 class PreethamSunSky:
     """Sun + sky parameter block (reference ri_sunsky_t).

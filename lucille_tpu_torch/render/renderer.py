@@ -1,4 +1,4 @@
-"""Frame renderer: the AO tile loop on one torch device.
+"""Frame renderer: the tile loop on one torch device.
 
 Counterpart of lucille_tpu/render/renderer.py:41-152 and :269-591 for a
 single device:
@@ -6,22 +6,26 @@ single device:
 - the image is cut into full-size tiles (edge tiles are rendered past the
   image edge and cropped on the host), so every tile traces
   B = tile_w * tile_h * S eye rays;
-- per tile: Hammersley subpixel positions -> eye rays -> the AO
-  integrator (the accel's closest-hit and gather kernels) ->
-  per-subsample pixel-filter weights;
+- per tile: Hammersley subpixel positions -> eye rays -> the render
+  method's integrator (transport/dispatch.py: AO, Whitted or path
+  tracing) with Option "trace" "max_ray_depth" and the option's bgcolor
+  -> per-subsample pixel-filter weights;
 - every tile is enqueued on the device before the first is pulled back,
   then tiles reach the display callbacks in tile-list (spiral) order;
-- the crop window keeps tiles on the full-frame grid, and the AO jitter
-  is drawn per tile origin, so cropped pixels equal the full render's;
-- counters per tile: nrays (as lucille_tpu counts them), ntests, ntrav;
+- each tile's random numbers come from its own stream, drawn per tile
+  origin (sampling/jitter.py), so cropped pixels equal the full render's;
+- counters per tile: nrays (as lucille_tpu counts them), ntests, ntrav
+  (0 where the integrator reports none, as lucille_tpu's Whitted and path
+  tracer do);
 - the light tables are built once (lucille_tpu/render/renderer.py:
   209-211) and handed to the integrator: a sunsky light turns the AO
-  gather into the sunsky gather.
+  gather into the sunsky gather; a scene without lights gets the
+  reference's constant dome.
 
 Scenes that need what the port does not have yet raise
 NotImplementedError: displacement, textures, atmosphere, imager, a light
 with an environment texture, sunsky AO on the dense tiles above
-131,072 triangles, depth of field, any integrator other than AO.
+131,072 triangles, depth of field, the dirtmap and shader methods.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from lucille_tpu_torch.sampling.hammersley import subpixel_samples
 from lucille_tpu_torch.sampling.jitter import TileSampler
 from lucille_tpu_torch.scene.compile import compile_scene
 from lucille_tpu_torch.transport.ao import sunsky_unported
-from lucille_tpu_torch.transport.dispatch import get_integrator
+from lucille_tpu_torch.transport.dispatch import get_integrator, renders_ao
 
 
 def unsupported_features(desc) -> list[str]:
@@ -83,8 +87,8 @@ def tile_eye_rays(camera, x0: int, y0: int, tile_w: int, tile_h: int,
 class Renderer:
     """Holds the compiled scene, camera and sampler; renders frames.
 
-    sampler: callable (x0, y0, n) -> (2, n) f32 AO jitter on `device`;
-    defaults to TileSampler(seed, device)."""
+    sampler: callable (x0, y0) -> the tile's random stream on `device`
+    (sampling/jitter.py); defaults to TileSampler(seed, device)."""
 
     def __init__(self, desc, tile_size: int = 64, device="cuda",
                  sampler: Optional[Callable] = None, seed: int = 0):
@@ -97,14 +101,15 @@ class Renderer:
         self.tile_size = int(tile_size)
         self.device = resolve_device(device)
         self.integrator = get_integrator(desc.options.render_method)
+        sunsky_ao = renders_ao(desc.options.render_method)
         timer = get_timer()
         timer.start("Scene compile")
         self.scene = compile_scene(desc, self.device)
         timer.end("Scene compile")
         self.camera = desc.camera
         self.lights = build_light_tables(desc)
-        if any(li.type == "sunsky" and li.sunsky is not None
-               for li in self.lights):
+        if sunsky_ao and any(li.type == "sunsky" and li.sunsky is not None
+                             for li in self.lights):
             refusal = sunsky_unported(self.scene)
             if refusal:
                 raise NotImplementedError(refusal)
@@ -116,18 +121,22 @@ class Renderer:
         [ntests, ntrav, nrays] i64), both still on the device."""
         S = jitter.shape[0]
         dev = self.device
+        opt = self.desc.options
         org, dirn = tile_eye_rays(self.camera, x0, y0, tile_w, tile_h, jitter)
-        ao_jitter = self.sampler(x0, y0, org.shape[0])
         radiance, aux = self.integrator(
-            self.scene, self.lights, org, dirn, ao_jitter,
-            gather_nsamples=self.desc.options.gather_nsamples,
+            self.scene, self.lights, org, dirn, self.sampler(x0, y0),
+            gather_nsamples=opt.gather_nsamples,
+            max_depth=opt.max_ray_depth, bgcolor=tuple(opt.bgcolor),
         )
         r = radiance.reshape(tile_h, tile_w, S, 3)
         img = torch.sum(r * weights[None, None, :, None], dim=2)
+        # a missing counter is filled on the device: copying a host 0 there
+        # would wait for every tile already enqueued
         counters = torch.stack([
-            torch.as_tensor(aux["ntests"], dtype=torch.int64, device=dev),
-            torch.as_tensor(aux["ntrav"], dtype=torch.int64, device=dev),
-            torch.as_tensor(aux["nrays"], dtype=torch.int64, device=dev),
+            aux[k].to(torch.int64) if torch.is_tensor(aux.get(k))
+            else torch.full((), int(aux.get(k, 0)), dtype=torch.int64,
+                            device=dev)
+            for k in ("ntests", "ntrav", "nrays")
         ])
         return img, counters
 

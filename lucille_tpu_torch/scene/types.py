@@ -12,7 +12,8 @@ are f32, integers i32, on one explicit device.
 - accel "pbvh": the triangles in the tile BVH's leaf order, every leaf
   padded to whole tiles; the node arrays are the tree, and `nodes` is
   their pack for the kernels (accel/pack.pack_nodes), with the tree's
-  depth beside it.
+  depth and the nodes' skip links (the fused AO gather's stackless walk)
+  beside it.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ class SceneTensors:
     accel: str = "dense"  # "dense" or "pbvh" (module docstring)
     nodes: torch.Tensor | None = None  # (M, 8) pack_nodes layout, pbvh only
     tree_depth: int = 0  # depth of the deepest node, pbvh only
+    skip: torch.Tensor | None = None  # (M,) i32 skip links, pbvh only
 
     @property
     def device(self) -> torch.device:
@@ -107,7 +109,8 @@ def from_numpy(scene_arrays, device) -> SceneTensors:
         from lucille_tpu_torch.accel.tile_bvh import tree_depth
 
         nodes = pack_nodes(scene_arrays)
-        extra = {"nodes": nodes.to(device), "tree_depth": tree_depth(nodes)}
+        extra = {"nodes": nodes.to(device), "tree_depth": tree_depth(nodes),
+                 "skip": _to_tensor(scene_arrays.node_skip, device)}
     else:
         raise NotImplementedError(
             f"accel {accel!r} is not ported: the port has the dense tiles "

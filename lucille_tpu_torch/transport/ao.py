@@ -23,8 +23,10 @@ per-stratum bits say which strata are open (`ao_occlusion_bits`) and the
 directions are recomputed with the kernel's formula; on the tile BVH the
 cone-tiled gather rays carry the sky directly (`bvh_ao_sunsky`).
 
-The per-lane jitter is an input: (2, B) uniforms from the renderer's
-sampler, the same draw for plain and sunsky AO.  On the dense accel
+The per-lane jitter is the tile's own draw from its random stream
+(sampling/jitter.py), stream.uniform((), (2, B)), as lucille_tpu's is
+uniform(key, (2, B)); the same draw for plain and sunsky AO.  On the
+dense accel
 column j belongs to compacted hit slot j (the fused kernel's lane
 order); on the tile BVH it belongs to raster lane j, because
 lucille_tpu's `_stratified_dirs` draws its (2, B) uniforms on the
@@ -47,6 +49,8 @@ from lucille_tpu_torch.accel.ao import (
 )
 from lucille_tpu_torch.accel.bvh_ao import bvh_ao_occlusion, bvh_ao_sunsky
 from lucille_tpu_torch.accel.dispatch import any_hit, closest_hit
+from lucille_tpu_torch.device import const_vec
+from lucille_tpu_torch.lights.sunsky import sky_frame
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -78,12 +82,14 @@ def _interp_normal(scene, res) -> torch.Tensor:
     return n / torch.clamp_min(_norm(n), 1e-20)
 
 
-def ao_radiance(scene, org, dirn, jitter, ntheta: int, nphi: int,
+def ao_radiance(scene, org, dirn, stream, ntheta: int, nphi: int,
                 background: float = 0.0, lights=()):
-    """AO radiance for a wavefront of eye rays org, dirn (B, 3) f32.
-    lights: the light tables (lights/tables.py); a "sunsky" light with a
-    sky model switches to the sunsky gather, "sun" lights join it.
-    Returns (radiance (B, 3), aux with hit mask, t and the counters)."""
+    """AO radiance for a wavefront of eye rays org, dirn (B, 3) f32 with
+    the tile's random stream.  lights: the light tables
+    (lights/tables.py); a "sunsky" light with a sky model switches to the
+    sunsky gather, "sun" lights join it.  Returns (radiance (B, 3), aux
+    with hit mask, t and the counters)."""
+    jitter = stream.uniform((), (2, org.shape[0]))
     res = closest_hit(scene, org, dirn)
     P_off, b0, b1, b2 = shading_frame(scene, org, dirn, res)
     hit = res["hit"]
@@ -156,12 +162,10 @@ def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, jitter, ntheta,
         col = _sunsky_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta,
                            nphi, sky)
     for sun in suns:
-        wi = torch.tensor(sun.direction, dtype=torch.float32,
-                          device=P_off.device)
+        wi = const_vec(sun.direction, P_off.device)
         wi = wi / torch.clamp_min(torch.sqrt(torch.sum(wi * wi)), 1e-20)
         occ = any_hit(scene, P_off, wi.expand_as(P_off), active=hit)["occ"]
-        suncol = torch.tensor(sun.color, dtype=torch.float32,
-                              device=P_off.device) * sun.intensity
+        suncol = const_vec(sun.color, P_off.device) * sun.intensity
         col = col + ((~occ) & hit).to(torch.float32)[:, None] * suncol
     lo = col / (math.pi * S)
     radiance = _modulate(scene, res, hit,
@@ -186,7 +190,7 @@ def _sunsky_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi, sky):
     S = ntheta * nphi
     vis = ~unpack_bits(bits, S) & hit[None, :]  # (S, B)
     d = stratum_directions(b0, b1, b2, u01, ntheta, nphi)  # (S, B, 3)
-    sky_rgb = sky.sky_rgb(d[..., [0, 2, 1]])
+    sky_rgb = sky.sky_rgb(sky_frame(d))
     return (vis[..., None] * sky_rgb).sum(dim=0)
 
 

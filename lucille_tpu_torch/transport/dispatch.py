@@ -1,34 +1,84 @@
 """Integrator dispatch by render method.
 
-Counterpart of lucille_tpu/transport/dispatch.py:18-35.  The port has
-the AO integrator only (the reference's hardwired default, render.c:803);
-every other method raises.
+Counterpart of lucille_tpu/transport/dispatch.py:17-79:
 
-Contract: fn(scene, lights, org, dirn, jitter, *, gather_nsamples) ->
-(radiance (B, 3), aux), as lucille_tpu's fn(scene, lights, org, dirn,
-key, ...) with the (2, B) jitter in place of the key.
+- "ao" (and "ambientocclusion", "mcraytrace", "default", ""), the
+  reference's hardwired default (render.c:803);
+- "whitted";
+- "pathtrace", "path" and "mlt" ("mlt" warns once and path traces);
+- "dirtmap" and "shader" (and "sl", "shade") raise NotImplementedError:
+  the dirt map needs a dense closest hit with a tmax, the shader
+  integrator the RSL compiler (ROADMAP Queue 1);
+- any other name warns once and renders AO.
+
+Contract: fn(scene, lights, org, dirn, stream, *, gather_nsamples,
+max_depth, bgcolor) -> (radiance (B, 3), aux), as lucille_tpu's
+fn(scene, lights, org, dirn, key, ...) with the tile's random stream
+(sampling/jitter.py) in place of its key.  The renderer passes
+max_depth = Option "trace" "max_ray_depth" and the option's bgcolor to
+every method, as lucille_tpu's does (render/renderer.py:247-249).
 """
 
 from __future__ import annotations
 
 import math
 
+from lucille_tpu_torch.base.log import LOG_WARN, log_once
+from lucille_tpu_torch.sampling.jitter import StreamKey
 from lucille_tpu_torch.transport.ao import ao_radiance
+from lucille_tpu_torch.transport.pathtrace import path_radiance
+from lucille_tpu_torch.transport.whitted import whitted_radiance
 
 AO_NAMES = ("ao", "ambientocclusion", "mcraytrace", "default", "")
+PATH_NAMES = ("pathtrace", "path", "mlt")
+UNPORTED = {
+    "dirtmap": "the dirt map needs a dense closest hit with a tmax",
+    "shader": "the shader integrator needs the RSL compiler",
+    "sl": "the shader integrator needs the RSL compiler",
+    "shade": "the shader integrator needs the RSL compiler",
+}
+
+
+def renders_ao(name: str) -> bool:
+    """Whether get_integrator(name) is the AO integrator (the AO names,
+    and any name it does not know)."""
+    name = (name or "").lower()
+    return name not in UNPORTED and name != "whitted" and name not in PATH_NAMES
 
 
 def get_integrator(name: str):
     name = (name or "").lower()
-    if name not in AO_NAMES:
+    if name in UNPORTED:
         raise NotImplementedError(
-            f"render method {name!r} is not ported; the port renders AO only "
-            "(ROADMAP Queue 1: shading wavefronts)"
-        )
+            f"render method {name!r} is not ported: {UNPORTED[name]} "
+            "(ROADMAP Queue 1)")
+    if name == "whitted":
+        def whitted_fn(scene, lights, org, dirn, stream, *,
+                       gather_nsamples: int = 64, max_depth: int = 8,
+                       bgcolor=(0.0, 0.0, 0.0)):
+            return whitted_radiance(scene, lights, org, dirn,
+                                    StreamKey(stream), max_depth=max_depth,
+                                    bgcolor=bgcolor)
 
-    def ao_fn(scene, lights, org, dirn, jitter, *, gather_nsamples: int = 64):
+        return whitted_fn
+    if name in PATH_NAMES:
+        if name == "mlt":
+            log_once(LOG_WARN, "method 'mlt' unimplemented; using pathtrace")
+
+        def path_fn(scene, lights, org, dirn, stream, *,
+                    gather_nsamples: int = 64, max_depth: int = 10,
+                    bgcolor=(0.0, 0.0, 0.0)):
+            return path_radiance(scene, lights, org, dirn, StreamKey(stream),
+                                 max_depth=max_depth, bgcolor=bgcolor)
+
+        return path_fn
+    if name not in AO_NAMES:
+        log_once(LOG_WARN, "unknown render method '%s'; using AO", name)
+
+    def ao_fn(scene, lights, org, dirn, stream, *, gather_nsamples: int = 64,
+              max_depth: int = 8, bgcolor=(0.0, 0.0, 0.0)):
         ntheta = max(1, int(math.sqrt(gather_nsamples)))
-        return ao_radiance(scene, org, dirn, jitter, ntheta, ntheta,
+        return ao_radiance(scene, org, dirn, stream, ntheta, ntheta,
                            lights=lights)
 
     return ao_fn

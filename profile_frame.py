@@ -7,15 +7,24 @@ scene under torch.profiler (CPU + CUDA activity).
 Cells (default: all): headline-sunsky and headline-ao (the bundled scene
 at 640x480, 3x3, 64 rays, tile 240, with and without its sunsky light),
 heightfield91 (dense, 160x120, 2x2, 64 rays, tile 128), heightfield256,
-heightfield256-sunsky and heightfield724 (the tile BVH, same frame).
+heightfield256-sunsky and heightfield724 (the tile BVH, same frame); the
+integrators: headline-whitted and headline-pathtrace (the bundled scene
+without its sunsky line: the default dome), bundled-whitted-sunsky (as
+shipped), heightfield256-whitted (the dome through the cone gather) and
+heightfield256-whitted-fused; and the fused tile-BVH AO gather
+(LUCILLE_BVH_AO=fused): heightfield256-ao-fused, heightfield724-ao-fused.
 
-Per cell it prints the profiled frame's wall time (host clock around
-render_frame and a synchronize), the device busy time (the union of the
+Per cell it prints the warm frame's seconds without the profiler (best
+of 2), the profiled frame's wall time (host clock around render_frame
+and a synchronize), the device busy time (the union of the
 device's kernel and copy intervals), the idle share 1 - busy / wall, the
-number of device operations, and the device time by operation name,
-largest first.  The profiler adds host cost, so the wall time here is
-above the unprofiled frame's.  The card's nvidia-smi name and power limit
-come first.  Needs one card; imports nothing of lucille_tpu.
+number of device operations, the host's waits on the card (the CUDA
+runtime's synchronize calls the profiler saw: pulling a finished tile
+back makes two, anything more is a wait inside the enqueue), and the
+device time by operation name, largest first.  The profiler adds host
+cost, so the profiled wall time is above the unprofiled frame's.  The
+card's nvidia-smi name and power limit come first.  Needs one card;
+imports nothing of lucille_tpu.
 """
 
 from __future__ import annotations
@@ -27,15 +36,31 @@ from collections import defaultdict
 
 import chip_smoke as cs
 
+# cell -> (scene description, tile, LUCILLE_BVH_AO)
 CELLS = {
-    "headline-sunsky": (lambda: cs.bundled_state(640, 480, 3, 64), cs.TILE),
+    "headline-sunsky": (lambda: cs.bundled_state(640, 480, 3, 64), cs.TILE,
+                        "cone"),
     "headline-ao": (lambda: cs.bundled_state(640, 480, 3, 64, sunsky=False),
-                    cs.TILE),
-    "heightfield91": (lambda: cs.heightfield_state(91), 128),
-    "heightfield256": (lambda: cs.heightfield_state(256), 128),
+                    cs.TILE, "cone"),
+    "heightfield91": (lambda: cs.heightfield_state(91), 128, "cone"),
+    "heightfield256": (lambda: cs.heightfield_state(256), 128, "cone"),
     "heightfield256-sunsky": (lambda: cs.heightfield_state(256, sunsky=True),
-                              128),
-    "heightfield724": (lambda: cs.heightfield_state(724), 128),
+                              128, "cone"),
+    "heightfield724": (lambda: cs.heightfield_state(724), 128, "cone"),
+    "headline-whitted": (lambda: cs.bundled_state(
+        640, 480, 3, sunsky=False, method="whitted"), cs.TILE, "cone"),
+    "headline-pathtrace": (lambda: cs.bundled_state(
+        640, 480, 3, sunsky=False, method="pathtrace"), cs.TILE, "cone"),
+    "bundled-whitted-sunsky": (lambda: cs.bundled_state(
+        640, 480, 3, method="whitted"), cs.TILE, "cone"),
+    "heightfield256-whitted": (lambda: cs.heightfield_state(
+        256, method="whitted"), 128, "cone"),
+    "heightfield256-whitted-fused": (lambda: cs.heightfield_state(
+        256, method="whitted"), 128, "fused"),
+    "heightfield256-ao-fused": (lambda: cs.heightfield_state(256), 128,
+                                "fused"),
+    "heightfield724-ao-fused": (lambda: cs.heightfield_state(724), 128,
+                                "fused"),
 }
 
 
@@ -58,28 +83,43 @@ def profile(cell: str, top: int = 12) -> None:
     from torch.profiler import ProfilerActivity
 
     from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.render.tiles import tile_list
 
-    make_state, tile = CELLS[cell]
+    make_state, tile, mode = CELLS[cell]
     r = Renderer(make_state().scene, tile_size=tile, device="cuda")
-    for _ in range(2):  # warm-up: the kernel build, caches, allocator
-        r.render_frame()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        r.render_frame()
+    with cs.bvh_ao_mode(mode):
+        r.render_frame()  # warm-up: the kernel build, caches, allocator
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r.render_frame()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            r.render_frame()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    opt = r.desc.options
+    n_tiles = len(tile_list(opt.width, opt.height, tile, opt.bucket_order))
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
     spans = [(e.time_range.start, e.time_range.end) for e in dev]
     busy_ms = busy_us(spans) / 1e3
     by_name = defaultdict(lambda: [0.0, 0])
     for e in dev:
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name][1] += 1
-    print(f"[{cell}] profiled frame {wall_ms:.2f} ms, device busy "
+    # the host's waits on the card: the runtime's synchronize calls
+    syncs = sum(1 for e in events if e.device_type != DeviceType.CUDA
+                and "Synchronize" in e.name)
+    print(f"[{cell}] frame {min(times) * 1e3:.2f} ms unprofiled (best of "
+          f"2); profiled frame {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-          f"{len(dev)} device ops", flush=True)
+          f"{len(dev)} device ops, {syncs} host syncs ({n_tiles} "
+          f"tiles; each tile's pull makes 2)", flush=True)
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:100]}")
 

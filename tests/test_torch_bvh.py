@@ -19,7 +19,9 @@ Tolerances:
   an edge);
 - stratified directions within 1e-6 absolute (FMA contraction, and
   XLA's and torch's sin/cos differ by ulps);
-- AO counts equal on all but 1e-3 of the lanes, and within 1.
+- AO counts equal on all but 1e-3 of the lanes, and within 1; the same
+  for the fused gather (kernel 6) against lucille_tpu's fused Pallas
+  kernel, both fed the same (2, B) draw.
 """
 
 import numpy as np
@@ -427,3 +429,199 @@ def test_dense_any_hit_is_not_ported():
     assert 0.1 < occ["dense"].float().mean() < 0.9
     assert (occ["dense"] != occ["pbvh"]).float().mean() <= 0.005
     assert not occ["dense"][~active].any() and not occ["pbvh"][~active].any()
+
+
+@pytest.mark.parametrize("case,ntheta,nphi", [
+    ("soup", 4, 4), ("soup", 3, 3), ("heightfield", 4, 4),
+    ("heightfield", 2, 2)])
+def test_bvh_ao_fused_matches_pallas(case, ntheta, nphi, monkeypatch):
+    """LUCILLE_BVH_AO=fused on both sides: the port's twin of kernel 6
+    against lucille_tpu's `_bvh_ao_kernel` in interpret mode, with
+    jitter column j belonging to compacted slot j on both; the soup is
+    test_pallas_bvh's own."""
+    from test_pallas_bvh import _random_soup as pallas_soup
+    from test_pallas_bvh import _scene as pallas_scene
+
+    from lucille_tpu.accel.pallas_bvh import pallas_bvh_ao_occlusion
+    from lucille_tpu_torch.accel import bvh_ao, bvh_isect
+    from lucille_tpu_torch.accel.bvh_ao import bvh_ao_occlusion
+    from lucille_tpu_torch.accel.pack import pack_tris
+    from lucille_tpu_torch.scene.types import from_numpy
+
+    monkeypatch.setenv("LUCILLE_BVH_AO", "fused")
+    if case == "soup":
+        sc = pallas_scene(*pallas_soup(700, seed=5))
+        P, b0, b1, b2, hit = _soup_lanes(300)
+    else:
+        sc = _heightfield()
+        P, b0, b1, b2, hit = _eye_lanes(sc, 300)
+    B = P.shape[0]
+    key = jax.random.key(7)
+    ref, _stats = pallas_bvh_ao_occlusion(
+        sc, jnp.asarray(P), jnp.asarray(b0), jnp.asarray(b1),
+        jnp.asarray(b2), jnp.asarray(hit), key, ntheta, nphi, interpret=True)
+    ref = np.asarray(ref)
+    jitter = torch.from_numpy(
+        np.array(jax.random.uniform(key, (2, B), dtype=jnp.float32)))
+    for c in (bvh_ao.FUSED_COUNTS, bvh_isect.ANY_COUNTS):
+        c.reset()
+    t = torch.from_numpy
+    scene = from_numpy(sc, "cpu")
+    got, stats = bvh_ao_occlusion(scene, t(P), t(b0), t(b1), t(b2), t(hit),
+                                  jitter, ntheta, nphi)
+    got = got.numpy()
+    assert (bvh_ao.FUSED_COUNTS.kernel, bvh_ao.FUSED_COUNTS.plain) == (0, 1)
+    assert bvh_isect.ANY_COUNTS.plain == 0  # not the cone gather
+    diff = np.abs(got - ref)
+    assert diff.max() <= 1.0
+    assert (diff != 0).mean() <= 1e-3
+    assert np.all(got[~hit] == 0)
+    assert 0.1 < ref[hit].mean() < ntheta * nphi - 0.1  # both answers
+    # the twin visits no node and tests every slot for every walk
+    assert int(stats["ntrav"]) == 0
+    assert int(stats["ntests"]) == (int(hit.sum()) * ntheta * nphi
+                                    * pack_tris(scene).shape[1])
+
+
+@pytest.mark.parametrize("mode", ["unset", "cone", "fused", "rebinned"])
+def test_bvh_ao_mode_selection(mode, monkeypatch):
+    """lucille_tpu's LUCILLE_BVH_AO switch, read at call time: cone by
+    default, any value but cone and rebinned the fused gather, rebinned
+    refused naming ROADMAP."""
+    from lucille_tpu_torch.accel import bvh_ao, bvh_isect
+    from lucille_tpu_torch.scene.types import from_numpy
+
+    if mode == "unset":
+        monkeypatch.delenv("LUCILLE_BVH_AO", raising=False)
+    else:
+        monkeypatch.setenv("LUCILLE_BVH_AO", mode)
+    P, b0, b1, b2, hit = (torch.from_numpy(a) for a in _soup_lanes(64))
+    jitter = torch.rand((2, 64))
+    scene = from_numpy(_soup(), "cpu")
+    for c in (bvh_ao.FUSED_COUNTS, bvh_isect.ANY_COUNTS):
+        c.reset()
+    if mode == "rebinned":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            bvh_ao.bvh_ao_occlusion(scene, P, b0, b1, b2, hit, jitter, 2, 2)
+        return
+    occ, _ = bvh_ao.bvh_ao_occlusion(scene, P, b0, b1, b2, hit, jitter, 2, 2)
+    fused = mode == "fused"
+    assert bvh_ao.FUSED_COUNTS.plain == int(fused)
+    assert bvh_isect.ANY_COUNTS.plain == int(not fused)
+    assert bvh_ao.gather_mode() == ("fused" if fused else "cone")
+    assert torch.all(occ[~hit] == 0) and occ[hit].mean() > 0
+
+
+def _walk_one(tris, nodes, o, d, closest):
+    """One ray's near-first walk in numpy f32 scalars, slot by slot:
+    (hit, inner nodes entered, nodes entered, real triangles tested)."""
+    from lucille_tpu_torch.accel.pack import TC
+
+    f = np.float32
+    ints = nodes.view(np.int32)
+    real = (tris[0:9] != 0).any(axis=0)
+    inv = f(1) / np.where(np.abs(d) > f(1e-20), d, f(1e-20)).astype(f)
+
+    def reach(n, bound):
+        t0 = (nodes[n, 0:3] - o) * inv
+        t1 = (nodes[n, 4:7] - o) * inv
+        tn, tf = np.minimum(t0, t1).max(), np.maximum(t0, t1).min()
+        return tn <= tf and tf > 0 and tn < bound, tn
+
+    stack, cur, t_best, hit = [], 0, f(np.inf), False
+    inner = visits = tests = 0
+    while cur >= 0:
+        visits += 1
+        meta, link = int(ints[cur, 3]), int(ints[cur, 7])
+        nxt = -1
+        if meta > 0:
+            for k in range(link * TC, (link + meta) * TC):
+                if not real[k]:
+                    continue
+                tests += 1
+                v0, e1, e2 = tris[0:3, k], tris[3:6, k], tris[6:9, k]
+                p = np.array([d[1] * e2[2] - d[2] * e2[1],
+                              d[2] * e2[0] - d[0] * e2[2],
+                              d[0] * e2[1] - d[1] * e2[0]], f)
+                a = e1[0] * p[0] + e1[1] * p[1] + e1[2] * p[2]
+                s = o - v0
+                q = np.array([s[1] * e1[2] - s[2] * e1[1],
+                              s[2] * e1[0] - s[0] * e1[2],
+                              s[0] * e1[1] - s[1] * e1[0]], f)
+                u = s[0] * p[0] + s[1] * p[1] + s[2] * p[2]
+                v = q[0] * d[0] + q[1] * d[1] + q[2] * d[2]
+                t = e2[0] * q[0] + e2[1] * q[1] + e2[2] * q[2]
+                if closest:
+                    if abs(a) > 1e-14:
+                        u, v, t = u * (f(1) / a), v * (f(1) / a), t * (f(1) / a)
+                        if (0 <= u <= 1 and v >= 0 and u + v <= 1 and t > 0
+                                and t < t_best):
+                            t_best, hit = t, True
+                else:
+                    w = a - u - v
+                    if ((min(u, v, w) >= 0 or max(u, v, w) <= 0)
+                            and t * a > 0 and abs(a) > 1e-14):
+                        return True, inner, visits, tests
+        else:
+            inner += 1
+            c0, c1 = cur + 1, link
+            bound = t_best if closest else f(np.inf)
+            (r0, tn0), (r1, tn1) = reach(c0, bound), reach(c1, bound)
+            near0 = d[-meta - 1] >= 0
+            near, far = (c0, c1) if near0 else (c1, c0)
+            rn, rf = (r0, r1) if near0 else (r1, r0)
+            if rn and rf:
+                stack.append((far, tn1 if near0 else tn0))
+            nxt = near if rn else (far if rf else -1)
+        while nxt < 0 and stack:
+            n, tn = stack.pop()
+            if not closest or tn < t_best:
+                nxt = n
+        cur = nxt
+    return hit, inner, visits, tests
+
+
+@pytest.mark.parametrize("closest", [True, False])
+@pytest.mark.parametrize("case", ["soup700", "heightfield35_eye"])
+def test_need_walk_counts(case, closest):
+    """chip_smoke.need_walk, the count of the work the tile-BVH kernels'
+    bounds charge: its answers equal the plain twins' on all but 0.5% of
+    the rays (the twins test every slot, the walk culls by box), and its
+    node and real-triangle counts equal a walk of one ray at a time,
+    slot by slot, on a sample of the rays (exactly)."""
+    from chip_smoke import need_walk
+
+    from lucille_tpu_torch.accel.bvh_isect import (
+        bvh_any_hit_reference,
+        bvh_closest_hit_reference,
+    )
+    from lucille_tpu_torch.accel.pack import pack_tris
+    from lucille_tpu_torch.scene.types import from_numpy
+
+    sc, o, d = _bvh_cases()[case]()
+    if case == "soup700" and not closest:
+        o, d = _gather_lanes(1024)
+    scene = from_numpy(sc, "cpu")
+    tris, nodes = pack_tris(scene), scene.nodes
+    org, dirn = torch.from_numpy(o), torch.from_numpy(d)
+    got = need_walk(tris, nodes, org, dirn, closest, scene.tree_depth,
+                    chunk=100)
+    inf = torch.full((o.shape[0],), float("inf"))
+    if closest:
+        ref = bvh_closest_hit_reference(tris, org, dirn, inf)["tri"] >= 0
+    else:
+        ref = bvh_any_hit_reference(tris, org, dirn, inf)["occ"]
+    assert 0.1 < ref.float().mean() < 0.95  # hits and misses both exercised
+    assert (got["hit"] != ref).float().mean() <= 0.005
+    rows = np.random.default_rng(4).choice(o.shape[0], 24, replace=False)
+    sub = need_walk(tris, nodes, org[rows], dirn[rows], closest,
+                    scene.tree_depth)
+    one = [_walk_one(tris.numpy(), nodes.numpy(), o[i], d[i], closest)
+           for i in rows]
+    assert sub["hit"].tolist() == [w[0] for w in one]
+    assert (sub["inner"], sub["nodes"], sub["tests"]) == tuple(
+        sum(w[j] for w in one) for j in (1, 2, 3))
+    # the walk culls: far fewer tests than every real triangle per ray
+    n_real = int((tris[0:9] != 0).any(dim=0).sum())
+    assert 0 < got["tests"] < 0.5 * n_real * o.shape[0]
+    assert got["inner"] < got["nodes"]

@@ -229,17 +229,12 @@ def test_sunsky_frame_matches_plain(accel):
         s.options.accel_method = accel
         return s
 
-    def sampler(device):
-        def draw(x0, y0, n):
-            rng = np.random.default_rng([x0, y0])
-            return torch.tensor(rng.uniform(size=(2, n)), dtype=torch.float32,
-                                 device=device)
-        return draw
+    from lucille_tpu_torch.sampling.jitter import HostSampler
 
     got = Renderer(state().scene, tile_size=16, device="cuda",
-                   sampler=sampler("cuda")).render_frame()
+                   sampler=HostSampler(0, "cuda")).render_frame()
     ref = Renderer(state().scene, tile_size=16, device="cpu",
-                   sampler=sampler("cpu")).render_frame()
+                   sampler=HostSampler(0, "cpu")).render_frame()
     assert ref.mean() > 100.0
     rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)
     assert (rel > 1e-3).mean() <= 0.01
@@ -412,3 +407,149 @@ def test_bvh_ao_gather_matches_plain():
     assert want[hit].mean() > 0.5
     assert diff.max() <= 1 and (diff != 0).float().mean() <= 1e-3
     assert torch.all(occ[~hit] == 0) and int(stats["ntrav"]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accel", ["pallas", "bvh"])
+def test_closest_hit_active_matches_plain(accel):
+    """A bounce wavefront's live mask: dead rays report a miss (t +inf on
+    the dense tiles, tmax on the tile BVH), live rays the twin's hit."""
+    _need_card()
+    from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.accel import bvh_isect, isect
+    from lucille_tpu_torch.accel.pack import pack_tris
+
+    scene = _soup_scene(1500, accel=accel)
+    o, d = _shell_rays(3000, seed=4)
+    rng = np.random.default_rng(3)
+    active = torch.tensor(rng.uniform(size=3000) < 0.6, device="cuda")
+    got = closest_hit(scene, o, d, active=active)
+    tris = pack_tris(scene)
+    if accel == "pallas":
+        ref = isect.closest_hit_reference(tris, o, d, active)
+    else:
+        inf = torch.full((3000,), float("inf"), device="cuda")
+        ref = bvh_isect.bvh_closest_hit_reference(tris, o, d, inf, active)
+    assert got["hit"][active].float().mean() > 0.2
+    assert not got["hit"][~active].any()
+    assert torch.all(torch.isinf(got["t"][~active]))
+    assert (got["tri"] != torch.clamp_max(ref["tri"], scene.tri_v0.shape[0]
+                                          - 1)).float().mean() <= 1e-3
+    same = got["hit"] & (got["tri"] == ref["tri"])
+    for k in ("t", "u", "v"):
+        torch.testing.assert_close(got[k][same], ref[k][same], rtol=1e-6,
+                                   atol=1e-7)
+    # every ray dead: nothing is tested
+    none = closest_hit(scene, o, d, active=torch.zeros_like(active))
+    assert not none["hit"].any()
+    if accel == "bvh":
+        assert int(none["ntrav"]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tris,ntheta,nphi", [(3000, 8, 8), (3000, 3, 3),
+                                                (800, 2, 2)])
+def test_bvh_ao_fused_kernel_matches_plain(n_tris, ntheta, nphi):
+    """Kernel 6 against its twin on the same compacted slots: S = 64 (8
+    warps of 8 slots x 4 strata, 2 runs each), S = 9 (1 stratum per
+    warp, 32 slots), S = 4 (Whitted's dome); slots at or past nact
+    report 0."""
+    _need_card()
+    from lucille_tpu_torch.accel import bvh_ao
+    from lucille_tpu_torch.accel.pack import pack_tris
+    from lucille_tpu_torch.transport.ao import ortho_basis
+
+    scene = _soup_scene(n_tris, accel="bvh")
+    B = 1000
+    rng = np.random.default_rng(1)
+    P = torch.tensor(rng.uniform(-4, 4, (B, 3)), dtype=torch.float32,
+                     device="cuda")
+    N = torch.nn.functional.normalize(torch.tensor(
+        rng.normal(size=(B, 3)), dtype=torch.float32, device="cuda"), dim=-1)
+    b0, b1, b2 = ortho_basis(N)
+    rays = torch.cat([P, b0, b1, b2], dim=1).T.contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    u01 = torch.rand((2, B), device="cuda", generator=gen)
+    nact = torch.tensor(900, dtype=torch.int32, device="cuda")
+    tris = pack_tris(scene)
+    bvh_ao.FUSED_COUNTS.reset()
+    got, stats = bvh_ao.bvh_ao_fused_kernel(tris, scene.nodes, scene.skip,
+                                            rays, u01, nact, ntheta, nphi)
+    ref, _ = bvh_ao.bvh_ao_fused_reference(tris, rays[:, :900],
+                                           u01[:, :900], ntheta, nphi)
+    assert (bvh_ao.FUSED_COUNTS.kernel, bvh_ao.FUSED_COUNTS.plain) == (1, 1)
+    assert torch.all(got[900:] == 0)
+    assert 0.5 < ref.mean() < ntheta * nphi - 0.5  # both answers occur
+    diff = (got[:900] - ref).abs()
+    assert diff.max() <= 1 and (diff != 0).float().mean() <= 1e-3
+    assert int(stats["ntrav"]) > 0 and int(stats["ntests"]) > 0
+
+
+@pytest.mark.gpu
+def test_bvh_ao_fused_gather_selected_by_the_switch(monkeypatch):
+    """LUCILLE_BVH_AO=fused routes bvh_ao_occlusion through kernel 6; a
+    wavefront with no hit does no work and reports zeros."""
+    _need_card()
+    from lucille_tpu_torch.accel import bvh_ao, bvh_isect
+    from lucille_tpu_torch.transport.ao import ortho_basis
+
+    scene = _soup_scene(3000, accel="bvh")
+    rng = np.random.default_rng(1)
+    P = torch.tensor(rng.uniform(-4, 4, (700, 3)), dtype=torch.float32,
+                     device="cuda")
+    b0, b1, b2 = ortho_basis(torch.nn.functional.normalize(torch.tensor(
+        rng.normal(size=(700, 3)), dtype=torch.float32, device="cuda"),
+        dim=-1))
+    hit = torch.tensor(rng.uniform(size=700) < 0.8, device="cuda")
+    jitter = torch.rand((2, 700), device="cuda")
+    monkeypatch.setenv("LUCILLE_BVH_AO", "fused")
+    for c in (bvh_ao.FUSED_COUNTS, bvh_isect.ANY_COUNTS):
+        c.reset()
+    occ, _ = bvh_ao.bvh_ao_occlusion(scene, P, b0, b1, b2, hit, jitter, 4, 4)
+    none, st = bvh_ao.bvh_ao_occlusion(scene, P, b0, b1, b2,
+                                       torch.zeros_like(hit), jitter, 4, 4)
+    assert bvh_ao.FUSED_COUNTS.kernel == 2 and bvh_isect.ANY_COUNTS.kernel == 0
+    assert occ[hit].mean() > 0.5 and torch.all(occ[~hit] == 0)
+    assert torch.all(none == 0) and int(st["ntrav"]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,accel,mode", [
+    ("whitted", "pallas", "cone"), ("pathtrace", "pallas", "cone"),
+    ("whitted", "bvh", "cone"), ("whitted", "bvh", "fused")])
+def test_integrator_frame_matches_plain(method, accel, mode, monkeypatch):
+    """A 32x24 frame of the bundled scene (no light: the default dome) on
+    the card against the same frame on the CPU, one numpy stream fed to
+    both.  The card's sin/cos may round a bounce direction one ulp away
+    from the CPU's, which can move a grazing ray: ray counts within
+    1e-3, pixels within 1e-3 on all but 1% of them."""
+    _need_card()
+    from pathlib import Path
+
+    from lucille_tpu_torch.ri.api import RiState
+    from lucille_tpu_torch.rib.parser import parse_rib
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.sampling.jitter import HostSampler
+
+    monkeypatch.setenv("LUCILLE_BVH_AO", mode)
+    rib = Path(__file__).resolve().parent / "golden" / "sunsky_scene.rib"
+    text = "".join(l for l in rib.read_text().splitlines(keepends=True)
+                   if 'AreaLightSource "sunsky"' not in l)
+
+    def desc():
+        s = RiState()
+        parse_rib(text, s)
+        s.Format(32, 24)
+        s.PixelSamples(2, 2)
+        s.options.render_method = method
+        s.options.accel_method = accel
+        return s.scene
+
+    rg = Renderer(desc(), tile_size=16, device="cuda",
+                  sampler=HostSampler(0, "cuda"))
+    rc = Renderer(desc(), tile_size=16, device="cpu",
+                  sampler=HostSampler(0, "cpu"))
+    got, ref = rg.render_frame(), rc.render_frame()
+    assert abs(rg.stats.nrays - rc.stats.nrays) <= 1e-3 * rc.stats.nrays
+    assert 0.1 < ref.mean() <= 1.0
+    assert (np.abs(got - ref) > 1e-3).mean() <= 0.01

@@ -2,9 +2,11 @@
 against lucille_tpu's Renderer on accel "pallas" or "bvh" (its Pallas
 kernels in interpret mode), frame against frame.
 
-The port draws its AO jitter from a sampler; `JaxJitter` hands it the
-JAX renderer's own per-tile draw, uniform(fold_in(fold_in(key, x0), y0),
-(2, B)), so the two frames differ only where f32 rounding differs:
+The port draws its random numbers from a per-tile stream; `JaxSampler`
+hands it streams whose draws are the JAX renderer's own: the tile's key
+fold_in(fold_in(key, x0), y0), folded along each draw's path, so the AO
+jitter is uniform(tile key, (2, B)) and the two frames differ only where
+f32 rounding differs:
 
 - eye-ray hit masks may differ on near-grazing rays: at most 0.1%;
 - nrays then differs by exactly S per such ray;
@@ -33,16 +35,38 @@ from test_torch_scene import one_torch_thread  # noqa: F401
 from test_torch_scene import REPO, bundled_state, heightfield_state
 
 
-class JaxJitter:
-    """The JAX renderer's AO jitter for a tile, as a port sampler."""
+class JaxStream:
+    """A port stream (sampling/jitter.py) answering with jax.random's
+    draws below `key`: path (p1, p2, ...) is fold_in(fold_in(key, p1),
+    p2) ..."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def _key(self, path):
+        k = self.key
+        for p in path:
+            k = jax.random.fold_in(k, p)
+        return k
+
+    def uniform(self, path, shape):
+        u = jax.random.uniform(self._key(path), tuple(shape), jnp.float32)
+        return torch.from_numpy(np.array(u))
+
+    def randint(self, path, shape, high):
+        i = jax.random.randint(self._key(path), tuple(shape), 0, high)
+        return torch.from_numpy(np.array(i)).long()
+
+
+class JaxSampler:
+    """The JAX renderer's per-tile keys, as a port sampler."""
 
     def __init__(self, key=None):
         self.key = jax.random.key(0) if key is None else key
 
-    def __call__(self, x0, y0, n):
-        k = jax.random.fold_in(jax.random.fold_in(self.key, x0), y0)
-        u = jax.random.uniform(k, (2, n), dtype=jnp.float32)
-        return torch.from_numpy(np.array(u))
+    def __call__(self, x0, y0):
+        return JaxStream(jax.random.fold_in(jax.random.fold_in(self.key, x0),
+                                            y0))
 
 
 def _eye_hits(desc, jax_desc, tile, port_scene, jax_scene):
@@ -87,7 +111,7 @@ def _render_pair(make_state, tile):
     jr = JaxRenderer(make_state("jax").scene, tile_size=tile)
     ref = jr.render_frame()
     desc = make_state("torch").scene
-    pr = Renderer(desc, tile_size=tile, device="cpu", sampler=JaxJitter())
+    pr = Renderer(desc, tile_size=tile, device="cpu", sampler=JaxSampler())
     got = pr.render_frame()
     return desc, jr, ref, pr, got
 
@@ -207,8 +231,8 @@ def test_unported_features_raise(what):
         desc.lights.append(LightDesc(type="dome", texture="sky.hdr"))
     elif what == "texture":
         desc.geoms[0].attrs.material.texture = "wood.tex"
-    else:
-        desc.options.render_method = "whitted"
+    else:  # the methods still to port
+        desc.options.render_method = "dirtmap"
     with pytest.raises(NotImplementedError):
         Renderer(desc, device="cpu")
 

@@ -21,7 +21,7 @@ Tolerances:
   changes only the rounding (measured 2.7e-6); exactly 0 below the
   horizon;
 - frames, with lucille_tpu's threefry jitter (test_torch_render.py's
-  JaxJitter): pixel values are sky radiance in the thousands, so
+  JaxSampler): pixel values are sky radiance in the thousands, so
   differences are relative: mean |diff| / mean <= 1e-4 and all but 1% of
   the pixels within 1e-4 of their value (a flipped stratum moves a pixel
   by ~1/16);
@@ -40,7 +40,7 @@ import jax
 import jax.numpy as jnp
 
 from test_intersect import _random_soup, _scene_from_tris
-from test_torch_render import JaxJitter
+from test_torch_render import JaxSampler
 from test_torch_scene import one_torch_thread  # noqa: F401
 from test_torch_scene import REPO, bundled_state, heightfield_state
 
@@ -228,7 +228,7 @@ def _frame_pair(make_state, tile):
     jr = JaxRenderer(make_state("jax").scene, tile_size=tile)
     ref = jr.render_frame()
     r = Renderer(make_state("torch").scene, tile_size=tile, device="cpu",
-                 sampler=JaxJitter())
+                 sampler=JaxSampler())
     return jr, r, ref, r.render_frame()
 
 
