@@ -19,13 +19,17 @@ non-zero):
    order).  The kernels run the whole tile; the twins are compared on a
    slice of lanes, each lane with the AO jitter the whole tile gives it.
    The closest hit on the eye rays; the AO gather's counts and its
-   per-stratum bits; the any-hit on the hit lanes' shadow rays toward the
-   scene's sun (the sunsky gather's sun ray), on the bundled tile also
-   with a random finite tmax, on the heightfield with the hit mask as the
-   active mask.  Tolerances: hit/tri equal on all but 1e-4 of the lanes,
-   t/u/v within 1e-6 relative; occlusion counts equal on all but 1e-4 of
-   the lanes and within 1 there; bits and any-hit answers equal on all
-   but 1e-4 of the lanes / rays;
+   per-stratum bits at 8x8 strata; the any-hit on the hit lanes' shadow
+   rays toward the scene's sun (the sunsky gather's sun ray), on the
+   bundled tile also with a random finite tmax, on the heightfield with
+   the hit mask as the active mask.  Then the gather's counts at 2x2
+   strata on the inputs of headline-whitted's first-bounce dome gather,
+   every hit lane compared, and ptxas's registers and spills of every
+   instantiation of the gather's kernel (a spill fails).  Tolerances:
+   hit/tri equal on all but 1e-4 of the lanes, t/u/v within 1e-6
+   relative; occlusion counts equal on all but 1e-4 of the lanes and
+   within 1 there; bits and any-hit answers equal on all but 1e-4 of the
+   lanes / rays;
 4. the headline frames (bench.py's configurations for lucille_tpu): the
    bundled scene at 640x480, 3x3 samples, 64 AO rays, tile 240, rendered
    by the port's Renderer on the card into an .hdr through the port's
@@ -347,6 +351,79 @@ def tiles_reached(boxes, org, dirn, tmax):
     return filled & (tn <= tf) & (tf > 0) & (tn < tmax[:, None])
 
 
+def gather_need(scene, P_off, b0, b1, b2, u01, ntheta: int, nphi: int,
+                budget: int = 1 << 24) -> dict:
+    """The work the dense AO gather needs on hit lanes P_off, b0, b1, b2
+    (n, 3) with uniforms u01 (2, n) at ntheta x nphi strata, counted at
+    the grain csrc/ao.cu proves is enough: each stratum's ray walks the
+    scene's real triangles in slot order, up to and including its first
+    occluder (all of them when it is open); it tests the box of each tile
+    it reaches, the box of each SUB-triangle group that holds a real
+    triangle in a tile it reaches, and each real triangle of a group whose
+    box it reaches.  Works on about `budget` (ray, group) pairs at a time.
+    Returns {"tiles", "groups", "tests": those counts (Python ints),
+    "occluded": (S, n) bool, the strata that have an occluder}."""
+    import torch
+
+    from lucille_tpu_torch.accel.ao import stratum_directions
+    from lucille_tpu_torch.accel.isect import DET_EPS
+    from lucille_tpu_torch.accel.pack import SUB, TC
+
+    n, S, n_tris = P_off.shape[0], ntheta * nphi, scene.n_tris
+    n_real, n_groups = -(-n_tris // TC), -(-n_tris // SUB)
+    dev = P_off.device
+    occ = scene.occ[:, :n_tris]
+    tile_of = torch.arange(n_groups, device=dev) // (TC // SUB)
+    k = torch.arange(n_real, device=dev)
+    g_lo = k * (TC // SUB)
+    g_hi = torch.clamp_max(g_lo + TC // SUB - 1, n_groups - 1)
+    in_group = torch.arange(SUB, device=dev)
+    none = scene.n_pad  # past every slot: an open stratum walks them all
+    tiles = groups = tests = 0
+    occluded = torch.zeros((S, n), dtype=torch.bool, device=dev)
+    step = max(1, budget // (S * max(n_groups, 1)))
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        d = stratum_directions(b0[lo:hi], b1[lo:hi], b2[lo:hi], u01[:, lo:hi],
+                               ntheta, nphi).reshape(-1, 3)  # row s * m + l
+        o = P_off[lo:hi].repeat(S, 1)
+        far = torch.full((o.shape[0],), float("inf"), device=dev)
+        t_reach = tiles_reached(scene.boxes[:, :n_real], o, d, far)
+        g_reach = tiles_reached(scene.sub_boxes[:, :n_groups], o, d,
+                                far) & t_reach[:, tile_of]
+        ray, grp = torch.nonzero(g_reach, as_tuple=True)
+        j = grp[:, None] * SUB + in_group  # (pairs, SUB) slots
+        real = j < n_tris
+        col = occ[:, torch.clamp_max(j, n_tris - 1)]  # (16, pairs, SUB)
+        ox, oy, oz = (o[ray, c][:, None] for c in range(3))
+        wx, wy, wz = (d[ray, c][:, None] for c in range(3))
+        pax, pay, paz = col[0] - ox, col[1] - oy, col[2] - oz
+        pbx, pby, pbz = col[3] - ox, col[4] - oy, col[5] - oz
+        pcx, pcy, pcz = col[6] - ox, col[7] - oy, col[8] - oz
+        nx, ny, nz = col[9], col[10], col[11]
+        U = (wx * (pby * pcz - pbz * pcy) + wy * (pbz * pcx - pbx * pcz)
+             + wz * (pbx * pcy - pby * pcx))
+        V = (wx * (pcy * paz - pcz * pay) + wy * (pcz * pax - pcx * paz)
+             + wz * (pcx * pay - pcy * pax))
+        dn = wx * nx + wy * ny + wz * nz
+        W = dn - U - V
+        s_n = pax * nx + pay * ny + paz * nz
+        hit = (real & ((torch.minimum(torch.minimum(U, V), W) >= 0.0)
+                       | (torch.maximum(torch.maximum(U, V), W) <= 0.0))
+               & (s_n * dn > 0.0) & (dn.abs() > DET_EPS))
+        first = torch.full((o.shape[0],), none, dtype=torch.int64,
+                           device=dev).scatter_reduce(
+            0, ray, torch.where(hit, j, none).amin(dim=1), "amin")
+        tests += int((real & (j <= first[ray][:, None])).sum())
+        last_g = torch.clamp_max(first // SUB, n_groups - 1)[:, None]
+        per_tile = torch.clamp_min(torch.minimum(last_g, g_hi) - g_lo + 1, 0)
+        groups += int((per_tile * t_reach).sum())
+        tiles += int((t_reach & (k <= (first // TC)[:, None])).sum())
+        occluded[:, lo:hi] = (first < none).reshape(S, hi - lo)
+    return {"tiles": tiles, "groups": groups, "tests": tests,
+            "occluded": occluded}
+
+
 def need_walk(tris, nodes, org, dirn, closest: bool, depth: int,
               chunk: int = 16384) -> dict:
     """The tile-BVH work rays org, dirn (R, 3) need, counted by walking
@@ -490,15 +567,9 @@ def check_kernels(label, desc, tile, n_slice, results):
     against their plain twins.  Appends to results[name]."""
     import torch
 
-    from lucille_tpu_torch.accel import ao, isect
+    from lucille_tpu_torch.accel import isect
     from lucille_tpu_torch.accel.dispatch import closest_hit
-    from lucille_tpu_torch.accel.pack import (
-        TC,
-        pack_boxes,
-        pack_occ,
-        pack_super_boxes,
-        pack_tris,
-    )
+    from lucille_tpu_torch.accel.pack import TC
     from lucille_tpu_torch.render.renderer import Renderer, tile_eye_rays
     from lucille_tpu_torch.render.tiles import tile_list
     from lucille_tpu_torch.sampling.hammersley import subpixel_samples
@@ -522,7 +593,7 @@ def check_kernels(label, desc, tile, n_slice, results):
           f"slice {n_slice}", flush=True)
 
     # -- the closest hit
-    tris, boxes = pack_tris(scene), pack_boxes(scene)
+    tris, boxes = scene.tris, scene.boxes
     got = isect.closest_hit_kernel(tris, boxes, org, dirn)
     ref = isect.closest_hit_reference(tris, org[sl], dirn[sl])
     torch.cuda.synchronize()
@@ -557,77 +628,13 @@ def check_kernels(label, desc, tile, n_slice, results):
         {"scene": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "tests": tests, "kernel_tests": kernel_tests, **work})
 
-    # -- the AO gather, 8x8 strata, the jitter of the whole tile: counts
-    # and per-stratum bits against one run of the twin
+    # -- the AO gather, 8x8 strata, the jitter of the whole tile
     res = closest_hit(scene, org, dirn)
     hit = res["hit"]
     P_off, b0, b1, b2 = shading_frame(scene, org, dirn, res)
     jitter = r.sampler(x0, y0).uniform((), (2, B))
-    occ = ao.ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, 8, 8)
-    occ_b, bits, u01 = ao.ao_occlusion_bits(scene, P_off, b0, b1, b2, hit,
-                                            jitter, 8, 8)
-    if not torch.equal(occ, occ_b):
-        raise AssertionError("ao_occlusion_bits: counts differ from the "
-                             "plain gather's")
-    if not torch.equal(ao.unpack_bits(bits, 64).sum(dim=0).float(), occ):
-        raise AssertionError("ao_occlusion_bits: bits disagree with counts")
-    order, nhit = ao.compaction_order(scene.bbox_min, scene.bbox_max, P_off,
-                                      b2, hit, n_tiles)
-    lanes = torch.arange(B, device="cuda")[sl]
-    lanes = lanes[hit[lanes]]
-    frame = torch.cat([P_off, b0, b1, b2], dim=1)
-    tris_o = pack_occ(scene)
-    ref_occ, ref_bits = ao.ao_occlusion_reference(
-        tris_o, frame[lanes].T.contiguous(), u01[:, lanes], 8, 8,
-        lane_chunk=65536, want_bits=True)
-    torch.cuda.synchronize()
-    diff = (occ[lanes] - ref_occ).abs()
-    frac = (diff != 0).float().mean().item()
-    if diff.max().item() > 1 or frac > 1e-4:
-        raise AssertionError(f"ao_occlusion: {frac:.2e} of lanes differ, "
-                             f"max {diff.max().item()}")
-    if torch.any(occ[sl][~hit[sl]] != 0) or torch.any(bits[:, ~hit] != 0):
-        raise AssertionError("ao_occlusion: a missed lane has occlusion")
-    bits_frac = (bits[:, lanes] != ref_bits).any(dim=0).float().mean().item()
-    if bits_frac > 1e-4:
-        raise AssertionError(f"ao_occlusion_bits: {bits_frac:.2e} of lanes "
-                             "differ")
-    rays = frame[order].T.contiguous()
-    sboxes = pack_super_boxes(boxes)
-    n = int(nhit)
-    # the work this data needs: an open stratum tests every triangle of
-    # every tile its direction reaches, an occluded one its occluder;
-    # one box test per open stratum and tile
-    hl = torch.nonzero(hit)[:, 0]
-    open_ = ~ao.unpack_bits(bits[:, hl], 64)
-    dirs = ao.stratum_directions(b0[hl], b1[hl], b2[hl], u01[:, hl], 8, 8)
-    inf_h = torch.full((len(hl),), float("inf"), device="cuda")
-    reached = sum(
-        (tiles_reached(boxes, P_off[hl], dirs[s], inf_h).sum(dim=1)
-         * open_[s]).sum() for s in range(64))
-    n_open = int(open_.sum())
-    ao_tests = int(reached) * TC + (64 * len(hl) - n_open)
-    ao_ops = float(ao_tests * AO_OPS + n_open * n_tiles * SLAB_OPS)
-    del dirs
-    ao_bytes = B * (48 + 8 + 4) + scene.n_pad * 48 + n_tiles * 32
-    for name, want_bits, err_ in (("ao_occlusion", False, diff.max().item()),
-                                  ("ao_occlusion_bits", True,
-                                   float(bits_frac > 0))):
-        ms = cuda_ms(lambda: ao.ao_occlusion_kernel(
-            tris_o, boxes, sboxes, rays, jitter, nhit, 8, 8, want_bits), 5)
-        plain_ms = cuda_ms(lambda: ao.ao_occlusion_reference(
-            tris_o, rays[:, :n], jitter[:, :n], 8, 8, lane_chunk=65536,
-            want_bits=want_bits), 1)
-        work = bound(ao_bytes + (B * 8 if want_bits else 0), ao_ops)
-        print(f"[{label}] {name}: {n} hit lanes, mean occluded "
-              f"{occ[hit].mean().item():.3f}/64, {len(lanes)} compared, "
-              f"counts differ on {frac:.2e}, bits on {bits_frac:.2e}; "
-              f"{ao_tests} stratum-triangle tests needed; kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{work['bound_ms']:.3f} ms ({work['bound_by']})", flush=True)
-        results[name].append(
-            {"scene": label, "max_abs_err": err_, "ms": ms,
-             "plain_ms": plain_ms, "tests": ao_tests, **work})
+    check_gather(label, scene, (P_off, b0, b1, b2, hit, jitter), 8, 8,
+                 n_slice, results)
 
     # -- the any-hit: the hit lanes' shadow rays toward the scene's sun
     sun = next(li for li in r.lights if li.type == "sun")
@@ -673,6 +680,95 @@ def check_kernels(label, desc, tile, n_slice, results):
         if entry is None:
             entry = {"scene": label, "ms": ms, "plain_ms": plain_ms, **work}
     results["any_hit"].append({**entry, "max_abs_err": float(worst > 0)})
+
+
+def check_gather(label, scene, inputs, ntheta, nphi, n_slice, results,
+                 names=("ao_occlusion", "ao_occlusion_bits")):
+    """Phase 3's AO gather on one tile's inputs (P_off, b0, b1, b2, hit,
+    jitter) at ntheta x nphi strata: the counts and the per-stratum bits
+    through the wrappers against one run of the twin, on a slice of
+    n_slice lanes (on every hit lane when n_slice is None); then each
+    kernel of `names` timed on the tile's compacted lanes, with its
+    bound.  Appends to results[name]."""
+    import torch
+
+    from lucille_tpu_torch.accel import ao
+
+    P_off, b0, b1, b2, hit, jitter = inputs
+    B, S = P_off.shape[0], ntheta * nphi
+    n_tiles = scene.boxes.shape[1]
+    occ = ao.ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi)
+    occ_b, bits, u01 = ao.ao_occlusion_bits(scene, P_off, b0, b1, b2, hit,
+                                            jitter, ntheta, nphi)
+    if not torch.equal(occ, occ_b):
+        raise AssertionError("ao_occlusion_bits: counts differ from the "
+                             "plain gather's")
+    if not torch.equal(ao.unpack_bits(bits, S).sum(dim=0).float(), occ):
+        raise AssertionError("ao_occlusion_bits: bits disagree with counts")
+    order, nhit = ao.compaction_order(scene.bbox_min, scene.bbox_max, P_off,
+                                      b2, hit, n_tiles)
+    lanes = torch.arange(B, device="cuda")
+    if n_slice is not None:
+        lo = max(0, B // 2 - n_slice // 2)
+        lanes = lanes[lo : lo + n_slice]
+    lanes = lanes[hit[lanes]]
+    frame = torch.cat([P_off, b0, b1, b2], dim=1)
+    ref_occ, ref_bits = ao.ao_occlusion_reference(
+        scene.occ, frame[lanes].T.contiguous(), u01[:, lanes], ntheta, nphi,
+        lane_chunk=65536, want_bits=True)
+    torch.cuda.synchronize()
+    diff = (occ[lanes] - ref_occ).abs()
+    frac = (diff != 0).float().mean().item()
+    if diff.max().item() > 1 or frac > 1e-4:
+        raise AssertionError(f"ao_occlusion: {frac:.2e} of lanes differ, "
+                             f"max {diff.max().item()}")
+    if torch.any(occ[~hit] != 0) or torch.any(bits[:, ~hit] != 0):
+        raise AssertionError("ao_occlusion: a missed lane has occlusion")
+    bits_frac = (bits[:, lanes] != ref_bits).any(dim=0).float().mean().item()
+    if bits_frac > 1e-4:
+        raise AssertionError(f"ao_occlusion_bits: {bits_frac:.2e} of lanes "
+                             "differ")
+    rays = frame[order].T.contiguous()
+    n = int(nhit)
+    # the work this data needs (gather_need: the box and triangle tests
+    # up to each stratum's occluder, at the kernel's grain; the strata's
+    # directions not counted); its occluders must be the kernel's bits
+    hl = torch.nonzero(hit)[:, 0]
+    need = gather_need(scene, P_off[hl], b0[hl], b1[hl], b2[hl], u01[:, hl],
+                       ntheta, nphi)
+    need_frac = (need["occluded"] != ao.unpack_bits(bits[:, hl], S)).any(
+        dim=0).float().mean().item()
+    if need_frac > 1e-4:
+        raise AssertionError(f"gather_need: its occluders disagree with the "
+                             f"kernel's bits on {need_frac:.2e} of lanes")
+    ao_tests = need["tests"]
+    ao_ops = float(ao_tests * AO_OPS
+                   + (need["tiles"] + need["groups"]) * SLAB_OPS)
+    ao_bytes = (B * (48 + 8 + 4) + scene.n_pad * 48
+                + (n_tiles + scene.sub_boxes.shape[1]) * 32)
+    for name in names:
+        want_bits = name == "ao_occlusion_bits"
+        err_ = float(bits_frac > 0) if want_bits else diff.max().item()
+        ms = cuda_ms(lambda: ao.ao_occlusion_kernel(
+            scene, rays, jitter, nhit, ntheta, nphi, want_bits), 5)
+        plain_ms = cuda_ms(lambda: ao.ao_occlusion_reference(
+            scene.occ, rays[:, :n], jitter[:, :n], ntheta, nphi,
+            lane_chunk=65536, want_bits=want_bits), 1)
+        work = bound(ao_bytes + (B * 4 * bits.shape[0] if want_bits else 0),
+                     ao_ops)
+        print(f"[{label}] {name}: {n} hit lanes, {ntheta}x{nphi} strata, "
+              f"mean occluded {occ[hit].mean().item():.3f}/{S}, {len(lanes)} "
+              f"compared, counts differ on {frac:.2e}, bits on "
+              f"{bits_frac:.2e}; needed {need['tiles']} tile and "
+              f"{need['groups']} group box tests, {ao_tests} stratum-"
+              f"triangle tests; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{work['bound_ms']:.3f} ms ({work['bound_by']})", flush=True)
+        results[name].append(
+            {"scene": label, "strata": S, "max_abs_err": err_, "ms": ms,
+             "plain_ms": plain_ms, "tests": ao_tests,
+             "tile_box_tests": need["tiles"],
+             "group_box_tests": need["groups"], **work})
 
 
 def render_checked(label, r, out_name, path):
@@ -767,7 +863,6 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     from lucille_tpu_torch.accel import bvh_isect
     from lucille_tpu_torch.accel.bvh_ao import conetile_rays
     from lucille_tpu_torch.accel.dispatch import closest_hit
-    from lucille_tpu_torch.accel.pack import pack_tris
     from lucille_tpu_torch.render.renderer import tile_eye_rays
     from lucille_tpu_torch.render.tiles import tile_list
     from lucille_tpu_torch.sampling.hammersley import subpixel_samples
@@ -781,7 +876,7 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
                                opt.bucket_order)[0]
     org, dirn = tile_eye_rays(r.camera, x0, y0, tile, tile, sub)
     B = org.shape[0]
-    tris, nodes, depth = pack_tris(scene), scene.nodes, scene.tree_depth
+    tris, nodes, depth = scene.tris, scene.nodes, scene.tree_depth
     inf = lambda n: torch.full((n,), float("inf"), device="cuda")  # noqa: E731
     static_bytes = scene.n_pad * 36 + nodes.shape[0] * 32
 
@@ -891,18 +986,46 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
          **work})
 
 
+def ptxas_entries(log: str) -> dict:
+    """{mangled entry name: (registers, spill bytes stored + loaded)} of
+    every kernel entry in ptxas's report, from the build log."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            name, spill = line.split("'")[1], 0
+        elif name and "spill stores" in line:
+            f = line.split()
+            spill = int(f[f.index("spill") - 2]) + int(f[-4])
+        elif name and "Used " in line and "registers" in line:
+            out[name] = (int(line.split("Used ")[1].split()[0]), spill)
+            name = None
+    return out
+
+
 def registers(log: str, kernel: str) -> int:
     """ptxas's register count of the entry whose mangled name holds
     `kernel` (the first such entry), from the build log."""
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry" in line and kernel in line:
-            for nxt in lines[i + 1 :]:
-                if "Compiling entry" in nxt:
-                    break
-                if "Used " in nxt and "registers" in nxt:
-                    return int(nxt.split("Used ")[1].split()[0])
+    for name, (regs, _spill) in ptxas_entries(log).items():
+        if kernel in name:
+            return regs
     raise AssertionError(f"no ptxas report for {kernel}")
+
+
+def gather_registers(log: str) -> dict:
+    """{"ao_kernel<C, bits>": (registers, spill bytes)} of every
+    instantiation of csrc/ao.cu's kernel; raises if one spills or none is
+    reported."""
+    import re
+
+    out = {}
+    for name, (regs, spill) in ptxas_entries(log).items():
+        m = re.search(r"9ao_kernelILi(\d+)ELb([01])E", name)
+        if m:
+            c, bits = m.groups()
+            out[f"ao_kernel<{c}, {bool(int(bits))}>"] = (regs, spill)
+    if not out or any(spill for _regs, spill in out.values()):
+        raise AssertionError(f"ao_kernel: no report or a spill: {out}")
+    return out
 
 
 def first_tile_rays(r):
@@ -930,18 +1053,17 @@ def check_closest_active(label, r, n_slice, results):
     import torch
 
     from lucille_tpu_torch.accel import bvh_isect, isect
-    from lucille_tpu_torch.accel.pack import pack_boxes, pack_tris
 
     scene = r.scene
     org, dirn, _x0, _y0 = first_tile_rays(r)
     B = org.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(5)
     active = torch.rand(B, device="cuda", generator=gen) < 0.5
-    tris = pack_tris(scene)
+    tris = scene.tris
     dense = scene.accel == "dense"
     name = "closest_hit" if dense else "bvh_closest_hit"
     if dense:
-        boxes = pack_boxes(scene)
+        boxes = scene.boxes
         launch = lambda a: isect.closest_hit(  # noqa: E731
             tris, boxes, org, dirn, a)
     else:
@@ -1032,7 +1154,6 @@ def check_fused_gather(label, r, n_slots, results, inputs, ntheta=8, nphi=8):
 
     from lucille_tpu_torch.accel import bvh_ao
     from lucille_tpu_torch.accel.ao import compaction_order, stratum_directions
-    from lucille_tpu_torch.accel.pack import pack_tris
     from lucille_tpu_torch.kernels import build
 
     scene = r.scene
@@ -1041,7 +1162,7 @@ def check_fused_gather(label, r, n_slots, results, inputs, ntheta=8, nphi=8):
     order, nhit = compaction_order(scene.bbox_min, scene.bbox_max, P_off, b2,
                                    hit, bvh_ao.MORTON_TILES)
     rays = torch.cat([P_off, b0, b1, b2], dim=1)[order].T.contiguous()
-    tris, nodes, skip = pack_tris(scene), scene.nodes, scene.skip
+    tris, nodes, skip = scene.tris, scene.nodes, scene.skip
     launch = lambda: bvh_ao.bvh_ao_fused_kernel(  # noqa: E731
         tris, nodes, skip, rays, jitter, nhit, ntheta, nphi)
     occ, stats = launch()
@@ -1238,6 +1359,21 @@ def main() -> int:
     check_kernels("heightfield91",
                   heightfield_state(91, sunsky=True).scene, 128, 32768,
                   results)
+    # the gather at 2x2 strata on headline-whitted's first bounce (the
+    # dome's gather), every hit lane compared
+    r = Renderer(bundled_state(640, 480, 3, sunsky=False,
+                               method="whitted").scene,
+                 tile_size=TILE, device="cuda")
+    check_gather("headline-whitted-2x2", r.scene, whitted_gather_inputs(r),
+                 2, 2, None, results, names=("ao_occlusion",))
+    regs = gather_registers(lib.log)
+    for inst, (n_regs, spill) in regs.items():
+        print(f"  {inst}: {n_regs} registers, {spill} bytes spilled",
+              flush=True)
+    for name in ("ao_occlusion", "ao_occlusion_bits"):
+        results[name][0]["registers"] = {
+            k: v[0] for k, v in regs.items()
+            if k.endswith(f"{name.endswith('bits')}>")}
 
     # 4. the headline frames: the bundled scene as shipped (sunsky AO),
     # then plain AO

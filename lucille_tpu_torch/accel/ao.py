@@ -16,8 +16,11 @@ direction (`stratum_directions`, the kernel's own formula) and weight
 the open ones by the sky.
 
 The kernel is csrc/ao.cu; `ao_occlusion` and `ao_occlusion_bits` launch
-it for CUDA tensors and run `ao_occlusion_reference` on the compacted
-hit lanes for CPU tensors.
+it for CUDA tensors, laid out by `gather_layout`, and run
+`ao_occlusion_reference` on the compacted hit lanes for CPU tensors.
+The packs they read are the scene's own (`scene.occ`, `scene.boxes`,
+`scene.sboxes`, `scene.sub_boxes`, built once in
+scene/types.from_numpy).
 """
 
 from __future__ import annotations
@@ -26,12 +29,7 @@ import numpy as np
 import torch
 
 from lucille_tpu_torch.accel.isect import DET_EPS
-from lucille_tpu_torch.accel.pack import (
-    TC,
-    pack_boxes,
-    pack_occ,
-    pack_super_boxes,
-)
+from lucille_tpu_torch.accel.pack import SUB, TC
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 
 R2_A1 = 0.7548776662466927  # R2 additive-recurrence constants (plastic
@@ -41,6 +39,7 @@ STRATUM_CULL_MIN_TILES = 8  # lucille_tpu's switch to the Morton lane order
 # triangles (pallas_ao.py:102, its VMEM budget); above it its sunsky gather
 # scans the strata with another jitter, which the port does not copy
 MAX_TRIS_FOR_MEGAKERNEL = 131072
+AO_BLOCK = 128  # threads a block of csrc/ao.cu
 
 COUNTS = LaunchCounts()  # the counts alone
 BITS_COUNTS = LaunchCounts()  # the counts with the per-stratum bits
@@ -97,21 +96,17 @@ def _gather(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int, nphi: int,
                          f"{tuple(jitter.shape)} {jitter.dtype}")
     if ntheta < 1 or nphi < 1:
         raise ValueError(f"ntheta, nphi must be >= 1, got {ntheta}, {nphi}")
-    tris = pack_occ(scene)
-    boxes = pack_boxes(scene)
     order, nhit = compaction_order(scene.bbox_min, scene.bbox_max, P_off, b2,
-                                   hit, boxes.shape[1])
+                                   hit, scene.boxes.shape[1])
     rays = torch.cat([P_off, b0, b1, b2], dim=1)[order].T.contiguous()
     jitter = jitter.contiguous()
     dev = P_off.device
     if dev.type == "cuda":
-        out = ao_occlusion_kernel(
-            tris, boxes, pack_super_boxes(boxes), rays, jitter, nhit,
-            ntheta, nphi, want_bits,
-        )
+        out = ao_occlusion_kernel(scene, rays, jitter, nhit, ntheta, nphi,
+                                  want_bits)
     elif dev.type == "cpu":
         n = int(nhit)
-        ref = ao_occlusion_reference(tris, rays[:, :n], jitter[:, :n],
+        ref = ao_occlusion_reference(scene.occ, rays[:, :n], jitter[:, :n],
                                      ntheta, nphi, want_bits=want_bits)
         occ = torch.zeros(B, device=dev)
         if want_bits:
@@ -163,25 +158,53 @@ def ao_occlusion_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     return occ, bits, u01
 
 
-def ao_occlusion_kernel(tris, boxes, sboxes, rays, jitter, nact, ntheta: int,
-                        nphi: int, want_bits: bool = False):
+def gather_layout(S: int, B: int) -> tuple[int, int, int]:
+    """csrc/ao.cu's launch for S strata and B lanes: (C strata a thread, T
+    threads a lane, blocks of AO_BLOCK threads).  A lane's strata are cut
+    into chunks of C (4 up to 16 strata, else 16: C divides 32, so a chunk
+    never straddles two bits rows); its T threads take chunks t, t + T,
+    t + 2T, ...  T is a power of two, the least that covers the chunks in
+    one round, at most 32.  A block holds AO_BLOCK / T lanes, each warp one chunk of
+    neighbouring lanes."""
+    C = 4 if S <= 16 else 16
+    T = 1
+    while T < 32 and T * C < S:
+        T *= 2
+    return C, T, -(-B * T // AO_BLOCK)
+
+
+def ao_occlusion_kernel(scene, rays, jitter, nact, ntheta: int, nphi: int,
+                        want_bits: bool = False):
     """Launch csrc/ao.cu on the current stream (CUDA tensors only).
 
+    scene: a dense scene, whose packs (occ, boxes, sboxes, sub_boxes) the
+    kernel reads, the first n_tris columns of occ its real triangles;
     rays (12, B) [P_off | b0 | b1 | b2] in compacted order, jitter (2, B),
-    nact () i32 on the device (lanes at or past it report 0).  Returns occ
-    (B,) f32, or (occ, bits (ceil(S/32), B) i32) with want_bits, in
+    nact () i32 on the device (lanes at or past it report 0).  Returns
+    occ (B,) f32, or (occ, bits (ceil(S/32), B) i32) with want_bits, in
     compacted order."""
     B = rays.shape[1]
     dev = rays.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    for name, a in (("tris", tris), ("boxes", boxes), ("sboxes", sboxes),
-                    ("rays", rays), ("jitter", jitter)):
-        if a.dtype != torch.float32 or not a.is_contiguous() or a.device != dev:
+    tris, boxes, sboxes, sub = (scene.occ, scene.boxes, scene.sboxes,
+                                scene.sub_boxes)
+    for name, a in (("occ", tris), ("boxes", boxes), ("sboxes", sboxes),
+                    ("sub_boxes", sub), ("rays", rays), ("jitter", jitter)):
+        if (a is None or a.dtype != torch.float32 or not a.is_contiguous()
+                or a.device != dev):
             raise ValueError(f"{name}: need contiguous float32 on {dev}")
-    if tris.shape[0] != 16 or tris.shape[1] != boxes.shape[1] * TC:
-        raise ValueError(f"tris {tuple(tris.shape)} / boxes "
-                         f"{tuple(boxes.shape)} mismatch")
+    if (tris.shape[0] != 16 or tris.shape[1] != boxes.shape[1] * TC
+            or sub.shape[1] * SUB != tris.shape[1]):
+        raise ValueError(f"occ {tuple(tris.shape)} / boxes "
+                         f"{tuple(boxes.shape)} / sub_boxes "
+                         f"{tuple(sub.shape)} mismatch")
+    if tris.data_ptr() % 16:
+        raise ValueError("occ: the kernel stages it 16 bytes at a time and "
+                         "needs it 16-byte aligned")
+    n_tris = scene.n_tris
+    if not 0 <= n_tris <= tris.shape[1]:
+        raise ValueError(f"n_tris {n_tris} outside 0..{tris.shape[1]}")
     if rays.shape[0] != 12 or tuple(jitter.shape) != (2, B):
         raise ValueError(f"rays {tuple(rays.shape)} / jitter "
                          f"{tuple(jitter.shape)} mismatch")
@@ -190,14 +213,16 @@ def ao_occlusion_kernel(tris, boxes, sboxes, rays, jitter, nact, ntheta: int,
     occ = torch.empty(B, dtype=torch.float32, device=dev)
     bits = (torch.empty((-(-ntheta * nphi // 32), B), dtype=torch.int32,
                         device=dev) if want_bits else None)
+    chunk, tpl, grid = gather_layout(ntheta * nphi, B)
     lib = library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lt_ao_occlusion(
             rays.data_ptr(), jitter.data_ptr(), B, nact.data_ptr(),
-            tris.data_ptr(), tris.shape[1], boxes.data_ptr(), boxes.shape[1],
-            sboxes.data_ptr(), sboxes.shape[1], ntheta, nphi,
-            1.0 / ntheta, 1.0 / nphi, occ.data_ptr(),
+            tris.data_ptr(), tris.shape[1], n_tris, boxes.data_ptr(),
+            boxes.shape[1], sboxes.data_ptr(), sboxes.shape[1],
+            sub.data_ptr(), ntheta, nphi, 1.0 / ntheta, 1.0 / nphi, chunk,
+            tpl, grid, occ.data_ptr(),
             None if bits is None else bits.data_ptr(), stream,
         )
     check("lt_ao_occlusion", err)

@@ -60,7 +60,7 @@ import torch
 from lucille_tpu_torch.accel.ao import compaction_order, stratum_directions
 from lucille_tpu_torch.accel.bvh_isect import WARP, occlusion_scan
 from lucille_tpu_torch.accel.dispatch import any_hit
-from lucille_tpu_torch.accel.pack import TC, pack_tris
+from lucille_tpu_torch.accel.pack import TC
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 from lucille_tpu_torch.lights.sunsky import sky_frame
 
@@ -217,7 +217,7 @@ def bvh_ao_fused(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
                                    hit, MORTON_TILES)
     rays = torch.cat([P_off, b0, b1, b2], dim=1)[order].T.contiguous()
     jitter = jitter.contiguous()
-    tris = pack_tris(scene)
+    tris = scene.tris
     dev = P_off.device
     if dev.type == "cuda":
         occ_s, stats = bvh_ao_fused_kernel(tris, scene.nodes, scene.skip,

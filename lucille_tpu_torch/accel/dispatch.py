@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from lucille_tpu_torch.accel import bvh_isect, isect
-from lucille_tpu_torch.accel.pack import TC, pack_boxes, pack_tris
+from lucille_tpu_torch.accel.pack import TC
 
 
 def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
@@ -24,7 +24,7 @@ def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
     miss), hit, ntests, ntrav."""
     org, dirn = org.contiguous(), dirn.contiguous()
     if scene.accel == "pbvh":
-        res = bvh_isect.bvh_closest_hit(pack_tris(scene), scene.nodes, org,
+        res = bvh_isect.bvh_closest_hit(scene.tris, scene.nodes, org,
                                         dirn, tmax, active,
                                         depth=scene.tree_depth)
     elif scene.accel == "dense":
@@ -32,8 +32,7 @@ def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
             raise NotImplementedError(
                 "the dense closest hit takes no tmax (lucille_tpu serves it "
                 "with its MXU path, which is not ported)")
-        res = isect.closest_hit(pack_tris(scene), pack_boxes(scene), org,
-                                dirn, active)
+        res = isect.closest_hit(scene.tris, scene.boxes, org, dirn, active)
         res["ntests"] = res["ntrav"] * (TC * isect.WARP)
     else:
         raise NotImplementedError(f"accel {scene.accel!r} is not ported")
@@ -60,12 +59,12 @@ def any_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
     (lucille_tpu/accel/dispatch.py:48-65)."""
     org, dirn = org.contiguous(), dirn.contiguous()
     if scene.accel == "pbvh":
-        res = bvh_isect.bvh_any_hit(pack_tris(scene), scene.nodes, org, dirn,
+        res = bvh_isect.bvh_any_hit(scene.tris, scene.nodes, org, dirn,
                                     tmax, depth=scene.tree_depth)
         if active is not None:
             res["occ"] = res["occ"] & active
         return res
     if scene.accel == "dense":
-        return isect.any_hit(pack_tris(scene), pack_boxes(scene), org, dirn,
-                             tmax, active)
+        return isect.any_hit(scene.tris, scene.boxes, org, dirn, tmax,
+                             active)
     raise NotImplementedError(f"accel {scene.accel!r} is not ported")

@@ -14,6 +14,7 @@ import torch
 
 TC = 128  # triangles per tile
 SUPER = 16  # tiles per supertile
+SUB = 8  # triangles per sub-tile box (the AO gather's finest cull)
 
 
 def _cols(n_pad: int, rows, device) -> torch.Tensor:
@@ -49,8 +50,9 @@ def pack_occ(scene) -> torch.Tensor:
 
 
 def pack_boxes(scene, tc: int = TC) -> torch.Tensor:
-    """Per-tile AABBs -> (8, n_tiles) f32, rows [min xyz | max xyz | 0 0].
-    Pad triangles contribute +inf/-inf, so they never widen a box."""
+    """Per-tile AABBs -> (8, n_tiles) f32, rows [min xyz | max xyz | 0 0];
+    with tc=SUB the AO gather's sub-tile boxes.  Pad triangles contribute
+    +inf/-inf, so they never widen a box."""
     n = scene.tri_v0.shape[0]
     npad = -(-n // tc) * tc
     v0 = scene.tri_v0

@@ -44,10 +44,11 @@ SIGNATURES = {
                        _P),
     # org, dir, tmax, active, B, tris, npad, boxes, n_tiles, occ, stream
     "lt_any_hit": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P),
-    # rays, jitter, B, nact, tris, npad, boxes, n_tiles, sboxes, n_super,
-    # ntheta, nphi, inv_ntheta, inv_nphi, occ, bits, stream
-    "lt_ao_occlusion": (_P, _P, _I, _P, _P, _I, _P, _I, _P, _I,
-                        _I, _I, _F, _F, _P, _P, _P),
+    # rays, jitter, B, nact, tris, npad, n_tris, boxes, n_tiles, sboxes,
+    # n_super, sub, ntheta, nphi, inv_ntheta, inv_nphi, chunk, tpl, grid,
+    # occ, bits, stream
+    "lt_ao_occlusion": (_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _P,
+                        _I, _I, _F, _F, _I, _I, _I, _P, _P, _P),
     # org, dir, tmax, active, B, tris, npad, nodes, t, u, v, tri, stats,
     # stream
     "lt_bvh_closest_hit": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,

@@ -8,20 +8,32 @@ are f32, integers i32, on one explicit device.
 
 - accel "dense": the triangles Morton-sorted into 128-triangle tiles
   (lucille_tpu's "pallas"); the node arrays are lucille_tpu's one-entry
-  placeholders and n_nodes is 0.
+  placeholders and n_nodes is 0.  The kernels' packs are built once,
+  here: `tris` (accel/pack.pack_tris) for the closest hit and any-hit,
+  `occ`, `boxes`, `sboxes` and `sub_boxes` (pack_occ, pack_boxes,
+  pack_super_boxes, pack_boxes at SUB triangles) for the AO gather and
+  the tile culls.
 - accel "pbvh": the triangles in the tile BVH's leaf order, every leaf
   padded to whole tiles; the node arrays are the tree, and `nodes` is
   their pack for the kernels (accel/pack.pack_nodes), with the tree's
   depth and the nodes' skip links (the fused AO gather's stackless walk)
-  beside it.
+  beside it, and `tris` as on the dense accel.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
+
+from lucille_tpu_torch.accel.pack import (
+    SUB,
+    pack_boxes,
+    pack_occ,
+    pack_super_boxes,
+    pack_tris,
+)
 
 
 @dataclass(frozen=True)
@@ -68,6 +80,12 @@ class SceneTensors:
     nodes: torch.Tensor | None = None  # (M, 8) pack_nodes layout, pbvh only
     tree_depth: int = 0  # depth of the deepest node, pbvh only
     skip: torch.Tensor | None = None  # (M,) i32 skip links, pbvh only
+    # the kernels' packs (module docstring), built by from_numpy
+    tris: torch.Tensor | None = None  # (16, Npad) pack_tris
+    occ: torch.Tensor | None = None  # (16, Npad) pack_occ, dense only
+    boxes: torch.Tensor | None = None  # (8, n_tiles) pack_boxes, dense only
+    sboxes: torch.Tensor | None = None  # (8, n_super) pack_super_boxes, dense
+    sub_boxes: torch.Tensor | None = None  # (8, Npad / SUB), dense only
 
     @property
     def device(self) -> torch.device:
@@ -97,9 +115,9 @@ def from_numpy(scene_arrays, device) -> SceneTensors:
     """Any object carrying the scene fields as NumPy arrays (the JAX
     package's SceneArrays, or this package's compile output) -> tensors
     on `device`, f32/i32, same field names.  The dense layout ("pallas"
-    or "dense") and the tile BVH ("pbvh") carry over; for the tile BVH
-    the node pack and the tree's depth are computed here, once.  Any
-    other accel raises."""
+    or "dense") and the tile BVH ("pbvh") carry over; the kernels' packs,
+    and for the tile BVH the node pack and the tree's depth, are computed
+    here, once.  Any other accel raises."""
     accel = scene_arrays.accel
     extra = {}
     if accel in DENSE_ACCELS:
@@ -119,7 +137,14 @@ def from_numpy(scene_arrays, device) -> SceneTensors:
     kwargs = {f: _to_tensor(getattr(scene_arrays, f), device)
               for f in ARRAY_FIELDS}
     kwargs.update({f: getattr(scene_arrays, f) for f in STATIC_FIELDS})
-    return SceneTensors(accel=accel, **kwargs, **extra)
+    scene = SceneTensors(accel=accel, **kwargs, **extra)
+    packs = {"tris": pack_tris(scene)}
+    if accel == "dense":
+        boxes = pack_boxes(scene)
+        packs.update(occ=pack_occ(scene), boxes=boxes,
+                     sboxes=pack_super_boxes(boxes),
+                     sub_boxes=pack_boxes(scene, SUB))
+    return replace(scene, **packs)
 
 
 def to_numpy(scene: SceneTensors) -> dict:

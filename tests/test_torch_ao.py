@@ -69,7 +69,8 @@ def test_lane_orders_exact(n_tris, n_tiles, quantize):
 
 
 @pytest.mark.parametrize(
-    "n_tris,ntheta,nphi", [(700, 4, 4), (700, 3, 3), (1100, 4, 4)])
+    "n_tris,ntheta,nphi", [(700, 4, 4), (700, 3, 3), (1100, 4, 4),
+                           (700, 2, 2), (700, 3, 5)])
 def test_ao_occlusion_matches_pallas(n_tris, ntheta, nphi):
     from lucille_tpu.accel.pallas_ao import pallas_ao_occlusion
     from lucille_tpu.transport.ao import ortho_basis
@@ -96,6 +97,156 @@ def test_ao_occlusion_matches_pallas(n_tris, ntheta, nphi):
     assert (diff != 0).mean() <= 0.01
     assert np.all(got[~hit] == 0)
     assert ref[hit].mean() > 0.5  # the case exercises occlusion
+
+
+@pytest.mark.parametrize("S", [1, 4, 15, 25, 64, 256])
+def test_gather_layout_covers_every_stratum_once(S):
+    """csrc/ao.cu's work split as accel/ao.py:gather_layout lays it out:
+    thread t of a lane, in round r, takes chunk c = r * T + t, strata [c *
+    C, c * C + C) below S; of each g = min(T, 32 / C) consecutive threads
+    of the lane the first stores the bits row its chunk starts, ORed from
+    the g chunks.  Every stratum falls to exactly one thread, every bits
+    row is stored by exactly one thread from exactly its own strata, and
+    the grid covers every lane."""
+    from lucille_tpu_torch.accel.ao import AO_BLOCK, gather_layout
+
+    B = 1000
+    C, T, grid = gather_layout(S, B)
+    assert C in (4, 16) and 32 % C == 0
+    assert T in (1, 2, 4, 8, 16, 32)
+    assert grid * (AO_BLOCK // T) >= B > (grid - 1) * (AO_BLOCK // T)
+    n_chunks = -(-S // C)
+    rounds = -(-n_chunks // T)
+    assert rounds == 1 or T == 32  # one round unless a lane is a warp
+    g = min(T, 32 // C)
+    strata, rows = [], {}
+    for r in range(rounds):
+        for t in range(T):
+            c = r * T + t
+            strata += [s for s in range(c * C, c * C + C) if s < S]
+            if t % g == 0 and c * C < S:
+                row = c * C // 32
+                assert row not in rows
+                rows[row] = {s for cc in range(c, c + g)
+                             for s in range(cc * C, cc * C + C) if s < S}
+    assert sorted(strata) == list(range(S))
+    assert sorted(rows) == list(range(-(-S // 32)))
+    for row, held in rows.items():
+        assert held == set(range(32 * row, min(32 * row + 32, S)))
+
+
+def _walk_gather_one(occ, boxes, sub, n_tris, o, w):
+    """One stratum ray (o, w: (3,) f32) walked as csrc/ao.cu walks it, one
+    slot at a time: each real tile whose box it reaches, in it each group
+    of 8 slots that holds a real triangle, in a group whose box it
+    reaches each real triangle, stopping at the first that occludes.
+    Returns (occluded, tile box tests, group box tests, triangle tests)."""
+    from lucille_tpu_torch.accel.isect import DET_EPS
+
+    f32 = np.float32
+    inv = f32(1) / np.where(np.abs(w) > f32(1e-20), w, f32(1e-20))
+
+    def reaches(box, k):
+        t0, t1 = (box[0:3, k] - o) * inv, (box[3:6, k] - o) * inv
+        tn, tf = np.minimum(t0, t1).max(), np.maximum(t0, t1).min()
+        return bool(tn <= tf and tf > 0)
+
+    def occludes(j):
+        pa, pb, pc = (occ[3 * r : 3 * r + 3, j] - o for r in range(3))
+        n = occ[9:12, j]
+        cbc = (pb[1] * pc[2] - pb[2] * pc[1], pb[2] * pc[0] - pb[0] * pc[2],
+               pb[0] * pc[1] - pb[1] * pc[0])
+        cca = (pc[1] * pa[2] - pc[2] * pa[1], pc[2] * pa[0] - pc[0] * pa[2],
+               pc[0] * pa[1] - pc[1] * pa[0])
+        U = w[0] * cbc[0] + w[1] * cbc[1] + w[2] * cbc[2]
+        V = w[0] * cca[0] + w[1] * cca[1] + w[2] * cca[2]
+        dn = w[0] * n[0] + w[1] * n[1] + w[2] * n[2]
+        W = dn - U - V
+        s_n = pa[0] * n[0] + pa[1] * n[1] + pa[2] * n[2]
+        inside = min(U, V, W) >= 0 or max(U, V, W) <= 0
+        return inside and s_n * dn > 0 and abs(dn) > f32(DET_EPS)
+
+    tiles = groups = tests = 0
+    for k in range(-(-n_tris // 128)):
+        if not reaches(boxes, k):
+            continue
+        tiles += 1
+        for g in range(16 * k, min(16 * k + 16, -(-n_tris // 8))):
+            groups += 1
+            if not reaches(sub, g):
+                continue
+            for j in range(8 * g, min(8 * g + 8, n_tris)):
+                tests += 1
+                if occludes(j):
+                    return True, tiles, groups, tests
+    return False, tiles, groups, tests
+
+
+@pytest.mark.parametrize("n_tris", [300, 1100])
+def test_gather_need_counts(n_tris):
+    """chip_smoke.gather_need, the work the dense gather's bound charges:
+    the strata it finds occluded are exactly the plain twin's bits, and
+    its box and triangle counts equal a walk of one stratum ray at a time,
+    slot by slot, on a sample of the lanes (exactly)."""
+    from chip_smoke import gather_need
+
+    from lucille_tpu_torch.accel import ao
+    from lucille_tpu_torch.scene.types import from_numpy
+    from lucille_tpu_torch.transport.ao import ortho_basis
+
+    scene = from_numpy(_soup(n_tris), "cpu")
+    B, ntheta, nphi = 200, 3, 4
+    S = ntheta * nphi
+    P, N, _hit = _lanes(B)
+    P = torch.from_numpy(P)
+    b0, b1, b2 = ortho_basis(torch.from_numpy(N))
+    rng = np.random.default_rng(3)
+    u01 = torch.from_numpy(rng.uniform(size=(2, B)).astype(np.float32))
+    got = gather_need(scene, P, b0, b1, b2, u01, ntheta, nphi, budget=5000)
+    rays = torch.cat([P, b0, b1, b2], dim=1).T.contiguous()
+    _occ, bits = ao.ao_occlusion_reference(scene.occ, rays, u01, ntheta,
+                                           nphi, want_bits=True)
+    assert torch.equal(got["occluded"], ao.unpack_bits(bits, S))
+    assert 0.05 < got["occluded"].float().mean() < 0.95
+    lanes = rng.choice(B, 10, replace=False)
+    dirs = ao.stratum_directions(b0, b1, b2, u01, ntheta, nphi).numpy()
+    walks = [_walk_gather_one(scene.occ.numpy(), scene.boxes.numpy(),
+                              scene.sub_boxes.numpy(), scene.n_tris,
+                              P[i].numpy(), dirs[s, i])
+             for s in range(S) for i in lanes]
+    part = gather_need(scene, P[lanes], b0[lanes], b1[lanes], b2[lanes],
+                       u01[:, lanes], ntheta, nphi)
+    assert part["occluded"].reshape(-1).tolist() == [w[0] for w in walks]
+    assert (part["tiles"], part["groups"], part["tests"]) == tuple(
+        sum(w[j] for w in walks) for j in (1, 2, 3))
+    # the culls: far fewer triangle tests than every real one per stratum
+    assert 0 < got["tests"] < 0.5 * n_tris * S * B
+
+
+def test_scene_packs_are_the_pack_functions():
+    """from_numpy builds the kernels' packs once; each equals its pack
+    function's output on the same scene (dense: tris, occ, boxes,
+    sboxes, sub_boxes; tile BVH: tris)."""
+    from lucille_tpu_torch.accel.pack import (
+        SUB,
+        pack_boxes,
+        pack_occ,
+        pack_super_boxes,
+        pack_tris,
+    )
+    from lucille_tpu_torch.scene.types import from_numpy
+
+    scene = from_numpy(_soup(2500), "cpu")  # 20 tiles, 2 supertiles
+    assert torch.equal(scene.tris, pack_tris(scene))
+    assert torch.equal(scene.occ, pack_occ(scene))
+    assert torch.equal(scene.boxes, pack_boxes(scene))
+    assert torch.equal(scene.sboxes, pack_super_boxes(pack_boxes(scene)))
+    assert torch.equal(scene.sub_boxes, pack_boxes(scene, SUB))
+    assert scene.sub_boxes.shape == (8, scene.n_pad // SUB)
+    v0, v1, v2 = _random_soup(700, seed=5)
+    bvh = from_numpy(_scene_from_tris(v0, v1, v2, "bvh"), "cpu")
+    assert bvh.accel == "pbvh" and bvh.occ is None and bvh.sub_boxes is None
+    assert torch.equal(bvh.tris, pack_tris(bvh))
 
 
 def test_pack_occ_and_super_boxes_match_jax():

@@ -51,6 +51,26 @@ def _soup_scene(n, seed=5, accel="pallas"):
     return compile_scene(desc, "cuda")
 
 
+def _gather_inputs(n_tris, B):
+    """A dense soup scene on cuda and B lanes of AO gather input: rays
+    (12, B) [P | b0 | b1 | b2] at random points with random normals, and
+    (2, B) uniforms."""
+    from lucille_tpu_torch.transport.ao import ortho_basis
+
+    scene = _soup_scene(n_tris)
+    rng = np.random.default_rng(1)
+    P = torch.tensor(rng.uniform(-4, 4, (B, 3)), dtype=torch.float32,
+                     device="cuda")
+    N = torch.nn.functional.normalize(
+        torch.tensor(rng.normal(size=(B, 3)), dtype=torch.float32,
+                     device="cuda"), dim=-1)
+    b0, b1, b2 = ortho_basis(N)
+    rays = torch.cat([P, b0, b1, b2], dim=1).T.contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    u01 = torch.rand((2, B), device="cuda", generator=gen)
+    return scene, rays, u01
+
+
 def _shell_rays(B, seed=0):
     rng = np.random.default_rng(seed)
     o = rng.normal(size=(B, 3))
@@ -93,29 +113,11 @@ def test_ao_kernel_matches_plain(n_tris, ntheta):
     Lanes at or past nact report 0."""
     _need_card()
     from lucille_tpu_torch.accel import ao
-    from lucille_tpu_torch.accel.pack import (
-        pack_boxes,
-        pack_occ,
-        pack_super_boxes,
-    )
-    from lucille_tpu_torch.transport.ao import ortho_basis
 
-    scene = _soup_scene(n_tris)
-    rng = np.random.default_rng(1)
-    P = torch.tensor(rng.uniform(-4, 4, (1000, 3)), dtype=torch.float32,
-                     device="cuda")
-    N = torch.nn.functional.normalize(
-        torch.tensor(rng.normal(size=(1000, 3)), dtype=torch.float32,
-                     device="cuda"), dim=-1)
-    b0, b1, b2 = ortho_basis(N)
-    rays = torch.cat([P, b0, b1, b2], dim=1).T.contiguous()
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    u01 = torch.rand((2, 1000), device="cuda", generator=gen)
-    tris, boxes = pack_occ(scene), pack_boxes(scene)
+    scene, rays, u01 = _gather_inputs(n_tris, 1000)
     nact = torch.tensor(900, dtype=torch.int32, device="cuda")
-    got = ao.ao_occlusion_kernel(tris, boxes, pack_super_boxes(boxes), rays,
-                                 u01, nact, ntheta, ntheta)
-    ref = ao.ao_occlusion_reference(tris, rays[:, :900], u01[:, :900],
+    got = ao.ao_occlusion_kernel(scene, rays, u01, nact, ntheta, ntheta)
+    ref = ao.ao_occlusion_reference(scene.occ, rays[:, :900], u01[:, :900],
                                     ntheta, ntheta)
     assert torch.all(got[900:] == 0)
     assert ref.mean() > 1.0  # the case exercises occlusion
@@ -158,50 +160,74 @@ def test_any_hit_kernel_matches_plain(tmax, masked):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_tris,ntheta", [(400, 5), (1100, 8), (400, 16)])
+@pytest.mark.parametrize("n_tris,ntheta",
+                         [(400, 5), (1100, 8), (400, 16), (300, 8)])
 def test_ao_bits_kernel_matches_plain(n_tris, ntheta):
     """The gather's bits output below and above the Morton-order threshold,
     S = 25 (one part-filled row), 64 (two rows) and 256 (eight, for
-    --gather-rays 256): counts as
+    --gather-rays 256), on soups the kernel stages whole (300 triangles:
+    3 tiles, the last part-filled) and through its ring (400 and 1100
+    triangles: 4 and 9 tiles): counts as
     test_ao_kernel_matches_plain, bits on all but 1e-3 of the lanes, each
     lane's count equal to its popcount, rows 0 at or past nact."""
     _need_card()
     from lucille_tpu_torch.accel import ao
-    from lucille_tpu_torch.accel.pack import (
-        pack_boxes,
-        pack_occ,
-        pack_super_boxes,
-    )
-    from lucille_tpu_torch.transport.ao import ortho_basis
 
-    scene = _soup_scene(n_tris)
-    rng = np.random.default_rng(1)
-    P = torch.tensor(rng.uniform(-4, 4, (1000, 3)), dtype=torch.float32,
-                     device="cuda")
-    N = torch.nn.functional.normalize(
-        torch.tensor(rng.normal(size=(1000, 3)), dtype=torch.float32,
-                     device="cuda"), dim=-1)
-    b0, b1, b2 = ortho_basis(N)
-    rays = torch.cat([P, b0, b1, b2], dim=1).T.contiguous()
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    u01 = torch.rand((2, 1000), device="cuda", generator=gen)
-    tris, boxes = pack_occ(scene), pack_boxes(scene)
+    scene, rays, u01 = _gather_inputs(n_tris, 1000)
     nact = torch.tensor(900, dtype=torch.int32, device="cuda")
     S = ntheta * ntheta
-    occ, bits = ao.ao_occlusion_kernel(tris, boxes, pack_super_boxes(boxes),
-                                       rays, u01, nact, ntheta, ntheta,
+    occ, bits = ao.ao_occlusion_kernel(scene, rays, u01, nact, ntheta, ntheta,
                                        want_bits=True)
     ref_occ, ref_bits = ao.ao_occlusion_reference(
-        tris, rays[:, :900], u01[:, :900], ntheta, ntheta, want_bits=True)
+        scene.occ, rays[:, :900], u01[:, :900], ntheta, ntheta,
+        want_bits=True)
     assert bits.shape == (-(-S // 32), 1000) and bits.dtype == torch.int32
     assert torch.all(occ[900:] == 0) and torch.all(bits[:, 900:] == 0)
     assert torch.equal(ao.unpack_bits(bits, S).sum(dim=0).float(), occ)
     assert ref_occ.mean() > 1.0
     differ = (bits[:, :900] != ref_bits).any(dim=0)
     assert differ.float().mean() <= 1e-3
-    plain = ao.ao_occlusion_kernel(tris, boxes, pack_super_boxes(boxes),
-                                   rays, u01, nact, ntheta, ntheta)
+    plain = ao.ao_occlusion_kernel(scene, rays, u01, nact, ntheta, ntheta)
     assert torch.equal(plain, occ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_live", ["none", "all"])
+@pytest.mark.parametrize("ntheta,nphi", [(2, 2), (3, 5)])
+@pytest.mark.parametrize("n_tris", [300, 400, 1300])
+def test_ao_kernel_layouts_match_plain(n_tris, ntheta, nphi, n_live):
+    """Both instantiations at S = 4 (2x2, Whitted's dome: one thread a
+    lane) and S = 15 (3x5, ntheta != nphi: four threads of 4 strata, the
+    last chunk ragged), on soups of 3 tiles (staged whole, the last tile
+    part-filled: warps run without a barrier), 4 tiles (the cp.async
+    ring, hit-first lane order) and 11 tiles (the ring, Morton order),
+    with nact = 0 (the dead-bounce launch: every output 0) and nact = B
+    (every lane live): counts and bits as
+    test_ao_bits_kernel_matches_plain, each lane's count its bits'
+    popcount."""
+    _need_card()
+    from lucille_tpu_torch.accel import ao
+
+    B = 1000
+    scene, rays, u01 = _gather_inputs(n_tris, B)
+    n = 0 if n_live == "none" else B
+    nact = torch.tensor(n, dtype=torch.int32, device="cuda")
+    S = ntheta * nphi
+    launch = lambda bits: ao.ao_occlusion_kernel(  # noqa: E731
+        scene, rays, u01, nact, ntheta, nphi, want_bits=bits)
+    occ, bits = launch(True)
+    assert torch.equal(launch(False), occ)
+    assert bits.shape == (1, B)
+    assert torch.equal(ao.unpack_bits(bits, S).sum(dim=0).float(), occ)
+    if n == 0:
+        assert not torch.any(occ) and not torch.any(bits)
+        return
+    ref_occ, ref_bits = ao.ao_occlusion_reference(
+        scene.occ, rays, u01, ntheta, nphi, want_bits=True)
+    assert 0.25 < ref_occ.mean() < S - 0.25  # both answers occur
+    diff = (occ - ref_occ).abs()
+    assert diff.max() <= 1 and (diff != 0).float().mean() <= 1e-3
+    assert (bits != ref_bits).any(dim=0).float().mean() <= 1e-3
 
 
 @pytest.mark.gpu

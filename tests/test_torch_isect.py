@@ -138,6 +138,6 @@ def test_kernel_launchers_refuse_cpu_tensors():
         closest_hit_kernel(torch.zeros((16, 128)), torch.zeros((8, 1)),
                            torch.zeros((4, 3)), torch.zeros((4, 3)))
     with pytest.raises(ValueError, match="CUDA"):
-        ao_occlusion_kernel(torch.zeros((16, 128)), torch.zeros((8, 1)),
-                            torch.zeros((8, 1)), torch.zeros((12, 4)),
-                            torch.zeros((2, 4)), torch.tensor(4), 2, 2)
+        # the rays' device is checked before the scene's packs are read
+        ao_occlusion_kernel(None, torch.zeros((12, 4)), torch.zeros((2, 4)),
+                            torch.tensor(4), 2, 2)
