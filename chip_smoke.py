@@ -54,10 +54,15 @@ non-zero):
    triangle) a slice of rays.  Tolerances: hit masks equal on all but
    1e-4 of the rays, triangle ids on all but 1e-3 (exact ties in t
    across leaves), t/u/v within 1e-6 relative; occlusion equal on all
-   but 1e-4 of the rays.  Their bounds count the work the data needs
-   (`need_walk`: the tree walked near child first, real triangles only,
-   an any-hit stopping at its first hit), on every eye ray and on a
-   random sample of the gather rays;
+   but 1e-4 of the rays; then the any-hit with a finite per-ray tmax on
+   the tile's shading points (the shadow rays' case), on a slice of the
+   hit lanes.  Their bounds count the work the data needs (`need_walk`:
+   the tree walked near child first, real triangles only, an any-hit
+   stopping at its first hit), on every eye ray and on a random sample
+   of the gather rays; the any-hit's warp walk prints its lane node
+   visits and triangle tests against that need, its warp steps and SIMT
+   efficiency (`walk_report`), and each kernel its registers and spills
+   (a spill fails);
 8. the large-scene frames: both heightfields at bench_large's
    configuration, uncut (160x120, 2x2 samples, 64 AO rays, tile 128),
    with the checks of phase 4 (both BVH kernels launched, no dense
@@ -75,7 +80,8 @@ non-zero):
    on the whole tile, the twin on a slice of its compacted slots; counts
    equal on all but 1e-4 of the slots and within 1; the bound from
    `need_walk` on a random sample of the live slots, whose counts must
-   equal the kernel's.  Then both closest hits with a bounce
+   equal the kernel's, and the walk's work against it as in phase 7.
+   Then both closest hits with a bounce
    wavefront's active mask (half the rays live) against their twins
    (phase 3's and 7's tolerances; dead rays report a miss);
 11. the integrator frames, each with the checks and timing of phase 4:
@@ -92,7 +98,12 @@ non-zero):
 13. the fused gather's frames against the cone gather's (their jitter
    belongs to compacted slots against raster lanes): means over hit
    pixels within 0.01;
-14. a JSON line of per-kernel results (each with the least time the card
+14. the dense AO scan: the n = 258 terrain (132,098 triangles, above
+   the fused gather's 131,072) on the dense tiles at 80x60, plain and
+   under the sunsky line, through the closest hit and the any-hit once
+   a stratum, with phase 4's checks, against the same frames on the
+   tile BVH (`check_dense_scan`);
+15. a JSON line of per-kernel results (each with the least time the card
    could take for its work, `bound_ms`, from the counts below), the
    card's line, and last {"ok": true, "device": {...}}.
 
@@ -863,6 +874,7 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     from lucille_tpu_torch.accel import bvh_isect
     from lucille_tpu_torch.accel.bvh_ao import conetile_rays
     from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.kernels import build
     from lucille_tpu_torch.render.renderer import tile_eye_rays
     from lucille_tpu_torch.render.tiles import tile_list
     from lucille_tpu_torch.sampling.hammersley import subpixel_samples
@@ -916,7 +928,9 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
                              f"closest hit's on {need_differ:.2e}")
     work = bound(B * (28 + 16) + static_bytes,
                  need["tests"] * MT_OPS + need["inner"] * NODE_OPS)
-    print(f"[{label}] bvh_closest_hit: {B} eye rays, hit rate "
+    regs, spill = kernel_registers(build.library().log, "bvh_closest_kernel")
+    print(f"[{label}] bvh_closest_hit ({regs} registers, {spill} bytes "
+          f"spilled): {B} eye rays, hit rate "
           f"{hit_rate:.4f}, {int(got['ntrav'])} node visits and "
           f"{int(got['ntests'])} triangle tests done, {need['nodes']} "
           f"visits ({need['inner']} inner) and {need['tests']} tests "
@@ -929,7 +943,7 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
         {"scene": label, "rays": B, "ms": ms, "slice": n_closest,
          "ms_slice": ms_slice, "plain_ms": plain_ms, "max_abs_err": err,
          "tri_differs": differ, "kernel_ntrav": int(got["ntrav"]),
-         "kernel_ntests": int(got["ntests"]),
+         "kernel_ntests": int(got["ntests"]), "registers": regs,
          **{f"need_{k}": need[k] for k in ("inner", "nodes", "tests")},
          **work})
 
@@ -941,7 +955,9 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     oo, dd, _order, _layout = conetile_rays(scene, P_off, b0, b1, b2, hit,
                                             jitter, 8, 8)
     R = oo.shape[0]
-    got = bvh_isect.bvh_any_hit(tris, nodes, oo, dd, depth=depth)
+    leaf_real = scene.leaf_real
+    got = bvh_isect.bvh_any_hit(tris, nodes, oo, dd, depth=depth,
+                                leaf_real=leaf_real)
     live = int(hit.sum()) * 64  # the live gather rays lead the layout
     lo = max(0, live // 2 - n_any // 2)
     sl = slice(lo, lo + n_any)
@@ -950,10 +966,10 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     frac = (got["occ"][sl] != ref["occ"]).float().mean().item()
     if frac > 1e-4:
         raise AssertionError(f"{label} bvh_any_hit: {frac:.2e} of rays differ")
-    ms = cuda_ms(lambda: bvh_isect.bvh_any_hit(tris, nodes, oo, dd,
-                                               depth=depth), 3)
+    ms = cuda_ms(lambda: bvh_isect.bvh_any_hit(
+        tris, nodes, oo, dd, depth=depth, leaf_real=leaf_real), 3)
     ms_slice = cuda_ms(lambda: bvh_isect.bvh_any_hit(
-        tris, nodes, oo[sl], dd[sl], depth=depth), 5)
+        tris, nodes, oo[sl], dd[sl], depth=depth, leaf_real=leaf_real), 5)
     # the work the data needs, counted on a random sample of the rays and
     # scaled to all R
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -966,24 +982,81 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     scale = R / len(sample)
     work = bound(R * (28 + 1) + static_bytes,
                  scale * (need["tests"] * SV_OPS + need["inner"] * NODE_OPS))
+    walk = walk_report(got, need, scale)
+    regs, spill = kernel_registers(build.library().log, "bvh_any_kernel")
     print(f"[{label}] bvh_any_hit: {R} gather rays ({live} live), occluded "
-          f"{got['occ'][:live].float().mean().item():.4f}, "
-          f"{int(got['ntrav'])} node visits and {int(got['ntests'])} "
-          f"triangle tests done, {scale * need['nodes']:.0f} visits "
-          f"({scale * need['inner']:.0f} inner) and "
-          f"{scale * need['tests']:.0f} tests needed (from {len(sample)} "
-          f"rays); on {n_any} rays {frac:.2e} differ; kernel {ms:.3f} ms "
+          f"{got['occ'][:live].float().mean().item():.4f}; {walk['text']}; "
+          f"on {n_any} rays {frac:.2e} differ; {regs} registers, {spill} "
+          f"bytes spilled; kernel {ms:.3f} ms "
           f"({ms_slice:.3f} ms on the slice), plain {plain_ms:.3f} ms on "
-          f"the slice, bound {work['bound_ms']:.3f} ms ({work['bound_by']})",
-          flush=True)
+          f"the slice, bound {work['bound_ms']:.3f} ms ({work['bound_by']}, "
+          f"kernel / bound {ms / work['bound_ms']:.1f}x)", flush=True)
+    bounded = check_bounded_any_hit(label, scene, P_off, hit, n_any // 8)
     results["bvh_any_hit"].append(
         {"scene": label, "rays": R, "ms": ms, "slice": n_any,
          "ms_slice": ms_slice, "plain_ms": plain_ms,
-         "max_abs_err": float(frac > 0), "differs": frac,
-         "kernel_ntrav": int(got["ntrav"]),
-         "kernel_ntests": int(got["ntests"]), "need_sample": len(sample),
-         **{f"need_{k}": scale * need[k] for k in ("inner", "nodes", "tests")},
-         **work})
+         "max_abs_err": float(max(frac, bounded) > 0), "differs": frac,
+         "bounded_differs": bounded, "registers": regs, "spill": spill,
+         "need_sample": len(sample), **walk["numbers"], **work})
+
+
+def walk_report(got, need, scale) -> dict:
+    """The warp walk's work against need_walk's (kernels 5 and 6): node
+    visits of the lanes that reach the node and real triangles they
+    tested, against the per-ray near-first walk's counts (scaled from its
+    sample), and the SIMT efficiency, lane tests over 32 x the warps'
+    triangle steps.  Returns {"text", "numbers"}."""
+    k = {key: int(got[key]) for key in ("ntrav", "ntests", "warp_ntrav",
+                                        "warp_ntests")}
+    need_nodes, need_tests = scale * need["nodes"], scale * need["tests"]
+    simt = k["ntests"] / max(32 * k["warp_ntests"], 1)
+    text = (f"{k['ntrav']} lane node visits and {k['ntests']} lane triangle "
+            f"tests done ({k['ntrav'] / need_nodes:.2f}x / "
+            f"{k['ntests'] / need_tests:.2f}x the {need_nodes:.0f} and "
+            f"{need_tests:.0f} needed), {k['warp_ntrav']} warp node visits "
+            f"and {k['warp_ntests']} warp triangle steps (SIMT efficiency "
+            f"{simt:.3f})")
+    return {"text": text, "numbers": {
+        **{f"kernel_{key}": v for key, v in k.items()},
+        "simt_efficiency": simt,
+        **{f"need_{key}": scale * need[key]
+           for key in ("inner", "nodes", "tests")}}}
+
+
+def check_bounded_any_hit(label, scene, P_off, hit, n_slice) -> float:
+    """Kernel 5 with a finite per-ray tmax (the shadow rays' case) on the
+    tile's shading points toward a fixed direction, against its twin on
+    a slice of the hit lanes.  Returns the slice's fraction that differs
+    (<= 1e-4)."""
+    import torch
+
+    from lucille_tpu_torch.accel import bvh_isect
+
+    B = P_off.shape[0]
+    # a low sun (19 degrees above the terrain's plane): a fair share of
+    # the shading points lie in shadow
+    wi = torch.nn.functional.normalize(
+        torch.tensor([1.0, 0.35, 0.2], device="cuda"), dim=0)
+    wi = wi.expand(B, 3).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    diag = float(torch.linalg.norm(scene.bbox_max - scene.bbox_min))
+    tmax = 0.25 * diag * torch.rand(B, device="cuda", generator=gen)
+    got = bvh_isect.bvh_any_hit(scene.tris, scene.nodes, P_off, wi, tmax,
+                                depth=scene.tree_depth,
+                                leaf_real=scene.leaf_real)
+    lanes = torch.nonzero(hit)[:, 0]
+    lanes = lanes[max(0, len(lanes) // 2 - n_slice // 2):][:n_slice]
+    ref = bvh_isect.bvh_any_hit_reference(scene.tris, P_off[lanes],
+                                          wi[lanes], tmax[lanes])["occ"]
+    frac = (got["occ"][lanes] != ref).float().mean().item()
+    occ = ref.float().mean().item()
+    print(f"[{label}] bvh_any_hit, finite tmax: {len(lanes)} hit lanes' "
+          f"shadow rays compared, {occ:.4f} occluded, {frac:.2e} differ",
+          flush=True)
+    if frac > 1e-4 or not 0.01 < occ < 0.99:
+        raise AssertionError(f"{label} bvh_any_hit with tmax: {frac:.2e} "
+                             f"differ, {occ:.4f} occluded")
+    return frac
 
 
 def ptxas_entries(log: str) -> dict:
@@ -1002,12 +1075,14 @@ def ptxas_entries(log: str) -> dict:
     return out
 
 
-def registers(log: str, kernel: str) -> int:
-    """ptxas's register count of the entry whose mangled name holds
-    `kernel` (the first such entry), from the build log."""
-    for name, (regs, _spill) in ptxas_entries(log).items():
+def kernel_registers(log: str, kernel: str) -> tuple[int, int]:
+    """(registers, spill bytes) of the entry whose mangled name holds
+    `kernel`; raises if it spills."""
+    for name, (regs, spill) in ptxas_entries(log).items():
         if kernel in name:
-            return regs
+            if spill:
+                raise AssertionError(f"{kernel}: {spill} bytes spilled")
+            return regs, spill
     raise AssertionError(f"no ptxas report for {kernel}")
 
 
@@ -1162,9 +1237,11 @@ def check_fused_gather(label, r, n_slots, results, inputs, ntheta=8, nphi=8):
     order, nhit = compaction_order(scene.bbox_min, scene.bbox_max, P_off, b2,
                                    hit, bvh_ao.MORTON_TILES)
     rays = torch.cat([P_off, b0, b1, b2], dim=1)[order].T.contiguous()
-    tris, nodes, skip = scene.tris, scene.nodes, scene.skip
+    tris, nodes, leaf_real = scene.tris, scene.nodes, scene.leaf_real
+    depth = scene.tree_depth
     launch = lambda: bvh_ao.bvh_ao_fused_kernel(  # noqa: E731
-        tris, nodes, skip, rays, jitter, nhit, ntheta, nphi)
+        tris, nodes, leaf_real, rays, jitter, nhit, ntheta, nphi,
+        depth=depth)
     occ, stats = launch()
     n = int(nhit)
     lo = max(0, n // 2 - n_slots // 2)
@@ -1185,8 +1262,8 @@ def check_fused_gather(label, r, n_slots, results, inputs, ntheta=8, nphi=8):
     rays_s, jit_s = rays[:, sl].contiguous(), jitter[:, sl].contiguous()
     n_s = torch.full((), n_slots, dtype=torch.int32, device="cuda")
     ms_slice = cuda_ms(lambda: bvh_ao.bvh_ao_fused_kernel(
-        tris, nodes, skip, rays_s, jit_s, n_s, ntheta, nphi), 5)
-    ntrav, ntests = int(stats["ntrav"]), int(stats["ntests"])
+        tris, nodes, leaf_real, rays_s, jit_s, n_s, ntheta, nphi,
+        depth=depth), 5)
 
     # the work the data needs: a random sample of the live slots, every
     # stratum of each walked near child first over real triangles, its
@@ -1209,24 +1286,22 @@ def check_fused_gather(label, r, n_slots, results, inputs, ntheta=8, nphi=8):
                  + S * 4,
                  scale * (need["tests"] * SV_OPS + need["inner"] * NODE_OPS)
                  + n * S * DIR_OPS)
-    regs = registers(build.library().log, "bvh_ao_kernel")
+    walk = walk_report(stats, need, scale)
+    regs, spill = kernel_registers(build.library().log, "bvh_ao_kernel")
     print(f"[{label}] bvh_ao_fused: {n} live slots of {B}, {ntheta}x{nphi} "
-          f"strata, mean occluded {occ[:n].mean().item():.3f}/{S}, {ntrav} "
-          f"node visits and {ntests} triangle tests done, "
-          f"{scale * need['nodes']:.0f} visits ({scale * need['inner']:.0f} "
-          f"inner) and {scale * need['tests']:.0f} tests needed (from "
-          f"{len(slots)} slots); on {n_slots} slots {frac:.2e} differ; "
-          f"{regs} registers; kernel {ms:.3f} ms ({ms_slice:.3f} ms on the "
-          f"slice), plain {plain_ms:.3f} ms on the slice, bound "
-          f"{work['bound_ms']:.3f} ms ({work['bound_by']})", flush=True)
+          f"strata, mean occluded {occ[:n].mean().item():.3f}/{S}; "
+          f"{walk['text']} (need from {len(slots)} slots); on {n_slots} "
+          f"slots {frac:.2e} differ; {regs} registers, {spill} bytes "
+          f"spilled; kernel {ms:.3f} ms ({ms_slice:.3f} ms on the slice), "
+          f"plain {plain_ms:.3f} ms on the slice, bound "
+          f"{work['bound_ms']:.3f} ms ({work['bound_by']}, kernel / bound "
+          f"{ms / work['bound_ms']:.1f}x)", flush=True)
     results["bvh_ao_fused"].append(
         {"scene": label, "strata": S, "lanes": B, "live": n, "ms": ms,
          "slice": n_slots, "ms_slice": ms_slice, "plain_ms": plain_ms,
-         "registers": regs, "max_abs_err": diff.max().item(),
-         "differs": frac, "kernel_ntrav": ntrav, "kernel_ntests": ntests,
-         "need_sample": len(slots),
-         **{f"need_{k}": scale * need[k] for k in ("inner", "nodes", "tests")},
-         **work})
+         "registers": regs, "spill": spill,
+         "max_abs_err": diff.max().item(), "differs": frac,
+         "need_sample": len(slots), **walk["numbers"], **work})
 
 
 def check_whitted_twins():
@@ -1322,6 +1397,56 @@ def cross_check_accels():
           f"{bvh[lit].mean():.5f}, gap {gap:.5f} (< 0.01)", flush=True)
     if not (lit.mean() > 0.2 and gap < 0.01):
         raise AssertionError("the dense and tile-BVH frames disagree")
+
+
+def check_dense_scan():
+    """Phase 14: above MAX_TRIS_FOR_MEGAKERNEL padded triangles the dense
+    tiles scan the strata through the dense any-hit (kernel 2), as
+    lucille_tpu does.  The n = 258 terrain (132,098 triangles) on the
+    dense tiles at 80x60, 2x2 samples, 16 rays, tile 40, plain and under
+    the bundled scene's sunsky line, with phase 4's checks (the closest
+    hit and the any-hit launched, no other kernel, no twin, no tile
+    waiting on the card), the any-hit launched once a stratum (and sun)
+    of each tile; then each against the same frame on the tile BVH (the
+    cone gather, another draw of the same estimator): means over the
+    pixels both render as hits within 0.01 (AO) and 1% (sunsky)."""
+    from lucille_tpu_torch.accel.ao import MAX_TRIS_FOR_MEGAKERNEL
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.render.tiles import tile_list
+    from lucille_tpu_torch.transport.ao import dense_scan
+
+    for sunsky in (False, True):
+        label = "heightfield258-scan" + ("-sunsky" if sunsky else "")
+        imgs = {}
+        for accel in ("pallas", "bvh"):
+            desc = heightfield_state(258, 80, 60, pixelsamples=2, gather=16,
+                                     accel=accel, sunsky=sunsky).scene
+            r = Renderer(desc, tile_size=40, device="cuda")
+            if accel == "bvh":
+                imgs[accel] = r.render_frame()
+                continue
+            if not (dense_scan(r.scene) and r.scene.tri_v0.shape[0]
+                    > MAX_TRIS_FOR_MEGAKERNEL):
+                raise AssertionError(f"{label}: not the dense scan")
+            launches, _, imgs[accel] = render_checked(
+                label, r, f"chip_smoke_{label}.hdr", ("closest_hit",
+                                                      "any_hit"))
+            opt = desc.options
+            n_tiles = len(tile_list(80, 60, 40, opt.bucket_order))
+            suns = sum(li.type == "sun" for li in r.lights)
+            if launches["any_hit"] != n_tiles * (16 + suns):
+                raise AssertionError(f"{label}: {launches['any_hit']} any-hit "
+                                     f"launches, not {n_tiles} x {16 + suns}")
+        dense, bvh = imgs["pallas"], imgs["bvh"]
+        lit = (dense[..., 0] > 0) & (bvh[..., 0] > 0)
+        a, b = float(dense[lit].mean()), float(bvh[lit].mean())
+        gap = abs(a - b) / (b if sunsky else 1.0)
+        print(f"[{label}] the dense scan against the tile BVH's cone gather: "
+              f"means over {lit.mean():.4f} of the pixels {a:.5f} and "
+              f"{b:.5f}, gap {gap:.5f} (< 0.01{', relative' if sunsky else ''})",
+              flush=True)
+        if not (lit.mean() > 0.2 and gap < 0.01):
+            raise AssertionError(f"{label}: the scan and the tile BVH disagree")
 
 
 def main() -> int:
@@ -1485,7 +1610,10 @@ def main() -> int:
                              imgs["heightfield256-whitted-fused"],
                              cone_imgs[256])
 
-    # 14. results
+    # 14. the dense scan above 131,072 triangles
+    check_dense_scan()
+
+    # 15. results
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = []
     for name, (src, replaces) in SOURCES.items():

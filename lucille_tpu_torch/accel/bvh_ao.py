@@ -39,11 +39,13 @@ pallas_bvh.py:810 `_bvh_ao_kernel` behind `_pallas_bvh_ao_occlusion`):
   formulas) and an unbounded any-hit walk of the tile BVH with the
   signed-volume test; the count of occluded strata, scattered back to
   raster order (0 where not hit);
-- csrc/bvh.cu's `bvh_ao_kernel` for CUDA tensors, `bvh_ao_fused_reference`
-  (every stratum of every live slot against every triangle) for CPU
-  tensors.  Its counters: ntrav = node visits summed over the (slot,
-  stratum) walks, ntests = leaf tiles x 128; the twin visits no node and
-  tests every slot.
+- csrc/bvh.cu's `bvh_ao_kernel` for CUDA tensors (kernel 5's warp walk,
+  each lane's ray built in registers), `bvh_ao_fused_reference` (every
+  stratum of every live slot against every triangle) for CPU tensors.
+  Its counters are the warp walk's (bvh_isect.walk_stats): ntrav = node
+  visits summed over the (slot, stratum) lanes that reach the node,
+  ntests = real triangles tested, and the warps' own warp_ntrav and
+  warp_ntests; the twin visits no node and tests every slot.
 
 Nothing here waits on the device: the live-lane count never leaves it,
 so the renderer can enqueue every tile before it pulls the first.
@@ -58,7 +60,14 @@ import numpy as np
 import torch
 
 from lucille_tpu_torch.accel.ao import compaction_order, stratum_directions
-from lucille_tpu_torch.accel.bvh_isect import WARP, occlusion_scan
+from lucille_tpu_torch.accel.bvh_isect import (
+    NSTAT,
+    STACK,
+    WARP,
+    check_leaf_real,
+    occlusion_scan,
+    walk_stats,
+)
 from lucille_tpu_torch.accel.dispatch import any_hit
 from lucille_tpu_torch.accel.pack import TC
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
@@ -220,8 +229,10 @@ def bvh_ao_fused(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     tris = scene.tris
     dev = P_off.device
     if dev.type == "cuda":
-        occ_s, stats = bvh_ao_fused_kernel(tris, scene.nodes, scene.skip,
-                                           rays, jitter, nhit, ntheta, nphi)
+        occ_s, stats = bvh_ao_fused_kernel(tris, scene.nodes,
+                                           scene.leaf_real, rays, jitter,
+                                           nhit, ntheta, nphi,
+                                           depth=scene.tree_depth)
     elif dev.type == "cpu":
         n = int(nhit)
         occ_s = torch.zeros(B, device=dev)
@@ -242,13 +253,14 @@ def fused_layout(S: int):
     return K, min(S // K, FUSED_WARPS)
 
 
-def bvh_ao_fused_kernel(tris, nodes, skip, rays, jitter, nact, ntheta: int,
-                        nphi: int):
+def bvh_ao_fused_kernel(tris, nodes, leaf_real, rays, jitter, nact,
+                        ntheta: int, nphi: int, *, depth: int):
     """Launch csrc/bvh.cu's fused gather on the current stream (CUDA
-    tensors only): rays (12, B) [P_off | b0 | b1 | b2] and jitter (2, B)
-    in compacted order, nact () i32 live slots on the device (slots at or
-    past it report 0).  Returns ((B,) f32 counts in compacted order,
-    {ntrav, ntests} () i64)."""
+    tensors only): the tree as bvh_isect.bvh_any_hit takes it (tris,
+    nodes, leaf_real, depth); rays (12, B) [P_off | b0 | b1 | b2] and
+    jitter (2, B) in compacted order, nact () i32 live slots on the
+    device (slots at or past it report 0).  Returns ((B,) f32 counts in
+    compacted order, the walk's counters () i64)."""
     B = rays.shape[1]
     dev = rays.device
     if dev.type != "cuda":
@@ -261,9 +273,10 @@ def bvh_ao_fused_kernel(tris, nodes, skip, rays, jitter, nact, ntheta: int,
         raise ValueError(f"tris: need (16, k*{TC}), got {tuple(tris.shape)}")
     if nodes.dim() != 2 or nodes.shape[1] != 8:
         raise ValueError(f"nodes: need (M, 8), got {tuple(nodes.shape)}")
-    if (skip is None or skip.dtype != torch.int32 or skip.device != dev
-            or tuple(skip.shape) != (nodes.shape[0],)):
-        raise ValueError(f"skip: need ({nodes.shape[0]},) int32 on {dev}")
+    check_leaf_real(leaf_real, nodes)
+    if depth > STACK:
+        raise ValueError(f"tree depth {depth} exceeds the kernel's "
+                         f"{STACK}-entry stack")
     if rays.shape[0] != 12 or tuple(jitter.shape) != (2, B):
         raise ValueError(f"rays {tuple(rays.shape)} / jitter "
                          f"{tuple(jitter.shape)} mismatch")
@@ -274,21 +287,20 @@ def bvh_ao_fused_kernel(tris, nodes, skip, rays, jitter, nact, ntheta: int,
     G = WARP // K
     perm = _device_consts(ntheta, nphi, K, dev)[0].to(torch.int32)
     occ = torch.empty(B, dtype=torch.float32, device=dev)
-    stats = torch.empty(2 * -(-B // G), dtype=torch.int32, device=dev)
+    stats = torch.empty(NSTAT * -(-B // G), dtype=torch.int32, device=dev)
     lib = library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lt_bvh_ao_fused(
             rays.data_ptr(), jitter.data_ptr(), B, nact.data_ptr(),
-            tris.data_ptr(), tris.shape[1], nodes.data_ptr(), skip.data_ptr(),
-            nodes.shape[0], perm.data_ptr(), S, K, warps, ntheta,
+            tris.data_ptr(), tris.shape[1], nodes.data_ptr(),
+            leaf_real.data_ptr(), perm.data_ptr(), S, K, warps, ntheta,
             1.0 / ntheta, 1.0 / nphi, occ.data_ptr(), stats.data_ptr(),
             stream,
         )
     check("lt_bvh_ao_fused", err)
     FUSED_COUNTS.kernel += 1
-    s = stats.view(-1, 2).sum(dim=0, dtype=torch.int64)
-    return occ, {"ntrav": s[0], "ntests": s[1] * TC}
+    return occ, walk_stats(stats)
 
 
 def bvh_ao_fused_reference(tris, rays, u01, ntheta: int, nphi: int,

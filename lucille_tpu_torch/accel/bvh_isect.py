@@ -13,9 +13,15 @@ tested in; a triangle id can differ only at an exact tie in t across two
 leaves, where the kernel keeps the one it visited first and the twin the
 lowest slot.
 
-Counters (the port's own definition; only nrays is held to lucille_tpu):
-``ntrav`` is node visits summed over rays; ``ntests`` is leaf triangles
-tested, leaf tiles x 128, summed over rays; ``nmiss`` is 0, because the
+Counters (the port's own definition; only nrays is held to lucille_tpu).
+The closest hit (one thread a ray): ``ntrav`` is node visits summed over
+rays, ``ntests`` leaf triangles tested, leaf tiles x 128, summed over
+rays.  The any-hit (one walk a warp, csrc/bvh.cu): ``ntrav`` is node
+visits summed over the lanes that reach the node, ``ntests`` real
+triangles tested summed over lanes; ``warp_ntrav`` and ``warp_ntests``
+are the warps' own node visits and triangle steps (a step tests one leaf
+triangle for every lane that still needs it), so ntests / (32
+warp_ntests) is the walk's SIMT efficiency.  ``nmiss`` is 0, because the
 kernels read triangles from HBM through L2 and keep no tile cache whose
 misses lucille_tpu's counter would count.  The twins visit no node
 (ntrav 0) and test every slot for every ray.
@@ -34,9 +40,10 @@ from lucille_tpu_torch.accel.isect import (
 from lucille_tpu_torch.accel.pack import TC
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 
-STACK = 64  # per-thread stack entries of csrc/bvh.cu
+STACK = 64  # stack entries of csrc/bvh.cu's walks (per thread or warp)
 BLOCK = 128  # rays per CUDA block
 WARP = 32
+NSTAT = 4  # the warp walk's counters a warp (csrc/bvh.cu)
 
 CLOSEST_COUNTS = LaunchCounts()
 ANY_COUNTS = LaunchCounts()
@@ -77,6 +84,24 @@ def _stats(stats: torch.Tensor) -> dict:
     return {"ntrav": s[0], "ntests": s[1] * TC}
 
 
+def walk_stats(stats: torch.Tensor) -> dict:
+    """The warp walk's NSTAT counters, summed on the device (module
+    docstring)."""
+    s = stats.view(-1, NSTAT).sum(dim=0, dtype=torch.int64)
+    return {"ntrav": s[0], "ntests": s[1], "warp_ntrav": s[2],
+            "warp_ntests": s[3]}
+
+
+def check_leaf_real(leaf_real, nodes) -> None:
+    """The kernels' real-triangle count per leaf: (M,) int32 beside the
+    node pack (scene.leaf_real)."""
+    if (leaf_real is None or leaf_real.dtype != torch.int32
+            or leaf_real.device != nodes.device
+            or tuple(leaf_real.shape) != (nodes.shape[0],)):
+        raise ValueError(f"leaf_real: need ({nodes.shape[0]},) int32 on "
+                         f"{nodes.device}")
+
+
 def bvh_closest_hit(tris, nodes, org, dirn, tmax=None, active=None, *,
                     depth: int) -> dict:
     """tris (16, Npad) [v0|e1|e2] from pack_tris, nodes (M, 8) from
@@ -108,24 +133,29 @@ def bvh_closest_hit(tris, nodes, org, dirn, tmax=None, active=None, *,
     return {"t": t, "u": u, "v": v, "tri": tri, **_stats(stats)}
 
 
-def bvh_any_hit(tris, nodes, org, dirn, tmax=None, *, depth: int) -> dict:
-    """Operands as bvh_closest_hit.  Returns {occ (B,) bool: some triangle
-    is hit with 0 < t < tmax, ntrav, ntests () i64}."""
+def bvh_any_hit(tris, nodes, org, dirn, tmax=None, *, depth: int,
+                leaf_real=None) -> dict:
+    """Operands as bvh_closest_hit; leaf_real (M,) int32, each leaf's
+    real triangles (scene.leaf_real), which the kernel needs.  Returns
+    {occ (B,) bool: some triangle is hit with 0 < t < tmax, ntrav, ntests
+    () i64}, from the kernel also warp_ntrav and warp_ntests."""
     tmax = _inputs(tris, nodes, org, dirn, tmax, depth)
     if org.device.type == "cpu":
         return bvh_any_hit_reference(tris, org, dirn, tmax)
     if org.device.type != "cuda":
         raise ValueError(f"unsupported device {org.device}")
+    check_leaf_real(leaf_real, nodes)
     B = org.shape[0]
     dev = org.device
     occ = torch.empty(B, dtype=torch.bool, device=dev)
-    stats = torch.empty(2 * -(-B // BLOCK) * (BLOCK // WARP),
+    stats = torch.empty(NSTAT * -(-B // BLOCK) * (BLOCK // WARP),
                         dtype=torch.int32, device=dev)
     _launch("lt_bvh_any_hit", dev, org.data_ptr(), dirn.data_ptr(),
             tmax.data_ptr(), B, tris.data_ptr(), tris.shape[1],
-            nodes.data_ptr(), occ.data_ptr(), stats.data_ptr())
+            nodes.data_ptr(), leaf_real.data_ptr(), occ.data_ptr(),
+            stats.data_ptr())
     ANY_COUNTS.kernel += 1
-    return {"occ": occ, **_stats(stats)}
+    return {"occ": occ, **walk_stats(stats)}
 
 
 def _plain_stats(tris, B, dev) -> dict:

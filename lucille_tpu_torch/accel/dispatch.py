@@ -60,7 +60,8 @@ def any_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
     org, dirn = org.contiguous(), dirn.contiguous()
     if scene.accel == "pbvh":
         res = bvh_isect.bvh_any_hit(scene.tris, scene.nodes, org, dirn,
-                                    tmax, depth=scene.tree_depth)
+                                    tmax, depth=scene.tree_depth,
+                                    leaf_real=scene.leaf_real)
         if active is not None:
             res["occ"] = res["occ"] & active
         return res

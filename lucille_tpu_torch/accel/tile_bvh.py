@@ -100,6 +100,33 @@ def node_arrays(node_bbmin, node_bbmax, node_skip, node_first, node_count):
     return nbox, nmeta
 
 
+def leaf_real(node_first, node_count, tri_v0, tri_e1, tri_e2) -> np.ndarray:
+    """(M,) int32: how many slots of each leaf's tile run hold real
+    triangles, 0 on inner nodes (the warp walk of csrc/bvh.cu stages those
+    and no padding).  A leaf's real triangles lead its run and its padding
+    slots are all-zero triangles (build_tile_bvh's src < 0, in this
+    package's compile and in lucille_tpu's), so the count is one past the
+    run's last slot that is not all zero: build_tile_bvh's count of the
+    leaf, unless a leaf's last real triangle has all three corners at the
+    origin, which no test can hit.  Counted from the arrays, not from
+    build_tile_bvh, because scene/types.from_numpy also takes lucille_tpu's
+    SceneArrays, which do not carry the counts."""
+    first = np.asarray(node_first).astype(np.int64)
+    count = np.asarray(node_count).astype(np.int64)
+    out = np.zeros(count.shape[0], dtype=np.int32)
+    leaves = np.flatnonzero(count > 0)
+    if len(leaves) == 0:
+        return out
+    tri = np.concatenate([np.asarray(a, dtype=np.float32).reshape(-1, 3)
+                          for a in (tri_v0, tri_e1, tri_e2)], axis=1)
+    n = tri.shape[0]
+    slot = np.where((tri != 0).any(axis=1), np.arange(1, n + 1), 0)
+    start = first[leaves] * TC  # leaves' runs are contiguous, in node order
+    last = np.maximum.reduceat(slot, start)  # each run (the last to n)
+    out[leaves] = np.clip(last - start, 0, count[leaves] * TC)
+    return out
+
+
 def tree_depth(nodes) -> int:
     """Depth of the deepest node of a `pack_nodes` pack (the root is at
     depth 0): the most entries a near-first walk holds on its stack."""

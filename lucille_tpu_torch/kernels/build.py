@@ -53,12 +53,12 @@ SIGNATURES = {
     # stream
     "lt_bvh_closest_hit": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,
                            _P, _P),
-    # org, dir, tmax, B, tris, npad, nodes, occ, stats, stream
-    "lt_bvh_any_hit": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
-    # rays, jitter, B, nact, tris, npad, nodes, skip, n_nodes, perm, S, K,
+    # org, dir, tmax, B, tris, npad, nodes, leaf_real, occ, stats, stream
+    "lt_bvh_any_hit": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P),
+    # rays, jitter, B, nact, tris, npad, nodes, leaf_real, perm, S, K,
     # warps, ntheta, inv_ntheta, inv_nphi, occ, stats, stream
-    "lt_bvh_ao_fused": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _I,
-                        _I, _I, _F, _F, _P, _P, _P),
+    "lt_bvh_ao_fused": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                        _I, _F, _F, _P, _P, _P),
 }
 
 

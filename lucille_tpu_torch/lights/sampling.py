@@ -21,11 +21,10 @@ environment maps are ROADMAP Queue 1).
 from __future__ import annotations
 
 import math
-from functools import lru_cache
 
 import torch
 
-from lucille_tpu_torch.accel.ao import MAX_TRIS_FOR_MEGAKERNEL, ao_occlusion
+from lucille_tpu_torch.accel.ao import ao_occlusion
 from lucille_tpu_torch.accel.bvh_ao import bvh_ao_occlusion
 from lucille_tpu_torch.accel.dispatch import any_hit
 from lucille_tpu_torch.device import const_vec
@@ -40,20 +39,13 @@ from lucille_tpu_torch.lights.tables import (
     LIGHT_SUNSKY,
 )
 from lucille_tpu_torch.shading.reflection import _dot, cosweight_sample
-from lucille_tpu_torch.transport.ao import _norm, ortho_basis
+from lucille_tpu_torch.transport.ao import _norm, dense_scan, ortho_basis
 
 GATHER_LIGHTS = (LIGHT_DOME, LIGHT_AREA, LIGHT_SUNSKY, LIGHT_IBL)
 
 
 def _vec(x, like: torch.Tensor) -> torch.Tensor:
     return const_vec(x, like.device)
-
-
-@lru_cache(maxsize=None)
-def _area_tables(light, device: torch.device):
-    """An area light's (area_cdf, v0, e1, e2) on `device`, copied once."""
-    return tuple(torch.from_numpy(light.tris[k]).to(device)
-                 for k in ("area_cdf", "v0", "e1", "e2"))
 
 
 def light_color(light, like: torch.Tensor) -> torch.Tensor:
@@ -82,10 +74,11 @@ def _shadow(scene, P, N, wi, tmax=None, active=None) -> torch.Tensor:
 
 
 def sample_area_light(light, u: torch.Tensor):
-    """Uniform points on an area light's triangles.  u: (B, 3) uniforms ->
+    """Uniform points on an area light's triangles.  u: (B, 3) uniforms on
+    the device of the light's tables (lights/tables.LightEntry.area) ->
     (points (B, 3), normals (B, 3), pdf_area (B,))."""
     tris = light.tris
-    cdf, v0, e1, e2 = _area_tables(light, u.device)
+    cdf, v0, e1, e2 = light.area
     # torch's right=False is jnp.searchsorted's default, side="left"
     ti = torch.clamp(torch.searchsorted(cdf, u[:, 0].contiguous()), 0,
                      len(cdf) - 1)
@@ -121,7 +114,7 @@ def _hemisphere_occlusion(scene, P, N, key, nsamples: int, active):
         B, dtype=torch.bool, device=P.device)
     b0, b1, b2 = ortho_basis(N)
     P_off = P + N * scene.eps
-    if scene.accel == "dense" and scene.tri_v0.shape[0] <= MAX_TRIS_FOR_MEGAKERNEL:
+    if scene.accel == "dense" and not dense_scan(scene):
         return ao_occlusion(scene, P_off, b0, b1, b2, hit,
                             key.uniform((2, B)), nt, nph)
     if scene.accel == "pbvh" and scene.n_nodes > 0:

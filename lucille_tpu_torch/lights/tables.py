@@ -8,7 +8,9 @@ on device).
 
 The port's copy of lucille_tpu/lights/tables.py: the same code, except
 that a dome or IBL light with an environment texture raises (`_load_env`:
-the port has no environment maps yet).
+the port has no environment maps yet), and that an area light carries its
+sampling tables on the render device (`LightEntry.area`), built with the
+tables, once, where lucille_tpu uploads them at trace time.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+import torch
 
 LIGHT_DISTANT = "distant"
 LIGHT_SUN = "sun"
@@ -45,6 +48,10 @@ class LightEntry:
     ibl_sampler: str = "cosweight"
     sunsky: Any = None
     env: Any = None  # lights.envmap.EnvMap or None
+    # area lights: (area_cdf, v0, e1, e2) of `tris` as tensors on the
+    # render device, built once with the tables (lights/sampling.py reads
+    # them inside the tiles, where a copy would make the host wait)
+    area: Any = field(default=None, compare=False)
 
     def __hash__(self):  # static jit argument
         return hash((self.type, self.position, self.direction, self.color,
@@ -77,8 +84,9 @@ def _load_env(li, desc):
         "ported yet (ROADMAP Queue 1)")
 
 
-def build_light_tables(desc, scene=None) -> LightTables:
-    """SceneDescription.lights -> LightTables.
+def build_light_tables(desc, scene=None, device="cpu") -> LightTables:
+    """SceneDescription.lights -> LightTables, an area light's sampling
+    tables on `device`.
 
     When no light exists, a default dome light is created — matching the
     reference's fallback (render.c:516-536, "There is no light. create
@@ -86,7 +94,7 @@ def build_light_tables(desc, scene=None) -> LightTables:
     """
     entries = []
     for li in desc.lights:
-        tris = None
+        tris = area = None
         if li.geom_index >= 0 and li.geom_index < len(desc.geoms):
             g = desc.geoms[li.geom_index]
             if g.ntriangles > 0:
@@ -103,6 +111,8 @@ def build_light_tables(desc, scene=None) -> LightTables:
                     area_cdf=cdf.astype(np.float32),
                     total_area=total,
                 )
+                area = tuple(torch.from_numpy(tris[k]).to(device)
+                             for k in ("area_cdf", "v0", "e1", "e2"))
         entries.append(
             LightEntry(
                 type=li.type,
@@ -114,6 +124,7 @@ def build_light_tables(desc, scene=None) -> LightTables:
                 ibl_sampler=li.ibl_sampler,
                 sunsky=li.sunsky,
                 env=_load_env(li, desc),
+                area=area,
             )
         )
     if not entries:

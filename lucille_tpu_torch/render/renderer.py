@@ -18,14 +18,14 @@ single device:
   (0 where the integrator reports none, as lucille_tpu's Whitted and path
   tracer do);
 - the light tables are built once (lucille_tpu/render/renderer.py:
-  209-211) and handed to the integrator: a sunsky light turns the AO
-  gather into the sunsky gather; a scene without lights gets the
-  reference's constant dome.
+  209-211), an area light's device tables with them, and handed to the
+  integrator: a sunsky light turns the AO gather into the sunsky gather;
+  a scene without lights gets the reference's constant dome.
 
 Scenes that need what the port does not have yet raise
 NotImplementedError: displacement, textures, atmosphere, imager, a light
-with an environment texture, sunsky AO on the dense tiles above
-131,072 triangles, depth of field, the dirtmap and shader methods.
+with an environment texture, depth of field, the dirtmap and shader
+methods.
 """
 
 from __future__ import annotations
@@ -46,8 +46,7 @@ from lucille_tpu_torch.ri.camera import generate_rays
 from lucille_tpu_torch.sampling.hammersley import subpixel_samples
 from lucille_tpu_torch.sampling.jitter import TileSampler
 from lucille_tpu_torch.scene.compile import compile_scene
-from lucille_tpu_torch.transport.ao import sunsky_unported
-from lucille_tpu_torch.transport.dispatch import get_integrator, renders_ao
+from lucille_tpu_torch.transport.dispatch import get_integrator
 
 
 def unsupported_features(desc) -> list[str]:
@@ -101,18 +100,12 @@ class Renderer:
         self.tile_size = int(tile_size)
         self.device = resolve_device(device)
         self.integrator = get_integrator(desc.options.render_method)
-        sunsky_ao = renders_ao(desc.options.render_method)
         timer = get_timer()
         timer.start("Scene compile")
         self.scene = compile_scene(desc, self.device)
         timer.end("Scene compile")
         self.camera = desc.camera
-        self.lights = build_light_tables(desc)
-        if sunsky_ao and any(li.type == "sunsky" and li.sunsky is not None
-                             for li in self.lights):
-            refusal = sunsky_unported(self.scene)
-            if refusal:
-                raise NotImplementedError(refusal)
+        self.lights = build_light_tables(desc, device=self.device)
         self.sampler = sampler or TileSampler(seed, self.device)
         self.stats = RenderStats()
 

@@ -16,8 +16,9 @@ are f32, integers i32, on one explicit device.
 - accel "pbvh": the triangles in the tile BVH's leaf order, every leaf
   padded to whole tiles; the node arrays are the tree, and `nodes` is
   their pack for the kernels (accel/pack.pack_nodes), with the tree's
-  depth and the nodes' skip links (the fused AO gather's stackless walk)
-  beside it, and `tris` as on the dense accel.
+  depth and each leaf's count of real triangles (`leaf_real`,
+  accel/tile_bvh.leaf_real: the any-hit and fused gather's warp walk
+  stages no padding) beside it, and `tris` as on the dense accel.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ class SceneTensors:
     accel: str = "dense"  # "dense" or "pbvh" (module docstring)
     nodes: torch.Tensor | None = None  # (M, 8) pack_nodes layout, pbvh only
     tree_depth: int = 0  # depth of the deepest node, pbvh only
-    skip: torch.Tensor | None = None  # (M,) i32 skip links, pbvh only
+    leaf_real: torch.Tensor | None = None  # (M,) i32 real tris a leaf, pbvh
     # the kernels' packs (module docstring), built by from_numpy
     tris: torch.Tensor | None = None  # (16, Npad) pack_tris
     occ: torch.Tensor | None = None  # (16, Npad) pack_occ, dense only
@@ -124,11 +125,14 @@ def from_numpy(scene_arrays, device) -> SceneTensors:
         accel = "dense"
     elif accel == "pbvh" and scene_arrays.n_nodes > 0:
         from lucille_tpu_torch.accel.pack import pack_nodes
-        from lucille_tpu_torch.accel.tile_bvh import tree_depth
+        from lucille_tpu_torch.accel.tile_bvh import leaf_real, tree_depth
 
         nodes = pack_nodes(scene_arrays)
+        real = leaf_real(scene_arrays.node_first, scene_arrays.node_count,
+                         scene_arrays.tri_v0, scene_arrays.tri_e1,
+                         scene_arrays.tri_e2)
         extra = {"nodes": nodes.to(device), "tree_depth": tree_depth(nodes),
-                 "skip": _to_tensor(scene_arrays.node_skip, device)}
+                 "leaf_real": _to_tensor(real, device)}
     else:
         raise NotImplementedError(
             f"accel {accel!r} is not ported: the port has the dense tiles "

@@ -8,7 +8,10 @@ background.  The accel picks the kernels, as lucille_tpu/transport/
 ao.py:136-171 does:
 
 - dense: the dense closest hit (csrc/isect.cu) and the fused gather
-  (csrc/ao.cu);
+  (csrc/ao.cu) up to MAX_TRIS_FOR_MEGAKERNEL padded triangles; above
+  it, as lucille_tpu (ao.py:173-195), a scan over the strata, each
+  stratum's rays, with their own jitter, through the dense any-hit
+  (`_scan_occlusion`);
 - pbvh: the tile-BVH closest hit and the cone-tiled gather through the
   tile-BVH any-hit (csrc/bvh.cu); the gather's node visits and triangle
   tests join the eye rays' counters.
@@ -20,18 +23,21 @@ light, one shadow ray toward the sun (the dense any-hit, or the tile
 BVH's) that adds the sun's colour where it is open; ``Lo = col / (pi
 S)``, then the same modulation.  On the dense accel the fused gather's
 per-stratum bits say which strata are open (`ao_occlusion_bits`) and the
-directions are recomputed with the kernel's formula; on the tile BVH the
-cone-tiled gather rays carry the sky directly (`bvh_ao_sunsky`).
+directions are recomputed with the kernel's formula, or, above the
+threshold, the strata are scanned (`_scan_sunsky`, lucille_tpu's
+ao.py:230-257); on the tile BVH the cone-tiled gather rays carry the sky
+directly (`bvh_ao_sunsky`).
 
 The per-lane jitter is the tile's own draw from its random stream
 (sampling/jitter.py), stream.uniform((), (2, B)), as lucille_tpu's is
 uniform(key, (2, B)); the same draw for plain and sunsky AO.  On the
-dense accel
-column j belongs to compacted hit slot j (the fused kernel's lane
-order); on the tile BVH it belongs to raster lane j, because
+dense accel column j belongs to compacted hit slot j (the fused kernel's
+lane order); on the tile BVH it belongs to raster lane j, because
 lucille_tpu's `_stratified_dirs` draws its (2, B) uniforms on the
-unsorted wavefront.  Norms and sums are written as explicit
-left-to-right products so they round as the JAX package's do.
+unsorted wavefront.  The scans draw stream.uniform((si,), (B, 2)) for
+stratum si, as lucille_tpu draws uniform(fold_in(key, si), (B, 2)).
+Norms and sums are written as explicit left-to-right products so they
+round as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -89,7 +95,7 @@ def ao_radiance(scene, org, dirn, stream, ntheta: int, nphi: int,
     (lights/tables.py); a "sunsky" light with a sky model switches to the
     sunsky gather, "sun" lights join it.  Returns (radiance (B, 3), aux
     with hit mask, t and the counters)."""
-    jitter = stream.uniform((), (2, org.shape[0]))
+    B = org.shape[0]
     res = closest_hit(scene, org, dirn)
     P_off, b0, b1, b2 = shading_frame(scene, org, dirn, res)
     hit = res["hit"]
@@ -97,18 +103,22 @@ def ao_radiance(scene, org, dirn, stream, ntheta: int, nphi: int,
                    if li.type == "sunsky" and li.sunsky is not None), None)
     if sunsky is not None:
         suns = [li for li in lights if li.type == "sun"]
-        return _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, jitter,
+        return _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, stream,
                               ntheta, nphi, sunsky.sunsky, suns, background,
-                              org.shape[0])
+                              B)
+    gather = {}
     if scene.accel == "pbvh":
-        occ, gather = bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter,
-                                       ntheta, nphi)
+        occ, gather = bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit,
+                                       stream.uniform((), (2, B)), ntheta,
+                                       nphi)
+    elif dense_scan(scene):
+        occ = _scan_occlusion(scene, P_off, b0, b1, b2, hit, stream, ntheta,
+                              nphi)
     else:
-        occ = ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta,
-                           nphi)
-        gather = {}
-    return _finish(scene, res, hit, occ, ntheta * nphi, background,
-                   org.shape[0], gather)
+        occ = ao_occlusion(scene, P_off, b0, b1, b2, hit,
+                           stream.uniform((), (2, B)), ntheta, nphi)
+    return _finish(scene, res, hit, occ, ntheta * nphi, background, B,
+                   gather)
 
 
 def shading_frame(scene, org, dirn, res):
@@ -131,19 +141,61 @@ def _modulate(scene, res, hit, radiance):
     return radiance * torch.where(hit[..., None], cs, 1.0)
 
 
-def sunsky_unported(scene) -> str:
-    """Why the sunsky gather cannot run on this compiled scene, or "".
-    Above MAX_TRIS_FOR_MEGAKERNEL padded triangles on the dense tiles
-    lucille_tpu leaves its fused gather for a per-stratum scan with a
-    jitter of its own (ao.py:230-257), which the port does not copy."""
-    if scene.accel == "dense" and scene.n_pad > MAX_TRIS_FOR_MEGAKERNEL:
-        return (f"sunsky AO on the dense tiles above "
-                f"{MAX_TRIS_FOR_MEGAKERNEL} triangles ({scene.n_pad}) is not "
-                "ported yet (ROADMAP Queue 1); use --accel bvh")
-    return ""
+def dense_scan(scene) -> bool:
+    """Whether the AO gathers scan the strata through the dense any-hit:
+    a dense scene above MAX_TRIS_FOR_MEGAKERNEL padded triangles, the
+    count lucille_tpu compares (transport/ao.py:142-148, :212-215)."""
+    return (scene.accel == "dense"
+            and scene.tri_v0.shape[0] > MAX_TRIS_FOR_MEGAKERNEL)
 
 
-def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, jitter, ntheta,
+def _scan_dirs(b0, b1, b2, ur, si: int, ntheta: int, nphi: int):
+    """Stratum si's directions (B, 3) with uniforms ur (B, 2): the scans'
+    own formulas (lucille_tpu/transport/ao.py:176-189) as written there,
+    not stratum_directions': no R2 rotation, lz from cos_t squared."""
+    z0 = (float(si % ntheta) + ur[:, 0]) / ntheta
+    z1 = (float(si // ntheta) + ur[:, 1]) / nphi
+    cos_t = torch.sqrt(z0)
+    phi = 2.0 * math.pi * z1
+    lx = torch.cos(phi) * cos_t
+    ly = torch.sin(phi) * cos_t
+    lz = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    return lx[:, None] * b0 + ly[:, None] * b1 + lz[:, None] * b2
+
+
+def _scan_occlusion(scene, P_off, b0, b1, b2, hit, stream, ntheta: int,
+                    nphi: int):
+    """Occluded-strata counts (B,) f32, 0 where not hit, by the dense scan
+    (lucille_tpu/transport/ao.py:173-195): stratum si's rays, with the
+    jitter stream.uniform((si,), (B, 2)), through the dense any-hit (kernel
+    2 on the card), each stratum launched without a host sync."""
+    B = P_off.shape[0]
+    occ = torch.zeros(B, dtype=torch.float32, device=P_off.device)
+    for si in range(ntheta * nphi):
+        wdir = _scan_dirs(b0, b1, b2, stream.uniform((si,), (B, 2)), si,
+                          ntheta, nphi)
+        occ = occ + any_hit(scene, P_off, wdir, active=hit)["occ"].to(
+            torch.float32)
+    return occ
+
+
+def _scan_sunsky(scene, P_off, b0, b1, b2, hit, stream, ntheta: int,
+                 nphi: int, sky):
+    """Sky radiance (B, 3) over each hit lane's open strata by the dense
+    scan (lucille_tpu/transport/ao.py:230-257): the strata and jitter of
+    `_scan_occlusion`, the sky along each open direction in its z-up
+    frame."""
+    B = P_off.shape[0]
+    col = torch.zeros((B, 3), dtype=torch.float32, device=P_off.device)
+    for si in range(ntheta * nphi):
+        wdir = _scan_dirs(b0, b1, b2, stream.uniform((si,), (B, 2)), si,
+                          ntheta, nphi)
+        vis = ~any_hit(scene, P_off, wdir, active=hit)["occ"] & hit
+        col = col + vis[:, None] * sky.sky_rgb(sky_frame(wdir))
+    return col
+
+
+def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, stream, ntheta,
                    nphi, sky, suns, background: float, B: int):
     """Sunsky-AO gather (lucille_tpu/transport/ao.py:198-283): sky
     radiance over the unoccluded strata, one shadow ray toward each sun
@@ -152,15 +204,15 @@ def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, jitter, ntheta,
     ray per lane and S + len(suns) rays per hit (ao.py:275-277); the
     gather's own counters are dropped, as lucille_tpu drops them."""
     S = ntheta * nphi
-    refusal = sunsky_unported(scene)
-    if refusal:
-        raise NotImplementedError(refusal)
     if scene.accel == "pbvh":
-        col = bvh_ao_sunsky(scene, P_off, b0, b1, b2, hit, jitter, ntheta,
-                            nphi, sky)
-    else:
-        col = _sunsky_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta,
+        col = bvh_ao_sunsky(scene, P_off, b0, b1, b2, hit,
+                            stream.uniform((), (2, B)), ntheta, nphi, sky)
+    elif dense_scan(scene):
+        col = _scan_sunsky(scene, P_off, b0, b1, b2, hit, stream, ntheta,
                            nphi, sky)
+    else:
+        col = _sunsky_bits(scene, P_off, b0, b1, b2, hit,
+                           stream.uniform((), (2, B)), ntheta, nphi, sky)
     for sun in suns:
         wi = const_vec(sun.direction, P_off.device)
         wi = wi / torch.clamp_min(torch.sqrt(torch.sum(wi * wi)), 1e-20)

@@ -39,13 +39,6 @@ UNPORTED = {
 }
 
 
-def renders_ao(name: str) -> bool:
-    """Whether get_integrator(name) is the AO integrator (the AO names,
-    and any name it does not know)."""
-    name = (name or "").lower()
-    return name not in UNPORTED and name != "whitted" and name not in PATH_NAMES
-
-
 def get_integrator(name: str):
     name = (name or "").lower()
     if name in UNPORTED:

@@ -1,30 +1,44 @@
 #!/usr/bin/env python3
-"""The dense AO gather's kernel time (csrc/ao.cu) at the three shapes the
-main paths give it, for comparing two trees in one call.
+"""The gather kernels' device time at the shapes the main paths give
+them, for comparing two trees in one call.
 
-    python3 profile_gather.py [TREE]
+    python3 profile_gather.py [TREE] [SHAPE ...]
 
 TREE is the root of a checkout of this repository (default: the
 directory of this script).  Its lucille_tpu_torch and chip_smoke are
 imported, and its kernels built, so `python3 profile_gather.py
 _archive/parent` times an unpacked parent commit with the same shapes
-and the same clock.  The shapes, each from TREE's chip_smoke helpers:
+and the same clock.  The shapes (default: all), each from TREE's
+chip_smoke helpers:
 
-(a) headline: the bundled scene's first 240x240 tile at 3x3 samples
+the dense AO gather (csrc/ao.cu, kernels 3 and 3b), through
+`accel.ao.ao_occlusion` / `ao_occlusion_bits`:
+  headline: the bundled scene's first 240x240 tile at 3x3 samples
     (518,400 lanes; 322 triangles in 4 tiles), 8x8 strata, the counts
     and the counts with bits;
-(b) heightfield91: the first 128x128x4 tile of the 16,200-triangle
+  heightfield91: the first 128x128x4 tile of the 16,200-triangle
     terrain (128 tiles), 8x8 strata, both outputs;
-(c) whitted-2x2: headline-whitted's first-bounce dome gather on the
-    bundled tile, 2x2 strata, the counts.
+  whitted-2x2: headline-whitted's first-bounce dome gather on the
+    bundled tile, 2x2 strata, the counts;
+the tile-BVH kernels (csrc/bvh.cu) on the first 128x128x4 tile of
+bench_large's terrain at n = 256 (130,050 triangles) and n = 724
+(1,045,458), through the public entry points:
+  cone256, cone724: the cone-tiled gather at 8x8 strata
+    (`accel.bvh_ao.bvh_ao_occlusion` under LUCILLE_BVH_AO=cone): kernel
+    5 on 4,194,304 gather rays;
+  fused256, fused724: the fused gather at 8x8 strata (the same call
+    under LUCILLE_BVH_AO=fused): kernel 6;
+  fused256-2x2: kernel 6 on the n = 256 Whitted frame's first-bounce
+    dome gather, 2x2 strata;
+  closest256, closest724: kernel 4 on the tile's 65,536 eye rays
+    (`accel.dispatch.closest_hit`).
 
-Each runs through the public gather (`accel.ao.ao_occlusion` /
-`ao_occlusion_bits`) REPS times under torch.profiler; the kernel time is
-the mean device time of the events named `ao_kernel<...>`, one a call.
-Prints the card's nvidia-smi name and power limit and one line per
-(shape, output); the instantiations' registers and spills are
-chip_smoke.py's to print.  Needs one card; imports nothing of
-lucille_tpu.
+Each call runs REPS times under torch.profiler; the kernel time is the
+mean device time of the CUDA events whose names hold the kernel's (one
+a call; the names any tree of this repository has given it).  Prints
+the card's nvidia-smi name and power limit and one line per (shape,
+output); the kernels' registers and spills are chip_smoke.py's to
+print.  Needs one card; imports nothing of lucille_tpu.
 """
 
 from __future__ import annotations
@@ -35,11 +49,18 @@ import sys
 from pathlib import Path
 
 REPS = 10
+# kernel -> the substrings its CUDA event's name holds, in any tree
+NAMES = {
+    "ao_kernel": ("ao_kernel<",),
+    "bvh_any_hit": ("bvh_kernel<true>", "bvh_any_kernel"),
+    "bvh_ao_fused": ("bvh_ao_kernel",),
+    "bvh_closest_hit": ("bvh_kernel<false>", "bvh_closest_kernel"),
+}
 
 
-def kernel_ms(fn, reps: int = REPS) -> tuple[float, str]:
-    """(mean device ms of the ao_kernel launches of reps calls of fn, the
-    kernel's name), after one call."""
+def kernel_ms(fn, kernel: str, reps: int = REPS) -> tuple[float, str]:
+    """(mean device ms of `kernel`'s launches over reps calls of fn, the
+    event's name), after one call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -52,15 +73,18 @@ def kernel_ms(fn, reps: int = REPS) -> tuple[float, str]:
             fn()
         torch.cuda.synchronize()
     ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-          and "ao_kernel<" in e.name and "bvh_ao_kernel" not in e.name]
+          and any(n in e.name for n in NAMES[kernel])
+          and not (kernel == "ao_kernel" and "bvh_ao_kernel" in e.name)]
     if len(ks) != reps:
-        raise AssertionError(f"{len(ks)} ao_kernel launches for {reps} calls")
+        raise AssertionError(f"{len(ks)} {kernel} launches for {reps} calls")
     us = sum(e.time_range.end - e.time_range.start for e in ks) / reps
-    return us / 1e3, re.search(r"ao_kernel<[^>]*>", ks[0].name).group(0)
+    name = re.search(r"[A-Za-z_]+(<[^>]*>)?(?=\()", ks[0].name)
+    return us / 1e3, name.group(0) if name else ks[0].name[:60]
 
 
 def main(argv) -> int:
     tree = Path(argv[0] if argv else Path(__file__).parent).resolve()
+    wanted = set(argv[1:])
     sys.path.insert(0, str(tree))
     import torch
 
@@ -68,7 +92,8 @@ def main(argv) -> int:
         print("profile_gather: no CUDA card visible", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from lucille_tpu_torch.accel import ao
+    from lucille_tpu_torch.accel import ao, bvh_ao
+    from lucille_tpu_torch.accel.dispatch import closest_hit
     from lucille_tpu_torch.render.renderer import Renderer
 
     print(subprocess.run(
@@ -77,27 +102,79 @@ def main(argv) -> int:
     ).stdout.strip().splitlines()[0], flush=True)
     print(f"tree {tree}", flush=True)
 
-    def renderer(state, tile):
-        return Renderer(state.scene, tile_size=tile, device="cuda")
+    renderers = {}
 
-    shapes = (
-        ("headline", renderer(cs.bundled_state(640, 480, 3, 64, sunsky=False),
-                              cs.TILE), cs.ao_gather_inputs, 8, 8, True),
-        ("heightfield91", renderer(cs.heightfield_state(91), 128),
-         cs.ao_gather_inputs, 8, 8, True),
-        ("whitted-2x2", renderer(cs.bundled_state(
-            640, 480, 3, sunsky=False, method="whitted"), cs.TILE),
-         cs.whitted_gather_inputs, 2, 2, False),
-    )
-    for label, r, make_inputs, nt, nph, both in shapes:
+    def renderer(key, make_state, tile):
+        if key not in renderers:
+            renderers[key] = Renderer(make_state().scene, tile_size=tile,
+                                      device="cuda")
+        return renderers[key]
+
+    def dense(label, make_state, tile, make_inputs, nt, nph, both):
+        r = renderer(label, make_state, tile)
         P_off, b0, b1, b2, hit, jitter = make_inputs(r)
         nhit = int(hit.sum())
         for fn in (ao.ao_occlusion, ao.ao_occlusion_bits)[: 2 if both else 1]:
             ms, name = kernel_ms(lambda: fn(r.scene, P_off, b0, b1, b2, hit,
-                                            jitter, nt, nph))
+                                            jitter, nt, nph), "ao_kernel")
             print(f"[{label}] {fn.__name__}: {P_off.shape[0]} lanes, {nhit} "
                   f"hit, {nt}x{nph} strata: kernel {ms:.3f} ms ({name})",
                   flush=True)
+
+    def bvh_gather(label, n, method, make_inputs, nt, nph, mode):
+        r = renderer(f"hf{n}-{method}", lambda: cs.heightfield_state(
+            n, method=method), 128)
+        P_off, b0, b1, b2, hit, jitter = make_inputs(r)
+        kernel = "bvh_ao_fused" if mode == "fused" else "bvh_any_hit"
+        with cs.bvh_ao_mode(mode):
+            ms, name = kernel_ms(lambda: bvh_ao.bvh_ao_occlusion(
+                r.scene, P_off, b0, b1, b2, hit, jitter, nt, nph), kernel)
+        print(f"[{label}] {kernel}: {P_off.shape[0]} lanes, "
+              f"{int(hit.sum())} hit, {nt}x{nph} strata, {mode} gather: "
+              f"kernel {ms:.3f} ms ({name})", flush=True)
+
+    def closest(label, n):
+        r = renderer(f"hf{n}-None", lambda: cs.heightfield_state(n), 128)
+        org, dirn, _x0, _y0 = cs.first_tile_rays(r)
+        ms, name = kernel_ms(lambda: closest_hit(r.scene, org, dirn),
+                             "bvh_closest_hit")
+        print(f"[{label}] bvh_closest_hit: {org.shape[0]} eye rays: kernel "
+              f"{ms:.3f} ms ({name})", flush=True)
+
+    bundled = lambda **kw: cs.bundled_state(  # noqa: E731
+        640, 480, 3, sunsky=False, **kw)
+    shapes = {
+        "headline": lambda: dense(
+            "headline", lambda: bundled(gather=64), cs.TILE,
+            cs.ao_gather_inputs, 8, 8, True),
+        "heightfield91": lambda: dense(
+            "heightfield91", lambda: cs.heightfield_state(91), 128,
+            cs.ao_gather_inputs, 8, 8, True),
+        "whitted-2x2": lambda: dense(
+            "whitted-2x2", lambda: bundled(method="whitted"), cs.TILE,
+            cs.whitted_gather_inputs, 2, 2, False),
+        "cone256": lambda: bvh_gather("cone256", 256, None,
+                                      cs.ao_gather_inputs, 8, 8, "cone"),
+        "cone724": lambda: bvh_gather("cone724", 724, None,
+                                      cs.ao_gather_inputs, 8, 8, "cone"),
+        "fused256": lambda: bvh_gather("fused256", 256, None,
+                                       cs.ao_gather_inputs, 8, 8, "fused"),
+        "fused724": lambda: bvh_gather("fused724", 724, None,
+                                       cs.ao_gather_inputs, 8, 8, "fused"),
+        "fused256-2x2": lambda: bvh_gather(
+            "fused256-2x2", 256, "whitted", cs.whitted_gather_inputs, 2, 2,
+            "fused"),
+        "closest256": lambda: closest("closest256", 256),
+        "closest724": lambda: closest("closest724", 724),
+    }
+    unknown = wanted - set(shapes)
+    if unknown:
+        print(f"profile_gather: unknown shapes {sorted(unknown)}; know "
+              f"{list(shapes)}", file=sys.stderr)
+        return 2
+    for label, run in shapes.items():
+        if not wanted or label in wanted:
+            run()
     return 0
 
 

@@ -126,6 +126,53 @@ def test_node_arrays_equal_jax():
         assert 0 < tree_depth(pack_nodes(sc)) < sc.n_nodes
 
 
+@pytest.mark.parametrize("budget", [16384, 24])
+def test_leaf_real_counts_the_real_slots(budget, monkeypatch):
+    """scene.leaf_real, each leaf's count of real triangles (the warp
+    walk of csrc/bvh.cu stages those and no padding), equals the count of
+    build_tile_bvh's real slots (src >= 0) in every leaf: one-tile leaves
+    at lucille_tpu's node budget, multi-tile ones at 24 nodes; and
+    lucille_tpu's SceneArrays of the same soup give the same counts."""
+    import functools
+
+    from lucille_tpu_torch.accel import tile_bvh
+    from lucille_tpu_torch.accel.pack import TC
+    from lucille_tpu_torch.ri.types import (
+        AttributeState,
+        GeomData,
+        SceneDescription,
+    )
+    from lucille_tpu_torch.scene.compile import compile_scene
+    from lucille_tpu_torch.scene.types import from_numpy
+
+    v0, v1, v2 = (a.astype(np.float32) for a in _random_soup(1500, seed=1))
+    n = len(v0)
+    desc = SceneDescription()
+    desc.geoms.append(GeomData(
+        positions=np.concatenate([v0, v1, v2]),
+        indices=np.stack([np.arange(n), np.arange(n) + n,
+                          np.arange(n) + 2 * n], -1).astype(np.int32),
+        attrs=AttributeState()))
+    desc.options.accel_method = "bvh"
+    build = tile_bvh.build_tile_bvh
+    monkeypatch.setattr(tile_bvh, "build_tile_bvh",
+                        functools.partial(build, node_budget=budget))
+    scene = compile_scene(desc, "cpu")
+    src, _nbox, nmeta, m = build(v0, v1, v2, node_budget=budget)
+    want = np.zeros(m, dtype=np.int32)
+    for i in np.flatnonzero(nmeta[2] > 0):
+        lo, hi = nmeta[1][i] * TC, (nmeta[1][i] + nmeta[2][i]) * TC
+        want[i] = (src[lo:hi] >= 0).sum()
+    got = scene.leaf_real.numpy()
+    assert scene.leaf_real.dtype == torch.int32
+    np.testing.assert_array_equal(got, want)
+    assert want.sum() == n and (nmeta[2].max() > 1) == (budget == 24)
+    assert (got < nmeta[2] * TC).any()  # some leaf ends in padding
+    if budget == 16384:
+        jax_scene = from_numpy(_scene_from_tris(v0, v1, v2, "bvh"), "cpu")
+        np.testing.assert_array_equal(jax_scene.leaf_real.numpy(), want)
+
+
 def _bvh_cases():
     return {
         "soup700": lambda: (_soup(), *_soup_rays(512)),

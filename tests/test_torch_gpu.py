@@ -30,9 +30,14 @@ def _need_card():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
 
-def _soup_scene(n, seed=5, accel="pallas"):
+def _soup_scene(n, seed=5, accel="pallas", node_budget=None):
     """n random triangles in a 10-unit box, as a scene on cuda (the dense
-    tiles, or the tile BVH with accel="bvh")."""
+    tiles, or the tile BVH with accel="bvh"; a small node_budget makes
+    its leaves grow to several tiles)."""
+    import functools
+    from unittest import mock
+
+    from lucille_tpu_torch.accel import tile_bvh
     from lucille_tpu_torch.ri.types import (
         AttributeState,
         GeomData,
@@ -48,7 +53,12 @@ def _soup_scene(n, seed=5, accel="pallas"):
     desc.geoms.append(GeomData(positions=pos, indices=idx.astype(np.int32),
                                attrs=AttributeState()))
     desc.options.accel_method = accel
-    return compile_scene(desc, "cuda")
+    if node_budget is None:
+        return compile_scene(desc, "cuda")
+    build = functools.partial(tile_bvh.build_tile_bvh,
+                              node_budget=node_budget)
+    with mock.patch.object(tile_bvh, "build_tile_bvh", build):
+        return compile_scene(desc, "cuda")
 
 
 def _gather_inputs(n_tris, B):
@@ -316,12 +326,123 @@ def test_bvh_any_hit_kernel_matches_plain(bounded):
                          device="cuda") if bounded else None)
     tris = pack_tris(scene)
     got = bvh_isect.bvh_any_hit(tris, scene.nodes, o, d, tmax,
-                                depth=scene.tree_depth)
+                                depth=scene.tree_depth,
+                                leaf_real=scene.leaf_real)
     ref = bvh_isect.bvh_any_hit_reference(
         tris, o, d, torch.full((5000,), float("inf"), device="cuda")
         if tmax is None else tmax)
     assert 0.1 < ref["occ"].float().mean() < 0.95
     assert (got["occ"] != ref["occ"]).float().mean() <= 1e-3
+    _check_walk_stats(got, 5000)
+
+
+def _check_walk_stats(res, n_rays):
+    """The warp walk's counters: lane work within 32 lanes of the warps'
+    work, and some of each."""
+    ntrav, ntests = int(res["ntrav"]), int(res["ntests"])
+    wtrav, wtests = int(res["warp_ntrav"]), int(res["warp_ntests"])
+    assert n_rays <= ntrav <= 32 * wtrav
+    assert 0 < ntests <= 32 * wtests
+
+
+def _chain_tree(depth, n_real_max=128, seed=0):
+    """A tile BVH built by hand as a chain of `depth` inner nodes: inner
+    node i's first child is inner node i + 1 (the last one's a leaf), its
+    second a leaf; every box is the whole scene's, so every ray reaches
+    every node, and a walk that enters first children first holds `depth`
+    entries on its stack at the chain's end.  Each leaf is one tile of a
+    random soup's triangles, 1 to n_real_max of them real, the rest
+    padding.  Returns (tris (16, npad), nodes (M, 8), leaf_real (M,) i32)
+    on cuda, laid out as pack_tris, pack_nodes and scene.leaf_real."""
+    from lucille_tpu_torch.accel.pack import TC
+    from lucille_tpu_torch.accel.tile_bvh import tree_depth
+
+    n_leaves = depth + 1
+    m = 2 * depth + 1  # DFS: inner 0..depth-1, the chain's leaf, the rest
+    rng = np.random.default_rng(seed)
+    real = rng.integers(1, n_real_max + 1, n_leaves)
+    tris = np.zeros((16, n_leaves * TC), np.float32)
+    for tile, n in enumerate(real):
+        c = rng.uniform(-5, 5, (n, 3))
+        v = [c + rng.normal(0, 0.3, (n, 3)) for _ in range(3)]
+        cols = slice(tile * TC, tile * TC + n)
+        tris[0:3, cols] = v[0].T
+        tris[3:6, cols] = (v[1] - v[0]).T
+        tris[6:9, cols] = (v[2] - v[0]).T
+    nodes = np.zeros((m, 8), np.float32)
+    nodes[:, 0:3] = -7.0
+    nodes[:, 4:7] = 7.0
+    bits = nodes.view(np.int32)
+    leaf_real = np.zeros(m, np.int32)
+    for i in range(depth):
+        bits[i, 3] = -(i % 3 + 1)  # split axes x, y, z in turn
+        bits[i, 7] = 2 * depth - i  # the second child, after the chain
+    leaves = [depth] + [2 * depth - i for i in range(depth)]
+    for tile, node in enumerate(leaves):
+        bits[node, 3], bits[node, 7] = 1, tile
+        leaf_real[node] = real[tile]
+    assert tree_depth(nodes) == depth
+    return (torch.tensor(tris, device="cuda"),
+            torch.tensor(nodes, device="cuda"),
+            torch.tensor(leaf_real, device="cuda"))
+
+
+def _random_rays(B, seed, x_sign=None):
+    """B rays from inside the soups' box in random directions; x_sign
+    +1 points every direction's x up (the lanes agree on the near child
+    of an x split), None leaves it random (they disagree)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-4, 4, (B, 3))
+    d = rng.normal(size=(B, 3))
+    if x_sign is not None:
+        d[:, 0] = x_sign * np.abs(d[:, 0])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.tensor(o, dtype=torch.float32, device="cuda"),
+            torch.tensor(d, dtype=torch.float32, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["multitile", "parked", "deep-agree",
+                                  "deep-mixed"])
+@pytest.mark.parametrize("bounded", [False, True])
+def test_bvh_any_hit_warp_walk_cases(case, bounded):
+    """Kernel 5's warp walk against its twin: leaves of several tiles (a
+    24-node budget); 70 parked rays (outside the box, pointing away: two
+    whole warps and part of a third that leave at the root) among 3001
+    (the last warp part-filled); a hand-built tree at the stack's depth
+    whose lanes agree on every near child (the stack fills to 64) or
+    disagree.  Parked rays report no occlusion."""
+    _need_card()
+    from lucille_tpu_torch.accel import bvh_isect
+    from lucille_tpu_torch.accel.bvh_isect import STACK
+
+    B = 3001
+    if case.startswith("deep"):
+        tris, nodes, leaf_real = _chain_tree(STACK)
+        depth = STACK
+        o, d = _random_rays(B, 2, 1.0 if case == "deep-agree" else None)
+    else:
+        scene = _soup_scene(3000, accel="bvh",
+                            node_budget=24 if case == "multitile" else None)
+        if case == "multitile":
+            assert int(scene.nodes.view(torch.int32)[:, 3].max()) > 1
+        tris, nodes, leaf_real = scene.tris, scene.nodes, scene.leaf_real
+        depth = scene.tree_depth
+        o, d = _random_rays(B, 3)
+    if case == "parked":
+        o[:70] = torch.tensor([40.0, 40.0, 40.0], device="cuda")
+        d[:70] = torch.tensor([0.0, 0.0, 1.0], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tmax = (0.5 + 11.5 * torch.rand(B, device="cuda", generator=gen)
+            if bounded else torch.full((B,), float("inf"), device="cuda"))
+    got = bvh_isect.bvh_any_hit(tris, nodes, o, d, tmax if bounded else None,
+                                depth=depth, leaf_real=leaf_real)
+    ref = bvh_isect.bvh_any_hit_reference(tris, o, d, tmax)["occ"]
+    assert 0.1 < ref.float().mean() < 0.95
+    assert (got["occ"] != ref).float().mean() <= 1e-3
+    if case == "parked":
+        assert not got["occ"][:70].any()
+    _check_walk_stats(got, B - (70 if case == "parked" else 0))
 
 
 def _flat_grid_desc(n):
@@ -392,7 +513,8 @@ def test_bvh_kernels_on_a_shared_edge_tie():
     assert int(ref["tri"][0]) == pair[0]
     assert int(got["tri"][0]) in pair
     occ = bvh_isect.bvh_any_hit(tris, scene.nodes, o, d,
-                                depth=scene.tree_depth)["occ"]
+                                depth=scene.tree_depth,
+                                leaf_real=scene.leaf_real)["occ"]
     assert bool(occ[0])
 
 
@@ -473,19 +595,35 @@ def test_closest_hit_active_matches_plain(accel):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_tris,ntheta,nphi", [(3000, 8, 8), (3000, 3, 3),
-                                                (800, 2, 2)])
+@pytest.mark.parametrize("n_tris,ntheta,nphi", [
+    (3000, 8, 8), (3000, 3, 3), (800, 2, 2), (3000, 1, 1), (3000, 1, 2),
+    (3000, 2, 3), (3000, 4, 5), (800, 3, 5), ("multitile", 4, 4),
+    ("deep", 8, 8), ("deep", 2, 3)])
 def test_bvh_ao_fused_kernel_matches_plain(n_tris, ntheta, nphi):
-    """Kernel 6 against its twin on the same compacted slots: S = 64 (8
-    warps of 8 slots x 4 strata, 2 runs each), S = 9 (1 stratum per
-    warp, 32 slots), S = 4 (Whitted's dome); slots at or past nact
-    report 0."""
+    """Kernel 6 against its twin on the same compacted slots, at every
+    fused_layout: S = 64 (K = 4, 8 warps of 8 slots x 4 strata, 2 runs
+    each), 9 and 15 (K = 1, 32 slots a warp, 8 warps), 4 (Whitted's dome:
+    K = 4, one warp), 1 (K = 1, one warp), 2 and 6 (K = 2, one and three
+    warps), 20 (K = 4, five warps), 16 on leaves of several tiles, and
+    on the hand-built tree at the stack's depth; slots at or past nact
+    (900 of 1000: a block part-live, the rest dead) report 0."""
     _need_card()
     from lucille_tpu_torch.accel import bvh_ao
-    from lucille_tpu_torch.accel.pack import pack_tris
+    from lucille_tpu_torch.accel.bvh_isect import STACK
     from lucille_tpu_torch.transport.ao import ortho_basis
 
-    scene = _soup_scene(n_tris, accel="bvh")
+    if n_tris == "deep":
+        tris, nodes, leaf_real = _chain_tree(STACK)
+        depth = STACK
+    else:
+        scene = _soup_scene(
+            3000 if n_tris == "multitile" else n_tris, accel="bvh",
+            node_budget=24 if n_tris == "multitile" else None)
+        tris, nodes, leaf_real = scene.tris, scene.nodes, scene.leaf_real
+        depth = scene.tree_depth
+    S = ntheta * nphi
+    K, warps = bvh_ao.fused_layout(S)
+    assert S % K == 0 and 1 <= warps <= 8
     B = 1000
     rng = np.random.default_rng(1)
     P = torch.tensor(rng.uniform(-4, 4, (B, 3)), dtype=torch.float32,
@@ -497,18 +635,19 @@ def test_bvh_ao_fused_kernel_matches_plain(n_tris, ntheta, nphi):
     gen = torch.Generator(device="cuda").manual_seed(2)
     u01 = torch.rand((2, B), device="cuda", generator=gen)
     nact = torch.tensor(900, dtype=torch.int32, device="cuda")
-    tris = pack_tris(scene)
     bvh_ao.FUSED_COUNTS.reset()
-    got, stats = bvh_ao.bvh_ao_fused_kernel(tris, scene.nodes, scene.skip,
-                                            rays, u01, nact, ntheta, nphi)
+    got, stats = bvh_ao.bvh_ao_fused_kernel(tris, nodes, leaf_real, rays,
+                                            u01, nact, ntheta, nphi,
+                                            depth=depth)
     ref, _ = bvh_ao.bvh_ao_fused_reference(tris, rays[:, :900],
                                            u01[:, :900], ntheta, nphi)
     assert (bvh_ao.FUSED_COUNTS.kernel, bvh_ao.FUSED_COUNTS.plain) == (1, 1)
     assert torch.all(got[900:] == 0)
-    assert 0.5 < ref.mean() < ntheta * nphi - 0.5  # both answers occur
+    edge = 0.5 if S >= 4 else 0.1 * S
+    assert edge < ref.mean() < S - edge  # both answers occur
     diff = (got[:900] - ref).abs()
     assert diff.max() <= 1 and (diff != 0).float().mean() <= 1e-3
-    assert int(stats["ntrav"]) > 0 and int(stats["ntests"]) > 0
+    _check_walk_stats(stats, 900 * S)
 
 
 @pytest.mark.gpu

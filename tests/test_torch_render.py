@@ -216,18 +216,26 @@ def test_tiles_reach_callbacks_in_spiral_order():
 
 @pytest.mark.parametrize("what", ["sunsky", "texture", "method", "ibl"])
 def test_unported_features_raise(what):
-    """sunsky: sunsky AO is ported, but not on the dense tiles above
-    131,072 triangles, where lucille_tpu leaves its fused gather for a
-    per-stratum scan with another jitter (the 257^2-quad terrain has
-    132,098); ibl: a dome light with an environment texture."""
+    """Each feature still to port is refused; ibl: a dome light with an
+    environment texture.  sunsky: sunsky AO on the dense tiles above
+    131,072 triangles (the 257^2-quad terrain has 132,098), refused until
+    the port scanned the strata as lucille_tpu does there, now builds
+    (tests/test_torch_scan.py holds the scan against lucille_tpu)."""
+    from lucille_tpu_torch.accel.ao import MAX_TRIS_FOR_MEGAKERNEL
     from lucille_tpu_torch.render.renderer import Renderer
     from lucille_tpu_torch.ri.types import LightDesc
+    from lucille_tpu_torch.transport.ao import dense_scan
 
     desc = bundled_state(16, 16).scene
     if what == "sunsky":
         desc = heightfield_state(258, sunsky=True).scene
         assert sum(g.ntriangles for g in desc.geoms) == 132098
-    elif what == "ibl":
+        r = Renderer(desc, device="cpu")
+        assert r.scene.accel == "dense" and dense_scan(r.scene)
+        assert r.scene.tri_v0.shape[0] > MAX_TRIS_FOR_MEGAKERNEL
+        assert any(li.type == "sunsky" for li in r.lights)
+        return
+    if what == "ibl":
         desc.lights.append(LightDesc(type="dome", texture="sky.hdr"))
     elif what == "texture":
         desc.geoms[0].attrs.material.texture = "wood.tex"

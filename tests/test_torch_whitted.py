@@ -437,10 +437,11 @@ def test_light_constants_reach_the_device_once():
     """The bounce loops' constants (background, light colours and
     directions, an area light's triangles) are copied to the device once
     and shared: on a card each copy would make the host wait for every
-    tile already enqueued.  The same values answer as before."""
+    tile already enqueued.  An area light's tables are built with the
+    light tables and ride on its entry.  The same values answer as
+    before."""
     from lucille_tpu_torch.device import const_vec
     from lucille_tpu_torch.lights.sampling import (
-        _area_tables,
         light_color,
         sample_area_light,
     )
@@ -462,8 +463,11 @@ def test_light_constants_reach_the_device_once():
     assert torch.equal(bg, torch.tensor([[0.25, 0.5, 0.75]]).expand(8, 3))
     area = next(li for li in lights if li.type == "area")
     u = torch.rand((16, 3), generator=torch.Generator().manual_seed(0))
-    sample_area_light(area, u)
-    tables = _area_tables(area, torch.device("cpu"))
-    sample_area_light(area, u)
-    assert _area_tables(area, torch.device("cpu")) is tables
-    assert torch.equal(tables[1], torch.from_numpy(area.tris["v0"]))
+    tables = area.area
+    first = sample_area_light(area, u)
+    assert area.area is tables
+    assert all(torch.equal(a, b) for a, b in zip(
+        first, sample_area_light(area, u)))
+    for t, k in zip(tables, ("area_cdf", "v0", "e1", "e2")):
+        assert torch.equal(t, torch.from_numpy(area.tris[k]))
+    assert all(t.device.type == "cpu" for t in tables)
