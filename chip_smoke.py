@@ -22,10 +22,19 @@ non-zero):
    per-stratum bits at 8x8 strata; the any-hit on the hit lanes' shadow
    rays toward the scene's sun (the sunsky gather's sun ray), on the
    bundled tile also with a random finite tmax, on the heightfield with
-   the hit mask as the active mask.  Then the gather's counts at 2x2
+   the hit mask as the active mask.  Both dense kernels print their lane
+   triangle tests, group visits and warp steps (SIMT efficiency) against
+   the need (`dense_need`: the real triangles of the 8-triangle groups,
+   and of the tiles, each ray reaches before its hit or tmax; their bound
+   also charges a box test for each real supertile, and for each real
+   tile or group under a box the ray reaches), and on the
+   bundled tile they answer unchanged when every pad slot past its 322
+   triangles holds a triangle each ray would meet (`poisoned`): no pad
+   slot is tested.  Then the gather's counts at 2x2
    strata on the inputs of headline-whitted's first-bounce dome gather,
    every hit lane compared, and ptxas's registers and spills of every
-   instantiation of the gather's kernel (a spill fails).  Tolerances:
+   instantiation of the gather's kernel and of csrc/isect.cu's kernels
+   (a spill fails).  Tolerances:
    hit/tri equal on all but 1e-4 of the lanes, t/u/v within 1e-6
    relative; occlusion counts equal on all but 1e-4 of the lanes and
    within 1 there; bits and any-hit answers equal on all but 1e-4 of the
@@ -102,7 +111,10 @@ non-zero):
    the fused gather's 131,072) on the dense tiles at 80x60, plain and
    under the sunsky line, through the closest hit and the any-hit once
    a stratum, with phase 4's checks, against the same frames on the
-   tile BVH (`check_dense_scan`);
+   tile BVH (`check_dense_scan`); first kernels 1 and 2 on the first
+   tile of that frame (6,400 rays on 1,033 tiles), where they split the
+   triangle range across the grid, against their twins on a slice
+   (`check_split_kernels`, phase 3's tolerances and printout);
 15. a JSON line of per-kernel results (each with the least time the card
    could take for its work, `bound_ms`, from the counts below), the
    card's line, and last {"ok": true, "device": {...}}.
@@ -337,6 +349,17 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def hit_kernel_ms(fn, kernel: str) -> tuple[float, float]:
+    """(device ms of kernel 1 or 2 in a call of fn, from the profiler as
+    profile_gather.py reads it; ms a call on CUDA events, the wrapper's
+    host work included).  These kernels take less device time than
+    their wrappers take on the host, so events around back-to-back calls
+    time the host."""
+    from profile_gather import kernel_ms
+
+    return kernel_ms(fn, kernel)[0], cuda_ms(fn, 10)
+
+
 def bound(nbytes: float, ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over
     the memory rate and the f32 operations over the peak rate."""
@@ -360,6 +383,158 @@ def tiles_reached(boxes, org, dirn, tmax):
     tf = torch.maximum(lo, hi).amin(dim=-1)
     filled = (boxes[0:3] <= boxes[3:6]).all(dim=0)[None]
     return filled & (tn <= tf) & (tf > 0) & (tn < tmax[:, None])
+
+
+def reached_sums(boxes, weights, org, dirn, tmax):
+    """[(B,) i64 for each (n_box,) row of weights]: per ray the row's sum
+    over the boxes the ray reaches before its tmax, by tiles_reached's
+    slab test; rays in chunks of a few million (ray, box) pairs."""
+    import torch
+
+    n_box = boxes.shape[1]
+    step = max(1, (1 << 22) // max(n_box, 1))
+    sums = [[] for _ in weights]
+    for lo in range(0, org.shape[0], step):
+        reach = tiles_reached(boxes, org[lo:lo + step], dirn[lo:lo + step],
+                              tmax[lo:lo + step])
+        for acc, w in zip(sums, weights):
+            acc.append((reach * w).sum(dim=1))
+    return [torch.cat(acc) for acc in sums]
+
+
+def dense_need(scene, org, dirn, t_end, live=None, occluded=None) -> dict:
+    """The dense kernels' needed work at the grain of the scene's boxes,
+    per live ray before t_end (closest hit: just past its hit; any-hit:
+    its tmax): "groups", the real triangles of the 8-triangle groups it
+    reaches (coarser, "tiles": of the tiles it reaches); "slabs", its box
+    tests: the box of every real supertile, of each real tile in a
+    supertile it reaches and of each real group in a tile it reaches.  An
+    occluded ray needs 1 triangle test and 3 box tests (its occluder and
+    the boxes around it, found first at best).  Returns Python ints."""
+    import torch
+
+    from lucille_tpu_torch.accel.pack import SUB, SUPER, TC
+
+    n_tris = scene.n_tris
+    n_tiles, n_groups = -(-n_tris // TC), -(-n_tris // SUB)
+    n_super = -(-n_tiles // SUPER)
+
+    def members(n_box, size, total):  # each box's share of total
+        idx = torch.arange(n_box, device=org.device)
+        return (total - idx * size).clamp(0, size)
+
+    tris_in_tile = members(n_tiles, TC, n_tris)
+    groups, = reached_sums(scene.sub_boxes[:, :n_groups],
+                           [members(n_groups, SUB, n_tris)], org, dirn, t_end)
+    tiles, group_boxes = reached_sums(
+        scene.boxes[:, :n_tiles], [tris_in_tile, -(-tris_in_tile // SUB)],
+        org, dirn, t_end)
+    tile_boxes, = reached_sums(scene.sboxes[:, :n_super],
+                               [members(n_super, SUPER, n_tiles)], org, dirn,
+                               t_end)
+    need = {"groups": groups, "tiles": tiles,
+            "slabs": n_super + tile_boxes + group_boxes}
+    for key, n in need.items():
+        if live is not None:
+            n = n * live
+        if occluded is not None:
+            n = torch.where(occluded, 3 if key == "slabs" else 1, n)
+        need[key] = int(n.sum())
+    return need
+
+
+def dense_bound(scene, B: int, ray_bytes: int, need) -> dict:
+    """bound() of a dense kernel on B rays of ray_bytes each: the packs
+    read once (36 bytes a triangle slot, 32 a box of each level) and
+    dense_need's triangle and box tests."""
+    n_boxes = sum(b.shape[1] for b in (scene.boxes, scene.sboxes,
+                                       scene.sub_boxes))
+    return bound(B * ray_bytes + scene.n_pad * 36 + n_boxes * 32,
+                 need["groups"] * MT_OPS + need["slabs"] * SLAB_OPS)
+
+
+def dense_work(res, need) -> dict:
+    """The dense walk's counters (isect.walk_stats) against dense_need's.
+    Returns {"text", "numbers"}."""
+    k = {key: int(res[key]) for key in ("ntrav", "ntests", "warp_ntrav",
+                                        "warp_ntests")}
+    simt = k["ntests"] / max(32 * k["warp_ntests"], 1)
+    text = (f"{k['ntests']} lane triangle tests done, "
+            f"{k['ntests'] / max(need['groups'], 1):.2f}x the "
+            f"{need['groups']} needed at group grain ({need['tiles']} at "
+            f"tile grain); {k['ntrav']} lane group visits, "
+            f"{k['warp_ntrav']} warp group visits and {k['warp_ntests']} "
+            f"warp triangle steps (SIMT efficiency {simt:.3f})")
+    return {"text": text, "numbers": {
+        **{f"kernel_{key}": v for key, v in k.items()},
+        "simt_efficiency": simt,
+        **{f"need_{key}": v for key, v in need.items()}}}
+
+
+def poisoned(scene, p, w, size):
+    """A copy of the dense scene whose pad slots hold one triangle of
+    side ~3 size through point p, normal to w; its boxes and n_tris are
+    left as they are, so a kernel that tests a pad slot meets it."""
+    import dataclasses
+
+    import torch
+
+    w = torch.nn.functional.normalize(w, dim=0)
+    a = torch.linalg.cross(w, torch.tensor([0.0, 0.0, 1.0], device=w.device))
+    if float(a.norm()) < 0.1:
+        a = torch.linalg.cross(w, torch.tensor([1.0, 0.0, 0.0],
+                                               device=w.device))
+    a = torch.nn.functional.normalize(a, dim=0)
+    b = torch.linalg.cross(w, a)
+    tri = torch.cat([p - size * (a + b), 3 * size * a, 3 * size * b])
+    tris = scene.tris.clone()
+    tris[:9, scene.n_tris:] = tri[:, None]
+    return dataclasses.replace(scene, tris=tris)
+
+
+def check_padding_untouched(label, scene, org, dirn, P_off, wi, hit,
+                            n_slice) -> None:
+    """The kernels never test a pad slot: on a copy of the scene whose pad
+    slots hold a triangle that every eye ray meets first (just in front
+    of the camera, normal to the tile's mean direction) and every sun ray
+    meets (beyond the scene, normal to the sun), both kernels answer
+    exactly as on the scene; the twins, which test every slot, meet it on
+    a slice."""
+    import torch
+
+    from lucille_tpu_torch.accel import isect
+    from lucille_tpu_torch.accel.pack import TC
+
+    diag = float(torch.linalg.norm(scene.bbox_max - scene.bbox_min))
+    w_eye = dirn.mean(dim=0)
+    eye = poisoned(scene, org[0] + 0.01 * diag * torch.nn.functional.normalize(
+        w_eye, dim=0), w_eye, 10 * diag)
+    center = 0.5 * (scene.bbox_max + scene.bbox_min)
+    sun = poisoned(scene, center + 2 * diag * wi[0], wi[0], 10 * diag)
+    inf = torch.full((org.shape[0],), float("inf"), device="cuda")
+    a = isect.closest_hit_kernel(scene, org, dirn)
+    b = isect.closest_hit_kernel(eye, org, dirn)
+    oa = isect.any_hit_kernel(scene, P_off, wi, inf, hit)["occ"]
+    ob = isect.any_hit_kernel(sun, P_off, wi, inf, hit)["occ"]
+    sl = slice(0, n_slice)
+    lit = torch.nonzero(hit)[:n_slice, 0]
+    twin_eye = isect.closest_hit_reference(eye.tris, org[sl], dirn[sl])
+    twin_sun = isect.any_hit_reference(sun.tris, P_off[lit], wi[lit],
+                                       inf[lit])["occ"]
+    met = ((twin_eye["tri"] >= scene.n_tris).float().mean().item(),
+           twin_sun.float().mean().item())
+    same = all(torch.equal(a[k], b[k]) for k in ("t", "u", "v", "tri")) and (
+        torch.equal(oa, ob))
+    empty = scene.n_pad // TC - -(-scene.n_tris // TC)
+    print(f"[{label}] padding: {scene.n_pad - scene.n_tris} pad slots past "
+          f"triangle {scene.n_tris} ({empty} tile{'s' * (empty != 1)} of "
+          f"padding alone) hold a triangle the twins meet on "
+          f"{met[0]:.4f} of the eye rays and {met[1]:.4f} of the live sun "
+          f"rays; both kernels' answers {'unchanged' if same else 'CHANGED'}"
+          f": no pad slot tested", flush=True)
+    if not same or not all(m >= 0.9 for m in met):
+        raise AssertionError(f"{label}: a kernel tested a pad slot, or the "
+                             f"poison is not met ({met})")
 
 
 def gather_need(scene, P_off, b0, b1, b2, u01, ntheta: int, nphi: int,
@@ -573,6 +748,26 @@ def need_walk(tris, nodes, org, dirn, closest: bool, depth: int,
             "tests": int(tests)}
 
 
+def compare_closest(got, ref, sl, name, tri_tol=1e-4):
+    """A closest hit's answers on slice sl against its twin's: tri differs
+    on at most tri_tol of the slice, t/u/v within 1e-6 relative where the
+    two agree.  Returns (max |t, u, v error|, fraction tri differs)."""
+    import torch
+
+    tri_k, tri_r = got["tri"][sl], ref["tri"]
+    differ = (tri_k != tri_r).float().mean().item()
+    same = (tri_k == tri_r) & (tri_r >= 0)
+    err = 0.0
+    for k in ("t", "u", "v"):
+        a, b = got[k][sl][same], ref[k][same]
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+        err = max(err, (a - b).abs().max().item() if len(a) else 0.0)
+    if differ > tri_tol or not same.any():
+        raise AssertionError(f"{name}: tri differs on {differ:.2e} of the "
+                             "slice, or nothing hit")
+    return err, differ
+
+
 def check_kernels(label, desc, tile, n_slice, results):
     """Phase 3 for one scene: the dense kernels on the scene's first tile
     against their plain twins.  Appends to results[name]."""
@@ -604,40 +799,30 @@ def check_kernels(label, desc, tile, n_slice, results):
           f"slice {n_slice}", flush=True)
 
     # -- the closest hit
-    tris, boxes = scene.tris, scene.boxes
-    got = isect.closest_hit_kernel(tris, boxes, org, dirn)
-    ref = isect.closest_hit_reference(tris, org[sl], dirn[sl])
+    got = isect.closest_hit_kernel(scene, org, dirn)
+    ref = isect.closest_hit_reference(scene.tris, org[sl], dirn[sl])
     torch.cuda.synchronize()
-    tri_k, tri_r = got["tri"][sl], ref["tri"]
-    differ = (tri_k != tri_r).float().mean().item()
-    same = (tri_k == tri_r) & (tri_r >= 0)
-    err = 0.0
-    for k in ("t", "u", "v"):
-        a, b = got[k][sl][same], ref[k][same]
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
-        err = max(err, (a - b).abs().max().item())
-    if differ > 1e-4:
-        raise AssertionError(f"closest_hit: {differ:.2e} of lanes differ")
-    ms = cuda_ms(lambda: isect.closest_hit_kernel(tris, boxes, org, dirn), 10)
-    plain_ms = cuda_ms(lambda: isect.closest_hit_reference(tris, org, dirn), 1)
+    err, differ = compare_closest(got, ref, sl, "closest_hit")
+    ms, call_ms = hit_kernel_ms(
+        lambda: isect.closest_hit_kernel(scene, org, dirn), "closest_hit")
+    plain_ms = cuda_ms(lambda: isect.closest_hit_reference(scene.tris, org,
+                                                           dirn), 1)
     hit_rate = (got["tri"] >= 0).float().mean().item()
-    # the work this data needs: every triangle of every tile a ray reaches
-    # before its closest hit (the kernel's own count, warp-granular,
-    # also counts lanes dragged through tiles they never reach)
+    # the work this data needs: the real triangles of every group a ray
+    # reaches before its closest hit
     inf = torch.full((B,), float("inf"), device="cuda")
     t_end = torch.where(got["tri"] >= 0, torch.nextafter(got["t"], inf), inf)
-    tests = int(tiles_reached(boxes, org, dirn, t_end).sum()) * TC
-    kernel_tests = int(got["ntrav"]) * TC * isect.WARP
-    work = bound(B * (24 + 16) + scene.n_pad * 36 + n_tiles * 32,
-                 tests * MT_OPS + B * n_tiles * SLAB_OPS)
+    need = dense_need(scene, org, dirn, t_end)
+    work = dense_bound(scene, B, 24 + 16, need)
+    walk = dense_work(got, need)
     print(f"[{label}] closest_hit: hit rate {hit_rate:.4f}, tri differs on "
-          f"{differ:.2e} of the slice, max |t,u,v err| {err:.3e}; "
-          f"{tests} triangle tests needed, {kernel_tests} done; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{work['bound_ms']:.3f} ms ({work['bound_by']})", flush=True)
+          f"{differ:.2e} of the slice, max |t,u,v err| {err:.3e}; kernel "
+          f"{ms:.3f} ms ({call_ms:.3f} ms a call), plain {plain_ms:.3f} ms, "
+          f"bound {work['bound_ms']:.4f} ms ({work['bound_by']}); "
+          f"{walk['text']}", flush=True)
     results["closest_hit"].append(
-        {"scene": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-         "tests": tests, "kernel_tests": kernel_tests, **work})
+        {"scene": label, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+         "plain_ms": plain_ms, **walk["numbers"], **work})
 
     # -- the AO gather, 8x8 strata, the jitter of the whole tile
     res = closest_hit(scene, org, dirn)
@@ -659,8 +844,10 @@ def check_kernels(label, desc, tile, n_slice, results):
         cases.append((", finite tmax", finite, finite, hit))
     worst, entry = 0.0, None
     for what, tmax_arg, tmax, active in cases:
-        got = isect.any_hit(tris, boxes, P_off, wi, tmax_arg, active)["occ"]
-        ref = isect.any_hit_reference(tris, P_off[sl], wi[sl], tmax[sl],
+        res = isect.any_hit(scene, P_off, wi, tmax_arg, active,
+                            counters=True)
+        got = res["occ"]
+        ref = isect.any_hit_reference(scene.tris, P_off[sl], wi[sl], tmax[sl],
                                       active[sl])["occ"]
         torch.cuda.synchronize()
         frac = (got[sl] != ref).float().mean().item()
@@ -674,22 +861,25 @@ def check_kernels(label, desc, tile, n_slice, results):
         if torch.any(got[~active]):
             raise AssertionError("any_hit: a dead ray reports occlusion")
         worst = max(worst, frac)
-        ms = cuda_ms(lambda: isect.any_hit(tris, boxes, P_off, wi, tmax_arg,
-                                           active), 10)
+        ms, call_ms = hit_kernel_ms(lambda: isect.any_hit(
+            scene, P_off, wi, tmax_arg, active), "any_hit")
         plain_ms = cuda_ms(lambda: isect.any_hit_reference(
-            tris, P_off, wi, tmax, active), 1)
-        reach = tiles_reached(boxes, P_off, wi, tmax) & active[:, None]
-        tests = float(torch.where(got, 1, reach.sum(dim=1) * TC).sum())
-        work = bound(B * (24 + 4 + 1 + 1) + scene.n_pad * 36 + n_tiles * 32,
-                     tests * MT_OPS + float(active.sum()) * n_tiles * SLAB_OPS)
+            scene.tris, P_off, wi, tmax, active), 1)
+        need = dense_need(scene, P_off, wi, tmax, active, got)
+        work = dense_bound(scene, B, 24 + 4 + 1 + 1, need)
+        walk = dense_work(res, need)
         print(f"[{label}] any_hit{what}: {int(active.sum())} live sun rays "
               f"of {B}, occluded {got[active].float().mean().item():.4f} "
               f"(the slice's {slice_occ:.4f}); {frac:.2e} of the slice "
-              f"differ; kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {work['bound_ms']:.4f} ms "
-              f"({work['bound_by']})", flush=True)
+              f"differ; kernel {ms:.3f} ms ({call_ms:.3f} ms a call), "
+              f"plain {plain_ms:.3f} ms, bound {work['bound_ms']:.4f} ms "
+              f"({work['bound_by']}); {walk['text']}", flush=True)
         if entry is None:
-            entry = {"scene": label, "ms": ms, "plain_ms": plain_ms, **work}
+            entry = {"scene": label, "ms": ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms, **walk["numbers"], **work}
+    if label == "bundled":
+        check_padding_untouched(label, scene, org, dirn, P_off, wi, hit,
+                                4096)
     results["any_hit"].append({**entry, "max_abs_err": float(worst > 0)})
 
 
@@ -1138,9 +1328,8 @@ def check_closest_active(label, r, n_slice, results):
     dense = scene.accel == "dense"
     name = "closest_hit" if dense else "bvh_closest_hit"
     if dense:
-        boxes = scene.boxes
         launch = lambda a: isect.closest_hit(  # noqa: E731
-            tris, boxes, org, dirn, a)
+            scene, org, dirn, a)
     else:
         launch = lambda a: bvh_isect.bvh_closest_hit(  # noqa: E731
             tris, scene.nodes, org, dirn, None, a, depth=scene.tree_depth)
@@ -1159,19 +1348,12 @@ def check_closest_active(label, r, n_slice, results):
     if torch.any(got["tri"][~active] >= 0) or not torch.all(
             torch.isinf(got["t"][~active])):
         raise AssertionError(f"{label} {name}: a dead ray reports a hit")
-    tri_k, tri_r = got["tri"][sl], ref["tri"]
-    hit_differ = ((tri_k >= 0) != (tri_r >= 0)).float().mean().item()
-    differ = (tri_k != tri_r).float().mean().item()
-    same = (tri_k == tri_r) & (tri_r >= 0)
-    err = 0.0
-    for k in ("t", "u", "v"):
-        a, b = got[k][sl][same], ref[k][same]
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
-        err = max(err, (a - b).abs().max().item() if len(a) else 0.0)
-    if hit_differ > 1e-4 or differ > (1e-4 if dense else 1e-3) or not (
-            same.any()):
+    err, differ = compare_closest(got, ref, sl, f"{label} {name} with active",
+                                  1e-4 if dense else 1e-3)
+    hit_differ = ((got["tri"][sl] >= 0) != (ref["tri"] >= 0)).float().mean()
+    if hit_differ.item() > 1e-4:
         raise AssertionError(f"{label} {name} with active: hit differs on "
-                             f"{hit_differ:.2e}, tri on {differ:.2e}")
+                             f"{hit_differ.item():.2e}")
     all_live = torch.ones_like(active)
     ms = cuda_ms(lambda: launch(active), 5)
     ms_all = cuda_ms(lambda: launch(all_live), 5)
@@ -1399,7 +1581,110 @@ def cross_check_accels():
         raise AssertionError("the dense and tile-BVH frames disagree")
 
 
-def check_dense_scan():
+def check_split_kernels(label, r, results, n_slice=2048):
+    """Kernels 1 and 2 where the rays alone cannot fill the card: the
+    first tile of the dense strata scan's frame (6,400 eye rays on the
+    n = 258 terrain's 1,033 tiles), on which both split the triangle range
+    across the grid (isect.split_layout).  The closest hit on the eye
+    rays, the any-hit on the hit lanes' shadow rays toward a low sun, each
+    against its twin on a slice (phase 3's tolerances), with its time,
+    its twin's on every ray, its bound and its work against the need.
+    Appends to results[name]."""
+    import torch
+
+    from lucille_tpu_torch.accel import isect
+    from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.accel.pack import TC
+    from lucille_tpu_torch.transport.ao import shading_frame
+
+    scene = r.scene
+    org, dirn, _x0, _y0 = first_tile_rays(r)
+    B = org.shape[0]
+    n_tiles = scene.n_pad // TC
+    chunks, per = isect.split_layout(
+        B, scene.n_tris, torch.cuda.get_device_properties(0)
+        .multi_processor_count)
+    if chunks < 2:
+        raise AssertionError(f"{label}: {B} rays do not split the range")
+    lo = max(0, B // 2 - n_slice // 2)
+    sl = slice(lo, lo + n_slice)
+    inf = torch.full((B,), float("inf"), device="cuda")
+    layout = (f"{B} rays on {n_tiles} tiles, {chunks} chunks of {per} "
+              "supertiles")
+
+    got = isect.closest_hit_kernel(scene, org, dirn)
+    ref = isect.closest_hit_reference(scene.tris, org[sl], dirn[sl])
+    err, differ = compare_closest(got, ref, sl, f"{label} closest_hit")
+    ms, call_ms = hit_kernel_ms(
+        lambda: isect.closest_hit_kernel(scene, org, dirn), "closest_hit")
+    plain_ms = cuda_ms(lambda: isect.closest_hit_reference(scene.tris, org,
+                                                           dirn), 1)
+    t_end = torch.where(got["tri"] >= 0, torch.nextafter(got["t"], inf), inf)
+    need = dense_need(scene, org, dirn, t_end)
+    work = dense_bound(scene, B, 24 + 16, need)
+    walk = dense_work(got, need)
+    print(f"[{label}] closest_hit, split: {layout}; tri differs on "
+          f"{differ:.2e} of {n_slice}, max |t,u,v err| {err:.3e}; kernel "
+          f"{ms:.3f} ms ({call_ms:.3f} ms a call), plain {plain_ms:.3f} ms, "
+          f"bound {work['bound_ms']:.4f} ms ({work['bound_by']}); "
+          f"{walk['text']}", flush=True)
+    results["closest_hit"].append(
+        {"scene": label, "chunks": chunks, "max_abs_err": err, "ms": ms,
+         "call_ms": call_ms, "plain_ms": plain_ms, **walk["numbers"],
+         **work})
+
+    res = closest_hit(scene, org, dirn)
+    hit = res["hit"]
+    P_off = shading_frame(scene, org, dirn, res)[0]
+    wi = torch.nn.functional.normalize(
+        torch.tensor([1.0, 0.35, 0.2], device="cuda"), dim=0)
+    wi = wi.expand(B, 3).contiguous()
+    got = isect.any_hit_kernel(scene, P_off, wi, inf, hit, counters=True)
+    ref = isect.any_hit_reference(scene.tris, P_off[sl], wi[sl], inf[sl],
+                                  hit[sl])["occ"]
+    frac = (got["occ"][sl] != ref).float().mean().item()
+    occ = ref[hit[sl]].float().mean().item()
+    if frac > 1e-4 or not 0.01 < occ < 0.99 or torch.any(
+            got["occ"][~hit]):
+        raise AssertionError(f"{label} any_hit, split: {frac:.2e} differ, "
+                             f"{occ:.4f} of the live slice occluded, or a "
+                             "dead ray occluded")
+    ms, call_ms = hit_kernel_ms(
+        lambda: isect.any_hit_kernel(scene, P_off, wi, inf, hit), "any_hit")
+    plain_ms = cuda_ms(lambda: isect.any_hit_reference(scene.tris, P_off, wi,
+                                                       inf, hit), 1)
+    need = dense_need(scene, P_off, wi, inf, hit, got["occ"])
+    work = dense_bound(scene, B, 24 + 4 + 1 + 1, need)
+    walk = dense_work(got, need)
+    print(f"[{label}] any_hit, split: {layout}; {int(hit.sum())} live sun "
+          f"rays, the slice's {occ:.4f} occluded, {frac:.2e} differ; kernel "
+          f"{ms:.3f} ms ({call_ms:.3f} ms a call), plain {plain_ms:.3f} ms, "
+          f"bound {work['bound_ms']:.4f} ms ({work['bound_by']}); "
+          f"{walk['text']}", flush=True)
+    results["any_hit"].append(
+        {"scene": label, "chunks": chunks, "max_abs_err": float(frac > 0),
+         "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+         **walk["numbers"], **work})
+
+
+def isect_registers(log: str) -> dict:
+    """{"closest_hit_kernel<split>": (registers, spill bytes), ...} of
+    every entry of csrc/isect.cu; raises if one spills or is missing."""
+    import re
+
+    out = {}
+    for name, (regs, spill) in ptxas_entries(log).items():
+        m = re.search(r"(closest_hit_kernel|any_hit_kernel)ILb([01])E", name)
+        if m:
+            out[f"{m.group(1)}<{bool(int(m.group(2)))}>"] = (regs, spill)
+        elif "closest_epilogue" in name:
+            out["closest_epilogue"] = (regs, spill)
+    if len(out) != 5 or any(spill for _regs, spill in out.values()):
+        raise AssertionError(f"isect.cu: a report missing or a spill: {out}")
+    return out
+
+
+def check_dense_scan(results):
     """Phase 14: above MAX_TRIS_FOR_MEGAKERNEL padded triangles the dense
     tiles scan the strata through the dense any-hit (kernel 2), as
     lucille_tpu does.  The n = 258 terrain (132,098 triangles) on the
@@ -1409,7 +1694,9 @@ def check_dense_scan():
     waiting on the card), the any-hit launched once a stratum (and sun)
     of each tile; then each against the same frame on the tile BVH (the
     cone gather, another draw of the same estimator): means over the
-    pixels both render as hits within 0.01 (AO) and 1% (sunsky)."""
+    pixels both render as hits within 0.01 (AO) and 1% (sunsky).  First
+    kernels 1 and 2 on the split path at the scan's shape
+    (`check_split_kernels`)."""
     from lucille_tpu_torch.accel.ao import MAX_TRIS_FOR_MEGAKERNEL
     from lucille_tpu_torch.render.renderer import Renderer
     from lucille_tpu_torch.render.tiles import tile_list
@@ -1428,6 +1715,8 @@ def check_dense_scan():
             if not (dense_scan(r.scene) and r.scene.tri_v0.shape[0]
                     > MAX_TRIS_FOR_MEGAKERNEL):
                 raise AssertionError(f"{label}: not the dense scan")
+            if not sunsky:
+                check_split_kernels("heightfield258-scan", r, results)
             launches, _, imgs[accel] = render_checked(
                 label, r, f"chip_smoke_{label}.hdr", ("closest_hit",
                                                       "any_hit"))
@@ -1499,6 +1788,13 @@ def main() -> int:
         results[name][0]["registers"] = {
             k: v[0] for k, v in regs.items()
             if k.endswith(f"{name.endswith('bits')}>")}
+    regs = isect_registers(lib.log)
+    for inst, (n_regs, spill) in regs.items():
+        print(f"  {inst}: {n_regs} registers, {spill} bytes spilled",
+              flush=True)
+    for name, kern in (("closest_hit", "closest_"), ("any_hit", "any_hit")):
+        results[name][0]["registers"] = {
+            k: v[0] for k, v in regs.items() if k.startswith(kern)}
 
     # 4. the headline frames: the bundled scene as shipped (sunsky AO),
     # then plain AO
@@ -1610,8 +1906,9 @@ def main() -> int:
                              imgs["heightfield256-whitted-fused"],
                              cone_imgs[256])
 
-    # 14. the dense scan above 131,072 triangles
-    check_dense_scan()
+    # 14. the dense scan above 131,072 triangles, and kernels 1 and 2 on
+    # its split path
+    check_dense_scan(results)
 
     # 15. results
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")

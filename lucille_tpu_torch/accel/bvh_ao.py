@@ -42,7 +42,7 @@ pallas_bvh.py:810 `_bvh_ao_kernel` behind `_pallas_bvh_ao_occlusion`):
 - csrc/bvh.cu's `bvh_ao_kernel` for CUDA tensors (kernel 5's warp walk,
   each lane's ray built in registers), `bvh_ao_fused_reference` (every
   stratum of every live slot against every triangle) for CPU tensors.
-  Its counters are the warp walk's (bvh_isect.walk_stats): ntrav = node
+  Its counters are the warp walk's (isect.walk_stats): ntrav = node
   visits summed over the (slot, stratum) lanes that reach the node,
   ntests = real triangles tested, and the warps' own warp_ntrav and
   warp_ntests; the twin visits no node and tests every slot.
@@ -61,14 +61,13 @@ import torch
 
 from lucille_tpu_torch.accel.ao import compaction_order, stratum_directions
 from lucille_tpu_torch.accel.bvh_isect import (
-    NSTAT,
     STACK,
     WARP,
     check_leaf_real,
     occlusion_scan,
-    walk_stats,
 )
 from lucille_tpu_torch.accel.dispatch import any_hit
+from lucille_tpu_torch.accel.isect import NSTAT, walk_stats
 from lucille_tpu_torch.accel.pack import TC
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 from lucille_tpu_torch.lights.sunsky import sky_frame

@@ -33,9 +33,11 @@ import torch
 
 from lucille_tpu_torch.accel.isect import (
     DET_EPS,
+    NSTAT,
     closest_scan,
     live_scan,
     ray_limits,
+    walk_stats,
 )
 from lucille_tpu_torch.accel.pack import TC
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
@@ -43,7 +45,6 @@ from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 STACK = 64  # stack entries of csrc/bvh.cu's walks (per thread or warp)
 BLOCK = 128  # rays per CUDA block
 WARP = 32
-NSTAT = 4  # the warp walk's counters a warp (csrc/bvh.cu)
 
 CLOSEST_COUNTS = LaunchCounts()
 ANY_COUNTS = LaunchCounts()
@@ -82,14 +83,6 @@ def _launch(name, dev, *args):
 def _stats(stats: torch.Tensor) -> dict:
     s = stats.view(-1, 2).sum(dim=0, dtype=torch.int64)
     return {"ntrav": s[0], "ntests": s[1] * TC}
-
-
-def walk_stats(stats: torch.Tensor) -> dict:
-    """The warp walk's NSTAT counters, summed on the device (module
-    docstring)."""
-    s = stats.view(-1, NSTAT).sum(dim=0, dtype=torch.int64)
-    return {"ntrav": s[0], "ntests": s[1], "warp_ntrav": s[2],
-            "warp_ntests": s[3]}
 
 
 def check_leaf_real(leaf_real, nodes) -> None:

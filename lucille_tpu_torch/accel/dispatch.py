@@ -10,7 +10,6 @@ from __future__ import annotations
 import torch
 
 from lucille_tpu_torch.accel import bvh_isect, isect
-from lucille_tpu_torch.accel.pack import TC
 
 
 def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
@@ -32,8 +31,7 @@ def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
             raise NotImplementedError(
                 "the dense closest hit takes no tmax (lucille_tpu serves it "
                 "with its MXU path, which is not ported)")
-        res = isect.closest_hit(scene.tris, scene.boxes, org, dirn, active)
-        res["ntests"] = res["ntrav"] * (TC * isect.WARP)
+        res = isect.closest_hit(scene, org, dirn, active)
     else:
         raise NotImplementedError(f"accel {scene.accel!r} is not ported")
     tri = res["tri"]
@@ -53,7 +51,7 @@ def any_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
     """Whether each ray (B, 3) hits anything with 0 < t < tmax (None:
     unbounded, a float or (B,)); active: None or a (B,) bool mask of the
     rays that count, the others report False.  Returns {occ (B,) bool},
-    plus the tile BVH's ntrav and ntests.  On the dense tiles a dead ray
+    on the tile BVH also ntrav, ntests.  On the dense tiles a dead ray
     costs no work (csrc/isect.cu); the tile BVH traces it and masks the
     answer, as lucille_tpu's BVH path ignores the mask
     (lucille_tpu/accel/dispatch.py:48-65)."""
@@ -66,6 +64,5 @@ def any_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
             res["occ"] = res["occ"] & active
         return res
     if scene.accel == "dense":
-        return isect.any_hit(scene.tris, scene.boxes, org, dirn, tmax,
-                             active)
+        return isect.any_hit(scene, org, dirn, tmax, active)
     raise NotImplementedError(f"accel {scene.accel!r} is not ported")

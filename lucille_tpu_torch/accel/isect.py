@@ -3,76 +3,154 @@ plain torch twins.
 
 Counterparts of lucille_tpu/accel/pallas_isect.py:270-387
 (`pallas_closest_hit`) and :472-552 (`pallas_any_hit`).  The kernels are
-csrc/isect.cu; `closest_hit` and `any_hit` launch them for CUDA tensors
-and run `closest_hit_reference` / `any_hit_reference` for CPU tensors.
-Both twins share the kernels' Moller-Trumbore arithmetic (`_mt_tile`,
-with the division by the determinant), not the BVH any-hit's
-division-free signed-volume test (accel/bvh_isect.py).
+csrc/isect.cu; `closest_hit` and `any_hit` take the scene (its packs:
+`tris`, `boxes`, `sboxes`, `sub_boxes` and `n_tris`), launch the kernels
+for CUDA tensors and run `closest_hit_reference` / `any_hit_reference`
+on the triangle pack for CPU tensors.  Both twins share the kernels'
+Moller-Trumbore arithmetic (`_mt_tile`, with the division by the
+determinant), not the BVH any-hit's division-free signed-volume test
+(accel/bvh_isect.py).
 
 A bounce wavefront passes its live-lane mask as `active` to either
 kernel: a dead ray does no work and reports a miss (closest hit) or
 False (any-hit), where lucille_tpu compacts the live rays to the front
 (accel/dispatch.py:22-41); the twins trace the live rays alone.
 
-Counters (the port's own definition; only nrays is held to lucille_tpu):
-``ntrav`` is the number of (warp of 32 rays, 128-triangle tile) pairs
-tested by the closest hit, ``ntests`` = ntrav * 128 * 32 ray-triangle
-tests.  The kernel skips a tile for a warp none of whose rays reaches
-the tile's box; the plain twin skips nothing, so it reports every pair.
-The any-hit counts nothing, as lucille_tpu's does not.
+When the rays alone cannot fill the card, the kernels split the
+triangle range too (`split_layout`, chosen on the host from the ray
+count, the scene's real tiles and the card's SM count).
+
+Counters (the port's own definition; only nrays is held to lucille_tpu).
+The kernels walk supertiles, tiles and 8-triangle groups, one walk a
+warp: ``ntrav`` is group visits summed over the lanes that reach the
+group's box, ``ntests`` real triangles tested summed over lanes; beside
+them ``warp_ntrav`` and ``warp_ntests``, the warps' own group visits and
+triangle steps (a step tests one triangle for every lane), so ntests /
+(32 warp_ntests) is the walk's SIMT efficiency.  The closest hit always
+counts (the renderer sums ntests and ntrav); the any-hit counts only
+when asked (`counters=True`), since no render path reads its counters.
+The twins visit no group (ntrav 0) and test every slot for every live
+ray.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from lucille_tpu_torch.accel.pack import TC
+from lucille_tpu_torch.accel.pack import SUB, SUPER, TC
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 
 DET_EPS = 1.0e-14  # the reference's |det| floor (bvh.c:746)
 WARP = 32
-BLOCK = 256  # rays per CUDA block (csrc/isect.cu)
+BLOCK = 128  # rays per CUDA block (csrc/isect.cu)
+NSTAT = 4  # a warp walk's counters per warp (csrc/isect.cu, csrc/bvh.cu)
+# blocks of rays per SM below which the triangle range is split (twice
+# what an SM holds at once: the split also shortens each warp's walk)
+FILL = 32
 
 COUNTS = LaunchCounts()  # the closest hit
 ANY_COUNTS = LaunchCounts()
 
 
-def _check_inputs(tris, boxes, org, dirn):
+def walk_stats(stats: torch.Tensor) -> dict:
+    """A warp walk's NSTAT counters, summed on the device (module
+    docstring)."""
+    s = stats.view(-1, NSTAT).sum(dim=0, dtype=torch.int64)
+    return {"ntrav": s[0], "ntests": s[1], "warp_ntrav": s[2],
+            "warp_ntests": s[3]}
+
+
+def split_layout(B: int, n_tris: int, n_sms: int) -> tuple[int, int]:
+    """(chunks, supertiles a chunk) for B rays on a scene of n_tris real
+    triangles: one chunk when ceil(B / BLOCK) blocks reach FILL blocks an
+    SM, else the real supertiles cut into about FILL * n_sms / blocks
+    equal ranges along the grid's second dimension.  Shapes only, so
+    nothing waits on the card."""
+    n_super = -(-(-(-n_tris // TC)) // SUPER)
+    blocks = max(1, -(-B // BLOCK))
+    want = -(-FILL * n_sms // blocks)
+    if n_super <= 1 or want <= 1:
+        return 1, max(n_super, 1)
+    per = -(-n_super // min(want, n_super))
+    return -(-n_super // per), per
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_inputs(scene, org, dirn):
+    """The scene's packs as accel/pack builds them (scene/types), and the
+    rays beside them."""
+    tris = scene.tris
     dev = tris.device
-    for name, a in (("tris", tris), ("boxes", boxes), ("org", org),
-                    ("dirn", dirn)):
-        if a.dtype != torch.float32 or not a.is_contiguous():
-            raise ValueError(f"{name}: need contiguous float32, got {a.dtype}")
+    for name, a in (("tris", tris), ("boxes", scene.boxes),
+                    ("sboxes", scene.sboxes), ("sub_boxes", scene.sub_boxes),
+                    ("org", org), ("dirn", dirn)):
+        if a is None or a.dtype != torch.float32 or not a.is_contiguous():
+            raise ValueError(f"{name}: need contiguous float32")
         if a.device != dev:
             raise ValueError(f"{name} on {a.device}, tris on {dev}")
     if tris.dim() != 2 or tris.shape[0] != 16 or tris.shape[1] % TC:
         raise ValueError(f"tris: need (16, k*{TC}), got {tuple(tris.shape)}")
-    if tuple(boxes.shape) != (8, tris.shape[1] // TC):
-        raise ValueError(f"boxes: need (8, {tris.shape[1] // TC}), "
-                         f"got {tuple(boxes.shape)}")
+    npad = tris.shape[1]
+    n_tiles = npad // TC
+    for name, a, n in (("boxes", scene.boxes, n_tiles),
+                       ("sboxes", scene.sboxes, -(-n_tiles // SUPER)),
+                       ("sub_boxes", scene.sub_boxes, npad // SUB)):
+        if tuple(a.shape) != (8, n):
+            raise ValueError(f"{name}: need (8, {n}), got {tuple(a.shape)}")
+    if not 0 <= scene.n_tris <= npad:
+        raise ValueError(f"n_tris {scene.n_tris} outside [0, {npad}]")
+    if tris.data_ptr() % 16:
+        raise ValueError("tris: the kernels read 16-byte words")
     if org.dim() != 2 or org.shape[1] != 3 or dirn.shape != org.shape:
         raise ValueError(f"org/dirn: need (B, 3), got {tuple(org.shape)}, "
                          f"{tuple(dirn.shape)}")
 
 
-def closest_hit(tris, boxes, org, dirn, active=None) -> dict:
-    """tris (16, Npad) [v0|e1|e2] and boxes (8, n_tiles) from accel/pack;
-    org, dirn (B, 3) f32; active None or (B,) bool, the live rays of a
-    bounce wavefront.  Returns {t, u, v (B,) f32, tri (B,) i32 (-1 on a
-    miss), ntrav () i64}; a ray that is not active reports a miss (t
-    +inf, u = v = 0, tri -1)."""
-    _check_inputs(tris, boxes, org, dirn)
+def closest_hit(scene, org, dirn, active=None) -> dict:
+    """Closest hit of rays org, dirn (B, 3) f32 against the scene's dense
+    packs; active None or (B,) bool, the live rays of a bounce wavefront.
+    Returns {t, u, v (B,) f32, tri (B,) i32 (-1 on a miss), ntrav, ntests
+    () i64}, from the kernel also warp_ntrav and warp_ntests; a ray that
+    is not active reports a miss (t +inf, u = v = 0, tri -1)."""
+    _check_inputs(scene, org, dirn)
     active = ray_limits(org, None, active)[1]
     if org.device.type == "cpu":
-        return closest_hit_reference(tris, org, dirn, active)
+        return closest_hit_reference(scene.tris, org, dirn, active)
     if org.device.type != "cuda":
         raise ValueError(f"unsupported device {org.device}")
-    return closest_hit_kernel(tris, boxes, org, dirn, active)
+    return closest_hit_kernel(scene, org, dirn, active)
 
 
-def closest_hit_kernel(tris, boxes, org, dirn, active=None) -> dict:
-    """Launch csrc/isect.cu on the current stream (CUDA tensors only)."""
-    _check_inputs(tris, boxes, org, dirn)
+def _layout(scene, org, counters: bool = True):
+    """(chunks, supertiles a chunk, stats buffer or None) of a launch."""
+    B, dev = org.shape[0], org.device
+    chunks, per = split_layout(B, scene.n_tris, _sm_count(dev.index))
+    if not counters:
+        return chunks, per, None
+    n_warps = -(-B // BLOCK) * (BLOCK // WARP)
+    stats = torch.empty(NSTAT * chunks * n_warps, dtype=torch.int32,
+                        device=dev)
+    return chunks, per, stats
+
+
+def _scene_args(scene) -> tuple:
+    """The packs' pointers and sizes in lt_closest_hit's order."""
+    return (scene.tris.data_ptr(), scene.tris.shape[1], scene.n_tris,
+            scene.boxes.data_ptr(), scene.boxes.shape[1],
+            scene.sboxes.data_ptr(), scene.sboxes.shape[1],
+            scene.sub_boxes.data_ptr())
+
+
+def closest_hit_kernel(scene, org, dirn, active=None) -> dict:
+    """Launch csrc/isect.cu's closest hit on the current stream (CUDA
+    tensors only)."""
+    _check_inputs(scene, org, dirn)
     if org.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {org.device}")
     active = ray_limits(org, None, active)[1]
@@ -82,23 +160,30 @@ def closest_hit_kernel(tris, boxes, org, dirn, active=None) -> dict:
     u = torch.empty(B, dtype=torch.float32, device=dev)
     v = torch.empty(B, dtype=torch.float32, device=dev)
     tri = torch.empty(B, dtype=torch.int32, device=dev)
-    n_blocks = -(-B // BLOCK)
-    ntile = torch.empty(n_blocks * (BLOCK // WARP), dtype=torch.int32,
-                        device=dev)
+    chunks, per, stats = _layout(scene, org)
+    keys = torch.empty(B if chunks > 1 else 0, dtype=torch.int64, device=dev)
     lib = library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lt_closest_hit(
             org.data_ptr(), dirn.data_ptr(),
-            None if active is None else active.data_ptr(), B, tris.data_ptr(),
-            tris.shape[1], boxes.data_ptr(), boxes.shape[1], t.data_ptr(),
-            u.data_ptr(), v.data_ptr(), tri.data_ptr(), ntile.data_ptr(),
-            stream,
+            None if active is None else active.data_ptr(), B,
+            *_scene_args(scene), chunks, per, t.data_ptr(), u.data_ptr(),
+            v.data_ptr(), tri.data_ptr(),
+            keys.data_ptr() if chunks > 1 else None, stats.data_ptr(), stream,
         )
     check("lt_closest_hit", err)
     COUNTS.kernel += 1
-    return {"t": t, "u": u, "v": v, "tri": tri,
-            "ntrav": ntile.sum(dtype=torch.int64)}
+    return {"t": t, "u": u, "v": v, "tri": tri, **walk_stats(stats)}
+
+
+def _plain_stats(tris, org, active) -> dict:
+    """The twins' counters: no group visited, every slot tested by every
+    live ray."""
+    n_live = (torch.tensor(org.shape[0], device=org.device) if active is None
+              else active.sum())
+    return {"ntrav": torch.zeros((), dtype=torch.int64, device=org.device),
+            "ntests": n_live.to(torch.int64) * tris.shape[1]}
 
 
 def closest_hit_reference(tris, org, dirn, active=None,
@@ -114,10 +199,7 @@ def closest_hit_reference(tris, org, dirn, active=None,
     res = live_scan(lambda o, d, tm: closest_scan(tris, o, d, tm, ray_chunk),
                     org, dirn, inf, active,
                     {"t": float("inf"), "u": 0.0, "v": 0.0, "tri": -1})
-    n_warps = -(-B // WARP)
-    res["ntrav"] = torch.tensor(n_warps * (tris.shape[1] // TC),
-                                dtype=torch.int64, device=org.device)
-    return res
+    return {**res, **_plain_stats(tris, org, active)}
 
 
 def _mt_tile(tile, o, d):
@@ -225,42 +307,51 @@ def ray_limits(org, tmax, active=None):
     return tmax, active
 
 
-def any_hit(tris, boxes, org, dirn, tmax=None, active=None) -> dict:
-    """tris (16, Npad) [v0|e1|e2] and boxes (8, n_tiles) from accel/pack;
-    org, dirn (B, 3) f32; tmax None (unbounded), a float or (B,); active
-    None or (B,) bool.  Returns {occ (B,) bool: some triangle is hit with
-    0 < t < tmax; False for a ray that is not active}."""
-    _check_inputs(tris, boxes, org, dirn)
+def any_hit(scene, org, dirn, tmax=None, active=None,
+            counters: bool = False) -> dict:
+    """Whether rays org, dirn (B, 3) f32 hit a triangle of the scene's
+    dense packs with 0 < t < tmax (None: unbounded, a float or (B,));
+    active None or (B,) bool.  Returns {occ (B,) bool (False for a ray
+    that is not active)}; with counters also ntrav, ntests () i64, from
+    the kernel warp_ntrav and warp_ntests too."""
+    _check_inputs(scene, org, dirn)
     tmax, active = ray_limits(org, tmax, active)
     if org.device.type == "cpu":
-        return any_hit_reference(tris, org, dirn, tmax, active)
+        res = any_hit_reference(scene.tris, org, dirn, tmax, active)
+        if counters:
+            res.update(_plain_stats(scene.tris, org, active))
+        return res
     if org.device.type != "cuda":
         raise ValueError(f"unsupported device {org.device}")
-    return any_hit_kernel(tris, boxes, org, dirn, tmax, active)
+    return any_hit_kernel(scene, org, dirn, tmax, active, counters)
 
 
-def any_hit_kernel(tris, boxes, org, dirn, tmax, active=None) -> dict:
+def any_hit_kernel(scene, org, dirn, tmax, active=None,
+                   counters: bool = False) -> dict:
     """Launch csrc/isect.cu's any-hit on the current stream (CUDA tensors
-    only); tmax (B,) f32, active None or (B,) bool."""
-    _check_inputs(tris, boxes, org, dirn)
+    only); tmax (B,) f32, active None or (B,) bool; the walk's counters
+    only when asked (any_hit)."""
+    _check_inputs(scene, org, dirn)
     if org.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {org.device}")
     tmax, active = ray_limits(org, tmax, active)
     B = org.shape[0]
     dev = org.device
     occ = torch.empty(B, dtype=torch.bool, device=dev)
+    chunks, per, stats = _layout(scene, org, counters)
     lib = library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lt_any_hit(
             org.data_ptr(), dirn.data_ptr(), tmax.data_ptr(),
             None if active is None else active.data_ptr(), B,
-            tris.data_ptr(), tris.shape[1], boxes.data_ptr(), boxes.shape[1],
-            occ.data_ptr(), stream,
+            *_scene_args(scene), chunks, per, occ.data_ptr(),
+            None if stats is None else stats.data_ptr(), stream,
         )
     check("lt_any_hit", err)
     ANY_COUNTS.kernel += 1
-    return {"occ": occ}
+    return {"occ": occ} if stats is None else {"occ": occ,
+                                                **walk_stats(stats)}
 
 
 def any_hit_reference(tris, org, dirn, tmax, active=None,

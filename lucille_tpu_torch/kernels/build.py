@@ -38,12 +38,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # org, dir, active, B, tris, npad, boxes, n_tiles, t, u, v, tri, ntile,
-    # stream
-    "lt_closest_hit": (_P, _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
-                       _P),
-    # org, dir, tmax, active, B, tris, npad, boxes, n_tiles, occ, stream
-    "lt_any_hit": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P),
+    # org, dir, active, B, tris, npad, n_tris, boxes, n_tiles, sboxes,
+    # n_super, sub, chunks, per_chunk, t, u, v, tri, keys, stats, stream
+    "lt_closest_hit": (_P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I,
+                       _I, _P, _P, _P, _P, _P, _P, _P),
+    # org, dir, tmax, active, B, tris, npad, n_tris, boxes, n_tiles,
+    # sboxes, n_super, sub, chunks, per_chunk, occ, stats, stream
+    "lt_any_hit": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I,
+                   _I, _P, _P, _P),
     # rays, jitter, B, nact, tris, npad, n_tris, boxes, n_tiles, sboxes,
     # n_super, sub, ntheta, nphi, inv_ntheta, inv_nphi, chunk, tpl, grid,
     # occ, bits, stream

@@ -12,7 +12,10 @@ integrators: headline-whitted and headline-pathtrace (the bundled scene
 without its sunsky line: the default dome), bundled-whitted-sunsky (as
 shipped), heightfield256-whitted (the dome through the cone gather) and
 heightfield256-whitted-fused; and the fused tile-BVH AO gather
-(LUCILLE_BVH_AO=fused): heightfield256-ao-fused, heightfield724-ao-fused.
+(LUCILLE_BVH_AO=fused): heightfield256-ao-fused, heightfield724-ao-fused;
+and the dense AO strata scan above 131,072 triangles: the n = 258
+terrain on the dense tiles at 80x60, 2x2, 16 rays, tile 40,
+heightfield258-scan and heightfield258-scan-sunsky.
 
 Per cell it prints the warm frame's seconds without the profiler (best
 of 2), the profiled frame's wall time (host clock around render_frame
@@ -24,7 +27,9 @@ back makes two, anything more is a wait inside the enqueue), and the
 device time by operation name, largest first.  The profiler adds host
 cost, so the profiled wall time is above the unprofiled frame's.  The
 card's nvidia-smi name and power limit come first.  Needs one card;
-imports nothing of lucille_tpu.
+imports nothing of lucille_tpu.  It imports the chip_smoke.py and the
+package beside it, so a copy placed in another checkout's root profiles
+that checkout.
 """
 
 from __future__ import annotations
@@ -61,6 +66,11 @@ CELLS = {
                                 "fused"),
     "heightfield724-ao-fused": (lambda: cs.heightfield_state(724), 128,
                                 "fused"),
+    "heightfield258-scan": (lambda: cs.heightfield_state(
+        258, 80, 60, pixelsamples=2, gather=16, accel="pallas"), 40, "cone"),
+    "heightfield258-scan-sunsky": (lambda: cs.heightfield_state(
+        258, 80, 60, pixelsamples=2, gather=16, accel="pallas", sunsky=True),
+        40, "cone"),
 }
 
 

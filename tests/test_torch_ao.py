@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from test_intersect import _random_soup, _scene_from_tris
 from test_torch_scene import one_torch_thread  # noqa: F401
+from test_torch_scene import native_builders  # noqa: F401
 
 
 def _soup(n_tris, seed=5):

@@ -99,13 +99,11 @@ def test_closest_hit_kernel_matches_plain(B):
         closest_hit_kernel,
         closest_hit_reference,
     )
-    from lucille_tpu_torch.accel.pack import pack_boxes, pack_tris
 
     scene = _soup_scene(700)
     o, d = _shell_rays(B)
-    tris, boxes = pack_tris(scene), pack_boxes(scene)
-    got = closest_hit_kernel(tris, boxes, o, d)
-    ref = closest_hit_reference(tris, o, d)
+    got = closest_hit_kernel(scene, o, d)
+    ref = closest_hit_reference(scene.tris, o, d)
     assert (got["tri"] >= 0).float().mean() > 0.2
     assert (got["tri"] != ref["tri"]).float().mean() <= 1e-3
     same = (got["tri"] == ref["tri"]) & (ref["tri"] >= 0)
@@ -143,7 +141,6 @@ def test_any_hit_kernel_matches_plain(tmax, masked):
     with an active mask, dead rays report False."""
     _need_card()
     from lucille_tpu_torch.accel.isect import any_hit, any_hit_reference
-    from lucille_tpu_torch.accel.pack import pack_boxes, pack_tris
 
     scene = _soup_scene(1100)  # 9 tiles
     B = 5000
@@ -157,8 +154,8 @@ def test_any_hit_kernel_matches_plain(tmax, masked):
                                   device="cuda")}[tmax]
     active = (torch.tensor(rng.uniform(size=B) < 0.6, device="cuda")
               if masked else None)
-    tris, boxes = pack_tris(scene), pack_boxes(scene)
-    got = any_hit(tris, boxes, o, d, t_arg, active)["occ"]
+    tris = scene.tris
+    got = any_hit(scene, o, d, t_arg, active)["occ"]
     t_row = torch.broadcast_to(torch.as_tensor(
         float("inf") if t_arg is None else t_arg, dtype=torch.float32,
         device="cuda"), (B,)).contiguous()
@@ -167,6 +164,169 @@ def test_any_hit_kernel_matches_plain(tmax, masked):
     assert (got != ref).float().mean() <= 1e-3
     if masked:
         assert not torch.any(got[~active])
+
+
+def _cube_poison(scene, lo, hi):
+    """A copy of the dense scene whose pad slots hold the 12 triangles of
+    the box [lo, hi]^3 (every ray from outside toward the inside crosses
+    it first, every ray from inside crosses it on the way out), its tile
+    and group boxes and n_tris left as they are: a kernel that tested a
+    pad slot would answer differently."""
+    import dataclasses
+
+    faces = []
+    for ax in range(3):
+        a, b = (ax + 1) % 3, (ax + 2) % 3
+        for side in (lo, hi):
+            for c0, s in ((lo, 1.0), (hi, -1.0)):
+                v0 = np.zeros(3)
+                v0[ax], v0[a], v0[b] = side, c0, c0
+                e1, e2 = np.zeros(3), np.zeros(3)
+                e1[a] = s * (hi - lo)
+                e2[b] = s * (hi - lo)
+                faces.append(np.concatenate([v0, e1, e2]))
+    faces = torch.tensor(np.array(faces).T, dtype=torch.float32,
+                         device="cuda")  # (9, 12)
+    tris = scene.tris.clone()
+    pad = tris.shape[1] - scene.n_tris
+    tris[:9, scene.n_tris:] = faces.repeat(1, -(-pad // 12))[:, :pad]
+    return dataclasses.replace(scene, tris=tris)
+
+
+def _check_dense_stats(res):
+    """The dense walk's counters: lane work within the warps' steps."""
+    ntrav, ntests = int(res["ntrav"]), int(res["ntests"])
+    wtrav, wtests = int(res["warp_ntrav"]), int(res["warp_ntests"])
+    assert 0 < ntrav <= 32 * wtrav
+    assert 0 < ntests <= 32 * wtests
+    assert ntests <= 8 * ntrav and wtests <= 8 * wtrav
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n_tris", [322, 600, 3000])
+def test_dense_kernels_never_test_padding(n_tris, masked):
+    """322 and 600 triangles: the last real tile is partly padding and the
+    next tile is padding alone; 3000: two supertiles, the second ragged.
+    The pad slots of a copy hold a box around the soup that every ray
+    crosses: both kernels answer on it as their twins do on the scene
+    itself, with dead lanes reporting a miss / False."""
+    _need_card()
+    from lucille_tpu_torch.accel import isect
+
+    scene = _soup_scene(n_tris)
+    assert scene.n_pad - n_tris > 128 or n_tris == 3000
+    poisoned = _cube_poison(scene, -6.5, 6.5)
+    o, d = _shell_rays(4096, seed=2)
+    rng = np.random.default_rng(4)
+    active = (torch.tensor(rng.uniform(size=4096) < 0.6, device="cuda")
+              if masked else None)
+    got = isect.closest_hit_kernel(poisoned, o, d, active)
+    ref = isect.closest_hit_reference(scene.tris, o, d, active)
+    live = torch.ones_like(o[:, 0], dtype=torch.bool) if active is None \
+        else active
+    assert (ref["tri"][live] >= 0).float().mean() > 0.1
+    assert int(got["tri"].max()) < n_tris
+    assert (got["tri"] != ref["tri"]).float().mean() <= 1e-3
+    same = (got["tri"] == ref["tri"]) & (ref["tri"] >= 0)
+    for k in ("t", "u", "v"):
+        torch.testing.assert_close(got[k][same], ref[k][same], rtol=1e-6,
+                                   atol=1e-7)
+    _check_dense_stats(got)
+    # from inside the box every ray leaves through a pad slot
+    P = torch.tensor(rng.uniform(-4, 4, (4096, 3)), dtype=torch.float32,
+                     device="cuda")
+    occ = isect.any_hit_kernel(poisoned, P, d, torch.full(
+        (4096,), float("inf"), device="cuda"), active, counters=True)
+    want = isect.any_hit_reference(scene.tris, P, d, torch.full(
+        (4096,), float("inf"), device="cuda"), active)["occ"]
+    assert 0.05 < want[live].float().mean() < 0.9
+    assert (occ["occ"] != want).float().mean() <= 1e-3
+    _check_dense_stats(occ)
+    if masked:
+        assert not got["t"][~active].isfinite().any()
+        assert not occ["occ"][~active].any()
+
+
+def _ordered_scene(v0, e1, e2):
+    """Dense packs of triangles in the given order (no Morton sort),
+    padded to 256 as scene/compile pads: the fields the dense kernels and
+    accel/pack read."""
+    from types import SimpleNamespace
+
+    from lucille_tpu_torch.accel.pack import (
+        SUB,
+        pack_boxes,
+        pack_super_boxes,
+        pack_tris,
+    )
+
+    n = len(v0)
+    n_pad = -(-n // 256) * 256
+    rows = [torch.tensor(np.concatenate([a, np.zeros((n_pad - n, 3))]),
+                         dtype=torch.float32, device="cuda")
+            for a in (v0, e1, e2)]
+    sc = SimpleNamespace(tri_v0=rows[0], tri_e1=rows[1], tri_e2=rows[2],
+                         n_tris=n, n_pad=n_pad, device=rows[0].device)
+    sc.tris = pack_tris(sc)
+    sc.boxes = pack_boxes(sc)
+    sc.sboxes = pack_super_boxes(sc.boxes)
+    sc.sub_boxes = pack_boxes(sc, SUB)
+    return sc
+
+
+@pytest.mark.gpu
+def test_dense_kernels_split_across_the_grid():
+    """256 rays on 102 tiles: the kernels split the triangle range across
+    the grid's second dimension (the dense strata scan's case).  One
+    triangle copied into the first and the last chunk: the rays onto it
+    tie exactly in t, and the lower index wins, as in the twin; every
+    other answer equals the twin's, for the closest hit, and for the
+    any-hit with a per-ray tmax and dead lanes."""
+    _need_card()
+    from lucille_tpu_torch.accel import isect
+    from lucille_tpu_torch.accel.pack import SUPER, TC
+
+    n, B = 13000, 256
+    rng = np.random.default_rng(7)
+    c = rng.uniform(-5, 5, (n, 3))
+    v0 = c + rng.normal(0, 0.3, (n, 3))
+    e1 = rng.normal(0, 0.3, (n, 3))
+    e2 = rng.normal(0, 0.3, (n, 3))
+    first, last = 5, n - 3
+    for i in (first, last):  # a large triangle above the soup, facing +z
+        v0[i], e1[i], e2[i] = (-3, -3, 8), (6, 0, 0), (0, 6, 0)
+    scene = _ordered_scene(v0, e1, e2)
+    chunks, per = isect.split_layout(B, n, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert chunks > 1
+    assert first // (TC * SUPER) // per != last // (TC * SUPER) // per
+    o, d = _shell_rays(B, seed=3)
+    k = B // 2  # the first half straight down onto the copies
+    xy = rng.uniform(-2, 0, (k, 2))
+    o[:k] = torch.tensor(np.c_[xy, np.full(k, 20.0)], dtype=torch.float32,
+                         device="cuda")
+    d[:k] = torch.tensor([0.0, 0.0, -1.0], device="cuda")
+    got = isect.closest_hit_kernel(scene, o, d)
+    ref = isect.closest_hit_reference(scene.tris, o, d)
+    assert torch.all(got["tri"][:k] == first) and torch.all(
+        ref["tri"][:k] == first)
+    assert torch.equal(got["t"][:k], ref["t"][:k])
+    assert (got["tri"] != ref["tri"]).float().mean() <= 1e-3
+    same = (got["tri"] == ref["tri"]) & (ref["tri"] >= 0)
+    for key in ("t", "u", "v"):
+        torch.testing.assert_close(got[key][same], ref[key][same], rtol=1e-6,
+                                   atol=1e-7)
+    assert torch.all(torch.isinf(got["t"][got["tri"] < 0]))
+    _check_dense_stats(got)
+    tmax = torch.tensor(rng.uniform(1, 25, B), dtype=torch.float32,
+                        device="cuda")
+    active = torch.tensor(rng.uniform(size=B) < 0.7, device="cuda")
+    occ = isect.any_hit_kernel(scene, o, d, tmax, active)
+    want = isect.any_hit_reference(scene.tris, o, d, tmax, active)["occ"]
+    assert 0.1 < want.float().mean() < 0.9
+    assert (occ["occ"] != want).float().mean() <= 1e-3
+    assert not occ["occ"][~active].any()
 
 
 @pytest.mark.gpu

@@ -17,6 +17,7 @@ import torch
 
 from test_torch_render import JaxSampler
 from test_torch_scene import one_torch_thread  # noqa: F401
+from test_torch_scene import native_builders  # noqa: F401
 from test_torch_whitted import (
     check_lane_for_lane,
     close_rel,

@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_scene import one_torch_thread  # noqa: F401
+from test_torch_scene import native_builders  # noqa: F401
 from test_torch_scene import REPO, bundled_state, heightfield_state
 
 

@@ -9,6 +9,7 @@ JAX package's functions get lucille_tpu's scene description, the port's
 get its own.
 """
 
+import shutil
 import sys
 from pathlib import Path
 
@@ -33,6 +34,44 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _fresh_loaders(monkeypatch):
+    """Both packages' native loaders with nothing loaded or tried yet,
+    restored after the test."""
+    import lucille_tpu.native.loader as jax_loader
+    import lucille_tpu_torch.native.loader as port_loader
+
+    for mod in (jax_loader, port_loader):
+        monkeypatch.setattr(mod, "_libs", {})
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_lib_tried", False)
+    return jax_loader, port_loader
+
+
+@pytest.fixture(autouse=True)
+def native_builders(monkeypatch, tmp_path_factory):
+    """Both packages build their BVHs with the C++ builder, or, where g++
+    is absent, both with NumPy (the two give different triangle orders).
+    lucille_tpu compiles its library straight into its cache directory,
+    so a parallel worker can find it half written and fall back to NumPy
+    for good; here each worker compiles into a directory of its own.
+    Autouse in every test_torch_* module that builds a tile BVH through
+    both packages (each imports this fixture)."""
+    monkeypatch.setenv("LUCILLE_NATIVE_CACHE",
+                       str(tmp_path_factory.getbasetemp() / "native"))
+    loaders = _fresh_loaders(monkeypatch)
+    have_gxx = shutil.which("g++") is not None
+    assert [m.get_bvh_lib() is not None for m in loaders] == [have_gxx] * 2
+
+
+@pytest.fixture
+def numpy_builders(native_builders, monkeypatch):
+    """Both packages build their BVHs with NumPy: neither has a library."""
+    loaders = _fresh_loaders(monkeypatch)
+    for mod in loaders:
+        monkeypatch.setattr(mod, "_lib_tried", True)
+    assert all(m.get_bvh_lib() is None for m in loaders)
 
 
 def bundled_rib_text(sunsky: bool = False) -> str:
@@ -93,12 +132,19 @@ SCENES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(SCENES))
-def test_compile_matches_jax_exactly(name):
+@pytest.mark.parametrize("name,builder", [
+    *(pytest.param(name, "native", id=name) for name in sorted(SCENES)),
+    pytest.param("heightfield35_bvh", "numpy", id="heightfield35_bvh-numpy"),
+])
+def test_compile_matches_jax_exactly(name, builder, request):
     """Every array equal, bit for bit (after lucille_tpu's own device_put
     cast to f32/i32), on the dense tiles and on the tile BVH: triangle
     ids compare exactly.  from_numpy of lucille_tpu's pbvh SceneArrays
-    gives the port's own compile, node pack and tree depth included."""
+    gives the port's own compile, node pack and tree depth included.  The
+    tile BVH once with both packages' C++ builders, once with both
+    NumPy builds."""
+    if builder == "numpy":
+        request.getfixturevalue("numpy_builders")
     from lucille_tpu.scene.compile import compile_scene as jax_compile
     from lucille_tpu_torch.scene.compile import compile_scene
     from lucille_tpu_torch.scene.types import (

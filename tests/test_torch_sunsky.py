@@ -176,7 +176,7 @@ def test_stratum_directions_pair_with_the_bits():
     signed-volume test) gives the bits back but for grazing rays (<= 1%);
     pack_bits and unpack_bits are each other's inverse."""
     from lucille_tpu_torch.accel import ao, isect
-    from lucille_tpu_torch.accel.pack import pack_boxes, pack_occ, pack_tris
+    from lucille_tpu_torch.accel.pack import pack_occ
     from lucille_tpu_torch.scene.types import from_numpy
 
     v0, v1, v2 = _random_soup(400, seed=5)
@@ -190,9 +190,8 @@ def test_stratum_directions_pair_with_the_bits():
     flags = ao.unpack_bits(bits, 35)
     assert bits.shape == (2, 256) and 0.05 < flags.float().mean() < 0.9
     d = ao.stratum_directions(b0, b1, b2, u01, 5, 7)
-    tris, boxes = pack_tris(scene), pack_boxes(scene)
-    traced = torch.stack([isect.any_hit(tris, boxes, P, d[s].contiguous())
-                          ["occ"] for s in range(35)])
+    traced = torch.stack([isect.any_hit(scene, P, d[s].contiguous())["occ"]
+                          for s in range(35)])
     assert (traced != flags).float().mean() <= 0.01
     assert torch.equal(ao.pack_bits(flags), bits)
     assert torch.equal(ao.unpack_bits(ao.pack_bits(flags[:, :5]), 35),

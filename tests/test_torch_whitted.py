@@ -38,6 +38,7 @@ import jax.numpy as jnp
 
 from test_torch_render import JaxSampler, JaxStream
 from test_torch_scene import one_torch_thread  # noqa: F401
+from test_torch_scene import native_builders  # noqa: F401
 from test_torch_scene import bundled_rib_text, front_end, heightfield_state
 
 MAT_LIGHTS = (
