@@ -68,10 +68,14 @@ non-zero):
    hit lanes.  Their bounds count the work the data needs (`need_walk`:
    the tree walked near child first, real triangles only, an any-hit
    stopping at its first hit), on every eye ray and on a random sample
-   of the gather rays; the any-hit's warp walk prints its lane node
-   visits and triangle tests against that need, its warp steps and SIMT
-   efficiency (`walk_report`), and each kernel its registers and spills
-   (a spill fails);
+   of the gather rays, and the bytes of the nodes and leaves' real
+   triangles the rays reach; the closest hit walks that walk exactly:
+   on every eye ray its triangle and t equal need_walk's, and its node
+   visits and triangle tests equal need_walk's counts
+   (`check_closest_walk`); both kernels print their lane node visits and
+   triangle tests against that need, their walks' steps and SIMT
+   efficiency (`walk_report`), and their registers and spills (a spill
+   fails);
 8. the large-scene frames: both heightfields at bench_large's
    configuration, uncut (160x120, 2x2 samples, 64 AO rays, tile 128),
    with the checks of phase 4 (both BVH kernels launched, no dense
@@ -92,7 +96,9 @@ non-zero):
    equal the kernel's, and the walk's work against it as in phase 7.
    Then both closest hits with a bounce
    wavefront's active mask (half the rays live) against their twins
-   (phase 3's and 7's tolerances; dead rays report a miss);
+   (phase 3's and 7's tolerances; dead rays report a miss), the tile
+   BVH's at n = 256 and 724, its live rays held to need_walk's walk
+   exactly as in phase 7;
 11. the integrator frames, each with the checks and timing of phase 4:
    bench.py's `whitted` frame (the bundled scene without its sunsky line,
    640x480, 3x3, tile 240: the default dome, so Whitted gathers it
@@ -350,11 +356,11 @@ def timed(fn):
 
 
 def hit_kernel_ms(fn, kernel: str) -> tuple[float, float]:
-    """(device ms of kernel 1 or 2 in a call of fn, from the profiler as
-    profile_gather.py reads it; ms a call on CUDA events, the wrapper's
-    host work included).  These kernels take less device time than
-    their wrappers take on the host, so events around back-to-back calls
-    time the host."""
+    """(device ms of kernel 1, 2 or 4 in a call of fn, from the profiler
+    as profile_gather.py reads it; ms a call on CUDA events, the
+    wrapper's host work included).  These kernels take less device time
+    than their wrappers take on the host, so events around back-to-back
+    calls time the host."""
     from profile_gather import kernel_ms
 
     return kernel_ms(fn, kernel)[0], cuda_ms(fn, 10)
@@ -611,7 +617,7 @@ def gather_need(scene, P_off, b0, b1, b2, u01, ntheta: int, nphi: int,
 
 
 def need_walk(tris, nodes, org, dirn, closest: bool, depth: int,
-              chunk: int = 16384) -> dict:
+              chunk: int = 16384, tmax=None) -> dict:
     """The tile-BVH work rays org, dirn (R, 3) need, counted by walking
     the tree in plain torch: each ray enters the root, at an inner node
     tests both child boxes and enters the near child first (the one on
@@ -621,9 +627,14 @@ def need_walk(tris, nodes, org, dirn, closest: bool, depth: int,
     walk; a leaf tests its real triangles in slot order (padding slots,
     all zero, are no work), the any-hit (unbounded signed-volume test)
     up to its first hit and then stopping, the closest hit
-    (Moller-Trumbore) every one.  Returns {"hit" (R,) bool (hit or
-    occluded), "inner" inner nodes entered, "nodes" nodes entered,
-    "tests" real triangles tested (Python ints)}."""
+    (Moller-Trumbore, 0 < t < best t, which starts at tmax (R,), None:
+    unbounded) every one, a leaf's least t, the lowest slot on equal t,
+    replacing the best only if nearer.  Returns {"hit" (R,) bool (hit or
+    occluded), "t" (R,) the closest hit's best t (tmax on a miss), "tri"
+    (R,) its slot (-1 on a miss), "inner" inner nodes entered, "nodes"
+    nodes entered, "tests" real triangles tested, "distinct_nodes" the
+    nodes some ray entered, "leaf_tris" the real triangles of the leaves
+    some ray entered (Python ints)}."""
     import torch
 
     from lucille_tpu_torch.accel.pack import TC
@@ -649,8 +660,11 @@ def need_walk(tris, nodes, org, dirn, closest: bool, depth: int,
     sp = torch.zeros(R, dtype=torch.long, device=dev)
     stack = torch.zeros((R, depth + 1), dtype=torch.long, device=dev)
     stack_tn = torch.zeros((R, depth + 1), device=dev)
-    t_best = torch.full((R,), inf, device=dev)
+    t_best = (torch.full((R,), inf, device=dev) if tmax is None
+              else tmax.to(torch.float32).clone())
+    tri = torch.full((R,), -1, dtype=torch.long, device=dev)
     hit = torch.zeros(R, dtype=torch.bool, device=dev)
+    entered = torch.zeros(nodes.shape[0], dtype=torch.bool, device=dev)
     n_inner = n_nodes = 0
     tests = torch.zeros((), dtype=torch.int64, device=dev)
     while True:
@@ -659,6 +673,7 @@ def need_walk(tris, nodes, org, dirn, closest: bool, depth: int,
             break
         n_nodes += idx.numel()
         c = cur[idx]
+        entered[c] = True
         m = meta[c]
         leaf = m > 0
         nxt = torch.full_like(c, -1)
@@ -716,9 +731,12 @@ def need_walk(tris, nodes, org, dirn, closest: bool, depth: int,
                 u, v, t = u * inva, v * inva, t * inva
                 h = (valid & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1)
                      & (t > 0) & (t < t_best[rows, None]) & rv)
-                t_best[rows] = torch.minimum(
-                    t_best[rows], torch.where(h, t, inf).amin(dim=1))
-                hit[rows] |= h.any(dim=1)
+                tc, j = torch.where(h, t, inf).min(dim=1)  # first of equals
+                better = h.any(dim=1)
+                t_best[rows] = torch.where(better, tc, t_best[rows])
+                tri[rows] = torch.where(better, k.gather(1, j[:, None])[:, 0],
+                                        tri[rows])
+                hit[rows] |= better
                 tests += rv.sum()
             else:
                 w = det - u - v
@@ -744,8 +762,15 @@ def need_walk(tris, nodes, org, dirn, closest: bool, depth: int,
             if closest:
                 cand = torch.where(stack_tn[pi, sp[pi]] < t_best[pi], cand, -1)
             cur[pi] = cand
-    return {"hit": hit, "inner": n_inner, "nodes": n_nodes,
-            "tests": int(tests)}
+    leaves = torch.nonzero(entered & (meta > 0))[:, 0]
+    per_tile = torch.cumsum(
+        torch.cat([real.new_zeros(1, dtype=torch.long),
+                   real.view(-1, TC).sum(dim=1)]), dim=0)
+    leaf_tris = per_tile[link[leaves] + meta[leaves]] - per_tile[link[leaves]]
+    return {"hit": hit, "t": t_best, "tri": tri, "inner": n_inner,
+            "nodes": n_nodes, "tests": int(tests),
+            "distinct_nodes": int(entered.sum()),
+            "leaf_tris": int(leaf_tris.sum())}
 
 
 def compare_closest(got, ref, sl, name, tri_tol=1e-4):
@@ -1080,10 +1105,12 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     B = org.shape[0]
     tris, nodes, depth = scene.tris, scene.nodes, scene.tree_depth
     inf = lambda n: torch.full((n,), float("inf"), device="cuda")  # noqa: E731
-    static_bytes = scene.n_pad * 36 + nodes.shape[0] * 32
+    leaf_real = scene.leaf_real
 
     # -- tile-BVH closest hit on the eye rays
-    got = bvh_isect.bvh_closest_hit(tris, nodes, org, dirn, depth=depth)
+    launch = lambda o, d: bvh_isect.bvh_closest_hit(  # noqa: E731
+        tris, nodes, o, d, depth=depth, leaf_real=leaf_real)
+    got = launch(org, dirn)
     hits = torch.nonzero(got["tri"] >= 0)[:, 0]  # centre the slice on them
     mid = int(hits[len(hits) // 2]) if len(hits) else B // 2
     lo = min(max(0, mid - n_closest // 2), max(0, B - n_closest))
@@ -1104,37 +1131,36 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     if hit_differ > 1e-4 or differ > 1e-3:
         raise AssertionError(f"{label} bvh_closest_hit: hit differs on "
                              f"{hit_differ:.2e}, tri on {differ:.2e}")
-    ms = cuda_ms(lambda: bvh_isect.bvh_closest_hit(tris, nodes, org, dirn,
-                                                   depth=depth), 5)
-    ms_slice = cuda_ms(lambda: bvh_isect.bvh_closest_hit(
-        tris, nodes, org[sl], dirn[sl], depth=depth), 5)
+    ms, call_ms = hit_kernel_ms(lambda: launch(org, dirn), "bvh_closest_hit")
+    ms_slice = hit_kernel_ms(lambda: launch(org[sl], dirn[sl]),
+                             "bvh_closest_hit")[0]
     hit_rate = (got["tri"] >= 0).float().mean().item()
     # the work the data needs: every eye ray walked near child first,
-    # real triangles only
+    # real triangles only; the kernel walks exactly that walk
     need = need_walk(tris, nodes, org, dirn, True, depth)
-    need_differ = (need["hit"] != (got["tri"] >= 0)).float().mean().item()
-    if need_differ > 1e-4:
-        raise AssertionError(f"{label} need_walk: hit differs from the "
-                             f"closest hit's on {need_differ:.2e}")
-    work = bound(B * (28 + 16) + static_bytes,
+    check_closest_walk(f"{label} bvh_closest_hit", got, need)
+    work = bound(B * (28 + 16) + reached_bytes(need),
                  need["tests"] * MT_OPS + need["inner"] * NODE_OPS)
+    walk = walk_report(got, need, 1)
     regs, spill = kernel_registers(build.library().log, "bvh_closest_kernel")
-    print(f"[{label}] bvh_closest_hit ({regs} registers, {spill} bytes "
-          f"spilled): {B} eye rays, hit rate "
-          f"{hit_rate:.4f}, {int(got['ntrav'])} node visits and "
-          f"{int(got['ntests'])} triangle tests done, {need['nodes']} "
-          f"visits ({need['inner']} inner) and {need['tests']} tests "
-          f"needed; on {n_closest} rays tri "
+    print(f"[{label}] bvh_closest_hit (a warp a ray; {regs} registers, "
+          f"{spill} bytes spilled): {B} eye rays, hit rate {hit_rate:.4f}; "
+          f"{walk['text']}; tri, node visits and triangle tests equal "
+          f"need_walk's on every ray; on {n_closest} rays tri "
           f"differs on {differ:.2e}, max |t,u,v err| {err:.3e}; kernel "
-          f"{ms:.3f} ms ({ms_slice:.3f} ms on the slice), plain "
-          f"{plain_ms:.3f} ms on the slice, bound {work['bound_ms']:.3f} ms "
-          f"({work['bound_by']})", flush=True)
+          f"{ms:.3f} ms on the device ({ms_slice:.3f} ms on the slice; a "
+          f"call {call_ms:.3f} ms with the wrapper's host work), plain "
+          f"{plain_ms:.3f} ms on the slice, bound {work['bound_ms']:.4f} ms "
+          f"({work['bound_by']}, {need['distinct_nodes']} nodes and "
+          f"{need['leaf_tris']} leaf triangles reached; kernel / bound "
+          f"{ms / work['bound_ms']:.1f}x)", flush=True)
     results["bvh_closest_hit"].append(
-        {"scene": label, "rays": B, "ms": ms, "slice": n_closest,
-         "ms_slice": ms_slice, "plain_ms": plain_ms, "max_abs_err": err,
-         "tri_differs": differ, "kernel_ntrav": int(got["ntrav"]),
-         "kernel_ntests": int(got["ntests"]), "registers": regs,
-         **{f"need_{k}": need[k] for k in ("inner", "nodes", "tests")},
+        {"scene": label, "rays": B, "ms": ms, "call_ms": call_ms,
+         "slice": n_closest, "ms_slice": ms_slice, "plain_ms": plain_ms,
+         "max_abs_err": err, "tri_differs": differ, "registers": regs,
+         "spill": spill,
+         **walk["numbers"],
+         **{f"need_{k}": need[k] for k in ("distinct_nodes", "leaf_tris")},
          **work})
 
     # -- tile-BVH any-hit on the tile's gather rays, 8x8 strata
@@ -1145,7 +1171,6 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
     oo, dd, _order, _layout = conetile_rays(scene, P_off, b0, b1, b2, hit,
                                             jitter, 8, 8)
     R = oo.shape[0]
-    leaf_real = scene.leaf_real
     got = bvh_isect.bvh_any_hit(tris, nodes, oo, dd, depth=depth,
                                 leaf_real=leaf_real)
     live = int(hit.sum()) * 64  # the live gather rays lead the layout
@@ -1170,7 +1195,9 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
         raise AssertionError(f"{label} need_walk: occlusion differs from "
                              f"the any-hit's on {need_differ:.2e}")
     scale = R / len(sample)
-    work = bound(R * (28 + 1) + static_bytes,
+    # bytes: the nodes and leaves the sample reaches (fewer than all R rays
+    # reach, so still a floor)
+    work = bound(R * (28 + 1) + reached_bytes(need),
                  scale * (need["tests"] * SV_OPS + need["inner"] * NODE_OPS))
     walk = walk_report(got, need, scale)
     regs, spill = kernel_registers(build.library().log, "bvh_any_kernel")
@@ -1191,11 +1218,14 @@ def check_bvh_kernels(label, r, n_closest, n_any, results):
 
 
 def walk_report(got, need, scale) -> dict:
-    """The warp walk's work against need_walk's (kernels 5 and 6): node
-    visits of the lanes that reach the node and real triangles they
-    tested, against the per-ray near-first walk's counts (scaled from its
-    sample), and the SIMT efficiency, lane tests over 32 x the warps'
-    triangle steps.  Returns {"text", "numbers"}."""
+    """A warp walk's work against need_walk's: node visits of the rays
+    that reach the node and real triangles they tested, against the
+    per-ray near-first walk's counts (scaled from its sample), and the
+    SIMT efficiency in the leaves, ray tests over 32 x the warps'
+    triangle steps (kernels 5 and 6: a walk a warp of 32 rays, a step one
+    ray against up to 32 triangles; kernel 4: a walk a warp for one ray,
+    a step the ray against up to 32 triangles).  Returns {"text",
+    "numbers"}."""
     k = {key: int(got[key]) for key in ("ntrav", "ntests", "warp_ntrav",
                                         "warp_ntests")}
     need_nodes, need_tests = scale * need["nodes"], scale * need["tests"]
@@ -1211,6 +1241,30 @@ def walk_report(got, need, scale) -> dict:
         "simt_efficiency": simt,
         **{f"need_{key}": scale * need[key]
            for key in ("inner", "nodes", "tests")}}}
+
+
+def check_closest_walk(name, got, need) -> None:
+    """Kernel 4 walks need_walk's walk exactly: on every ray it reports
+    need_walk's triangle (its first leaf keeps an exact tie in t) and t
+    (within 1e-6 relative, the twins' tolerance), and its node visits
+    and real triangle tests equal need_walk's."""
+    import torch
+
+    wrong = int((got["tri"].long() != need["tri"]).sum())
+    done = (int(got["ntrav"]), int(got["ntests"]))
+    if wrong or done != (need["nodes"], need["tests"]):
+        raise AssertionError(
+            f"{name}: tri differs from need_walk's on {wrong} rays; node "
+            f"visits and tests {done}, need_walk {need['nodes']}, "
+            f"{need['tests']}")
+    torch.testing.assert_close(got["t"], need["t"], rtol=1e-6, atol=1e-7)
+
+
+def reached_bytes(need) -> int:
+    """The bytes a walk must read at least once: the real triangles of
+    the leaves the rays reach (36 B each, the nine rows) and the nodes
+    they enter (32 B each)."""
+    return need["leaf_tris"] * 36 + need["distinct_nodes"] * 32
 
 
 def check_bounded_any_hit(label, scene, P_off, hit, n_slice) -> float:
@@ -1332,7 +1386,8 @@ def check_closest_active(label, r, n_slice, results):
             scene, org, dirn, a)
     else:
         launch = lambda a: bvh_isect.bvh_closest_hit(  # noqa: E731
-            tris, scene.nodes, org, dirn, None, a, depth=scene.tree_depth)
+            tris, scene.nodes, org, dirn, None, a, depth=scene.tree_depth,
+            leaf_real=scene.leaf_real)
     got = launch(active)
     hits = torch.nonzero(got["tri"] >= 0)[:, 0]
     mid = int(hits[len(hits) // 2]) if len(hits) else B // 2
@@ -1354,14 +1409,24 @@ def check_closest_active(label, r, n_slice, results):
     if hit_differ.item() > 1e-4:
         raise AssertionError(f"{label} {name} with active: hit differs on "
                              f"{hit_differ.item():.2e}")
+    walked = ""
+    if not dense:  # the live rays walk need_walk's walk exactly
+        live = torch.nonzero(active)[:, 0]
+        need = need_walk(tris, scene.nodes, org[live], dirn[live], True,
+                         scene.tree_depth)
+        check_closest_walk(f"{label} {name} with active",
+                           {**got, "tri": got["tri"][live],
+                            "t": got["t"][live]}, need)
+        walked = (f", tri, {need['nodes']} node visits and {need['tests']} "
+                  f"triangle tests equal need_walk's on the live rays")
     all_live = torch.ones_like(active)
     ms = cuda_ms(lambda: launch(active), 5)
     ms_all = cuda_ms(lambda: launch(all_live), 5)
     print(f"[{label}] {name} with active: {int(active.sum())} live of {B}, "
           f"live hit rate {(got['tri'][active] >= 0).float().mean().item():.4f}"
           f"; on {n_slice} rays tri differs on {differ:.2e}, max |t,u,v err| "
-          f"{err:.3e}; kernel {ms:.3f} ms (every ray live {ms_all:.3f} ms)",
-          flush=True)
+          f"{err:.3e}{walked}; kernel {ms:.3f} ms (every ray live "
+          f"{ms_all:.3f} ms)", flush=True)
     results[name].append({"scene": f"{label}-active", "max_abs_err": err,
                           "ms": ms, "ms_all_live": ms_all,
                           "tri_differs": differ})
@@ -1464,8 +1529,8 @@ def check_fused_gather(label, r, n_slots, results, inputs, ntheta=8, nphi=8):
         raise AssertionError(f"{label} need_walk: counts differ from the "
                              f"fused gather's on {need_differ:.2e} of slots")
     scale = n / len(slots)
-    work = bound(B * (48 + 8 + 4) + scene.n_pad * 36 + nodes.shape[0] * 36
-                 + S * 4,
+    # bytes: the nodes and leaves the sample reaches (a floor)
+    work = bound(B * (48 + 8 + 4) + reached_bytes(need) + S * 4,
                  scale * (need["tests"] * SV_OPS + need["inner"] * NODE_OPS)
                  + n * S * DIR_OPS)
     walk = walk_report(stats, need, scale)
@@ -1847,13 +1912,12 @@ def main() -> int:
     check_closest_active("bundled", Renderer(
         bundled_state(640, 480, 3, 64, sunsky=False).scene, tile_size=TILE,
         device="cuda"), 65536, results)
-    for n, n_slots in ((256, 256), (724, 64)):
+    for n, n_slots, n_active in ((256, 256, 16384), (724, 64, 4096)):
         r = build_renderer(f"heightfield{n}", lambda: heightfield_state(n),
                            128)
         check_fused_gather(f"heightfield{n}", r, n_slots, results,
                            ao_gather_inputs(r))
-        if n == 256:
-            check_closest_active(f"heightfield{n}", r, 16384, results)
+        check_closest_active(f"heightfield{n}", r, n_active, results)
     # kernel 6's other layout (2x2 strata: one warp of 8 slots x 4 strata
     # a block), as the Whitted frame's dome gather runs it
     r = build_renderer("heightfield256-whitted",

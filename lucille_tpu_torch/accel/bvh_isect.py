@@ -14,17 +14,21 @@ leaves, where the kernel keeps the one it visited first and the twin the
 lowest slot.
 
 Counters (the port's own definition; only nrays is held to lucille_tpu).
-The closest hit (one thread a ray): ``ntrav`` is node visits summed over
-rays, ``ntests`` leaf triangles tested, leaf tiles x 128, summed over
-rays.  The any-hit (one walk a warp, csrc/bvh.cu): ``ntrav`` is node
-visits summed over the lanes that reach the node, ``ntests`` real
-triangles tested summed over lanes; ``warp_ntrav`` and ``warp_ntests``
-are the warps' own node visits and triangle steps (a step tests one leaf
-triangle for every lane that still needs it), so ntests / (32
-warp_ntests) is the walk's SIMT efficiency.  ``nmiss`` is 0, because the
-kernels read triangles from HBM through L2 and keep no tile cache whose
-misses lucille_tpu's counter would count.  The twins visit no node
-(ntrav 0) and test every slot for every ray.
+The closest hit (a warp a ray, csrc/bvh.cu): ``ntrav`` is node visits
+summed over rays, ``ntests`` real triangles tested (a leaf's
+``leaf_real``, no padding) summed over rays; ``warp_ntrav`` and
+``warp_ntests`` are the warps' own node visits (a warp's are its ray's)
+and leaf chunk steps (a step tests up to 32 triangles), so ntests / (32
+warp_ntests) is the SIMT efficiency in the leaves.  The any-hit (one
+walk a warp of 32 rays): ``ntrav`` is node visits summed over the lanes
+that reach the node, ``ntests`` real triangles tested summed over
+lanes; ``warp_ntrav`` and ``warp_ntests`` are the warps' own node visits
+and triangle steps (a step tests one leaf triangle for every lane that
+still needs it), so ntests / (32 warp_ntests) is the walk's SIMT
+efficiency.  ``nmiss`` is 0, because the kernels read triangles from HBM
+through L2 and keep no tile cache whose misses lucille_tpu's counter
+would count.  The twins visit no node (ntrav 0) and test every slot for
+every ray.
 """
 
 from __future__ import annotations
@@ -43,8 +47,8 @@ from lucille_tpu_torch.accel.pack import TC
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 
 STACK = 64  # stack entries of csrc/bvh.cu's walks (per thread or warp)
-BLOCK = 128  # rays per CUDA block
-WARP = 32
+BLOCK = 128  # threads per CUDA block
+WARP = 32  # lanes a ray in the closest hit, rays a walk in the any-hit
 
 CLOSEST_COUNTS = LaunchCounts()
 ANY_COUNTS = LaunchCounts()
@@ -80,11 +84,6 @@ def _launch(name, dev, *args):
     check(name, err)
 
 
-def _stats(stats: torch.Tensor) -> dict:
-    s = stats.view(-1, 2).sum(dim=0, dtype=torch.int64)
-    return {"ntrav": s[0], "ntests": s[1] * TC}
-
-
 def check_leaf_real(leaf_real, nodes) -> None:
     """The kernels' real-triangle count per leaf: (M,) int32 beside the
     node pack (scene.leaf_real)."""
@@ -96,34 +95,37 @@ def check_leaf_real(leaf_real, nodes) -> None:
 
 
 def bvh_closest_hit(tris, nodes, org, dirn, tmax=None, active=None, *,
-                    depth: int) -> dict:
+                    depth: int, leaf_real=None) -> dict:
     """tris (16, Npad) [v0|e1|e2] from pack_tris, nodes (M, 8) from
     pack_nodes with the tree's depth; org, dirn (B, 3) f32; tmax None
     (unbounded), a float or (B,); active None or (B,) bool, the live rays
-    of a bounce wavefront.  Returns {t (tmax on a miss), u, v (B,) f32,
-    tri (B,) i32 slot (-1 on a miss), ntrav, ntests () i64}; a ray that
-    is not active walks nothing and reports a miss."""
+    of a bounce wavefront; leaf_real (M,) int32, each leaf's real
+    triangles (scene.leaf_real), which the kernel needs.  Returns {t
+    (tmax on a miss), u, v (B,) f32, tri (B,) i32 slot (-1 on a miss),
+    ntrav, ntests () i64}, from the kernel also warp_ntrav and
+    warp_ntests; a ray that is not active walks nothing and reports a
+    miss."""
     tmax = _inputs(tris, nodes, org, dirn, tmax, depth)
     active = ray_limits(org, None, active)[1]
     if org.device.type == "cpu":
         return bvh_closest_hit_reference(tris, org, dirn, tmax, active)
     if org.device.type != "cuda":
         raise ValueError(f"unsupported device {org.device}")
+    check_leaf_real(leaf_real, nodes)
     B = org.shape[0]
     dev = org.device
     t = torch.empty(B, dtype=torch.float32, device=dev)
     u = torch.empty(B, dtype=torch.float32, device=dev)
     v = torch.empty(B, dtype=torch.float32, device=dev)
     tri = torch.empty(B, dtype=torch.int32, device=dev)
-    stats = torch.empty(2 * -(-B // BLOCK) * (BLOCK // WARP),
-                        dtype=torch.int32, device=dev)
+    stats = torch.empty(NSTAT * B, dtype=torch.int32, device=dev)
     _launch("lt_bvh_closest_hit", dev, org.data_ptr(), dirn.data_ptr(),
             tmax.data_ptr(), None if active is None else active.data_ptr(),
-            B, tris.data_ptr(), tris.shape[1],
-            nodes.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(),
-            tri.data_ptr(), stats.data_ptr())
+            B, tris.data_ptr(), tris.shape[1], nodes.data_ptr(),
+            leaf_real.data_ptr(), depth, t.data_ptr(), u.data_ptr(),
+            v.data_ptr(), tri.data_ptr(), stats.data_ptr())
     CLOSEST_COUNTS.kernel += 1
-    return {"t": t, "u": u, "v": v, "tri": tri, **_stats(stats)}
+    return {"t": t, "u": u, "v": v, "tri": tri, **walk_stats(stats)}
 
 
 def bvh_any_hit(tris, nodes, org, dirn, tmax=None, *, depth: int,

@@ -25,7 +25,8 @@ def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
     if scene.accel == "pbvh":
         res = bvh_isect.bvh_closest_hit(scene.tris, scene.nodes, org,
                                         dirn, tmax, active,
-                                        depth=scene.tree_depth)
+                                        depth=scene.tree_depth,
+                                        leaf_real=scene.leaf_real)
     elif scene.accel == "dense":
         if tmax is not None:
             raise NotImplementedError(

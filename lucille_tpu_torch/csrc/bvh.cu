@@ -76,13 +76,40 @@
 // The live-slot count stays on the device and is read by the kernel; a
 // block wholly at or past it writes zeros and exits.
 //
-// Kernel 4 keeps its first design: one thread per ray, 128 rays a block,
-// the ray in registers and a 64-entry stack per thread in local memory,
-// both children slab-tested and the one nearer along the ray's direction
-// on the split axis entered first; a child is reached only if its entry is
-// before the running t, and a pushed child is popped only if it still is.
-// Its counters: node visits and leaf tiles tested, 2 ints a warp.
-//
+// Kernel 4, the closest hit, walks one ray with a whole warp.  Its time
+// was the serial chain of the longest walks: a grazing ray crosses many
+// leaves, and a thread a ray tested their slots one after another (16x
+// fewer rays took 85% of the time, PERF.md).  More lanes a ray shorten
+// that chain, and one ray a walk keeps the ray's own near-first order.
+// Groups of 4, 8, 16 and 32 lanes a ray, and kernel 5's shared walk of 32
+// rays with a t per lane, were measured (PERF.md): 32 lanes was the
+// fastest on the 1M-triangle tile and on every slice, and within noise of
+// 16 on the 130k one.
+//   * at an inner node every lane slab-tests both children for the ray
+//     (the same arithmetic, so the lanes agree); a child is reached only
+//     if tn <= tf, tf > 0 and tn < t_best; the near child (by the ray's
+//     direction sign on the split axis) is entered first and the far one
+//     pushed with its entry tn, popped only if tn < t_best then.  The
+//     children's box loads bring their meta and link words, so a descent
+//     loads no node twice;
+//   * the stack, as deep as the tree (at most STACK entries; the wrapper
+//     refuses a deeper tree), lives in shared memory: an int4 (node, tn,
+//     meta, link) an entry, written by lane 0, read by all (a __syncwarp
+//     each step orders them);
+//   * at a leaf the warp takes its real triangles (leaf_real; padding is
+//     never loaded) in chunks of 32 in slot order, lane l slot base + l,
+//     the nine loads coalesced; each lane tests its triangle against
+//     t_best as the chunk starts, and a min-reduction of t's bits and a
+//     ballot pick the chunk's least t, the lowest slot on equal t, which
+//     replaces t_best only if nearer: the serial strict t < t_best loop's
+//     answer, so the lowest slot of a leaf wins a tie inside it and the
+//     first leaf visited a tie across leaves.  u and v come from the
+//     winning lane;
+//   * an inactive ray's warp walks nothing and reports a miss at tmax.
+// Counters (NSTAT ints a ray): node visits, real triangles tested, the
+// walk's node visits (its ray's) and leaf chunk steps, so tests over 32 x
+// steps is the SIMT efficiency in the leaves.
+
 // Built with --fmad=false so every product and sum rounds separately, as
 // in the plain torch twins (accel/bvh_isect.py).
 
@@ -92,7 +119,7 @@
 namespace {
 
 constexpr int TC = 128;      // triangles per tile
-constexpr int BLOCK = 128;   // rays per block, kernels 4 and 5
+constexpr int BLOCK = 128;   // threads per block, kernels 4 and 5
 constexpr int STACK = 64;    // stack entries (bvh_isect.STACK)
 constexpr int NSTAT = 4;     // warp-walk counters (module comment)
 constexpr unsigned FULL = 0xffffffffu;
@@ -121,8 +148,12 @@ struct Ray {
   // entry and exit distance of the ray through a node's box
   __device__ __forceinline__ void slab(const float4* __restrict__ nodes,
                                        int n, float& tn, float& tf) const {
-    const float4 lo = __ldg(&nodes[2 * n]);
-    const float4 hi = __ldg(&nodes[2 * n + 1]);
+    slab(__ldg(&nodes[2 * n]), __ldg(&nodes[2 * n + 1]), tn, tf);
+  }
+
+  // the same through the box (lo, hi) already loaded
+  __device__ __forceinline__ void slab(const float4& lo, const float4& hi,
+                                       float& tn, float& tf) const {
     const float t0x = (lo.x - ox) * ivx;
     const float t1x = (hi.x - ox) * ivx;
     const float t0y = (lo.y - oy) * ivy;
@@ -298,112 +329,158 @@ __device__ __forceinline__ void warp_stats(const WalkStats& st, int* out) {
   }
 }
 
+// Moller-Trumbore of ray r against the triangle c = (v0, e1, e2) in the
+// twin's operation order (accel/isect._mt_tile): the key of a hit with 0 <
+// t < t_lim, t's bits (t > 0, so the bits order as the values), else
+// NO_HIT; u and v beside it.
+constexpr unsigned NO_HIT = 0xffffffffu;
+
+__device__ __forceinline__ unsigned mt_key(const Ray& r, const float (&c)[9],
+                                           float t_lim, float& u, float& v) {
+  const float px = r.dy * c[8] - r.dz * c[7];
+  const float py = r.dz * c[6] - r.dx * c[8];
+  const float pz = r.dx * c[7] - r.dy * c[6];
+  const float a = c[3] * px + c[4] * py + c[5] * pz;
+  const float sx = r.ox - c[0], sy = r.oy - c[1], sz = r.oz - c[2];
+  const float qx = sy * c[5] - sz * c[4];
+  const float qy = sz * c[3] - sx * c[5];
+  const float qz = sx * c[4] - sy * c[3];
+  const bool valid = fabsf(a) > DET_EPS;
+  const float inva = valid ? 1.0f / a : 0.0f;
+  u = (sx * px + sy * py + sz * pz) * inva;
+  v = (qx * r.dx + qy * r.dy + qz * r.dz) * inva;
+  const float t = (c[6] * qx + c[7] * qy + c[8] * qz) * inva;
+  const bool hit = valid && u >= 0.f && u <= 1.f && v >= 0.f &&
+                   u + v <= 1.f && t > 0.f && t < t_lim;
+  return hit ? __float_as_uint(t) : NO_HIT;
+}
+
+// Kernel 4: a warp walks one ray (module comment).  The warp's stack
+// lives in dynamic shared memory, `depth` int4 entries (node, entry t
+// bits, meta, link), written by lane 0.
 __global__ void __launch_bounds__(BLOCK)
 bvh_closest_kernel(const float* __restrict__ org, const float* __restrict__ dir,
                    const float* __restrict__ tmax_in,
                    const unsigned char* __restrict__ active, int B,
                    const float* __restrict__ tris, int npad,
-                   const float4* __restrict__ nodes, float* __restrict__ t_out,
-                   float* __restrict__ u_out, float* __restrict__ v_out,
-                   int* __restrict__ tri_out, int* __restrict__ stats) {
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
+                   const float4* __restrict__ nodes,
+                   const int* __restrict__ leaf_real, int depth,
+                   float* __restrict__ t_out, float* __restrict__ u_out,
+                   float* __restrict__ v_out, int* __restrict__ tri_out,
+                   int* __restrict__ stats) {
+  extern __shared__ int4 stack_mem[];
+  const int lane = threadIdx.x & 31;
+  int4* const stack = stack_mem + (threadIdx.x >> 5) * depth;
+  const int i = blockIdx.x * (BLOCK / 32) + (threadIdx.x >> 5);  // the ray
   const bool live = i < B && (active == nullptr || active[i] != 0);
-  Ray r{0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f};
-  const float tmax = i < B ? tmax_in[i] : 0.f;  // a dead ray reports it
+  float t_best = i < B ? tmax_in[i] : 0.f;  // a miss reports its tmax
+  float u_best = 0.f, v_best = 0.f;
+  int tri_best = -1;
+  int visits = 0, tests = 0, steps = 0;  // the same in every lane
   if (live) {
+    Ray r;
     r.ox = org[3 * i + 0];
     r.oy = org[3 * i + 1];
     r.oz = org[3 * i + 2];
-    r.dx = dir[3 * i + 0];
-    r.dy = dir[3 * i + 1];
-    r.dz = dir[3 * i + 2];
-  }
-  r.set_dir(r.dx, r.dy, r.dz);
-
-  float t_best = tmax, u_best = 0.f, v_best = 0.f;
-  int tri_best = -1;
-  int nvis = 0, ntiles = 0;
-  int stack[STACK];
-  float stack_tn[STACK];  // the pushed child's entry
-  int sp = 0;
-  int cur = live ? 0 : -1;  // the root is entered unconditionally
-
-  while (cur >= 0) {
-    ++nvis;
-    const int meta = __float_as_int(__ldg(&nodes[2 * cur]).w);
-    const int link = __float_as_int(__ldg(&nodes[2 * cur + 1]).w);
-    int next = -1;
-    if (meta > 0) {  // leaf: tiles [link, link + meta)
-      ntiles += meta;
-      const int end = (link + meta) * TC;
-      for (int k = link * TC; k < end; ++k) {
-        float c[9];
-        load_tri(tris, npad, k, c);
-        const float px = r.dy * c[8] - r.dz * c[7];
-        const float py = r.dz * c[6] - r.dx * c[8];
-        const float pz = r.dx * c[7] - r.dy * c[6];
-        const float a = c[3] * px + c[4] * py + c[5] * pz;
-        const float sx = r.ox - c[0], sy = r.oy - c[1], sz = r.oz - c[2];
-        const float qx = sy * c[5] - sz * c[4];
-        const float qy = sz * c[3] - sx * c[5];
-        const float qz = sx * c[4] - sy * c[3];
-        const bool valid = fabsf(a) > DET_EPS;
-        const float inva = valid ? 1.0f / a : 0.0f;
-        const float u = (sx * px + sy * py + sz * pz) * inva;
-        const float v = (qx * r.dx + qy * r.dy + qz * r.dz) * inva;
-        const float t = (c[6] * qx + c[7] * qy + c[8] * qz) * inva;
-        // strict t < t_best in slot order: the lowest slot of a leaf wins a
-        // tie inside it
-        if (valid && u >= 0.f && u <= 1.f && v >= 0.f && u + v <= 1.f &&
-            t > 0.f && t < t_best) {
-          t_best = t;
-          u_best = u;
-          v_best = v;
-          tri_best = k;
+    r.set_dir(dir[3 * i + 0], dir[3 * i + 1], dir[3 * i + 2]);
+    // the node entered next, with its meta and link words, which an inner
+    // node's box loads already bring for its children
+    int cur = 0;
+    int meta = __float_as_int(__ldg(&nodes[0]).w);
+    int link = __float_as_int(__ldg(&nodes[1]).w);
+    int sp = 0;
+    while (true) {
+      // every lane has read the last popped entry before lane 0 may
+      // overwrite it
+      __syncwarp();
+      ++visits;
+      int next = -1, nmeta = 0, nlink = 0;
+      if (meta > 0) {  // a leaf: tiles [link, link + meta), n real slots
+        const int n = __ldg(&leaf_real[cur]);
+        const int k0 = link * TC;
+        tests += n;
+        // chunks of 32 slots in slot order, lane l taking slot base + l,
+        // each tested against t_best as the chunk starts; the least (t,
+        // slot) of a chunk, the lowest slot on equal t, replaces t_best
+        // only if nearer: the serial strict t < t_best loop's answer
+        for (int base = 0; base < n; base += 32) {
+          ++steps;
+          unsigned key = NO_HIT;
+          float u = 0.f, v = 0.f;
+          if (base + lane < n) {
+            float c[9];
+            load_tri(tris, npad, k0 + base + lane, c);
+            key = mt_key(r, c, t_best, u, v);
+          }
+          const unsigned least = __reduce_min_sync(FULL, key);
+          if (least != NO_HIT) {
+            const int src = __ffs(__ballot_sync(FULL, key == least)) - 1;
+            t_best = __uint_as_float(least);
+            u_best = __shfl_sync(FULL, u, src);
+            v_best = __shfl_sync(FULL, v, src);
+            tri_best = k0 + base + src;
+          }
+        }
+      } else {  // inner: children cur + 1 and link, split axis -meta - 1
+        const int c0 = cur + 1, c1 = link;
+        const float4 lo0 = __ldg(&nodes[2 * c0]), hi0 = __ldg(&nodes[2 * c0 + 1]);
+        const float4 lo1 = __ldg(&nodes[2 * c1]), hi1 = __ldg(&nodes[2 * c1 + 1]);
+        float tn0, tf0, tn1, tf1;
+        r.slab(lo0, hi0, tn0, tf0);
+        r.slab(lo1, hi1, tn1, tf1);
+        const bool r0 = tn0 <= tf0 && tf0 > 0.f && tn0 < t_best;
+        const bool r1 = tn1 <= tf1 && tf1 > 0.f && tn1 < t_best;
+        const int axis = -meta - 1;
+        const float d = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
+        const bool near0 = d >= 0.f;  // child 0 lies on the low side
+        const bool reach_near = near0 ? r0 : r1;
+        const bool reach_far = near0 ? r1 : r0;
+        const int near = near0 ? c0 : c1, far = near0 ? c1 : c0;
+        const int near_meta = __float_as_int(near0 ? lo0.w : lo1.w);
+        const int near_link = __float_as_int(near0 ? hi0.w : hi1.w);
+        const int far_meta = __float_as_int(near0 ? lo1.w : lo0.w);
+        const int far_link = __float_as_int(near0 ? hi1.w : hi0.w);
+        if (reach_near && reach_far) {  // push the far child, its entry
+          if (lane == 0)
+            stack[sp] = make_int4(far, __float_as_int(near0 ? tn1 : tn0),
+                                  far_meta, far_link);
+          ++sp;
+        }
+        if (reach_near) {
+          next = near;
+          nmeta = near_meta;
+          nlink = near_link;
+        } else if (reach_far) {
+          next = far;
+          nmeta = far_meta;
+          nlink = far_link;
         }
       }
-    } else {  // inner: children cur + 1 and link, split axis -meta - 1
-      const int c0 = cur + 1, c1 = link;
-      float tn0, tf0, tn1, tf1;
-      r.slab(nodes, c0, tn0, tf0);
-      r.slab(nodes, c1, tn1, tf1);
-      const bool r0 = tn0 <= tf0 && tf0 > 0.f && tn0 < t_best;
-      const bool r1 = tn1 <= tf1 && tf1 > 0.f && tn1 < t_best;
-      const int axis = -meta - 1;
-      const float d = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
-      const bool near0 = d >= 0.f;  // child 0 lies on the low side
-      const bool reach_near = near0 ? r0 : r1;
-      const bool reach_far = near0 ? r1 : r0;
-      const int near = near0 ? c0 : c1, far = near0 ? c1 : c0;
-      if (reach_near && reach_far) {
-        stack[sp] = far;
-        stack_tn[sp] = near0 ? tn1 : tn0;
-        ++sp;
-        next = near;
-      } else if (reach_near) {
-        next = near;
-      } else if (reach_far) {
-        next = far;
+      // pop a pushed child only if its entry is still before t_best
+      while (next < 0 && sp > 0) {
+        const int4 e = stack[--sp];
+        if (__int_as_float(e.y) < t_best) {
+          next = e.x;
+          nmeta = e.z;
+          nlink = e.w;
+        }
       }
+      if (next < 0) break;
+      cur = next;
+      meta = nmeta;
+      link = nlink;
     }
-    while (next < 0 && sp > 0) {
-      --sp;
-      if (stack_tn[sp] < t_best) next = stack[sp];
-    }
-    cur = next;
   }
-
-  if (i < B) {
+  if (lane == 0 && i < B) {
     t_out[i] = t_best;
     u_out[i] = u_best;
     v_out[i] = v_best;
     tri_out[i] = tri_best;
-  }
-  const int wvis = __reduce_add_sync(FULL, nvis);
-  const int wtiles = __reduce_add_sync(FULL, ntiles);
-  if ((threadIdx.x & 31) == 0) {
-    stats[2 * (i >> 5)] = wvis;
-    stats[2 * (i >> 5) + 1] = wtiles;
+    int* out = stats + NSTAT * i;
+    out[0] = visits;
+    out[1] = tests;
+    out[2] = visits;  // the walk's node visits are its ray's
+    out[3] = steps;
   }
 }
 
@@ -525,19 +602,26 @@ bvh_ao_kernel(const float* __restrict__ rays, const float* __restrict__ jit,
 
 }  // namespace
 
-// active: B bytes (non-zero = live) or null (every ray live)
+// active: B bytes (non-zero = live) or null (every ray live); depth: the
+// tree's stack depth (at most STACK); stats: NSTAT ints a ray
 extern "C" int lt_bvh_closest_hit(const float* org, const float* dir,
                                   const float* tmax,
                                   const unsigned char* active, int B,
                                   const float* tris, int npad,
-                                  const void* nodes, float* t, float* u,
-                                  float* v, int* tri, int* stats,
-                                  void* stream) {
+                                  const void* nodes, const int* leaf_real,
+                                  int depth, float* t, float* u, float* v,
+                                  int* tri, int* stats, void* stream) {
   if (B <= 0) return 0;
-  bvh_closest_kernel<<<grid_for(B), BLOCK, 0,
+  if (depth < 0 || depth > STACK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  depth = depth > 0 ? depth : 1;
+  constexpr int RAYS = BLOCK / 32;  // a warp a ray
+  bvh_closest_kernel<<<(B + RAYS - 1) / RAYS, BLOCK,
+                       RAYS * depth * sizeof(int4),
                        static_cast<cudaStream_t>(stream)>>>(
       org, dir, tmax, active, B, tris, npad,
-      static_cast<const float4*>(nodes), t, u, v, tri, stats);
+      static_cast<const float4*>(nodes), leaf_real, depth, t, u, v, tri,
+      stats);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -51,10 +51,10 @@ SIGNATURES = {
     # occ, bits, stream
     "lt_ao_occlusion": (_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _P,
                         _I, _I, _F, _F, _I, _I, _I, _P, _P, _P),
-    # org, dir, tmax, active, B, tris, npad, nodes, t, u, v, tri, stats,
-    # stream
-    "lt_bvh_closest_hit": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,
-                           _P, _P),
+    # org, dir, tmax, active, B, tris, npad, nodes, leaf_real, depth, t,
+    # u, v, tri, stats, stream
+    "lt_bvh_closest_hit": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P,
+                           _P, _P, _P, _P),
     # org, dir, tmax, B, tris, npad, nodes, leaf_real, occ, stats, stream
     "lt_bvh_any_hit": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P),
     # rays, jitter, B, nact, tris, npad, nodes, leaf_real, perm, S, K,

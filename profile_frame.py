@@ -2,7 +2,7 @@
 """Where a frame's time goes on the card: one warm frame of a chip_smoke
 scene under torch.profiler (CPU + CUDA activity).
 
-    python3 profile_frame.py [cell ...]
+    python3 profile_frame.py [--frames N] [cell ...]
 
 Cells (default: all): headline-sunsky and headline-ao (the bundled scene
 at 640x480, 3x3, 64 rays, tile 240, with and without its sunsky light),
@@ -18,9 +18,10 @@ terrain on the dense tiles at 80x60, 2x2, 16 rays, tile 40,
 heightfield258-scan and heightfield258-scan-sunsky.
 
 Per cell it prints the warm frame's seconds without the profiler (best
-of 2), the profiled frame's wall time (host clock around render_frame
-and a synchronize), the device busy time (the union of the
-device's kernel and copy intervals), the idle share 1 - busy / wall, the
+of N, default 2, and every sample), the profiled frame's wall time
+(host clock around render_frame and a synchronize), the device busy
+time (the union of the device's kernel and copy intervals), the idle
+share 1 - busy / wall, the
 number of device operations, the host's waits on the card (the CUDA
 runtime's synchronize calls the profiler saw: pulling a finished tile
 back makes two, anything more is a wait inside the enqueue), and the
@@ -87,7 +88,7 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile(cell: str, top: int = 12) -> None:
+def profile(cell: str, frames: int = 2, top: int = 12) -> None:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -101,7 +102,7 @@ def profile(cell: str, top: int = 12) -> None:
         r.render_frame()  # warm-up: the kernel build, caches, allocator
         torch.cuda.synchronize()
         times = []
-        for _ in range(2):
+        for _ in range(frames):
             t0 = time.perf_counter()
             r.render_frame()
             torch.cuda.synchronize()
@@ -125,9 +126,10 @@ def profile(cell: str, top: int = 12) -> None:
     # the host's waits on the card: the runtime's synchronize calls
     syncs = sum(1 for e in events if e.device_type != DeviceType.CUDA
                 and "Synchronize" in e.name)
+    samples = ", ".join(f"{t * 1e3:.2f}" for t in times)
     print(f"[{cell}] frame {min(times) * 1e3:.2f} ms unprofiled (best of "
-          f"2); profiled frame {wall_ms:.2f} ms, device busy "
-          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{frames}: {samples}); profiled frame {wall_ms:.2f} ms, device "
+          f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{len(dev)} device ops, {syncs} host syncs ({n_tiles} "
           f"tiles; each tile's pull makes 2)", flush=True)
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
@@ -140,6 +142,9 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA card visible", file=sys.stderr)
         return 1
+    frames = 2
+    if argv[:1] == ["--frames"]:
+        frames, argv = int(argv[1]), argv[2:]
     cells = argv or list(CELLS)
     unknown = [c for c in cells if c not in CELLS]
     if unknown:
@@ -151,7 +156,7 @@ def main(argv) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
     for cell in cells:
-        profile(cell)
+        profile(cell, frames)
     return 0
 
 

@@ -31,7 +31,11 @@ bench_large's terrain at n = 256 (130,050 triangles) and n = 724
   fused256-2x2: kernel 6 on the n = 256 Whitted frame's first-bounce
     dome gather, 2x2 strata;
   closest256, closest724: kernel 4 on the tile's 65,536 eye rays
-    (`accel.dispatch.closest_hit`);
+    (`accel.dispatch.closest_hit`); closest256-bounce, closest724-bounce:
+    the same with a bounce wavefront's active mask (half the rays live,
+    chip_smoke.check_closest_active's); closest256-slice,
+    closest724-slice: on 16,384 / 4,096 of them, centred on the hits
+    (chip_smoke.check_bvh_kernels' slices);
 the dense closest hit and any-hit (csrc/isect.cu, kernels 1 and 2),
 through `accel.dispatch.closest_hit` / `any_hit`, the closest hit on a
 tile's eye rays and the any-hit on its hit lanes' shadow rays toward a
@@ -167,13 +171,25 @@ def main(argv) -> int:
               f"{int(hit.sum())} hit, {nt}x{nph} strata, {mode} gather: "
               f"kernel {ms:.3f} ms ({name})", flush=True)
 
-    def closest(label, n):
+    def closest(label, n, half_live=False, n_slice=None):
         r = renderer(f"hf{n}-None", lambda: cs.heightfield_state(n), 128)
         org, dirn, _x0, _y0 = cs.first_tile_rays(r)
-        ms, name = kernel_ms(lambda: closest_hit(r.scene, org, dirn),
+        B = org.shape[0]
+        active = None
+        if half_live:
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            active = torch.rand(B, device="cuda", generator=gen) < 0.5
+        if n_slice is not None:
+            hits = torch.nonzero(closest_hit(r.scene, org, dirn)["hit"])[:, 0]
+            mid = int(hits[len(hits) // 2]) if len(hits) else B // 2
+            lo = min(max(0, mid - n_slice // 2), max(0, B - n_slice))
+            org, dirn = org[lo:lo + n_slice], dirn[lo:lo + n_slice]
+        ms, name = kernel_ms(lambda: closest_hit(r.scene, org, dirn,
+                                                 active=active),
                              "bvh_closest_hit")
-        print(f"[{label}] bvh_closest_hit: {org.shape[0]} eye rays: kernel "
-              f"{ms:.3f} ms ({name})", flush=True)
+        live = "" if active is None else f", {int(active.sum())} live"
+        print(f"[{label}] bvh_closest_hit: {org.shape[0]} eye rays{live}: "
+              f"kernel {ms:.3f} ms ({name})", flush=True)
 
     def isect(label, make_state, tile, sun=None, half_live=False):
         r = renderer(label, make_state, tile)
@@ -226,6 +242,14 @@ def main(argv) -> int:
             "fused"),
         "closest256": lambda: closest("closest256", 256),
         "closest724": lambda: closest("closest724", 724),
+        "closest256-bounce": lambda: closest("closest256-bounce", 256,
+                                             half_live=True),
+        "closest724-bounce": lambda: closest("closest724-bounce", 724,
+                                             half_live=True),
+        "closest256-slice": lambda: closest("closest256-slice", 256,
+                                            n_slice=16384),
+        "closest724-slice": lambda: closest("closest724-slice", 724,
+                                            n_slice=4096),
         "isect-headline": lambda: isect(
             "isect-headline", lambda: cs.bundled_state(640, 480, 3, 64),
             cs.TILE),

@@ -562,7 +562,8 @@ def test_bvh_ao_mode_selection(mode, monkeypatch):
 
 def _walk_one(tris, nodes, o, d, closest):
     """One ray's near-first walk in numpy f32 scalars, slot by slot:
-    (hit, inner nodes entered, nodes entered, real triangles tested)."""
+    (hit, inner nodes entered, nodes entered, real triangles tested, the
+    closest hit's slot or -1)."""
     from lucille_tpu_torch.accel.pack import TC
 
     f = np.float32
@@ -576,7 +577,7 @@ def _walk_one(tris, nodes, o, d, closest):
         tn, tf = np.minimum(t0, t1).max(), np.maximum(t0, t1).min()
         return tn <= tf and tf > 0 and tn < bound, tn
 
-    stack, cur, t_best, hit = [], 0, f(np.inf), False
+    stack, cur, t_best, hit, tri = [], 0, f(np.inf), False, -1
     inner = visits = tests = 0
     while cur >= 0:
         visits += 1
@@ -604,12 +605,12 @@ def _walk_one(tris, nodes, o, d, closest):
                         u, v, t = u * (f(1) / a), v * (f(1) / a), t * (f(1) / a)
                         if (0 <= u <= 1 and v >= 0 and u + v <= 1 and t > 0
                                 and t < t_best):
-                            t_best, hit = t, True
+                            t_best, hit, tri = t, True, k
                 else:
                     w = a - u - v
                     if ((min(u, v, w) >= 0 or max(u, v, w) <= 0)
                             and t * a > 0 and abs(a) > 1e-14):
-                        return True, inner, visits, tests
+                        return True, inner, visits, tests, -1
         else:
             inner += 1
             c0, c1 = cur + 1, link
@@ -626,7 +627,7 @@ def _walk_one(tris, nodes, o, d, closest):
             if not closest or tn < t_best:
                 nxt = n
         cur = nxt
-    return hit, inner, visits, tests
+    return hit, inner, visits, tests, tri
 
 
 @pytest.mark.parametrize("closest", [True, False])
@@ -669,7 +670,67 @@ def test_need_walk_counts(case, closest):
     assert sub["hit"].tolist() == [w[0] for w in one]
     assert (sub["inner"], sub["nodes"], sub["tests"]) == tuple(
         sum(w[j] for w in one) for j in (1, 2, 3))
+    if closest:
+        assert sub["tri"].tolist() == [w[4] for w in one]
     # the walk culls: far fewer tests than every real triangle per ray
     n_real = int((tris[0:9] != 0).any(dim=0).sum())
     assert 0 < got["tests"] < 0.5 * n_real * o.shape[0]
     assert got["inner"] < got["nodes"]
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+@pytest.mark.parametrize("case", ["soup700", "heightfield35_eye"])
+def test_need_walk_closest_answers(case, bounded):
+    """need_walk's closest hit (its t and slot, which kernel 4 must report
+    on every ray) against the plain twin: the same slot and t on every
+    ray (no exact tie across leaves among these rays), tmax on a miss;
+    the nodes and leaf triangles it reaches, which kernel 4's bound
+    charges, lie within the tree and its real triangles."""
+    from chip_smoke import need_walk
+
+    from lucille_tpu_torch.accel.bvh_isect import bvh_closest_hit_reference
+    from lucille_tpu_torch.accel.pack import pack_tris
+    from lucille_tpu_torch.scene.types import from_numpy
+
+    sc, o, d = _bvh_cases()[case]()
+    B = o.shape[0]
+    tmax = torch.full((B,), float("inf"))
+    if bounded:
+        tmax = torch.from_numpy(np.random.default_rng(2).uniform(
+            *TMAX_RANGE[case], B).astype(np.float32))
+    scene = from_numpy(sc, "cpu")
+    tris, nodes = pack_tris(scene), scene.nodes
+    org, dirn = torch.from_numpy(o), torch.from_numpy(d)
+    got = need_walk(tris, nodes, org, dirn, True, scene.tree_depth,
+                    chunk=100, tmax=tmax)
+    ref = bvh_closest_hit_reference(tris, org, dirn, tmax)
+    hit = ref["tri"] >= 0
+    assert 0.1 < hit.float().mean() < 1.0
+    assert torch.equal(got["tri"], ref["tri"].long())
+    assert torch.equal(got["t"], ref["t"])
+    assert torch.equal(got["hit"], hit)
+    n_real = int((tris[0:9] != 0).any(dim=0).sum())
+    assert 0 < got["distinct_nodes"] <= nodes.shape[0]
+    assert 0 < got["leaf_tris"] <= n_real
+
+
+def test_need_walk_keeps_the_first_leaf_on_a_tie():
+    """A ray onto an edge shared by two triangles of different leaves
+    (t = 5 on both): need_walk keeps the triangle of the leaf its walk
+    visits first, as the one-ray walk does, where the twin keeps the
+    lower slot."""
+    from chip_smoke import need_walk
+    from test_torch_gpu import _flat_grid_desc, shared_edge_ray
+
+    from lucille_tpu_torch.accel.pack import pack_tris
+    from lucille_tpu_torch.scene.compile import compile_scene
+
+    scene = compile_scene(_flat_grid_desc(16), "cpu")
+    pair, o, d = shared_edge_ray(scene.tri_v0, scene.tri_e1, scene.tri_e2)
+    tris, nodes = pack_tris(scene), scene.nodes
+    got = need_walk(tris, nodes, torch.from_numpy(o[None]),
+                    torch.from_numpy(d[None]), True, scene.tree_depth)
+    one = _walk_one(tris.numpy(), nodes.numpy(), o, d, True)
+    assert float(got["t"][0]) == 5.0
+    assert int(got["tri"][0]) == one[4] and one[4] in pair
+    assert got["nodes"] == one[2] and got["tests"] == one[3]

@@ -166,14 +166,11 @@ def test_any_hit_kernel_matches_plain(tmax, masked):
         assert not torch.any(got[~active])
 
 
-def _cube_poison(scene, lo, hi):
-    """A copy of the dense scene whose pad slots hold the 12 triangles of
-    the box [lo, hi]^3 (every ray from outside toward the inside crosses
-    it first, every ray from inside crosses it on the way out), its tile
-    and group boxes and n_tris left as they are: a kernel that tested a
-    pad slot would answer differently."""
-    import dataclasses
-
+def _cube_faces(lo, hi, n):
+    """(9, n) rows [v0 | e1 | e2] on cuda: the 12 triangles of the box
+    [lo, hi]^3 repeated to n slots.  Every ray from outside toward the
+    inside crosses the box first, every ray from inside crosses it on the
+    way out."""
     faces = []
     for ax in range(3):
         a, b = (ax + 1) % 3, (ax + 2) % 3
@@ -187,9 +184,18 @@ def _cube_poison(scene, lo, hi):
                 faces.append(np.concatenate([v0, e1, e2]))
     faces = torch.tensor(np.array(faces).T, dtype=torch.float32,
                          device="cuda")  # (9, 12)
+    return faces.repeat(1, -(-n // 12))[:, :n]
+
+
+def _cube_poison(scene, lo, hi):
+    """A copy of the dense scene whose pad slots hold the box [lo, hi]^3
+    (`_cube_faces`), its tile and group boxes and n_tris left as they
+    are: a kernel that tested a pad slot would answer differently."""
+    import dataclasses
+
     tris = scene.tris.clone()
-    pad = tris.shape[1] - scene.n_tris
-    tris[:9, scene.n_tris:] = faces.repeat(1, -(-pad // 12))[:, :pad]
+    tris[:9, scene.n_tris:] = _cube_faces(lo, hi,
+                                          tris.shape[1] - scene.n_tris)
     return dataclasses.replace(scene, tris=tris)
 
 
@@ -452,7 +458,8 @@ def test_bvh_closest_hit_kernel_matches_plain(bounded):
         tmax = 8.0 + 8.0 * torch.rand(4096, device="cuda", generator=gen)
     tris = pack_tris(scene)
     got = bvh_isect.bvh_closest_hit(tris, scene.nodes, o, d, tmax,
-                                    depth=scene.tree_depth)
+                                    depth=scene.tree_depth,
+                                    leaf_real=scene.leaf_real)
     ref = bvh_isect.bvh_closest_hit_reference(tris, o, d, tmax)
     hit = got["tri"] >= 0
     assert torch.equal(hit, ref["tri"] >= 0)
@@ -463,7 +470,7 @@ def test_bvh_closest_hit_kernel_matches_plain(bounded):
         torch.testing.assert_close(got[k][same], ref[k][same], rtol=1e-6,
                                    atol=1e-7)
     assert torch.equal(got["t"][~hit], tmax[~hit])
-    assert int(got["ntrav"]) >= 4096 and int(got["ntests"]) > 0
+    _check_closest_walk(got, tris, scene.nodes, o, d, scene.tree_depth, tmax)
 
 
 @pytest.mark.gpu
@@ -605,6 +612,144 @@ def test_bvh_any_hit_warp_walk_cases(case, bounded):
     _check_walk_stats(got, B - (70 if case == "parked" else 0))
 
 
+def _check_closest_walk(got, tris, nodes, o, d, depth, tmax=None,
+                        active=None):
+    """Kernel 4 walks chip_smoke.need_walk's near-first walk exactly: on
+    every live ray the same triangle and t, and the same node visits and
+    real triangle tests; its leaf steps test at most a warp's 32
+    triangles each."""
+    from chip_smoke import need_walk
+
+    live = (torch.arange(o.shape[0], device="cuda") if active is None
+            else torch.nonzero(active)[:, 0])
+    need = need_walk(tris, nodes, o[live], d[live], True, depth,
+                     tmax=None if tmax is None else tmax[live])
+    assert torch.equal(got["tri"][live].long(), need["tri"])
+    torch.testing.assert_close(got["t"][live], need["t"], rtol=1e-6,
+                               atol=1e-7)
+    assert (int(got["ntrav"]), int(got["ntests"])) == (need["nodes"],
+                                                       need["tests"])
+    assert int(got["warp_ntrav"]) == need["nodes"]
+    assert 0 <= int(got["ntests"]) <= 32 * int(got["warp_ntests"])
+    return need
+
+
+def _poison_pads(tris, lo, hi):
+    """A copy of a tile-BVH pack whose pad slots (all zero) hold the box
+    [lo, hi]^3 (`_cube_faces`): a kernel that tested a pad slot would
+    answer differently."""
+    pads = torch.nonzero(~(tris[0:9] != 0).any(dim=0))[:, 0]
+    out = tris.clone()
+    out[:9, pads] = _cube_faces(lo, hi, len(pads))
+    return out
+
+
+def _one_leaf_ties(n_real=70):
+    """A tree of one leaf (one tile, n_real real slots, the rest padding):
+    slots 3, 5 (one chunk) and 40, 69 (later chunks, 69 the last real
+    slot) hold the same triangle, (-2, -2, 0) (2, -2, 0) (-2, 2, 0), the
+    other real slots small triangles below it.  Rays straight down onto
+    it from z = 5 tie at t = 5 on all four: the lowest, slot 3, must
+    win."""
+    rng = np.random.default_rng(8)
+    tris = np.zeros((16, 128), np.float32)
+    c = rng.uniform(-3, 3, (n_real, 3))
+    c[:, 2] = rng.uniform(-4, -1, n_real)
+    v = [c + rng.normal(0, 0.2, (n_real, 3)) for _ in range(3)]
+    tris[0:3, :n_real] = v[0].T
+    tris[3:6, :n_real] = (v[1] - v[0]).T
+    tris[6:9, :n_real] = (v[2] - v[0]).T
+    for slot in (3, 5, 40, n_real - 1):
+        tris[0:9, slot] = [-2, -2, 0, 4, 0, 0, 0, 4, 0]
+    nodes = np.zeros((1, 8), np.float32)
+    nodes[0, 0:3], nodes[0, 4:7] = -6.0, 6.0
+    bits = nodes.view(np.int32)
+    bits[0, 3], bits[0, 7] = 1, 0
+    return (torch.tensor(tris, device="cuda"),
+            torch.tensor(nodes, device="cuda"),
+            torch.tensor([n_real], dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["multitile", "ragged", "parked",
+                                  "deep-agree", "deep-mixed", "poisoned",
+                                  "tie"])
+@pytest.mark.parametrize("bounded", [False, True])
+def test_bvh_closest_hit_group_walk_cases(case, bounded):
+    """Kernel 4 (a warp a ray) against its twin and against
+    need_walk's walk: leaves of several tiles (a 24-node budget); leaves
+    whose real triangles end inside a chunk; 300 dead rays and 70 parked
+    ones (outside the box, pointing away) among 3001; a hand-built tree
+    at the stack's depth whose rays agree on every near child (the stack
+    fills to 64) or disagree; pad slots poisoned with triangles every ray
+    meets, which change no answer; an exact tie in t inside one leaf,
+    within a chunk and across chunks, where the lowest slot wins.
+    Bounded: a random tmax per ray that cuts some hits short."""
+    _need_card()
+    from lucille_tpu_torch.accel import bvh_isect
+    from lucille_tpu_torch.accel.bvh_isect import STACK
+
+    B = 3001
+    active = None
+    if case.startswith("deep"):
+        tris, nodes, leaf_real = _chain_tree(STACK)
+        depth = STACK
+        o, d = _random_rays(B, 2, 1.0 if case == "deep-agree" else None)
+    elif case == "tie":
+        tris, nodes, leaf_real = _one_leaf_ties()
+        depth = 0
+        rng = np.random.default_rng(9)  # points well inside the triangle
+        uv = rng.uniform(0.02, 0.48, (B, 2))
+        o = torch.tensor(np.c_[-2.0 + 4.0 * uv, np.full(B, 5.0)],
+                         dtype=torch.float32, device="cuda")
+        d = torch.tensor([[0.0, 0.0, -1.0]] * B, device="cuda")
+    else:
+        scene = _soup_scene(3000, accel="bvh",
+                            node_budget=24 if case == "multitile" else None)
+        tris, nodes, leaf_real = scene.tris, scene.nodes, scene.leaf_real
+        depth = scene.tree_depth
+        o, d = _shell_rays(B, seed=3)
+        if case == "multitile":
+            assert int(nodes.view(torch.int32)[:, 3].max()) > 1
+        if case == "ragged":  # some leaf ends inside every lane count's chunk
+            n = leaf_real[nodes.view(torch.int32)[:, 3] > 0]
+            assert bool(((n % 32) % 4 != 0).any())
+    if case == "parked":
+        o[:70] = torch.tensor([40.0, 40.0, 40.0], device="cuda")
+        d[:70] = torch.tensor([0.0, 0.0, 1.0], device="cuda")
+        active = torch.ones(B, dtype=torch.bool, device="cuda")
+        active[torch.randperm(B, generator=torch.Generator().manual_seed(
+            3))[:300].to("cuda")] = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tmax = (2.0 + 14.0 * torch.rand(B, device="cuda", generator=gen)
+            if bounded else torch.full((B,), float("inf"), device="cuda"))
+    if case == "tie" and bounded:  # half the rays end before the plane
+        tmax[: B // 2], tmax[B // 2:] = 4.0, 6.0
+    pack = _poison_pads(tris, -6.5, 6.5) if case == "poisoned" else tris
+    got = bvh_isect.bvh_closest_hit(pack, nodes, o, d,
+                                    tmax if bounded else None, active,
+                                    depth=depth, leaf_real=leaf_real)
+    ref = bvh_isect.bvh_closest_hit_reference(tris, o, d, tmax, active)
+    hit = got["tri"] >= 0
+    assert torch.equal(hit, ref["tri"] >= 0)
+    assert 0.1 < hit.float().mean() < 1.0 or case == "tie"
+    assert (got["tri"] != ref["tri"]).float().mean() <= 1e-3
+    same = (got["tri"] == ref["tri"]) & hit
+    for k in ("t", "u", "v"):
+        torch.testing.assert_close(got[k][same], ref[k][same], rtol=1e-6,
+                                   atol=1e-7)
+    assert torch.equal(got["t"][~hit], tmax[~hit])
+    need = _check_closest_walk(got, tris, nodes, o, d, depth, tmax, active)
+    if case == "tie":
+        assert torch.all(got["tri"][hit] == 3)
+        assert torch.all(got["t"][hit] == 5.0)
+        assert int(hit.sum()) == (B - B // 2 if bounded else B)
+    if active is not None:
+        assert not hit[~active].any()
+    if case == "parked":
+        assert not hit[:70].any()
+
+
 def _flat_grid_desc(n):
     """n x n unit squares in the plane z = 0, two triangles each, as a
     scene description asking for the tile BVH: every shared edge is
@@ -666,12 +811,15 @@ def test_bvh_kernels_on_a_shared_edge_tie():
     d = torch.tensor(d[None], device="cuda")
     tris = pack_tris(scene)
     got = bvh_isect.bvh_closest_hit(tris, scene.nodes, o, d,
-                                    depth=scene.tree_depth)
+                                    depth=scene.tree_depth,
+                                    leaf_real=scene.leaf_real)
     ref = bvh_isect.bvh_closest_hit_reference(
         tris, o, d, torch.full((1,), float("inf"), device="cuda"))
     assert float(got["t"][0]) == float(ref["t"][0]) == 5.0
     assert int(ref["tri"][0]) == pair[0]
     assert int(got["tri"][0]) in pair
+    # the leaf the walk visits first keeps the tie
+    _check_closest_walk(got, tris, scene.nodes, o, d, scene.tree_depth)
     occ = bvh_isect.bvh_any_hit(tris, scene.nodes, o, d,
                                 depth=scene.tree_depth,
                                 leaf_real=scene.leaf_real)["occ"]
