@@ -121,9 +121,40 @@ non-zero):
    tile of that frame (6,400 rays on 1,033 tiles), where they split the
    triangle range across the grid, against their twins on a slice
    (`check_split_kernels`, phase 3's tolerances and printout);
-15. a JSON line of per-kernel results (each with the least time the card
-   could take for its work, `bound_ms`, from the counts below), the
-   card's line, and last {"ok": true, "device": {...}}.
+15. kernel 1 with a finite per-ray tmax (the dirt map's gather) against
+   its twin (`check_tmax_kernels`): at the gather's shape, the bundled
+   scene's first 240x240 tile at 3x3 (518,400 rays from the shading
+   points, one stratum's directions, tmax the gather distance, the eye
+   hits live), then on the split path, the n = 258 terrain's first tile
+   (6,400 rays on 1,033 tiles) with a random finite tmax; phase 3's
+   tolerances, a miss t = +inf, dead rays missing, a ray whose tmax is
+   its own hit's t missing; its lane tests against `dense_need`'s up to
+   min(hit, tmax), its time and bound;
+16. the dirt map at full width, each frame with phase 4's checks:
+   bundled-dirtmap (the bundled scene without its sunsky line, 640x480,
+   3x3, 64 rays, tile 240, dense: kernel 1 alone, 1 + 64 launches a
+   tile), heightfield256-dirtmap (bench_large's n = 256 terrain at its
+   settings, tile BVH: kernel 4 alone); then an 80x60 dirt-map frame (16
+   gather rays) on the card against the CPU's twins with phase 12's
+   bound;
+17. bundled-dof: the bundled scene under a DepthOfField line whose focal
+   plane crosses it (`DOF_LINE`), at the headline settings as AO, with
+   phase 4's checks, then its 80x60 frame against the CPU's;
+18. textured-ao: lucille's texcoord scene (a matte quad textured by a
+   1024x1024 checker that the port's write_tex and write_exr write at
+   run time) at 640x480, 3x3, 64 rays, with phase 4's checks and both
+   the dark and the bright squares on it; the .exr's atlas equal to the
+   .tex's; its 80x60 frame against the CPU's;
+19. recover: the headline AO frame with a tile checkpoint, stopped after
+   3 of its 6 tiles, then recovered: equal to the uninterrupted frame
+   exactly, only the 3 missing tiles enqueued, the checkpoint removed;
+20. the CLI on the card in a subprocess (`--method dirtmap --maxraydepth
+   2 --display openexr --gather-rays 16`), its .exr read back;
+   each of phases 15-20 prints its wall seconds;
+21. a JSON line of per-kernel results (each with the least time the card
+   could take for its work, `bound_ms`, from the counts below; kernel
+   1's entries include its finite-tmax cases), the card's line, and last
+   {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it: run from a directory
 holding only this file, it fails.
@@ -135,10 +166,12 @@ equal.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -183,6 +216,13 @@ DIR_OPS = 55
 # rays on which need_walk counts the tile-BVH any-hits' needed work
 N_NEED = 65536
 
+# f-stop 2 and focal length 1 (a lens of radius 0.25), focused at 15.5:
+# the bundled scene's camera sits 15.53 from its centre, so the focal
+# plane crosses the scene
+DOF_LINE = "DepthOfField 2.0 1.0 15.5\n"
+# the textured frame's texture: a 1024x1024 checker of 8x8 squares
+CHECKER, CHECKER_CELL = 1024, 128
+
 HEIGHTFIELD_CAMERA = (
     'Projection "perspective" "fov" [45.0]\n'
     'Orientation "rh"\n'
@@ -208,16 +248,19 @@ def sunsky_line() -> str:
 
 
 def bundled_state(width, height, pixelsamples=None, gather=None,
-                  sunsky=True, api=None, method=None):
+                  sunsky=True, api=None, method=None, dof=False):
     """tests/golden/sunsky_scene.rib, the reference's
     ambient_occlusion.rib (322 triangles) with its sunsky light (as
-    shipped), or without that line for plain AO; parsed in memory, and
-    rendered by `method` (default the RIB's, AO)."""
+    shipped), or without that line for plain AO; with dof, under
+    DOF_LINE; parsed in memory, and rendered by `method` (default the
+    RIB's, AO)."""
     RiState, parse_rib = api or front_end()
     text = BUNDLED_RIB.read_text()
     if not sunsky:
         text = "".join(l for l in text.splitlines(keepends=True)
                        if 'AreaLightSource "sunsky"' not in l)
+    if dof:
+        text = text.replace("WorldBegin", DOF_LINE + "WorldBegin", 1)
     s = RiState()
     parse_rib(text, s)
     s.Format(width, height)
@@ -274,6 +317,49 @@ def heightfield_state(n, width=160, height=120, pixelsamples=2, gather=64,
     s.options.accel_method = accel
     if method is not None:
         s.options.render_method = method
+    return s
+
+
+def write_checker(tex_dir) -> None:
+    """The textured frame's checker (1 and 0 squares) written by the
+    port's own codecs as checker.tex and checker.exr in tex_dir."""
+    from lucille_tpu_torch.imageio.exr import write_exr
+    from lucille_tpu_torch.imageio.tex import write_tex
+
+    y, x = np.mgrid[0:CHECKER, 0:CHECKER] // CHECKER_CELL
+    img = np.repeat((((x + y) % 2) == 0)[..., None], 3, axis=-1).astype(
+        np.float32)
+    write_tex(Path(tex_dir) / "checker.tex", img)
+    write_exr(Path(tex_dir) / "checker.exr", img)
+
+
+@functools.cache
+def checker_dir() -> tempfile.TemporaryDirectory:
+    """A temporary directory holding write_checker's files, made once a
+    process and removed at its exit (.name is its path)."""
+    d = tempfile.TemporaryDirectory(prefix="lucille_checker_")
+    write_checker(d.name)
+    return d
+
+
+def textured_state(width, height, tex_name="checker.tex", pixelsamples=3,
+                   gather=64, api=None):
+    """lucille's texcoord regression scene (lucille_tpu's
+    tests/test_texture.py:88-115): one matte quad facing the camera,
+    textured by the checker through Option "searchpath" "texture"."""
+    RiState, parse_rib = api or front_end()
+    s = RiState()
+    parse_rib(
+        'Projection "perspective" "fov" [45]\n'
+        f'Option "searchpath" "texture" ["{checker_dir().name}"]\n'
+        "WorldBegin\n"
+        f'Surface "matte" "texturename" ["{tex_name}"]\n'
+        'Polygon "P" [ 1 1 3  1 -1 3  -1 -1 3  -1 1 3 ]\n'
+        '  "facevertex float s" [0 0 1 1] "facevertex float t" [0 1 1 0]\n'
+        "WorldEnd\n", s)
+    s.Format(width, height)
+    s.PixelSamples(pixelsamples, pixelsamples)
+    s.options.gather_nsamples = gather
     return s
 
 
@@ -1383,7 +1469,7 @@ def check_closest_active(label, r, n_slice, results):
     name = "closest_hit" if dense else "bvh_closest_hit"
     if dense:
         launch = lambda a: isect.closest_hit(  # noqa: E731
-            scene, org, dirn, a)
+            scene, org, dirn, active=a)
     else:
         launch = lambda a: bvh_isect.bvh_closest_hit(  # noqa: E731
             tris, scene.nodes, org, dirn, None, a, depth=scene.tree_depth,
@@ -1394,7 +1480,8 @@ def check_closest_active(label, r, n_slice, results):
     lo = min(max(0, mid - n_slice // 2), max(0, B - n_slice))
     sl = slice(lo, lo + n_slice)
     if dense:
-        ref = isect.closest_hit_reference(tris, org[sl], dirn[sl], active[sl])
+        ref = isect.closest_hit_reference(tris, org[sl], dirn[sl],
+                                          active=active[sl])
     else:
         ref = bvh_isect.bvh_closest_hit_reference(
             tris, org[sl], dirn[sl],
@@ -1553,26 +1640,9 @@ def check_fused_gather(label, r, n_slots, results, inputs, ntheta=8, nphi=8):
 
 def check_whitted_twins():
     """Phase 12: an 80x60 Whitted frame of the bundled scene on the card
-    against the same frame on the CPU, one numpy stream fed to both."""
-    from lucille_tpu_torch.render.renderer import Renderer
-    from lucille_tpu_torch.sampling.jitter import HostSampler
-
-    frames = {}
-    for dev in ("cuda", "cpu"):
-        r = Renderer(bundled_state(80, 60, sunsky=False,
-                                   method="whitted").scene,
-                     tile_size=32, device=dev, sampler=HostSampler(0, dev))
-        frames[dev] = (r.render_frame(), r.stats.nrays)
-    (got, n_got), (ref, n_ref) = frames["cuda"], frames["cpu"]
-    off = (np.abs(got - ref) > 1e-3).mean()
-    print(f"[whitted-twins] 80x60 Whitted on the card against the CPU: "
-          f"{n_got} and {n_ref} rays, means {got.mean():.5f} and "
-          f"{ref.mean():.5f}, pixels off by > 1e-3: {off:.5f} (<= 0.01)",
-          flush=True)
-    if abs(n_got - n_ref) > 1e-3 * n_ref or off > 0.01 or not (
-            0.1 < ref.mean() < 1.0):
-        raise AssertionError("the card's Whitted frame disagrees with the "
-                             "plain twins'")
+    against the same frame on the CPU (`check_frame_twins`)."""
+    check_frame_twins("whitted-twins", lambda: bundled_state(
+        80, 60, sunsky=False, method="whitted"))
 
 
 def check_fused_against_cone(label, cone, fused, lit_from):
@@ -1803,6 +1873,312 @@ def check_dense_scan(results):
             raise AssertionError(f"{label}: the scan and the tile BVH disagree")
 
 
+def check_tmax_kernel(label, scene, org, dirn, tmax, active, n_slice,
+                      results):
+    """Phase 15 for one shape: kernel 1 with the finite per-ray tmax
+    against its twin on a slice of the live rays (phase 3's tolerances);
+    a miss reports t +inf and tri -1, a dead ray misses, and a ray whose
+    tmax is its own hit's t misses (a hit needs t < tmax).  Its time, its
+    twin's on every ray, its bound and its work against dense_need's
+    count up to min(hit, tmax), and its registers (isect_registers fails
+    on a spill).  Appends to results["closest_hit"]."""
+    import torch
+
+    from lucille_tpu_torch.accel import isect
+
+    B = org.shape[0]
+    live = (torch.ones(B, dtype=torch.bool, device="cuda") if active is None
+            else active)
+    chunks, per = isect.split_layout(
+        B, scene.n_tris,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    lanes = torch.nonzero(live)[:, 0]
+    mid = len(lanes) // 2
+    lanes = lanes[max(0, mid - n_slice // 2) : mid + n_slice // 2]
+    got = isect.closest_hit_kernel(scene, org, dirn, tmax, active)
+    ref = isect.closest_hit_reference(scene.tris, org[lanes], dirn[lanes],
+                                      tmax[lanes])
+    err, differ = compare_closest(got, ref, lanes, f"{label} closest_hit")
+    miss = got["tri"] < 0
+    if not (torch.all(torch.isinf(got["t"][miss]))
+            and torch.all(got["tri"][~live] < 0)):
+        raise AssertionError(f"{label}: a miss with a finite t, or a dead "
+                             "ray that hit")
+    at_hit = torch.where(miss, tmax, got["t"])
+    if torch.any(isect.closest_hit_kernel(scene, org, dirn, at_hit,
+                                          active)["tri"] >= 0):
+        raise AssertionError(f"{label}: a hit at t == tmax")
+    hit_rate = (~miss[live]).float().mean().item()
+    if not 0.01 < hit_rate < 0.99:
+        raise AssertionError(f"{label}: {hit_rate:.4f} of the live rays hit")
+    ms, call_ms = hit_kernel_ms(lambda: isect.closest_hit_kernel(
+        scene, org, dirn, tmax, active), "closest_hit")
+    plain_ms = cuda_ms(lambda: isect.closest_hit_reference(
+        scene.tris, org, dirn, tmax, active), 1)
+    inf = torch.full((B,), float("inf"), device="cuda")
+    t_end = torch.where(miss, tmax, torch.nextafter(got["t"], inf))
+    need = dense_need(scene, org, dirn, t_end, live=live)
+    work = dense_bound(scene, B, 24 + 4 + 1 + 16, need)
+    walk = dense_work(got, need)
+    from lucille_tpu_torch.kernels.build import library
+
+    regs, spill = isect_registers(library().log)[
+        f"closest_hit_kernel<{chunks > 1}>"]
+    print(f"[{label}] closest_hit, finite tmax: {int(live.sum())} live rays "
+          f"of {B}, {chunks} chunk(s) of {per} supertiles, {hit_rate:.4f} "
+          f"of them hit before tmax; tri differs on {differ:.2e} of "
+          f"{len(lanes)}, max |t,u,v err| {err:.3e}; kernel {ms:.3f} ms "
+          f"({call_ms:.3f} ms a call), plain {plain_ms:.3f} ms, bound "
+          f"{work['bound_ms']:.4f} ms ({work['bound_by']}); {walk['text']}; "
+          f"{regs} registers, {spill} bytes spilled", flush=True)
+    entry = {"scene": label, "tmax": "finite", "chunks": chunks,
+             "registers": regs,
+             "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+             "plain_ms": plain_ms, **walk["numbers"], **work}
+    results["closest_hit"].append(entry)
+    return entry
+
+
+def check_tmax_kernels(results):
+    """Phase 15: kernel 1 with a finite tmax (the dirt map's gather).
+    First at the gather's shape: the bundled scene's first 240x240 tile
+    at 3x3 (518,400 rays from the shading points, stratum 7's directions
+    of an 8x8 gather, tmax the gather distance, the eye hits live); then
+    on the split path: the n = 258 terrain's first tile (6,400 eye rays
+    on 1,033 tiles) with a random finite tmax.  Returns the gather's
+    entry."""
+    import torch
+
+    from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.transport.ao import _scan_dirs, shading_frame
+
+    r = Renderer(bundled_state(640, 480, 3, 64, sunsky=False,
+                               method="dirtmap").scene,
+                 tile_size=TILE, device="cuda")
+    scene = r.scene
+    org, dirn, x0, y0 = first_tile_rays(r)
+    B = org.shape[0]
+    res = closest_hit(scene, org, dirn)
+    P_off, b0, b1, b2 = shading_frame(scene, org, dirn, res)
+    d = scene.bbox_max - scene.bbox_min
+    gather_dist = 0.25 * torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    si = 7  # a stratum near the horizon: its rays meet the most occluders
+    wdir = _scan_dirs(b0, b1, b2, r.sampler(x0, y0).uniform((si,), (B, 2)),
+                      si, 8, 8)
+    entry = check_tmax_kernel("dirtmap-gather", scene, P_off, wdir,
+                              gather_dist.expand(B).contiguous(),
+                              res["hit"], 65536, results)
+
+    r = Renderer(heightfield_state(258, 80, 60, pixelsamples=2, gather=16,
+                                   accel="pallas").scene,
+                 tile_size=40, device="cuda")
+    org, dirn, _x0, _y0 = first_tile_rays(r)
+    B = org.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    d = r.scene.bbox_max - r.scene.bbox_min
+    diag = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    tmax = 2.0 * diag * torch.rand(B, device="cuda", generator=gen)
+    got = check_tmax_kernel("heightfield258-scan-tmax", r.scene, org, dirn,
+                            tmax, None, 2048, results)
+    if got["chunks"] < 2:
+        raise AssertionError("the scan's tile did not split the range")
+    return entry
+
+
+def check_frame_twins(label, make_state, tile=32):
+    """Phase 12's check of one 80x60 frame: the frame on the card against
+    the same frame on the CPU (the plain twins), one numpy stream fed to
+    both (HostSampler): ray counts within 1e-3, pixels within 1e-3 on all
+    but 1%."""
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.sampling.jitter import HostSampler
+
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        r = Renderer(make_state().scene, tile_size=tile, device=dev,
+                     sampler=HostSampler(0, dev))
+        frames[dev] = (r.render_frame(), r.stats.nrays)
+    (got, n_got), (ref, n_ref) = frames["cuda"], frames["cpu"]
+    off = (np.abs(got - ref) > 1e-3).mean()
+    print(f"[{label}] 80x60 on the card against the CPU: {n_got} and "
+          f"{n_ref} rays, means {got.mean():.5f} and {ref.mean():.5f}, "
+          f"pixels off by > 1e-3: {off:.5f} (<= 0.01)", flush=True)
+    if abs(n_got - n_ref) > 1e-3 * n_ref or off > 0.01 or not (
+            0.1 < ref.mean() < 1.0):
+        raise AssertionError(f"{label}: the card's frame disagrees with the "
+                             "plain twins'")
+
+
+def check_dirtmap_frames(gather_entry):
+    """Phase 16: the dirt map at full width, with phase 4's checks: the
+    bundled scene without its sunsky line at bench.py's headline
+    settings on the dense tiles (kernel 1 alone, 1 + 64 launches a tile),
+    bench_large's n = 256 terrain on the tile BVH (kernel 4 alone); then
+    an 80x60 dirt-map frame of the bundled scene (16 gather rays, so the
+    CPU's twins take seconds) against the CPU's twins."""
+    from lucille_tpu_torch.render.tiles import tile_list
+
+    r = build_renderer("bundled-dirtmap", lambda: bundled_state(
+        640, 480, 3, 64, sunsky=False, method="dirtmap"), TILE)
+    got, _, _ = render_checked("bundled-dirtmap", r,
+                               "chip_smoke_bundled_dirtmap.hdr",
+                               ("closest_hit",))
+    opt = r.desc.options
+    n_tiles = len(tile_list(opt.width, opt.height, TILE, opt.bucket_order))
+    per_tile = 1 + opt.gather_nsamples  # the eye rays, then each stratum
+    if got["closest_hit"] != n_tiles * per_tile:
+        raise AssertionError(f"bundled-dirtmap: {got['closest_hit']} "
+                             f"launches of kernel 1, not {n_tiles} x "
+                             f"{per_tile}")
+    gather_entry["frame_launches"] = got["closest_hit"]
+    render_checked("heightfield256-dirtmap", build_renderer(
+        "heightfield256-dirtmap",
+        lambda: heightfield_state(256, method="dirtmap"), 128),
+        "chip_smoke_heightfield256_dirtmap.hdr", ("bvh_closest_hit",))
+    check_frame_twins("dirtmap-twins", lambda: bundled_state(
+        80, 60, gather=16, sunsky=False, method="dirtmap"))
+
+
+def check_dof_frames():
+    """Phase 17: the bundled scene under DOF_LINE (thin-lens eye rays, the
+    lens samples from the tile's stream) at the headline settings as AO,
+    with phase 4's checks; then the 80x60 frame against the CPU's."""
+    render_checked("bundled-dof", build_renderer(
+        "bundled-dof", lambda: bundled_state(640, 480, 3, 64, sunsky=False,
+                                             dof=True), TILE),
+        "chip_smoke_bundled_dof.hdr", ("closest_hit", "ao_occlusion"))
+    check_frame_twins("dof-twins", lambda: bundled_state(
+        80, 60, sunsky=False, dof=True))
+
+
+def check_textured_frames():
+    """Phase 18: lucille's texcoord scene at 640x480, 3x3, 64 rays, its
+    1024x1024 checker written at run time by the port's write_tex and
+    write_exr: the frame through the .tex with phase 4's checks, the dark
+    and the bright squares both on it; the atlas loaded from the .exr
+    equal to the one from the .tex; then the 80x60 frame (through the
+    .exr) against the CPU's."""
+    import torch
+
+    r = build_renderer("textured-ao", lambda: textured_state(640, 480), TILE)
+    _, _, img = render_checked("textured-ao", r,
+                               "chip_smoke_textured_ao.hdr",
+                               ("closest_hit", "ao_occlusion"))
+    lum = img.mean(-1)
+    bright, dark = (lum > 0.5).mean(), ((lum < 0.2) & (lum >= 0)).mean()
+    print(f"[textured-ao] bright pixels {bright:.4f}, dark {dark:.4f} "
+          "(each > 0.1)", flush=True)
+    if not (bright > 0.1 and dark > 0.1):
+        raise AssertionError("textured-ao: the checker does not show")
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    exr = Renderer(textured_state(16, 16, "checker.exr").scene,
+                   tile_size=16, device="cuda").textures
+    if not torch.equal(exr.data, r.textures.data):
+        raise AssertionError("textured-ao: the .exr and .tex atlases differ")
+    check_frame_twins("textured-twins",
+                      lambda: textured_state(80, 60, "checker.exr"))
+
+
+def check_recover():
+    """Phase 19: the headline AO frame with a tile checkpoint, stopped by
+    a tile callback that raises on its third tile, then recovered: the
+    recovered frame equals the uninterrupted one exactly, only the three
+    missing tiles are enqueued (and launch the path's kernels), none
+    waits on the card, and the checkpoint is gone afterwards."""
+    import torch
+
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.render.tiles import tile_list
+
+    class Stop(Exception):
+        pass
+
+    r = Renderer(bundled_state(640, 480, 3, 64, sunsky=False).scene,
+                 tile_size=TILE, device="cuda")
+    full = r.render_frame()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "frame.ckpt.npz")
+        seen = []
+
+        def stop(x0, y0, tile):
+            seen.append((x0, y0))
+            if len(seen) == 3:
+                raise Stop
+
+        try:
+            r.render_frame(tile_cb=stop, checkpoint=ckpt)
+        except Stop:
+            pass
+        else:
+            raise AssertionError("recover: the frame was not stopped")
+        torch.cuda.synchronize()
+        with np.load(ckpt) as data:
+            n_done = int(data["done"].sum())
+        counts = counters()
+        for c in counts.values():
+            c.reset()
+        enqueued = []
+        with no_host_sync(r):
+            strict = r._tile
+
+            def spy(*args):
+                enqueued.append(args[:2])
+                return strict(*args)
+
+            r._tile = spy
+            img = r.render_frame(checkpoint=ckpt, recover=True)
+        left = os.path.exists(ckpt)
+    launches = {k: c.kernel for k, c in counts.items() if c.kernel}
+    opt = r.desc.options
+    n_tiles = len(tile_list(opt.width, opt.height, TILE, opt.bucket_order))
+    left_tiles = n_tiles - n_done
+    print(f"[recover] stopped after {n_done} of {n_tiles} tiles; recovered "
+          f"with "
+          f"{len(enqueued)} enqueued, launches {launches}; equal to the "
+          f"uninterrupted frame: {np.array_equal(img, full)}; checkpoint "
+          f"left: {left}", flush=True)
+    if not (n_done == 3 and len(enqueued) == left_tiles
+            and np.array_equal(img, full) and not left
+            and launches == {"closest_hit": left_tiles,
+                             "ao_occlusion": left_tiles}
+            and not any(c.plain for c in counts.values())):
+        raise AssertionError("recover: the recovered frame is not the "
+                             "uninterrupted one")
+
+
+def check_cli():
+    """Phase 20: the CLI on the card in a subprocess, with this slice's
+    flags: the bundled scene as shipped by the dirt map, --maxraydepth 2,
+    the OpenEXR display, 16 gather rays; the .exr read back: finite, the
+    RIB's size, an AO-like mean."""
+    from lucille_tpu_torch.imageio.exr import read_exr
+
+    RiState, parse_rib = front_end()
+    s = RiState()
+    parse_rib(BUNDLED_RIB.read_text(), s)
+    W, H = s.options.width, s.options.height
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "x.exr"
+        proc = subprocess.run(
+            [sys.executable, "-m", "lucille_tpu_torch.cli", str(BUNDLED_RIB),
+             "--method", "dirtmap", "--maxraydepth", "2", "--display",
+             "openexr", "-o", str(out), "--gather-rays", "16", "--stats"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-4000:]}")
+        img = read_exr(out)
+    rate = next((l.strip() for l in proc.stdout.splitlines()
+                 if "Mrays" in l), "")
+    print(f"[cli] --method dirtmap --display openexr: {img.shape}, mean "
+          f"{img.mean():.4f}; {rate}", flush=True)
+    if not (img.shape == (H, W, 3) and np.isfinite(img).all()
+            and 0.0 < img.mean() <= 1.0):
+        raise AssertionError(f"cli: bad image {img.shape}")
+
+
 def main() -> int:
     import torch
 
@@ -1974,7 +2350,23 @@ def main() -> int:
     # its split path
     check_dense_scan(results)
 
-    # 15. results
+    # 15.-20. this slice's paths: kernel 1 with a finite tmax, the dirt
+    # map, depth of field, a textured frame, tile checkpoints, the CLI
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[{name}] phase wall {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        return out
+
+    gather_entry = phase("tmax-kernels", check_tmax_kernels, results)
+    phase("dirtmap-frames", check_dirtmap_frames, gather_entry)
+    phase("dof-frames", check_dof_frames)
+    phase("textured-frames", check_textured_frames)
+    phase("recover", check_recover)
+    phase("cli", check_cli)
+
+    # 21. results
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = []
     for name, (src, replaces) in SOURCES.items():

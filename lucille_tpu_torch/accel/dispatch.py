@@ -15,7 +15,8 @@ from lucille_tpu_torch.accel import bvh_isect, isect
 def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
                 tmax=None, active=None) -> dict:
     """Closest hit of rays (B, 3) against the scene, with 0 < t < tmax
-    (None: unbounded; the dense tiles take no tmax); active: None or the
+    (None: unbounded, a float or (B,), on both accels: the dense tiles
+    take it where lucille_tpu switches to its MXU path); active: None or the
     (B,) bool live lanes of a bounce wavefront, a dead lane doing no work
     and reporting a miss on both accels (lucille_tpu's dense path
     compacts the live lanes, its BVH ignores the mask).  Returns the
@@ -28,11 +29,7 @@ def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
                                         depth=scene.tree_depth,
                                         leaf_real=scene.leaf_real)
     elif scene.accel == "dense":
-        if tmax is not None:
-            raise NotImplementedError(
-                "the dense closest hit takes no tmax (lucille_tpu serves it "
-                "with its MXU path, which is not ported)")
-        res = isect.closest_hit(scene, org, dirn, active)
+        res = isect.closest_hit(scene, org, dirn, tmax, active)
     else:
         raise NotImplementedError(f"accel {scene.accel!r} is not ported")
     tri = res["tri"]

@@ -11,6 +11,10 @@ Moller-Trumbore arithmetic (`_mt_tile`, with the division by the
 determinant), not the BVH any-hit's division-free signed-volume test
 (accel/bvh_isect.py).
 
+The closest hit takes an optional per-ray `tmax` as the any-hit does (a
+hit needs 0 < t < tmax; the dirt map's gather is bounded by its gather
+distance), where lucille_tpu answers a bounded closest hit with its MXU
+path (accel/dispatch.py:13-19, 37-42), which the port does not have.
 A bounce wavefront passes its live-lane mask as `active` to either
 kernel: a dead ray does no work and reports a miss (closest hit) or
 False (any-hit), where lucille_tpu compacts the live rays to the front
@@ -112,19 +116,19 @@ def _check_inputs(scene, org, dirn):
                          f"{tuple(dirn.shape)}")
 
 
-def closest_hit(scene, org, dirn, active=None) -> dict:
-    """Closest hit of rays org, dirn (B, 3) f32 against the scene's dense
-    packs; active None or (B,) bool, the live rays of a bounce wavefront.
+def closest_hit(scene, org, dirn, tmax=None, active=None) -> dict:
+    """Closest hit with 0 < t < tmax of rays org, dirn (B, 3) f32 against
+    the scene's dense packs; tmax None (unbounded), a float or (B,);
+    active None or (B,) bool, the live rays of a bounce wavefront.
     Returns {t, u, v (B,) f32, tri (B,) i32 (-1 on a miss), ntrav, ntests
-    () i64}, from the kernel also warp_ntrav and warp_ntests; a ray that
-    is not active reports a miss (t +inf, u = v = 0, tri -1)."""
+    () i64}, from the kernel also warp_ntrav and warp_ntests; a miss, and
+    a ray that is not active, reports t +inf, u = v = 0, tri -1."""
     _check_inputs(scene, org, dirn)
-    active = ray_limits(org, None, active)[1]
     if org.device.type == "cpu":
-        return closest_hit_reference(scene.tris, org, dirn, active)
+        return closest_hit_reference(scene.tris, org, dirn, tmax, active)
     if org.device.type != "cuda":
         raise ValueError(f"unsupported device {org.device}")
-    return closest_hit_kernel(scene, org, dirn, active)
+    return closest_hit_kernel(scene, org, dirn, tmax, active)
 
 
 def _layout(scene, org, counters: bool = True):
@@ -147,13 +151,15 @@ def _scene_args(scene) -> tuple:
             scene.sub_boxes.data_ptr())
 
 
-def closest_hit_kernel(scene, org, dirn, active=None) -> dict:
+def closest_hit_kernel(scene, org, dirn, tmax=None, active=None) -> dict:
     """Launch csrc/isect.cu's closest hit on the current stream (CUDA
-    tensors only)."""
+    tensors only); tmax None passes no bound to the kernel."""
     _check_inputs(scene, org, dirn)
     if org.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {org.device}")
     active = ray_limits(org, None, active)[1]
+    if tmax is not None:
+        tmax = ray_limits(org, tmax)[0]
     B = org.shape[0]
     dev = org.device
     t = torch.empty(B, dtype=torch.float32, device=dev)
@@ -167,6 +173,7 @@ def closest_hit_kernel(scene, org, dirn, active=None) -> dict:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lt_closest_hit(
             org.data_ptr(), dirn.data_ptr(),
+            None if tmax is None else tmax.data_ptr(),
             None if active is None else active.data_ptr(), B,
             *_scene_args(scene), chunks, per, t.data_ptr(), u.data_ptr(),
             v.data_ptr(), tri.data_ptr(),
@@ -186,19 +193,20 @@ def _plain_stats(tris, org, active) -> dict:
             "ntests": n_live.to(torch.int64) * tris.shape[1]}
 
 
-def closest_hit_reference(tris, org, dirn, active=None,
+def closest_hit_reference(tris, org, dirn, tmax=None, active=None,
                           ray_chunk: int = 65536) -> dict:
-    """Plain torch twin: every live ray against every tile, the tile's
+    """Plain torch twin: every live ray against every tile, t_best
+    starting at its tmax (None: unbounded, a float or (B,)), the tile's
     Moller-Trumbore chain in the kernel's operation order, the lowest
     index among equal t (argmin takes the first minimum within a tile,
-    the strict t < t_best across tiles); a ray that is not active
-    reports a miss."""
+    the strict t < t_best across tiles); a miss, and a ray that is not
+    active, reports t +inf, u = v = 0, tri -1."""
     COUNTS.plain += 1
-    B = org.shape[0]
-    inf = torch.full((B,), float("inf"), device=org.device)
+    tmax, active = ray_limits(org, tmax, active)
     res = live_scan(lambda o, d, tm: closest_scan(tris, o, d, tm, ray_chunk),
-                    org, dirn, inf, active,
+                    org, dirn, tmax, active,
                     {"t": float("inf"), "u": 0.0, "v": 0.0, "tri": -1})
+    res["t"] = torch.where(res["tri"] >= 0, res["t"], float("inf"))
     return {**res, **_plain_stats(tris, org, active)}
 
 

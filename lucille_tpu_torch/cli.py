@@ -1,31 +1,41 @@
-"""Command-line renderer for the port: the `lsh` flags the port honours.
+"""Command-line renderer for the port: the `lsh` flags of lucille_tpu's CLI.
 
-    python -m lucille_tpu_torch.cli scene.rib -o out.hdr [--device cuda]
+    python -m lucille_tpu_torch.cli [options] [scene.rib] [--device cuda]
 
     --output FILE      override the display name
+    --display D        override the display driver: file (hdr), openexr
+                       (exr), framebuffer (falls back to file), null;
+                       socket is refused
     --pixelsamples N   override PixelSamples
-    --gather-rays N    AO gather rays (ntheta = nphi = int(sqrt(N)))
-    --method M         integrator: ao (default), whitted, pathtrace (also
-                       path, mlt); dirtmap and shader are refused
+    --maxraydepth N    override the maximum ray depth
+    --gather-rays N    AO / dirt-map gather rays (ntheta = nphi =
+                       int(sqrt(N)))
+    --method M         ao (default), whitted, pathtrace, dirtmap; shader
+                       is refused
+    --nthreads N       accepted for lsh compatibility, ignored
     --tile N           tile size, default 64
     --order O          spiral|scanline|zorder|hilbert
     --accel A          auto|pallas|bvh: auto picks the dense tiles up to
                        16384 triangles and the tile BVH above; pallas
                        asks for the dense tiles, bvh for the tile BVH
                        (grid, bruteforce and mxu are refused)
+    --recover          tile checkpoints: <display name>.ckpt.npz is
+                       written after each tile and resumed from
     --width/--height   override the image size
-    --stats --verbose  ray statistics, progress
+    --debug --stats --verbose   debug logging, ray statistics, progress
     --device D         cuda (default) or cpu
 
+With no RIB the CLI enters the interactive shell (shell.py) on --device.
 A scene with an AreaLightSource "sunsky" renders the reference's sunsky
 AO (sky radiance over the open strata plus the sun), on either accel; a
 scene without lights gets the reference's constant dome, which Whitted
 gathers through the AO kernels.  LUCILLE_BVH_AO=fused selects the fused
 tile-BVH AO gather, as it does for lucille_tpu.  lucille_tpu's --mesh,
---coordinator, --num-processes, --process-id, --recover and the dirtmap
-and shader methods are refused with a message.
+--coordinator, --num-processes and --process-id (ROADMAP Queue 1, item
+8), the shader method and the socket display are refused with a message
+naming ROADMAP.
 CLI overrides are applied at WorldBegin through the backdoor callback,
-as lucille_tpu's CLI does.
+as lucille_tpu's CLI does (lucille_tpu/cli.py:139-166).
 """
 
 from __future__ import annotations
@@ -46,9 +56,14 @@ def build_argparser() -> argparse.ArgumentParser:
         prog="lucille-tpu-torch",
         description="RenderMan-style renderer on PyTorch/CUDA",
     )
-    p.add_argument("rib", help="RIB scene file")
+    p.add_argument("rib", nargs="?", default=None,
+                   help="RIB scene file; omit for the interactive shell")
     p.add_argument("--output", "-o", help="override output file name")
+    p.add_argument("--display",
+                   help="override the display driver (file|openexr|"
+                        "framebuffer|null)")
     p.add_argument("--pixelsamples", type=int, help="subpixel samples per axis")
+    p.add_argument("--maxraydepth", type=int, help="maximum ray depth")
     p.add_argument("--gather-rays", type=int, help="AO gather rays")
     p.add_argument("--tile", type=int, default=64, help="tile size (default 64)")
     p.add_argument("--order", choices=["spiral", "scanline", "zorder", "hilbert"],
@@ -58,17 +73,20 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="accel override; auto (by triangle count), pallas "
                         "(dense tiles) and bvh (tile BVH) are ported")
     p.add_argument("--method",
-                   help="integrator: ao (default), whitted, pathtrace")
+                   choices=["ao", "whitted", "pathtrace", "dirtmap", "shader"],
+                   help="integrator override (Option \"renderer\" \"method\")")
+    p.add_argument("--nthreads", type=int, help="accepted for lsh compatibility")
+    p.add_argument("--recover", action="store_true",
+                   help="tile-level checkpoint and resume")
     p.add_argument("--width", type=int, help="override image width")
     p.add_argument("--height", type=int, help="override image height")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--debug", action="store_true")
     p.add_argument("--stats", action="store_true", help="print ray statistics")
     p.add_argument("--verbose", "-v", action="store_true")
     for name in REFUSED:
         p.add_argument("--" + name.replace("_", "-"), default=None,
                        help="not supported by the port")
-    p.add_argument("--recover", action="store_true",
-                   help="not supported by the port")
     return p
 
 
@@ -77,29 +95,42 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     for name, what in REFUSED.items():
         if getattr(args, name) is not None:
-            p.error(f"--{name.replace('_', '-')}: {what} is not ported")
-    if args.recover:
-        p.error("--recover: tile checkpoints are not ported")
+            p.error(f"--{name.replace('_', '-')}: {what} is not ported "
+                    "(ROADMAP Queue 1, item 8)")
     from lucille_tpu_torch.transport.dispatch import UNPORTED
 
-    if args.method is not None and args.method.lower() in UNPORTED:
+    if args.method in UNPORTED:
         p.error(f"--method {args.method}: not ported "
-                f"({UNPORTED[args.method.lower()]})")
+                f"({UNPORTED[args.method]}; ROADMAP Queue 1)")
+    if args.display == "socket":
+        p.error("--display socket: the socket display driver is not ported "
+                "(ROADMAP Queue 1)")
     if args.accel not in (None, "auto", "pallas", "bvh"):
         p.error(f"--accel {args.accel}: not ported (only 'auto', 'pallas' "
-                "and 'bvh')")
+                "and 'bvh'; ROADMAP Queue 1)")
 
+    from lucille_tpu_torch.base.log import set_debug
     from lucille_tpu_torch.base.timer import get_timer
     from lucille_tpu_torch.display.drivers import get_display_driver
     from lucille_tpu_torch.ri.api import RiState
     from lucille_tpu_torch.rib.parser import parse_rib_file
     from lucille_tpu_torch.render.renderer import Renderer
 
+    if args.debug:
+        set_debug(True)
+    if args.rib is None:  # no scene: the interactive shell (lsh.c)
+        from lucille_tpu_torch.shell import Shell
+
+        Shell(device=args.device).run()
+        return 0
+
     def apply_overrides(state: RiState):
         """Backdoor world_begin callback (lsh main.c:213-241)."""
         opt = state.options
         if args.pixelsamples is not None:
             state.PixelSamples(args.pixelsamples, args.pixelsamples)
+        if args.maxraydepth is not None:
+            opt.max_ray_depth = args.maxraydepth
         if args.gather_rays is not None:
             opt.gather_nsamples = args.gather_rays
         if args.accel is not None:
@@ -115,6 +146,8 @@ def main(argv=None) -> int:
             disp.name = args.output
             if disp.driver == "framebuffer":
                 disp.driver = "file"
+        if args.display is not None:
+            opt.current_display().driver = args.display
         opt.tile_size = args.tile
 
     timer = get_timer()
@@ -154,7 +187,13 @@ def main(argv=None) -> int:
         if args.verbose:
             print(f"\r{frac * 100:3.0f}%", end="", flush=True)
 
-    renderer.render_frame(tile_cb=tile_cb, progress_cb=progress_cb)
+    ckpt = None
+    if args.recover:  # lucille_tpu/cli.py:236-242
+        base = ((opt.current_display().name or "untitled.hdr")
+                if opt.displays else "untitled.hdr")
+        ckpt = base + ".ckpt.npz"
+    renderer.render_frame(tile_cb=tile_cb, progress_cb=progress_cb,
+                          checkpoint=ckpt, recover=args.recover)
     if args.verbose:
         print()
     for drv in drivers:

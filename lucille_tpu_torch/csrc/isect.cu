@@ -3,11 +3,13 @@
 //
 // Replaces two Pallas TPU kernels of lucille_tpu/accel/pallas_isect.py:
 //   * _isect_kernel (:57), behind pallas_closest_hit: per ray the nearest
-//     hit with 0 < t, Moller-Trumbore with |det| > 1e-14, u, v >= 0,
-//     u + v <= 1; among equal t the lowest triangle index wins; misses
-//     report t = +inf, u = v = 0, tri = -1.  An optional `active` mask
-//     marks the live rays of a bounce wavefront; a dead ray does no work
-//     and reports a miss.
+//     hit with 0 < t < tmax (an optional per-ray tmax, +inf unbounded:
+//     the dirt map's gather, where lucille_tpu answers with its MXU path,
+//     lucille_tpu/accel/mxu.py:112,151-152, t_best starting at tmax),
+//     Moller-Trumbore with |det| > 1e-14, u, v >= 0, u + v <= 1; among
+//     equal t the lowest triangle index wins; misses report t = +inf,
+//     u = v = 0, tri = -1.  An optional `active` mask marks the live rays
+//     of a bounce wavefront; a dead ray does no work and reports a miss.
 //   * _anyhit_kernel (:390), behind pallas_any_hit: per ray whether any
 //     triangle is hit with 0 < t < tmax (per-ray tmax, +inf unbounded),
 //     by the same Moller-Trumbore test; an optional `active` mask marks the
@@ -22,7 +24,8 @@
 //   * one thread per ray, BLOCK rays a block, and every warp walks the
 //     scene at its own pace: no block barrier and no shared memory;
 //   * hierarchical, warp-uniform culls by the slab test, each bounded by
-//     the lane's running t (closest hit) or its tmax (any-hit), over the
+//     the lane's running t, which starts at its tmax (closest hit), or by
+//     its tmax (any-hit), over the
 //     open lanes (a lane that is dead or already occluded is not open):
 //     the 16-tile supertile (scene.sboxes); then, in one unrolled batch
 //     of independent loads, the supertile's 16 tiles (scene.boxes); then,
@@ -49,7 +52,9 @@
 //     ranges along gridDim.y.  The any-hit then ORs: its output is zeroed
 //     first, an occluded lane stores 1, and a lane that another chunk has
 //     already occluded stops at its next supertile.  The closest hit
-//     merges with a 64-bit atomicMin on (float bits of t << 32 | tri):
+//     (every chunk starting from the ray's tmax) merges with a 64-bit
+//     atomicMin on (float bits of t << 32 | tri), a key left at its
+//     memset value being a miss:
 //     exact, because t > 0 orders like its bits and the lower index wins at
 //     equal t, as it does inside a chunk; an epilogue recomputes the
 //     winner's u, v by the same arithmetic;
@@ -319,6 +324,7 @@ __device__ __forceinline__ void walk_super(const Scene& sc, const Ray& ray,
 template <bool kSplit>
 __global__ void __launch_bounds__(BLOCK, 4)
 closest_hit_kernel(const float* __restrict__ org, const float* __restrict__ dir,
+                   const float* __restrict__ tmax,
                    const unsigned char* __restrict__ active, int B, Scene sc,
                    int per_chunk, float* __restrict__ t_out,
                    float* __restrict__ u_out, float* __restrict__ v_out,
@@ -331,7 +337,9 @@ closest_hit_kernel(const float* __restrict__ org, const float* __restrict__ dir,
   Ray ray;
   ray.load(org, dir, i, live);
 
-  float t_best = INFINITY, u_best = 0.f, v_best = 0.f;
+  // a hit needs t < tmax: the walk's culls prune against it from the start
+  float t_best = live && tmax != nullptr ? tmax[i] : INFINITY;
+  float u_best = 0.f, v_best = 0.f;
   int tri_best = -1;
   Stats st;
   const int s0 = blockIdx.y * per_chunk;
@@ -419,7 +427,7 @@ closest_hit_kernel(const float* __restrict__ org, const float* __restrict__ dir,
                  << 32) | static_cast<unsigned>(tri_best));
     }
   } else if (i < B) {
-    t_out[i] = t_best;
+    t_out[i] = tri_best >= 0 ? t_best : INFINITY;
     u_out[i] = u_best;
     v_out[i] = v_best;
     tri_out[i] = tri_best;
@@ -553,14 +561,16 @@ bool bad_layout(int B, const Scene& sc, int chunks, int per_chunk) {
 
 }  // namespace
 
-// active: B bytes (non-zero = live) or null (every ray live); n_tris: the
+// tmax: B floats, or null (every ray unbounded); active: B bytes (non-zero
+// = live) or null (every ray live); n_tris: the
 // real triangles, the first columns of tris; sboxes, sub: the supertile
 // and 8-triangle group boxes; chunks x per_chunk: the split of the
 // supertiles (accel/isect.py:split_layout); keys: B 64-bit words of
 // scratch when chunks > 1; stats: NSTAT ints per (chunk, warp), or null
 // (no counters)
 extern "C" int lt_closest_hit(const float* org, const float* dir,
-                              const unsigned char* active, int B,
+                              const float* tmax, const unsigned char* active,
+                              int B,
                               const float* tris, int npad, int n_tris,
                               const float* boxes, int n_tiles,
                               const float* sboxes, int n_super,
@@ -577,13 +587,13 @@ extern "C" int lt_closest_hit(const float* org, const float* dir,
   const dim3 grid((B + BLOCK - 1) / BLOCK, chunks);
   if (chunks == 1) {
     closest_hit_kernel<false><<<grid, BLOCK, 0, s>>>(
-        org, dir, active, B, sc, per_chunk, t, u, v, tri, keys, stats);
+        org, dir, tmax, active, B, sc, per_chunk, t, u, v, tri, keys, stats);
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t err = cudaMemsetAsync(keys, 0xff, sizeof(*keys) * B, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   closest_hit_kernel<true><<<grid, BLOCK, 0, s>>>(
-      org, dir, active, B, sc, per_chunk, t, u, v, tri, keys, stats);
+      org, dir, tmax, active, B, sc, per_chunk, t, u, v, tri, keys, stats);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   closest_epilogue<<<(B + 255) / 256, 256, 0, s>>>(org, dir, B, tris, npad,
@@ -591,7 +601,7 @@ extern "C" int lt_closest_hit(const float* org, const float* dir,
   return static_cast<int>(cudaGetLastError());
 }
 
-// operands as lt_closest_hit; tmax: B floats
+// operands as lt_closest_hit; tmax: B floats (not null)
 extern "C" int lt_any_hit(const float* org, const float* dir,
                           const float* tmax, const unsigned char* active,
                           int B, const float* tris, int npad, int n_tris,

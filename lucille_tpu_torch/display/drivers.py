@@ -7,9 +7,9 @@ bucket_write equivalent (render.c:919-983).
 
 The port's copy of lucille_tpu/display/drivers.py: the same code, with its
 imports pointed at lucille_tpu_torch's own host modules, except that the
-socket and OpenEXR drivers raise NotImplementedError (the port has no
-copy of lucille_tpu/display/sockdrv.py or imageio/exr.py yet) and the
-framebuffer driver falls back to file output at once.
+socket driver raises NotImplementedError (the port has no copy of
+lucille_tpu/display/sockdrv.py yet, ROADMAP Queue 1) and the framebuffer
+driver falls back to file output at once.
 """
 
 from __future__ import annotations
@@ -98,6 +98,21 @@ class FramebufferDriver(FileDriver):
         return super().open(fname, width, height)
 
 
+class OpenEXRDriver(FileDriver):
+    """OpenEXR output (openexrdrv.c, registered under HAVE_OPENEXR at
+    render.c:166-234).  Uses the built-in scanline codec (imageio/exr.py);
+    forces an .exr extension so save_image dispatches to it."""
+
+    name = "openexr"
+
+    def open(self, fname, width, height):
+        if "." not in fname:
+            fname += ".exr"
+        elif not fname.lower().endswith(".exr"):
+            fname = fname.rsplit(".", 1)[0] + ".exr"
+        return super().open(fname, width, height)
+
+
 def _not_ported(name: str):
     def factory():
         raise NotImplementedError(
@@ -122,8 +137,9 @@ def get_display_driver(name: str) -> DisplayDriver:
 # default registrations (ri_render_init, render.c:224-279)
 register_display_driver("file", FileDriver)
 register_display_driver("hdr", FileDriver)
+register_display_driver("openexr", OpenEXRDriver)
+register_display_driver("exr", OpenEXRDriver)
 register_display_driver("framebuffer", FramebufferDriver)
 register_display_driver("fb", FramebufferDriver)
 register_display_driver("null", NullDriver)
-for _name in ("openexr", "exr", "socket"):
-    register_display_driver(_name, _not_ported(_name))
+register_display_driver("socket", _not_ported("socket"))

@@ -1,15 +1,12 @@
 """Image load/save dispatch by extension.
 
 Equivalent capability to the reference's image_loader.c:37-48 (extension
-dispatch over .hdr/.tex/.jpg): .hdr/.rgbe/.pic via the RGBE codec, .pfm
-built-in. JPEG/PNG go through PIL when available (the reference links
-libjpeg).
+dispatch over .hdr/.tex/.jpg): .hdr/.rgbe/.pic via the RGBE codec, .tex
+via the blocked-mipmap codec (imageio/tex.py), .exr and .pfm built-in.
+JPEG/PNG go through PIL when available (the reference links libjpeg).
 
 The port's copy of lucille_tpu/imageio/loader.py: the same code, with its
-imports pointed at lucille_tpu_torch's own host modules, except that
-.tex and .exr raise NotImplementedError: the port has no copy of their
-codecs (lucille_tpu/imageio/tex.py, exr.py) yet, because nothing it
-renders reads a texture or writes an EXR.
+imports pointed at lucille_tpu_torch's own host modules.
 """
 
 from __future__ import annotations
@@ -56,12 +53,6 @@ def _write_pfm(path, image: np.ndarray) -> None:
         f.write(image[::-1].astype("<f4").tobytes())
 
 
-def _refuse_unported(ext: str) -> None:
-    if ext in (".tex", ".exr"):
-        raise NotImplementedError(
-            f"{ext} images are not ported yet (ROADMAP Queue 1, item 6)")
-
-
 def load_image(path) -> np.ndarray:
     """Load an image as (H, W, 3) float32 linear-ish RGB."""
     path = Path(path)
@@ -70,7 +61,14 @@ def load_image(path) -> np.ndarray:
         return read_hdr(path)
     if ext == ".pfm":
         return _read_pfm(path)
-    _refuse_unported(ext)
+    if ext == ".tex":
+        from lucille_tpu_torch.imageio.tex import read_tex
+
+        return read_tex(path)
+    if ext == ".exr":
+        from lucille_tpu_torch.imageio.exr import read_exr
+
+        return read_exr(path)
     try:
         from PIL import Image
 
@@ -87,8 +85,15 @@ def save_image(path, image: np.ndarray) -> None:
         write_hdr(path, image)
     elif ext == ".pfm":
         _write_pfm(path, image)
+    elif ext == ".tex":
+        from lucille_tpu_torch.imageio.tex import write_tex
+
+        write_tex(path, image)
+    elif ext == ".exr":
+        from lucille_tpu_torch.imageio.exr import write_exr
+
+        write_exr(path, image)
     else:
-        _refuse_unported(ext)
         try:
             from PIL import Image
 

@@ -38,10 +38,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # org, dir, active, B, tris, npad, n_tris, boxes, n_tiles, sboxes,
-    # n_super, sub, chunks, per_chunk, t, u, v, tri, keys, stats, stream
-    "lt_closest_hit": (_P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I,
-                       _I, _P, _P, _P, _P, _P, _P, _P),
+    # org, dir, tmax, active, B, tris, npad, n_tris, boxes, n_tiles,
+    # sboxes, n_super, sub, chunks, per_chunk, t, u, v, tri, keys, stats,
+    # stream
+    "lt_closest_hit": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P,
+                       _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # org, dir, tmax, active, B, tris, npad, n_tris, boxes, n_tiles,
     # sboxes, n_super, sub, chunks, per_chunk, occ, stats, stream
     "lt_any_hit": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I,

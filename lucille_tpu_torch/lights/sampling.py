@@ -14,8 +14,8 @@ in lucille_tpu (`_hemisphere_occlusion`): the dense tiles' fused gather
 tile BVH's gather (accel/bvh_ao.bvh_ao_occlusion: the cone-tiled gather,
 or kernel 6 under LUCILLE_BVH_AO=fused) on pbvh scenes; anything else
 takes the cosine-weighted loop of shadow rays.  Lights with an
-environment texture are refused before rendering (textures and
-environment maps are ROADMAP Queue 1).
+environment texture are refused before rendering (environment maps are
+ROADMAP Queue 1).
 """
 
 from __future__ import annotations

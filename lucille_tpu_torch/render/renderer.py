@@ -6,10 +6,13 @@ single device:
 - the image is cut into full-size tiles (edge tiles are rendered past the
   image edge and cropped on the host), so every tile traces
   B = tile_w * tile_h * S eye rays;
-- per tile: Hammersley subpixel positions -> eye rays -> the render
-  method's integrator (transport/dispatch.py: AO, Whitted or path
-  tracing) with Option "trace" "max_ray_depth" and the option's bgcolor
-  -> per-subsample pixel-filter weights;
+- per tile: Hammersley subpixel positions -> eye rays (through the
+  thin lens when the camera has depth of field, the lens samples drawn
+  from the tile's stream at the path (0x10EF,), lucille_tpu's
+  fold_in(key, 0x10EF)) -> the render method's integrator
+  (transport/dispatch.py: AO, Whitted, path tracing or the dirt map)
+  with Option "trace" "max_ray_depth", the option's bgcolor and the
+  texture atlas -> per-subsample pixel-filter weights;
 - every tile is enqueued on the device before the first is pulled back,
   then tiles reach the display callbacks in tile-list (spiral) order;
 - each tile's random numbers come from its own stream, drawn per tile
@@ -20,25 +23,40 @@ single device:
 - the light tables are built once (lucille_tpu/render/renderer.py:
   209-211), an area light's device tables with them, and handed to the
   integrator: a sunsky light turns the AO gather into the sunsky gather;
-  a scene without lights gets the reference's constant dome.
+  a scene without lights gets the reference's constant dome;
+- the material textures are loaded once through the option's search
+  paths into one atlas on the render device (`_load_textures`,
+  lucille_tpu/render/renderer.py:594-630); a missing or unreadable file
+  is logged and ignored;
+- with a `checkpoint` path, the frame's image and tile-done bitmap are
+  written atomically after each pulled tile, in lucille_tpu's file layout
+  (npz keys image, done, meta = [W, H, tile_w, tile_h, xsamples,
+  ysamples, ntiles] and alpha, all zero here: the port has no imager),
+  and removed when the frame completes; `recover` resumes from a
+  matching file, enqueuing only the tiles it lacks and replaying the
+  others to the callbacks (lucille_tpu/render/renderer.py:548-608,
+  724-768).  The saves are host work after a tile's pull.
 
 Scenes that need what the port does not have yet raise
-NotImplementedError: displacement, textures, atmosphere, imager, a light
-with an environment texture, depth of field, the dirtmap and shader
-methods.
+NotImplementedError: displacement, atmosphere, imager, a light with an
+environment texture, the shader method.
 """
 
 from __future__ import annotations
 
+import os
+import zipfile
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from lucille_tpu_torch.base.log import LOG_INFO, log
+from lucille_tpu_torch.base.log import LOG_INFO, LOG_WARN, log
 from lucille_tpu_torch.base.stats import RenderStats
 from lucille_tpu_torch.base.timer import get_timer
 from lucille_tpu_torch.device import resolve_device
+from lucille_tpu_torch.imageio.loader import load_image
 from lucille_tpu_torch.lights.tables import build_light_tables
 from lucille_tpu_torch.render.film import subsample_filter_table
 from lucille_tpu_torch.render.tiles import tile_list
@@ -46,7 +64,10 @@ from lucille_tpu_torch.ri.camera import generate_rays
 from lucille_tpu_torch.sampling.hammersley import subpixel_samples
 from lucille_tpu_torch.sampling.jitter import TileSampler
 from lucille_tpu_torch.scene.compile import compile_scene
+from lucille_tpu_torch.texture.texture import TextureAtlas
 from lucille_tpu_torch.transport.dispatch import get_integrator
+
+LENS_FOLD = 0x10EF  # the lens samples' stream path (lucille_tpu's fold_in)
 
 
 def unsupported_features(desc) -> list[str]:
@@ -56,31 +77,28 @@ def unsupported_features(desc) -> list[str]:
         a = g.attrs
         if a.displacement:
             out.append(f"displacement shader {a.displacement!r}")
-        if a.material.texture:
-            out.append(f"texture {a.material.texture!r}")
         if a.atmosphere:
             out.append(f"atmosphere shader {a.atmosphere!r}")
     if desc.options.imager:
         out.append(f"imager {desc.options.imager!r}")
     out += [f"{li.type} light texture {li.texture!r}" for li in desc.lights
             if li.type in ("dome", "ibl") and li.texture]
-    if desc.camera is not None and desc.camera.dof_active:
-        out.append("depth of field")
     return sorted(set(out))
 
 
 def tile_eye_rays(camera, x0: int, y0: int, tile_w: int, tile_h: int,
-                  subpixel: torch.Tensor):
+                  subpixel: torch.Tensor, lens_u=None):
     """Eye rays of one full-size tile, (tile_h, tile_w, S) raster-major:
     pixel corner + subpixel offset (S, 2) in f32, as lucille_tpu's tile
-    kernel forms them.  Returns (org, dirn), each (B, 3)."""
+    kernel forms them; lens_u (B, 2) the thin lens's samples when the
+    camera has depth of field.  Returns (org, dirn), each (B, 3)."""
     dev = subpixel.device
     xs = torch.arange(tile_w, dtype=torch.float32, device=dev) + float(x0)
     ys = torch.arange(tile_h, dtype=torch.float32, device=dev) + float(y0)
     shape = (tile_h, tile_w, subpixel.shape[0])
     fx = (xs[None, :, None] + subpixel[:, 0][None, None, :]).expand(shape)
     fy = (ys[:, None, None] + subpixel[:, 1][None, None, :]).expand(shape)
-    return generate_rays(camera, fx.reshape(-1), fy.reshape(-1))
+    return generate_rays(camera, fx.reshape(-1), fy.reshape(-1), lens_u)
 
 
 class Renderer:
@@ -102,7 +120,8 @@ class Renderer:
         self.integrator = get_integrator(desc.options.render_method)
         timer = get_timer()
         timer.start("Scene compile")
-        self.scene = compile_scene(desc, self.device)
+        self.textures, texture_ids = _load_textures(desc, self.device)
+        self.scene = compile_scene(desc, self.device, texture_ids=texture_ids)
         timer.end("Scene compile")
         self.camera = desc.camera
         self.lights = build_light_tables(desc, device=self.device)
@@ -115,11 +134,17 @@ class Renderer:
         S = jitter.shape[0]
         dev = self.device
         opt = self.desc.options
-        org, dirn = tile_eye_rays(self.camera, x0, y0, tile_w, tile_h, jitter)
+        stream = self.sampler(x0, y0)
+        lens_u = None
+        if self.camera.dof_active:
+            lens_u = stream.uniform((LENS_FOLD,), (tile_h * tile_w * S, 2))
+        org, dirn = tile_eye_rays(self.camera, x0, y0, tile_w, tile_h, jitter,
+                                  lens_u)
         radiance, aux = self.integrator(
-            self.scene, self.lights, org, dirn, self.sampler(x0, y0),
+            self.scene, self.lights, org, dirn, stream,
             gather_nsamples=opt.gather_nsamples,
             max_depth=opt.max_ray_depth, bgcolor=tuple(opt.bgcolor),
+            textures=self.textures,
         )
         r = radiance.reshape(tile_h, tile_w, S, 3)
         img = torch.sum(r * weights[None, None, :, None], dim=2)
@@ -134,9 +159,13 @@ class Renderer:
         return img, counters
 
     def render_frame(self, tile_cb: Optional[Callable] = None,
-                     progress_cb: Optional[Callable] = None) -> np.ndarray:
+                     progress_cb: Optional[Callable] = None,
+                     checkpoint: Optional[str] = None,
+                     recover: bool = False) -> np.ndarray:
         """Render the frame; returns (H, W, 3) f32 in raster order (row 0
-        is raster y 0; the hdr file driver flips)."""
+        is raster y 0; the hdr file driver flips).  checkpoint: a tile
+        checkpoint file's path; recover: resume from it (module
+        docstring)."""
         opt = self.desc.options
         W, H = opt.width, opt.height
         disp = opt.current_display()
@@ -168,19 +197,38 @@ class Renderer:
             ]
 
         image = np.zeros((H, W, 3), dtype=np.float32)
+        alpha = np.zeros((H, W), dtype=np.float32)  # lucille_tpu's layout
+        meta = np.asarray([W, H, tile_w, tile_h, xsamples, ysamples,
+                           len(tiles)], dtype=np.int64)
+        done = np.zeros(len(tiles), dtype=bool)
+        if checkpoint and recover:
+            image, done = _recover(checkpoint, meta, image, done)
+
+        def save_checkpoint():
+            tmp = checkpoint + ".tmp.npz"
+            with open(tmp, "wb") as f:
+                np.savez(f, image=image, done=done, meta=meta, alpha=alpha)
+            os.replace(tmp, checkpoint)  # atomic against a crash mid-write
+
         timer = get_timer()
         timer.start("Render frame")
         # enqueue every tile first: the device runs ahead of the pulls
         pending = [
-            self._tile(x0, y0, tile_w, tile_h, jitter, weights)
-            for (x0, y0, _i, _j) in tiles
+            None if done[ti] else self._tile(x0, y0, tile_w, tile_h, jitter,
+                                             weights)
+            for ti, (x0, y0, _i, _j) in enumerate(tiles)
         ]
         totals = np.zeros(3, dtype=np.int64)
-        for ti, ((x0, y0, _i, _j), (img, counters)) in enumerate(
-            zip(tiles, pending)
-        ):
+        for ti, (x0, y0, _i, _j) in enumerate(tiles):
             th = min(tile_h, H - y0)
             tw = min(tile_w, W - x0)
+            if pending[ti] is None:  # recovered: replay to the callbacks
+                if tile_cb:
+                    tile_cb(x0, y0, image[y0 : y0 + th, x0 : x0 + tw])
+                if progress_cb:
+                    progress_cb((ti + 1) / len(tiles))
+                continue
+            img, counters = pending[ti]
             tile_np = img.cpu().numpy()
             totals += counters.cpu().numpy()
             if cropped:
@@ -191,13 +239,66 @@ class Renderer:
                 ]
             else:
                 image[y0 : y0 + th, x0 : x0 + tw] = tile_np[:th, :tw]
+            done[ti] = True
+            if checkpoint:
+                save_checkpoint()
             if tile_cb:
                 tile_cb(x0, y0, tile_np[:th, :tw])
             if progress_cb:
                 progress_cb((ti + 1) / len(tiles))
+        if checkpoint and os.path.exists(checkpoint):
+            os.remove(checkpoint)  # the frame is complete
         self.stats.render_seconds += timer.end("Render frame")
         self.stats.add(nrays=int(totals[2]), ntriangle_tests=int(totals[0]),
                        ntraversals=int(totals[1]))
         log(LOG_INFO, "frame done: %d tiles, %.2f Mrays/s", len(tiles),
             self.stats.mrays_per_sec)
         return image
+
+
+def _recover(checkpoint: str, meta, image, done):
+    """(image, done) from a checkpoint file that matches the frame's meta;
+    the given ones, with a warning, when the file is absent, does not
+    match or cannot be read."""
+    if not os.path.exists(checkpoint):
+        return image, done
+    try:
+        with np.load(checkpoint) as data:
+            if not np.array_equal(data["meta"], meta):
+                log(LOG_WARN, "checkpoint %s does not match this frame; "
+                    "ignoring", checkpoint)
+                return image, done
+            image = np.asarray(data["image"], dtype=np.float32)
+            done = np.asarray(data["done"], dtype=bool)
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile) as e:
+        log(LOG_WARN, "cannot read checkpoint %s: %s", checkpoint, e)
+        return image, done
+    log(LOG_INFO, "recovered %d/%d finished tiles from %s", int(done.sum()),
+        len(done), checkpoint)
+    return image, done
+
+
+def _load_textures(desc, device):
+    """Every material texture, found through the option's search paths
+    (then as given), loaded into one atlas on `device`.  Returns (atlas,
+    {name: id}); a texture that is missing or cannot be read is logged
+    and left out (its materials keep id -1)."""
+    names = {g.attrs.material.texture for g in desc.geoms
+             if g.attrs.material.texture}
+    images = {}
+    for name in sorted(names):
+        found = next((Path(sp) / name
+                      for sp in desc.options.searchpaths or ["."]
+                      if (Path(sp) / name).exists()), None)
+        if found is None and Path(name).exists():
+            found = Path(name)
+        if found is None:
+            log(LOG_WARN, "texture '%s' not found on searchpath; ignoring",
+                name)
+            continue
+        try:
+            images[name] = load_image(found)
+        except (ValueError, OSError) as e:
+            log(LOG_WARN, "cannot load texture '%s': %s", name, e)
+    atlas = TextureAtlas.build(images, device)
+    return atlas, dict(atlas.names)

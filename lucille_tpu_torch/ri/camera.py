@@ -6,10 +6,10 @@ lucille_tpu/ri/camera.py:29-98 and :173-193 (setup, `ray_constants`,
 `dof_active`, the NumPy `generate_rays_host`), the same code; the JAX
 method `Camera.generate_rays` is not copied.  Its torch counterpart is
 the module function `generate_rays` below (lucille_tpu/ri/camera.py:
-100-171): the f32 constants come from `Camera.ray_constants`, and the
-row-vector transform is written as explicit products so it rounds
-exactly as the JAX version does (no matmul, whose reduction order would
-differ).
+100-171), thin-lens depth of field included: the f32 constants come
+from `Camera.ray_constants`, and the row-vector transform is written as
+explicit products so it rounds as the JAX version does (no matmul,
+whose reduction order would differ).
 """
 
 from __future__ import annotations
@@ -116,17 +116,18 @@ class Camera:
         return org, vm.normalize(d)
 
 
-def generate_rays(camera, px: torch.Tensor, py: torch.Tensor):
+def generate_rays(camera, px: torch.Tensor, py: torch.Tensor,
+                  lens_u: torch.Tensor | None = None):
     """px, py: f32 raster positions (pixel corner + subpixel offset), any
     shape.  Returns (org, dir), each (..., 3) f32; dir is normalized.
 
-    Perspective and orthographic projections; thin-lens depth of field
-    is not ported yet and raises."""
-    if camera.dof_active:
-        raise NotImplementedError(
-            "thin-lens depth of field is not ported yet "
-            "(ROADMAP Queue 1: camera and film)"
-        )
+    Perspective and orthographic projections, and thin-lens depth of
+    field (lucille_tpu/ri/camera.py:124-150) when the camera's
+    `dof_active`: lens_u, (..., 2) uniforms, places each ray's origin on
+    the lens disk (radius focal_length / (2 fstop), an area-uniform polar
+    sample) and aims it through the ray's in-focus point at camera depth
+    focal_distance.  A depth-of-field camera without lens samples raises:
+    the renderer always draws them."""
     origin, rot, trans, zview, sign = camera.ray_constants()
     r = [[float(rot[i, j]) for j in range(3)] for i in range(3)]
     tr = [float(x) for x in trans]
@@ -140,13 +141,29 @@ def generate_rays(camera, px: torch.Tensor, py: torch.Tensor):
             x * r[0][k] + y * r[1][k] + z * r[2][k] + tr[k] for k in range(3)
         ]
 
-    if camera.camera_projection == PERSPECTIVE:
-        org = [torch.full_like(vx, float(origin[k])) for k in range(3)]
-        z = torch.full_like(vx, float(zview))
+    if camera.dof_active:
+        if lens_u is None:
+            raise ValueError("a depth-of-field camera needs lens samples "
+                             "(lens_u)")
+        # the f32 constants of the JAX version
+        aperture = float(np.float32(camera.focal_length / (2.0 * camera.fstop)))
+        tf = float(np.float32(camera.focal_distance / camera.flength))
+        fz = float(np.float32(float(sign) * camera.focal_distance))
+        rad = aperture * torch.sqrt(lens_u[..., 0])
+        th = (2.0 * math.pi) * lens_u[..., 1]
+        lx = rad * torch.cos(th)
+        ly = rad * torch.sin(th)
+        org = xform(lx, ly, torch.zeros_like(lx))
+        d = [a - b for a, b in zip(
+            xform(vx * tf, vy * tf, torch.full_like(vx, fz)), org)]
     else:
-        org = xform(vx, vy, torch.zeros_like(vx))
-        z = torch.full_like(vx, float(sign))
-    d = [a - b for a, b in zip(xform(vx, vy, z), org)]
+        if camera.camera_projection == PERSPECTIVE:
+            org = [torch.full_like(vx, float(origin[k])) for k in range(3)]
+            z = torch.full_like(vx, float(zview))
+        else:
+            org = xform(vx, vy, torch.zeros_like(vx))
+            z = torch.full_like(vx, float(sign))
+        d = [a - b for a, b in zip(xform(vx, vy, z), org)]
     n = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
     n = torch.clamp_min(n, 1e-20)
     return torch.stack(org, dim=-1), torch.stack([c / n for c in d], dim=-1)

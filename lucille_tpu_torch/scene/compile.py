@@ -102,8 +102,12 @@ def _per_triangle(g):
     return (a, b, c), ns, sts, cs
 
 
-def compile_arrays(desc: SceneDescription) -> SimpleNamespace:
-    """The scene as host NumPy arrays (field names as SceneTensors)."""
+def compile_arrays(desc: SceneDescription,
+                   texture_ids: dict | None = None) -> SimpleNamespace:
+    """The scene as host NumPy arrays (field names as SceneTensors).
+    texture_ids: {texture file name: atlas id}, assigned by the renderer
+    after it loads the atlas (texture/texture.py); a material whose
+    texture has no id keeps -1."""
     geoms = [g for g in desc.geoms if g.ntriangles > 0]
     n_geoms = max(1, len(geoms))
     per = [_per_triangle(g) for g in geoms]
@@ -195,6 +199,8 @@ def compile_arrays(desc: SceneDescription) -> SimpleNamespace:
         mat_ior[gi] = a.material.ior
         mat_roughness[gi] = a.material.roughness
         mat_color[gi] = np.asarray(a.color)
+        if texture_ids and a.material.texture:
+            mat_texture[gi] = texture_ids.get(a.material.texture, -1)
         if 0 <= a.area_light_index < len(desc.lights):
             li = desc.lights[a.area_light_index]
             mat_emission[gi] = np.asarray(li.color) * li.intensity
@@ -216,6 +222,8 @@ def compile_arrays(desc: SceneDescription) -> SimpleNamespace:
     )
 
 
-def compile_scene(desc: SceneDescription, device) -> SceneTensors:
-    """SceneDescription -> SceneTensors on `device`."""
-    return from_numpy(compile_arrays(desc), device)
+def compile_scene(desc: SceneDescription, device,
+                  texture_ids: dict | None = None) -> SceneTensors:
+    """SceneDescription -> SceneTensors on `device` (texture_ids as
+    compile_arrays)."""
+    return from_numpy(compile_arrays(desc, texture_ids), device)

@@ -3,7 +3,8 @@
 Counterpart of lucille_tpu/transport/ao.py:35-283 and :335-376: eye ray
 -> closest hit -> interpolated shading normal, Frisvad basis, eps-offset
 origin -> stratified occlusion gather -> ``Lo = (S - occluded) / S``
-modulated by the interpolated vertex colour; misses return the
+modulated by the interpolated vertex colour and, where the material
+binds one, its texture at the hit's st (`_modulate`); misses return the
 background.  The accel picks the kernels, as lucille_tpu/transport/
 ao.py:136-171 does:
 
@@ -89,11 +90,12 @@ def _interp_normal(scene, res) -> torch.Tensor:
 
 
 def ao_radiance(scene, org, dirn, stream, ntheta: int, nphi: int,
-                background: float = 0.0, lights=()):
+                background: float = 0.0, lights=(), textures=None):
     """AO radiance for a wavefront of eye rays org, dirn (B, 3) f32 with
     the tile's random stream.  lights: the light tables
     (lights/tables.py); a "sunsky" light with a sky model switches to the
-    sunsky gather, "sun" lights join it.  Returns (radiance (B, 3), aux
+    sunsky gather, "sun" lights join it.  textures: the renderer's
+    texture atlas, or None.  Returns (radiance (B, 3), aux
     with hit mask, t and the counters)."""
     B = org.shape[0]
     res = closest_hit(scene, org, dirn)
@@ -105,7 +107,7 @@ def ao_radiance(scene, org, dirn, stream, ntheta: int, nphi: int,
         suns = [li for li in lights if li.type == "sun"]
         return _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, stream,
                               ntheta, nphi, sunsky.sunsky, suns, background,
-                              B)
+                              B, textures)
     gather = {}
     if scene.accel == "pbvh":
         occ, gather = bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit,
@@ -118,7 +120,7 @@ def ao_radiance(scene, org, dirn, stream, ntheta: int, nphi: int,
         occ = ao_occlusion(scene, P_off, b0, b1, b2, hit,
                            stream.uniform((), (2, B)), ntheta, nphi)
     return _finish(scene, res, hit, occ, ntheta * nphi, background, B,
-                   gather)
+                   gather, textures)
 
 
 def shading_frame(scene, org, dirn, res):
@@ -131,14 +133,23 @@ def shading_frame(scene, org, dirn, res):
     return P + Ns * scene.eps, b0, b1, b2
 
 
-def _modulate(scene, res, hit, radiance):
-    """Vertex-colour modulation at the hit (ambientocclusion.c:393-400)."""
+def _modulate(scene, res, hit, radiance, textures=None):
+    """Vertex-colour and material-texture modulation at the hit
+    (ambientocclusion.c:393-400; lucille_tpu/transport/ao.py:335-352)."""
     tri = torch.clamp_min(res["tri"], 0).long()
     u = res["u"][..., None]
     v = res["v"][..., None]
     w = 1.0 - u - v
     cs = w * scene.c0[tri] + u * scene.c1[tri] + v * scene.c2[tri]
-    return radiance * torch.where(hit[..., None], cs, 1.0)
+    radiance = radiance * torch.where(hit[..., None], cs, 1.0)
+    if textures is not None and textures.data is not None:
+        st = w * scene.st0[tri] + u * scene.st1[tri] + v * scene.st2[tri]
+        tex_id = scene.mat_texture[scene.geom_id[tri].long()]
+        texcol = textures.fetch(torch.clamp_min(tex_id, 0), st[..., 0],
+                                st[..., 1])
+        has_tex = hit & (tex_id >= 0)
+        radiance = radiance * torch.where(has_tex[..., None], texcol, 1.0)
+    return radiance
 
 
 def dense_scan(scene) -> bool:
@@ -196,7 +207,8 @@ def _scan_sunsky(scene, P_off, b0, b1, b2, hit, stream, ntheta: int,
 
 
 def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, stream, ntheta,
-                   nphi, sky, suns, background: float, B: int):
+                   nphi, sky, suns, background: float, B: int,
+                   textures=None):
     """Sunsky-AO gather (lucille_tpu/transport/ao.py:198-283): sky
     radiance over the unoccluded strata, one shadow ray toward each sun
     along +direction adding its colour unattenuated (no cosine,
@@ -221,7 +233,8 @@ def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, stream, ntheta,
         col = col + ((~occ) & hit).to(torch.float32)[:, None] * suncol
     lo = col / (math.pi * S)
     radiance = _modulate(scene, res, hit,
-                         torch.where(hit[..., None], lo, background))
+                         torch.where(hit[..., None], lo, background),
+                         textures)
     aux = {
         "hit": hit,
         "nrays": B + hit.sum(dtype=torch.int64) * (S + len(suns)),
@@ -247,7 +260,7 @@ def _sunsky_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi, sky):
 
 
 def _finish(scene, res, hit, occ, nsamples: int, background: float, B: int,
-            gather: dict):
+            gather: dict, textures=None):
     """Occlusion count -> radiance, plus the counters.  nrays counts an eye
     ray for every lane and S gather rays for every hit (raytrace.c:43);
     `gather` adds the gather rays' ntests/ntrav to the eye rays'.
@@ -258,7 +271,7 @@ def _finish(scene, res, hit, occ, nsamples: int, background: float, B: int,
     radiance = torch.where(hit, lo, background)[..., None] * torch.ones(
         (1, 3), dtype=torch.float32, device=occ.device
     )
-    radiance = _modulate(scene, res, hit, radiance)
+    radiance = _modulate(scene, res, hit, radiance, textures)
     aux = {
         "hit": hit,
         "nrays": B + hit.sum(dtype=torch.int64) * nsamples,

@@ -11,11 +11,10 @@ Counterpart of lucille_tpu/transport/common.py:
 - `background_radiance` is what an escaped ray sees: the option's
   bgcolor plus the sky of a sunsky light (lights/sunsky.sky_rgb in the
   sky's z-up frame) and the colour of a constant dome;
-- `apply_texture` keeps lucille_tpu's signature and is the identity:
-  the port refuses scenes that bind a texture (render/renderer.
-  unsupported_features; textures are ROADMAP Queue 1), and lucille_tpu's
-  function returns the albedo unchanged without one, so the integrators
-  pass no texture table.
+- `apply_texture` modulates an albedo by the material's texture at the
+  hit's st (texture.c ri_texture_fetch path): the renderer's texture
+  atlas (texture/texture.py), the geometry's `mat_texture` id, -1 for
+  none.
 """
 
 from __future__ import annotations
@@ -71,10 +70,15 @@ def interp_hit(scene, res, org: torch.Tensor, dirn: torch.Tensor) -> dict:
 
 
 def apply_texture(scene, textures, h, albedo):
-    """The albedo unchanged (module docstring)."""
-    if textures is not None:
-        raise NotImplementedError("textures are not ported (ROADMAP Queue 1)")
-    return albedo
+    """albedo (B, 3) times the texel at h["st"] where the hit geometry's
+    material binds a texture (lucille_tpu/transport/common.py:77-90);
+    unchanged without an atlas or a texture."""
+    if textures is None or textures.data is None:
+        return albedo
+    tex_id = scene.mat_texture[h["geom"]]
+    texcol = textures.fetch(torch.clamp_min(tex_id, 0), h["st"][..., 0],
+                            h["st"][..., 1])
+    return albedo * torch.where((tex_id >= 0)[..., None], texcol, 1.0)
 
 
 def face_forward(N: torch.Tensor, dirn: torch.Tensor) -> torch.Tensor:

@@ -6,17 +6,20 @@ Counterpart of lucille_tpu/transport/dispatch.py:17-79:
   reference's hardwired default (render.c:803);
 - "whitted";
 - "pathtrace", "path" and "mlt" ("mlt" warns once and path traces);
-- "dirtmap" and "shader" (and "sl", "shade") raise NotImplementedError:
-  the dirt map needs a dense closest hit with a tmax, the shader
-  integrator the RSL compiler (ROADMAP Queue 1);
+- "dirtmap", AO weighted by the occluders' distance (transport/
+  dirtmap.py);
+- "shader" (and "sl", "shade") raise NotImplementedError: the shader
+  integrator needs the RSL compiler (ROADMAP Queue 1);
 - any other name warns once and renders AO.
 
 Contract: fn(scene, lights, org, dirn, stream, *, gather_nsamples,
-max_depth, bgcolor) -> (radiance (B, 3), aux), as lucille_tpu's
+max_depth, bgcolor, textures) -> (radiance (B, 3), aux), as lucille_tpu's
 fn(scene, lights, org, dirn, key, ...) with the tile's random stream
 (sampling/jitter.py) in place of its key.  The renderer passes
-max_depth = Option "trace" "max_ray_depth" and the option's bgcolor to
-every method, as lucille_tpu's does (render/renderer.py:247-249).
+max_depth = Option "trace" "max_ray_depth", the option's bgcolor and its
+texture atlas (texture/texture.py) to every method, as lucille_tpu's
+does (render/renderer.py:247-249); AO, Whitted and the path tracer
+read the atlas, the dirt map does not (nor does lucille_tpu's).
 """
 
 from __future__ import annotations
@@ -26,16 +29,15 @@ import math
 from lucille_tpu_torch.base.log import LOG_WARN, log_once
 from lucille_tpu_torch.sampling.jitter import StreamKey
 from lucille_tpu_torch.transport.ao import ao_radiance
+from lucille_tpu_torch.transport.dirtmap import dirtmap_radiance
 from lucille_tpu_torch.transport.pathtrace import path_radiance
 from lucille_tpu_torch.transport.whitted import whitted_radiance
 
 AO_NAMES = ("ao", "ambientocclusion", "mcraytrace", "default", "")
 PATH_NAMES = ("pathtrace", "path", "mlt")
 UNPORTED = {
-    "dirtmap": "the dirt map needs a dense closest hit with a tmax",
-    "shader": "the shader integrator needs the RSL compiler",
-    "sl": "the shader integrator needs the RSL compiler",
-    "shade": "the shader integrator needs the RSL compiler",
+    name: "the shader integrator needs the RSL compiler"
+    for name in ("shader", "sl", "shade")
 }
 
 
@@ -48,10 +50,10 @@ def get_integrator(name: str):
     if name == "whitted":
         def whitted_fn(scene, lights, org, dirn, stream, *,
                        gather_nsamples: int = 64, max_depth: int = 8,
-                       bgcolor=(0.0, 0.0, 0.0)):
+                       bgcolor=(0.0, 0.0, 0.0), textures=None):
             return whitted_radiance(scene, lights, org, dirn,
                                     StreamKey(stream), max_depth=max_depth,
-                                    bgcolor=bgcolor)
+                                    bgcolor=bgcolor, textures=textures)
 
         return whitted_fn
     if name in PATH_NAMES:
@@ -60,18 +62,27 @@ def get_integrator(name: str):
 
         def path_fn(scene, lights, org, dirn, stream, *,
                     gather_nsamples: int = 64, max_depth: int = 10,
-                    bgcolor=(0.0, 0.0, 0.0)):
+                    bgcolor=(0.0, 0.0, 0.0), textures=None):
             return path_radiance(scene, lights, org, dirn, StreamKey(stream),
-                                 max_depth=max_depth, bgcolor=bgcolor)
+                                 max_depth=max_depth, bgcolor=bgcolor,
+                                 textures=textures)
 
         return path_fn
+    if name == "dirtmap":
+        def dirt_fn(scene, lights, org, dirn, stream, *,
+                    gather_nsamples: int = 64, max_depth: int = 8,
+                    bgcolor=(0.0, 0.0, 0.0), textures=None):
+            ntheta = max(1, int(math.sqrt(gather_nsamples)))
+            return dirtmap_radiance(scene, org, dirn, stream, ntheta, ntheta)
+
+        return dirt_fn
     if name not in AO_NAMES:
         log_once(LOG_WARN, "unknown render method '%s'; using AO", name)
 
     def ao_fn(scene, lights, org, dirn, stream, *, gather_nsamples: int = 64,
-              max_depth: int = 8, bgcolor=(0.0, 0.0, 0.0)):
+              max_depth: int = 8, bgcolor=(0.0, 0.0, 0.0), textures=None):
         ntheta = max(1, int(math.sqrt(gather_nsamples)))
         return ao_radiance(scene, org, dirn, stream, ntheta, ntheta,
-                           lights=lights)
+                           lights=lights, textures=textures)
 
     return ao_fn

@@ -108,9 +108,10 @@ def _sample_one_light(scene, lights, P, N, key, active=None):
 
 
 def path_radiance(scene, lights, org, dirn, key, max_depth: int = 10,
-                  bgcolor=(0.0, 0.0, 0.0)):
+                  bgcolor=(0.0, 0.0, 0.0), textures=None):
     """Path-traced radiance of a wavefront org, dirn (B, 3) f32; key a
-    sampling/jitter.StreamKey.  Returns (radiance (B, 3), aux {nrays,
+    sampling/jitter.StreamKey, textures the renderer's atlas (or None).
+    Returns (radiance (B, 3), aux {nrays,
     hit, t} with the eye bounce's hit mask and t)."""
     B = org.shape[0]
     dev = org.device
@@ -143,7 +144,7 @@ def path_radiance(scene, lights, org, dirn, key, max_depth: int = 10,
                 hit[:, None], throughput * h["emission"], 0.0)
 
         kdepth = key.fold(depth)
-        albedo = apply_texture(scene, None, h,
+        albedo = apply_texture(scene, textures, h,
                                h["cs"] * h["mat_color"] * h["kd"][:, None])
         nee, _wi, _pdf = _sample_one_light(scene, lights, P, N, kdepth,
                                            active=hit)

@@ -42,9 +42,10 @@ from lucille_tpu_torch.transport.common import (
 
 
 def whitted_radiance(scene, lights, org, dirn, key, max_depth: int = 8,
-                     bgcolor=(0.0, 0.0, 0.0)):
+                     bgcolor=(0.0, 0.0, 0.0), textures=None):
     """Wavefront Whitted integrator: org, dirn (B, 3) f32, key a
-    sampling/jitter.StreamKey.  Returns (radiance (B, 3), aux {nrays,
+    sampling/jitter.StreamKey, textures the renderer's atlas (or None).
+    Returns (radiance (B, 3), aux {nrays,
     hit, t} with the eye bounce's hit mask and t)."""
     B = org.shape[0]
     dev = org.device
@@ -77,7 +78,7 @@ def whitted_radiance(scene, lights, org, dirn, key, max_depth: int = 8,
         diff = direct_diffuse(scene, lights, P, N, kdir, active=hit)
         spec = direct_specular(scene, lights, P, N, -dirn, h["roughness"],
                                kdir, active=hit)
-        base = apply_texture(scene, None, h, h["cs"] * h["mat_color"])
+        base = apply_texture(scene, textures, h, h["cs"] * h["mat_color"])
         local = base * h["kd"][:, None] * diff + h["ks"][:, None] * spec
         radiance = radiance + torch.where(hit[:, None], throughput * local,
                                           0.0)

@@ -15,7 +15,12 @@ heightfield256-whitted-fused; and the fused tile-BVH AO gather
 (LUCILLE_BVH_AO=fused): heightfield256-ao-fused, heightfield724-ao-fused;
 and the dense AO strata scan above 131,072 triangles: the n = 258
 terrain on the dense tiles at 80x60, 2x2, 16 rays, tile 40,
-heightfield258-scan and heightfield258-scan-sunsky.
+heightfield258-scan and heightfield258-scan-sunsky; and the dirt map,
+depth of field and textures: bundled-dirtmap (the headline settings
+without the sunsky line, dense), heightfield256-dirtmap (tile BVH),
+bundled-dof (the headline AO frame under chip_smoke.DOF_LINE) and
+textured-ao (chip_smoke.textured_state's checker quad at 640x480, 3x3,
+64 rays).
 
 Per cell it prints the warm frame's seconds without the profiler (best
 of N, default 2, and every sample), the profiled frame's wall time
@@ -72,6 +77,13 @@ CELLS = {
     "heightfield258-scan-sunsky": (lambda: cs.heightfield_state(
         258, 80, 60, pixelsamples=2, gather=16, accel="pallas", sunsky=True),
         40, "cone"),
+    "bundled-dirtmap": (lambda: cs.bundled_state(
+        640, 480, 3, 64, sunsky=False, method="dirtmap"), cs.TILE, "cone"),
+    "heightfield256-dirtmap": (lambda: cs.heightfield_state(
+        256, method="dirtmap"), 128, "cone"),
+    "bundled-dof": (lambda: cs.bundled_state(640, 480, 3, 64, sunsky=False,
+                                             dof=True), cs.TILE, "cone"),
+    "textured-ao": (lambda: cs.textured_state(640, 480), cs.TILE, "cone"),
 }
 
 

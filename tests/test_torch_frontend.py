@@ -193,22 +193,34 @@ def test_port_logs_under_its_own_name():
     assert "[lucille_tpu_torch]" in port.handlers[0].formatter._fmt
 
 
-@pytest.mark.parametrize("what", ["load .tex", "save .exr", "socket",
-                                  "openexr"])
-def test_unported_image_formats_and_drivers_raise(what, tmp_path):
-    """The port has no copy of lucille_tpu's .tex and .exr codecs or its
-    socket driver: each refuses with NotImplementedError, never a
-    fallback that writes something else."""
+@pytest.mark.parametrize("what", ["socket", "socket-display-line",
+                                  "socket-shell", "socket-cli-flag"])
+def test_unported_image_formats_and_drivers_raise(what, tmp_path, capsys):
+    """The port has no copy of lucille_tpu's socket driver: every way to
+    reach it refuses, never a fallback that writes something else (the
+    .tex and .exr codecs and the OpenEXR driver are ported now:
+    tests/test_torch_texture.py)."""
+    from lucille_tpu_torch.cli import main
     from lucille_tpu_torch.display.drivers import get_display_driver
-    from lucille_tpu_torch.imageio.loader import load_image, save_image
+    from lucille_tpu_torch.shell import Shell
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        if what == "load .tex":
-            load_image(tmp_path / "wood.tex")
-        elif what == "save .exr":
-            save_image(tmp_path / "out.exr", np.zeros((2, 2, 3), np.float32))
-        else:
-            get_display_driver(what)
+    rib = tmp_path / "s.rib"
+    rib.write_text('Display "s.hdr" "socket" "rgb"\nWorldBegin\nWorldEnd\n')
+    if what == "socket-cli-flag":
+        with pytest.raises(SystemExit):
+            main([str(rib), "--device", "cpu", "--display", "socket"])
+        assert "not ported" in capsys.readouterr().err
+    elif what == "socket-shell":
+        sh = Shell(device="cpu")
+        assert sh.one(f"file {rib}") and sh.one("render")
+        assert "not ported" in capsys.readouterr().out
+    else:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            if what == "socket":
+                get_display_driver(what)
+            else:
+                main([str(rib), "--device", "cpu"])
+    assert not (tmp_path / "s.hdr").exists()
 
 
 def test_framebuffer_falls_back_to_the_file_driver(tmp_path):

@@ -227,8 +227,8 @@ def test_dense_kernels_never_test_padding(n_tris, masked):
     rng = np.random.default_rng(4)
     active = (torch.tensor(rng.uniform(size=4096) < 0.6, device="cuda")
               if masked else None)
-    got = isect.closest_hit_kernel(poisoned, o, d, active)
-    ref = isect.closest_hit_reference(scene.tris, o, d, active)
+    got = isect.closest_hit_kernel(poisoned, o, d, active=active)
+    ref = isect.closest_hit_reference(scene.tris, o, d, active=active)
     live = torch.ones_like(o[:, 0], dtype=torch.bool) if active is None \
         else active
     assert (ref["tri"][live] >= 0).float().mean() > 0.1
@@ -333,6 +333,108 @@ def test_dense_kernels_split_across_the_grid():
     assert 0.1 < want.float().mean() < 0.9
     assert (occ["occ"] != want).float().mean() <= 1e-3
     assert not occ["occ"][~active].any()
+
+
+def _tie_scene(n, rng):
+    """n small random triangles in the order given (no Morton sort), with
+    one large triangle above them, facing +z, copied into slots 5 and
+    n - 3; (scene, first, last)."""
+    c = rng.uniform(-5, 5, (n, 3))
+    v0 = c + rng.normal(0, 0.3, (n, 3))
+    e1 = rng.normal(0, 0.3, (n, 3))
+    e2 = rng.normal(0, 0.3, (n, 3))
+    first, last = 5, n - 3
+    for i in (first, last):
+        v0[i], e1[i], e2[i] = (-3, -3, 8), (6, 0, 0), (0, 6, 0)
+    return _ordered_scene(v0, e1, e2), first, last
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bound", ["unbounded", "random", "at_the_hit",
+                                   "past_the_hit"])
+@pytest.mark.parametrize("path", ["one_chunk", "split"])
+def test_closest_hit_kernel_tmax_cases(path, bound):
+    """Kernel 1 with a per-ray tmax (the dirt map's gather) against its
+    twin, with a third of the lanes dead and every pad slot poisoned
+    (`_cube_faces`: a kernel that tested one would answer otherwise).
+    one_chunk: 600 triangles, 4096 rays; split: 13,000 triangles in their
+    given order, 256 rays (the triangle range split across the grid),
+    half of them straight down onto the two copies of one triangle in the
+    first and last chunk, an exact tie in t.  at_the_hit: tmax is each
+    ray's unbounded t, so every ray misses (a hit needs t < tmax);
+    past_the_hit: one ulp more, so every answer is the unbounded one and
+    the tie goes to the lower copy.  A bound only shortens the walk: no
+    more lane tests than unbounded, and no fewer than chip_smoke.dense_need
+    counts up to min(hit, tmax)."""
+    _need_card()
+    import copy
+
+    from chip_smoke import dense_need
+    from lucille_tpu_torch.accel import isect
+
+    rng = np.random.default_rng(11)
+    if path == "split":
+        B = 256
+        scene, first, _last = _tie_scene(13000, rng)
+        poisoned = copy.copy(scene)
+        poisoned.tris = scene.tris.clone()
+        poisoned.tris[:9, scene.n_tris:] = _cube_faces(
+            -6.5, 6.5, scene.tris.shape[1] - scene.n_tris)
+        chunks, _per = isect.split_layout(
+            B, scene.n_tris,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        assert chunks > 1
+    else:
+        B = 4096
+        scene = _soup_scene(600)
+        poisoned = _cube_poison(scene, -6.5, 6.5)
+    o, d = _shell_rays(B, seed=5)
+    k = B // 2
+    if path == "split":  # the first half straight down onto the copies
+        o[:k] = torch.tensor(np.c_[rng.uniform(-2, 0, (k, 2)),
+                                   np.full(k, 20.0)],
+                             dtype=torch.float32, device="cuda")
+        d[:k] = torch.tensor([0.0, 0.0, -1.0], device="cuda")
+    active = torch.tensor(rng.uniform(size=B) < 0.67, device="cuda")
+    free = isect.closest_hit_reference(scene.tris, o, d)
+    inf = torch.full((B,), float("inf"), device="cuda")
+    hit_t = torch.where(free["tri"] >= 0, free["t"], 30.0)
+    tmax = {"unbounded": None,
+            "random": torch.tensor(rng.uniform(1, 25, B), dtype=torch.float32,
+                                   device="cuda"),
+            "at_the_hit": hit_t,
+            "past_the_hit": torch.nextafter(hit_t, inf)}[bound]
+    got = isect.closest_hit_kernel(poisoned, o, d, tmax, active)
+    ref = isect.closest_hit_reference(scene.tris, o, d, tmax, active)
+    assert int(got["tri"].max()) < scene.n_tris
+    assert (got["tri"] != ref["tri"]).float().mean() <= 1e-3
+    same = (got["tri"] == ref["tri"]) & (ref["tri"] >= 0)
+    for key in ("t", "u", "v"):
+        torch.testing.assert_close(got[key][same], ref[key][same], rtol=1e-6,
+                                   atol=1e-7)
+    miss = got["tri"] < 0
+    assert torch.all(torch.isinf(got["t"][miss]))
+    assert not got["u"][miss].any() and not got["v"][miss].any()
+    assert torch.all(got["tri"][~active] < 0)
+    live_hits = (ref["tri"][active] >= 0).float().mean()
+    if bound == "at_the_hit":
+        assert torch.all(miss)
+    else:
+        assert live_hits > 0.1
+    if bound == "past_the_hit":
+        assert torch.equal(got["tri"], torch.where(active, free["tri"], -1))
+    if path == "split" and bound != "at_the_hit":
+        tie = active[:k] & (free["t"][:k] < (inf[:k] if tmax is None
+                                              else tmax[:k]))
+        assert tie.any() and torch.all(got["tri"][:k][tie] == first)
+    # the walk's work: within the unbounded walk's, above the need
+    unbounded = isect.closest_hit_kernel(poisoned, o, d, None, active)
+    assert int(got["ntests"]) <= int(unbounded["ntests"])
+    t_end = torch.where(got["tri"] >= 0, torch.nextafter(got["t"], inf),
+                        inf if tmax is None else tmax)
+    need = dense_need(scene, o, d, t_end, live=active)
+    assert int(got["ntests"]) >= need["groups"]
+    _check_dense_stats(got)
 
 
 @pytest.mark.gpu
@@ -882,7 +984,7 @@ def test_closest_hit_active_matches_plain(accel):
     got = closest_hit(scene, o, d, active=active)
     tris = pack_tris(scene)
     if accel == "pallas":
-        ref = isect.closest_hit_reference(tris, o, d, active)
+        ref = isect.closest_hit_reference(tris, o, d, active=active)
     else:
         inf = torch.full((3000,), float("inf"), device="cuda")
         ref = bvh_isect.bvh_closest_hit_reference(tris, o, d, inf, active)

@@ -208,7 +208,7 @@ def test_twins_count_every_live_slot():
     scene = from_numpy(_soup_scene(), "cpu")
     o, d = (torch.from_numpy(a) for a in _soup_rays(100))
     active = torch.arange(100) % 3 == 0
-    for res in (isect.closest_hit(scene, o, d, active),
+    for res in (isect.closest_hit(scene, o, d, active=active),
                 isect.any_hit(scene, o, d, None, active, counters=True)):
         assert int(res["ntrav"]) == 0
         assert int(res["ntests"]) == 34 * scene.n_pad

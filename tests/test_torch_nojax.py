@@ -147,6 +147,22 @@ def test_cli_renders_the_integrators_without_jax(tmp_path, method):
     assert img.mean() > 0.5  # the dome lights the scene
 
 
+@pytest.mark.parametrize("accel", [[], ["--accel", "bvh"]])
+def test_cli_renders_dirtmap_without_jax(tmp_path, accel):
+    """--method dirtmap: the eye rays and every stratum's gather through
+    the closest hit alone, bounded by the gather distance (the dense
+    twin, or the tile BVH's), with jax and lucille_tpu blocked."""
+    img, counts = _render_without_jax(tmp_path, bundled_rib_text(),
+                                      "--method", "dirtmap", *accel)
+    assert all(k == 0 for k, _p in counts.values())
+    used = {name for name, (_k, p) in counts.items() if p}
+    assert used == ({"bvh_closest_hit"} if accel else {"closest_hit"})
+    # one call for the eye rays and one a stratum (9 gather rays: 3x3)
+    name = "bvh_closest_hit" if accel else "closest_hit"
+    assert counts[name][1] == 4 * (1 + 9)  # 4 tiles of 16 at 32x24
+    assert img.mean() > 0.1
+
+
 def test_port_scan_covers_the_shading_modules():
     """test_torch_frontend's AST scan walks every module of the package:
     the integrators and shading modules of this slice are among them."""
@@ -159,10 +175,25 @@ def test_port_scan_covers_the_shading_modules():
             "lucille_tpu_torch/transport/pathtrace.py"} <= files
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "4"], ["--recover"],
-                                  ["--method", "dirtmap"], ["--accel", "grid"],
+def test_port_scan_covers_this_slices_modules():
+    """test_torch_frontend's AST scan walks every module of the package:
+    the shell, the texture atlas, the two image codecs and the dirt map
+    are among them."""
+    files = {p.relative_to(REPO).as_posix()
+             for p in (REPO / "lucille_tpu_torch").rglob("*.py")}
+    assert {"lucille_tpu_torch/shell.py",
+            "lucille_tpu_torch/texture/texture.py",
+            "lucille_tpu_torch/imageio/exr.py",
+            "lucille_tpu_torch/imageio/tex.py",
+            "lucille_tpu_torch/transport/dirtmap.py"} <= files
+
+
+@pytest.mark.parametrize("argv", [["--mesh", "4"], ["--method", "shader"],
+                                  ["--display", "socket"], ["--accel", "grid"],
                                   ["--coordinator", "localhost:1234"]])
 def test_cli_refuses_unported_flags(argv, capsys):
+    """What the port does not have yet (--recover and --method dirtmap
+    are ported now: tests/test_torch_cli.py)."""
     from lucille_tpu_torch.cli import main
 
     with pytest.raises(SystemExit) as e:

@@ -218,10 +218,14 @@ def test_tiles_reach_callbacks_in_spiral_order():
 @pytest.mark.parametrize("what", ["sunsky", "texture", "method", "ibl"])
 def test_unported_features_raise(what):
     """Each feature still to port is refused; ibl: a dome light with an
-    environment texture.  sunsky: sunsky AO on the dense tiles above
-    131,072 triangles (the 257^2-quad terrain has 132,098), refused until
-    the port scanned the strata as lucille_tpu does there, now builds
-    (tests/test_torch_scan.py holds the scan against lucille_tpu)."""
+    environment texture; texture: an "ibl" light's texture (a material
+    texture renders since its port, tests/test_torch_texture.py); method:
+    the shader method (dirtmap renders since its port,
+    tests/test_torch_dirtmap.py).  sunsky: sunsky AO on the dense tiles
+    above 131,072 triangles (the 257^2-quad terrain has 132,098), refused
+    until the port scanned the strata as lucille_tpu does there, now
+    builds (tests/test_torch_scan.py holds the scan against
+    lucille_tpu)."""
     from lucille_tpu_torch.accel.ao import MAX_TRIS_FOR_MEGAKERNEL
     from lucille_tpu_torch.render.renderer import Renderer
     from lucille_tpu_torch.ri.types import LightDesc
@@ -239,10 +243,10 @@ def test_unported_features_raise(what):
     if what == "ibl":
         desc.lights.append(LightDesc(type="dome", texture="sky.hdr"))
     elif what == "texture":
-        desc.geoms[0].attrs.material.texture = "wood.tex"
-    else:  # the methods still to port
-        desc.options.render_method = "dirtmap"
-    with pytest.raises(NotImplementedError):
+        desc.lights.append(LightDesc(type="ibl", texture="probe.exr"))
+    else:  # the method still to port
+        desc.options.render_method = "shader"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(desc, device="cpu")
 
 

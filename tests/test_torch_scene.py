@@ -291,11 +291,15 @@ def test_generate_rays_close(proj):
 
 
 def test_generate_rays_refuses_depth_of_field():
+    """A depth-of-field camera needs its lens samples: called without
+    them, generate_rays refuses rather than tracing pinhole rays (the
+    renderer always draws them; tests/test_torch_camera_dof.py holds the
+    thin lens against lucille_tpu's)."""
     from lucille_tpu_torch.ri.camera import generate_rays
 
     cam = bundled_state(64, 48).camera
     cam.fstop, cam.focal_length, cam.focal_distance = 2.8, 0.05, 10.0
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="lens samples"):
         generate_rays(cam, torch.zeros(4), torch.zeros(4))
 
 

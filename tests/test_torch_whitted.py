@@ -406,14 +406,15 @@ def test_default_stream_matches_the_ao_draw():
 
 
 def test_dispatch_methods():
-    """whitted and the path names are ported; dirtmap and shader raise
-    naming ROADMAP; an unknown name renders AO."""
+    """whitted, the path names and dirtmap are ported; shader (sl, shade)
+    raises naming ROADMAP; an unknown name renders AO."""
     from lucille_tpu_torch.transport import dispatch
 
     assert dispatch.get_integrator("whitted").__name__ == "whitted_fn"
     for name in ("pathtrace", "path", "mlt"):
         assert dispatch.get_integrator(name).__name__ == "path_fn"
-    for name in ("dirtmap", "shader", "sl"):
+    assert dispatch.get_integrator("dirtmap").__name__ == "dirt_fn"
+    for name in ("shader", "sl", "shade"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dispatch.get_integrator(name)
     assert dispatch.get_integrator("bogus").__name__ == "ao_fn"
