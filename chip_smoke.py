@@ -151,7 +151,33 @@ non-zero):
 20. the CLI on the card in a subprocess (`--method dirtmap --maxraydepth
    2 --display openexr --gather-rays 16`), its .exr read back;
    each of phases 15-20 prints its wall seconds;
-21. a JSON line of per-kernel results (each with the least time the card
+21. kernels 2 and 5 on the environment samplers' shadow rays
+   (`check_env_any_hits`): the first bounce's importance-sampled texels
+   and 4 structured directions (`env_shadow_rays`) of the bundled
+   scene's headline tile (dense) and the n = 256 terrain's first tile
+   (tile BVH) under a 2048x1024 lat-long sky written at run time (a sun
+   disc ~1000x its zenith, a darker ground; `env_dir`), against their
+   twins on a slice of the live rays with phase 3's tolerances, with
+   their device times and bounds;
+22. this slice's full-width frames with phase 4's checks:
+   bundled-ibl-whitted (the headline settings as Whitted, depth 8,
+   under the sky: kernels 1 and 2), heightfield256-ibl-whitted
+   (bench_large's n = 256 frame under the sky, importance-sampled:
+   kernels 4 and 5) and bundled-pipeline (headline-ao with miefog, the
+   background imager and MOSAICdisplace: kernels 1 and 3);
+23. 80x60 frames on the card against the CPU's twins with phase 12's
+   bound: Whitted at depth 1 under each sampler (bruteforce on a 16x8
+   sky), the sky's 1000x1000 angular resampling, the path tracer under
+   the sky, AO under fog, depthcue, MOSAICfog (mist) and miefog, the
+   imager, MOSAICdisplace;
+24. an 80x60 imager frame stopped after 6 of its 20 tiles and recovered:
+   its image and its checkpoint's image and alpha equal the uninterrupted
+   frame's exactly;
+25. the CLI's entry point at 80x60 with --display socket (no viewer
+   spawned) streaming to a listener on a free port: the reassembled
+   frame equals the .pfm --display file writes; each of phases 21-25
+   prints its wall seconds;
+26. a JSON line of per-kernel results (each with the least time the card
    could take for its work, `bound_ms`, from the counts below; kernel
    1's entries include its finite-tmax cases), the card's line, and last
    {"ok": true, "device": {...}}.
@@ -223,6 +249,19 @@ DOF_LINE = "DepthOfField 2.0 1.0 15.5\n"
 # the textured frame's texture: a 1024x1024 checker of 8x8 squares
 CHECKER, CHECKER_CELL = 1024, 128
 
+# the environment frames' maps: a 2048x1024 lat-long sky (a real probe's
+# size), its 1000x1000 angular resampling, and a 16x8 sky for the
+# bruteforce sampler's 80x60 frame (its texels are its shadow wavefronts,
+# and the CPU's twin traces each against every triangle);
+# the sun 40 degrees up, its disc 1.5 degrees wide, ~1000x the sky
+SKY, PROBE, SKY_SMALL = (2048, 1024), 1000, (16, 8)
+SUN_DIR = (0.55, 0.64, 0.53)
+SUN_RADIUS_DEG, SUN_GAIN = 1.5, 1000.0
+IBL_SAMPLERS = ("cosweight", "importance", "stratified", "structured",
+                "bruteforce")
+# the pipeline frame: miefog, the background imager, MOSAICdisplace
+PIPELINE_IMAGER = 'Imager "background" "bgcolor" [0.35 0.45 0.6]\n'
+
 HEIGHTFIELD_CAMERA = (
     'Projection "perspective" "fov" [45.0]\n'
     'Orientation "rh"\n'
@@ -248,17 +287,22 @@ def sunsky_line() -> str:
 
 
 def bundled_state(width, height, pixelsamples=None, gather=None,
-                  sunsky=True, api=None, method=None, dof=False):
+                  sunsky=True, api=None, method=None, dof=False, light=None,
+                  head="", world=""):
     """tests/golden/sunsky_scene.rib, the reference's
     ambient_occlusion.rib (322 triangles) with its sunsky light (as
-    shipped), or without that line for plain AO; with dof, under
-    DOF_LINE; parsed in memory, and rendered by `method` (default the
-    RIB's, AO)."""
+    shipped), or without that line for plain AO, or with RIB text
+    `light` in its place; with dof, under DOF_LINE; `head` RIB lines
+    before WorldBegin, `world` right after it; parsed in memory, and
+    rendered by `method` (default the RIB's, AO)."""
     RiState, parse_rib = api or front_end()
     text = BUNDLED_RIB.read_text()
-    if not sunsky:
+    if light is not None:
+        text = text.replace(sunsky_line() + "\n", light, 1)
+    elif not sunsky:
         text = "".join(l for l in text.splitlines(keepends=True)
                        if 'AreaLightSource "sunsky"' not in l)
+    text = text.replace("WorldBegin\n", head + "WorldBegin\n" + world, 1)
     if dof:
         text = text.replace("WorldBegin", DOF_LINE + "WorldBegin", 1)
     s = RiState()
@@ -293,10 +337,11 @@ def heightfield_grid(n: int):
 
 
 def heightfield_state(n, width=160, height=120, pixelsamples=2, gather=64,
-                      accel="auto", sunsky=False, api=None, method=None):
+                      accel="auto", sunsky=False, api=None, method=None,
+                      light=None):
     """bench_large's scene: the camera parsed from RIB text, the terrain
     handed to RiPointsPolygons as one mesh (identity transform), and
-    optionally the bundled scene's sunsky line."""
+    optionally the bundled scene's sunsky line or the RIB text `light`."""
     RiState, parse_rib = api or front_end()
     P, quads = heightfield_grid(n)
     s = RiState()
@@ -306,6 +351,8 @@ def heightfield_state(n, width=160, height=120, pixelsamples=2, gather=64,
     s.WorldBegin()
     if sunsky:
         parse_rib(f"AttributeBegin\n{sunsky_line()}\nAttributeEnd\n", s)
+    if light is not None:
+        parse_rib(f"AttributeBegin\n{light}AttributeEnd\n", s)
     s.AttributeBegin()
     s.Transform(np.eye(4).reshape(-1))
     s.PointsPolygons(
@@ -361,6 +408,157 @@ def textured_state(width, height, tex_name="checker.tex", pixelsamples=3,
     s.PixelSamples(pixelsamples, pixelsamples)
     s.options.gather_nsamples = gather
     return s
+
+
+def sky_image(w: int, h: int) -> np.ndarray:
+    """A lat-long sky in lights/ibl.latlong_directions' layout (row 0 the
+    zenith): blue above the horizon, brightening toward it; a sun disc
+    along SUN_DIR, SUN_GAIN times the sky's zenith; a darker ground."""
+    from lucille_tpu_torch.lights.ibl import latlong_directions
+
+    d, _ = latlong_directions(h, w)
+    y = d[..., 1:2]
+    up = np.clip(y, 0.0, 1.0)
+    zenith, horizon = np.array([0.25, 0.45, 1.0]), np.array([0.9, 0.95, 1.1])
+    sky = horizon + (zenith - horizon) * np.sqrt(up)
+    ground = np.array([0.12, 0.1, 0.08]) * (1.0 + np.clip(-y, 0.0, 1.0))
+    img = np.where(y >= 0.0, sky, ground)
+    sun = np.asarray(SUN_DIR) / np.linalg.norm(SUN_DIR)
+    disc = d @ sun > np.cos(np.radians(SUN_RADIUS_DEG))
+    img[disc] = SUN_GAIN * zenith
+    return img.astype(np.float32)
+
+
+def angular_probe(img: np.ndarray, n: int) -> np.ndarray:
+    """The lat-long map img resampled as an (n, n) Debevec angular map
+    (view axis -z; lights/envmap.EnvMap.load_sis's inverse
+    parametrization), bilinear."""
+    from lucille_tpu_torch.lights.envmap import _np_bilinear
+
+    c = (np.arange(n) + 0.5) / n * 2.0 - 1.0
+    u, v = np.meshgrid(c, -c)
+    rho = np.hypot(u, v)
+    theta = np.pi * np.minimum(rho, 1.0)
+    s = np.where(rho > 1e-9, np.sin(theta) / np.maximum(rho, 1e-9), 0.0)
+    d = np.stack([u * s, v * s, -np.cos(theta)], axis=-1)
+    lat = np.arccos(np.clip(d[..., 1], -1.0, 1.0)) / np.pi
+    lon = (np.arctan2(d[..., 2], d[..., 0]) + np.pi) / (2.0 * np.pi)
+    return _np_bilinear(img, lon, lat).astype(np.float32)
+
+
+@functools.cache
+def env_dir() -> tempfile.TemporaryDirectory:
+    """A temporary directory (.name its path, removed at exit) holding the
+    environment frames' maps, written by the port's RGBE codec: sky.hdr
+    (SKY), probe.hdr (its PROBE x PROBE angular resampling), sky16.hdr
+    (SKY_SMALL) and disp.hdr, the pipeline frame's DispMap; and
+    sky_sis.npz, sky.hdr's structured samples."""
+    from lucille_tpu_torch.imageio.rgbe import write_hdr
+
+    d = tempfile.TemporaryDirectory(prefix="lucille_env_")
+    sky = sky_image(*SKY)
+    write_hdr(Path(d.name) / "sky.hdr", sky)
+    write_hdr(Path(d.name) / "probe.hdr", angular_probe(sky, PROBE))
+    write_hdr(Path(d.name) / "sky16.hdr", sky_image(*SKY_SMALL))
+    # the sky's 64 structured samples, generated once (seconds of NumPy at
+    # this size) and bound as a sisfile wherever the sampler is structured
+    from lucille_tpu_torch.lights.envmap import SIS_SAMPLES
+    from lucille_tpu_torch.lights.sisgen import generate_sis_samples
+
+    dirs, rgb = generate_sis_samples(sky, SIS_SAMPLES)
+    np.savez(Path(d.name) / "sky_sis.npz", dirs=dirs, rgb=rgb)
+    y, x = np.mgrid[0:256, 0:256] / 255.0
+    bumps = 0.5 + 0.5 * np.sin(9.0 * x + 0.3) * np.cos(7.0 * y + 0.2)
+    write_hdr(Path(d.name) / "disp.hdr",
+              np.repeat(bumps[..., None], 3, -1).astype(np.float32))
+    return d
+
+
+def ibl_line(sampler="cosweight", name="sky.hdr", kind="ibl") -> str:
+    """The RIB line of an environment light on env_dir()'s map `name`
+    (structured on sky.hdr: its samples bound as the sisfile)."""
+    d = env_dir().name
+    sis = (f' "sisfile" ["{d}/sky_sis.npz"]'
+           if sampler == "structured" and name == "sky.hdr" else "")
+    return (f'LightSource "{kind}" 1 "texture" ["{d}/{name}"] '
+            f'"sampling" ["{sampler}"]{sis}\n')
+
+
+def pipeline_world() -> str:
+    """The pipeline frame's stages, bound after WorldBegin: miefog and
+    MOSAICdisplace on every geometry (the imager is PIPELINE_IMAGER)."""
+    return ('Atmosphere "miefog" "density" [0.03] "sundir" '
+            f'[{" ".join(str(v) for v in SUN_DIR)}] "intensity" [1.5]\n'
+            'Displacement "MOSAICdisplace" "DispMap" '
+            f'["{env_dir().name}/disp.hdr"] "Disp" [0.05] "Mid" [0.5]\n')
+
+
+class SocketListener:
+    """A viewer stand-in for the socket display: listens on a free
+    localhost port (`port`), serves one renderer in a thread and reads the
+    sockdrv protocol (display/sockdrv.py: NEW w h, PIXEL batches of x y r
+    g b, FINISH).  After `join()`: `raw`, every byte received; `frame`,
+    the (h, w, 3) f32 frame the batches reassemble, raster rows; and
+    `finished`, whether FINISH came."""
+
+    def __init__(self, timeout: float = 120.0):
+        import socket
+        import threading
+
+        self.srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.srv.bind(("127.0.0.1", 0))
+        self.srv.listen(1)
+        self.srv.settimeout(timeout)
+        self.port = self.srv.getsockname()[1]
+        self.raw = b""
+        self.frame = None
+        self.finished = False
+        self.error = None
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def _recv(self, conn, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = conn.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("the renderer closed the socket")
+            buf += chunk
+        self.raw += buf
+        return buf
+
+    def _serve(self):
+        import struct
+
+        try:
+            conn, _ = self.srv.accept()
+            with conn:
+                while True:
+                    (cmd,) = struct.unpack("<i", self._recv(conn, 4))
+                    if cmd == 0:  # NEW
+                        w, h = struct.unpack("<ii", self._recv(conn, 8))
+                        self.frame = np.zeros((h, w, 3), np.float32)
+                    elif cmd == 1:  # PIXEL
+                        (n,) = struct.unpack("<i", self._recv(conn, 4))
+                        px = np.frombuffer(self._recv(conn, 20 * n),
+                                           "<f4").reshape(n, 5)
+                        xs, ys = px[:, 0].astype(int), px[:, 1].astype(int)
+                        self.frame[ys, xs] = px[:, 2:5]
+                    elif cmd == 2:  # FINISH
+                        self.finished = True
+                        return
+                    else:
+                        raise ValueError(f"unknown command {cmd}")
+        except Exception as e:  # reported by join()
+            self.error = e
+        finally:
+            self.srv.close()
+
+    def join(self, timeout: float = 120.0) -> "SocketListener":
+        self.thread.join(timeout)
+        if self.thread.is_alive() or self.error is not None:
+            raise AssertionError(f"socket listener: {self.error or 'timeout'}")
+        return self
 
 
 def counters():
@@ -1083,14 +1281,17 @@ def check_gather(label, scene, inputs, ntheta, nphi, n_slice, results,
              "group_box_tests": need["groups"], **work})
 
 
-def render_checked(label, r, out_name, path):
+def render_checked(label, r, out_name, path, max_mean=None):
     """Phases 4, 6 and 8 on Renderer r: warm-up, then one counted frame
     through the display driver into an .hdr that is read back and
     checked, then best of 2.  `path` names the kernels the frame must
     launch; every other kernel must launch none, and no twin may run; no
     tile of the counted frame may wait on the card (`no_host_sync`).
-    Returns (the counted frame's launches of the path's kernels, best
-    frame seconds, the counted frame as read back)."""
+    The image mean must lie in (0, max_mean] (default 1, 1e6 under a
+    sunsky light); an imager's frame is written again after the
+    post-pass, as the CLI writes it.  Returns (the counted frame's
+    launches of the path's kernels, best frame seconds, the counted frame
+    as read back)."""
     import torch
 
     from lucille_tpu_torch.display.drivers import get_display_driver
@@ -1107,7 +1308,9 @@ def render_checked(label, r, out_name, path):
     opt = r.desc.options
     drv.open(str(path_file), opt.width, opt.height)
     with no_host_sync(r):
-        r.render_frame(tile_cb=drv.write)
+        frame = r.render_frame(tile_cb=drv.write)
+    if opt.imager:
+        drv.write(0, 0, frame)
     drv.close()
     launches = {k: c.kernel for k, c in counts.items()}
     if min(launches[k] for k in path) <= 0:
@@ -1121,7 +1324,9 @@ def render_checked(label, r, out_name, path):
         raise AssertionError(f"{label}: bad image {img.shape}")
     mean = float(img.mean())
     sunsky = any(li.type == "sunsky" for li in r.lights)
-    if not 0.0 < mean <= (1e6 if sunsky else 1.0):
+    if max_mean is None:
+        max_mean = 1e6 if sunsky else 1.0
+    if not 0.0 < mean <= max_mean:
         raise AssertionError(f"{label}: image mean {mean}")
     times, nrays = [], 0
     for _ in range(2):
@@ -1986,11 +2191,13 @@ def check_tmax_kernels(results):
     return entry
 
 
-def check_frame_twins(label, make_state, tile=32):
+def check_frame_twins(label, make_state, tile=32, mean_range=(0.1, 1.0)):
     """Phase 12's check of one 80x60 frame: the frame on the card against
     the same frame on the CPU (the plain twins), one numpy stream fed to
     both (HostSampler): ray counts within 1e-3, pixels within 1e-3 on all
-    but 1%."""
+    but 1% (relative to max(|value|, 1) where the mean range allows
+    radiance above 1); the CPU frame's mean inside mean_range.  Returns
+    the card's frame."""
     from lucille_tpu_torch.render.renderer import Renderer
     from lucille_tpu_torch.sampling.jitter import HostSampler
 
@@ -2000,14 +2207,15 @@ def check_frame_twins(label, make_state, tile=32):
                      sampler=HostSampler(0, dev))
         frames[dev] = (r.render_frame(), r.stats.nrays)
     (got, n_got), (ref, n_ref) = frames["cuda"], frames["cpu"]
-    off = (np.abs(got - ref) > 1e-3).mean()
+    off = (np.abs(got - ref) > 1e-3 * np.maximum(np.abs(ref), 1.0)).mean()
     print(f"[{label}] 80x60 on the card against the CPU: {n_got} and "
           f"{n_ref} rays, means {got.mean():.5f} and {ref.mean():.5f}, "
           f"pixels off by > 1e-3: {off:.5f} (<= 0.01)", flush=True)
     if abs(n_got - n_ref) > 1e-3 * n_ref or off > 0.01 or not (
-            0.1 < ref.mean() < 1.0):
+            mean_range[0] < ref.mean() < mean_range[1]):
         raise AssertionError(f"{label}: the card's frame disagrees with the "
                              "plain twins'")
+    return got
 
 
 def check_dirtmap_frames(gather_entry):
@@ -2177,6 +2385,330 @@ def check_cli():
     if not (img.shape == (H, W, 3) and np.isfinite(img).all()
             and 0.0 < img.mean() <= 1.0):
         raise AssertionError(f"cli: bad image {img.shape}")
+
+
+def ibl_bundled(width, height, sampler="cosweight", name="sky.hdr",
+                kind="ibl", pixelsamples=None, method="whitted", **kw):
+    """The bundled scene with its sunsky line replaced by an environment
+    light (`ibl_line`), Whitted by default (the RIB's depth, 8)."""
+    return bundled_state(width, height, pixelsamples,
+                         light=ibl_line(sampler, name, kind), method=method,
+                         **kw)
+
+
+def env_shadow_rays(r, sampler):
+    """The first bounce's shadow rays of Renderer r's environment light on
+    the scene's first tile, as lights/ibl.py forms them in a Whitted
+    frame: (P + N eps, directions, the eye hits live).  importance: the
+    first sample's texels, drawn at the tile stream's fold(0) (the
+    bounce), fold(1000) (the light), fold(0) (the sample); structured:
+    4 SIS directions spread over its luminance layers (every 16th of 64,
+    the sun's first), the tile's rays once for each."""
+    import torch
+
+    from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.sampling.jitter import StreamKey
+    from lucille_tpu_torch.transport.common import face_forward, interp_hit
+
+    org, dirn, x0, y0 = first_tile_rays(r)
+    res = closest_hit(r.scene, org, dirn)
+    h = interp_hit(r.scene, res, org, dirn)
+    P_off = h["P"] + face_forward(h["Ns"], dirn) * r.scene.eps
+    env, B = r.lights.lights[0].env, org.shape[0]
+    if sampler == "importance":
+        table = env.importance_table
+        key = StreamKey(r.sampler(x0, y0)).fold(0).fold(1000).fold(0)
+        idx = torch.clamp(torch.searchsorted(
+            table.cdf, key.uniform((B,)).contiguous()), 0,
+            table.dirs.shape[0] - 1)
+        return P_off, table.dirs[idx], res["hit"]
+    sis = env.structured[0]
+    dirs = sis[::max(1, len(sis) // 4)][:4]  # across the luminance layers
+    return (P_off.repeat(len(dirs), 1),
+            dirs.repeat_interleave(B, dim=0).contiguous(),
+            res["hit"].repeat(len(dirs)))
+
+
+def check_env_any_hits(results, n_slice=65536):
+    """Phase 21: kernel 2 (dense) and kernel 5 (tile BVH) on this slice's
+    shadow rays (`env_shadow_rays`: importance-sampled texels and
+    structured directions, which bunch toward the sky's sun) on the
+    bundled scene's headline tile and the n = 256 terrain's first tile,
+    against their twins on a slice of the live rays (phase 3's
+    tolerances: answers equal on all but 1e-4; the slice neither all
+    occluded nor all open), with their device times, plain times and
+    bounds (dense_need / need_walk, as phases 3 and 7 count them)."""
+    import torch
+
+    from lucille_tpu_torch.accel import bvh_isect, isect
+
+    for accel in ("dense", "bvh"):
+        for sampler in ("importance", "structured"):
+            label = f"{'bundled' if accel == 'dense' else 'heightfield256'}"\
+                f"-ibl-{sampler}"
+            if accel == "dense":
+                r = build_renderer(label, lambda: ibl_bundled(
+                    640, 480, sampler, pixelsamples=3), TILE)
+            else:
+                r = build_renderer(label, lambda: heightfield_state(
+                    256, light=ibl_line(sampler), method="whitted"), 128)
+            scene = r.scene
+            P_off, wi, live = env_shadow_rays(r, sampler)
+            R = P_off.shape[0]
+            inf = torch.full((R,), float("inf"), device="cuda")
+            lanes = torch.nonzero(live)[:, 0]
+            lanes = lanes[max(0, len(lanes) // 2 - n_slice // 2):][:n_slice]
+            if accel == "dense":
+                name = "any_hit"
+                res = isect.any_hit(scene, P_off, wi, None, live,
+                                    counters=True)
+                got = res["occ"]
+                ref = isect.any_hit_reference(
+                    scene.tris, P_off[lanes], wi[lanes], inf[lanes])["occ"]
+                ms, call_ms = hit_kernel_ms(lambda: isect.any_hit(
+                    scene, P_off, wi, None, live), "any_hit")
+                plain_ms = cuda_ms(lambda: isect.any_hit_reference(
+                    scene.tris, P_off, wi, inf, live), 1)
+                need = dense_need(scene, P_off, wi, inf, live, got)
+                work = dense_bound(scene, R, 24 + 4 + 1 + 1, need)
+                walk = dense_work(res, need)
+            else:
+                name = "bvh_any_hit"
+                args = (scene.tris, scene.nodes, P_off, wi)
+                kw = {"depth": scene.tree_depth, "leaf_real": scene.leaf_real}
+                res = bvh_isect.bvh_any_hit(*args, **kw)
+                got = res["occ"] & live
+                ref = bvh_isect.bvh_any_hit_reference(
+                    scene.tris, P_off[lanes], wi[lanes], inf[lanes])["occ"]
+                ms = cuda_ms(lambda: bvh_isect.bvh_any_hit(*args, **kw), 3)
+                call_ms = ms
+                plain_ms = timed(lambda: bvh_isect.bvh_any_hit_reference(
+                    scene.tris, P_off[lanes], wi[lanes], inf[lanes]))[1]
+                gen = torch.Generator(device="cuda").manual_seed(13)
+                sample = torch.randperm(R, device="cuda",
+                                        generator=gen)[:N_NEED]
+                need = need_walk(scene.tris, scene.nodes, P_off[sample],
+                                 wi[sample], False, scene.tree_depth)
+                scale = R / len(sample)
+                work = bound(R * (28 + 1) + reached_bytes(need),
+                             scale * (need["tests"] * SV_OPS
+                                      + need["inner"] * NODE_OPS))
+                walk = walk_report(res, need, scale)
+            torch.cuda.synchronize()
+            frac = (got[lanes] != ref).float().mean().item()
+            occ = ref.float().mean().item()
+            if torch.any(got[~live]):
+                raise AssertionError(f"{label}: a dead ray reports occlusion")
+            print(f"[{label}] {name}: {R} shadow rays ({int(live.sum())} "
+                  f"live), the slice's {len(lanes)} live rays {occ:.4f} "
+                  f"occluded, {frac:.2e} differ; kernel {ms:.3f} ms "
+                  f"({call_ms:.3f} ms a call), plain {plain_ms:.3f} ms"
+                  f"{' on the slice' if accel == 'bvh' else ''}, bound "
+                  f"{work['bound_ms']:.4f} ms ({work['bound_by']}); "
+                  f"{walk['text']}", flush=True)
+            if frac > 1e-4 or not 0.001 < occ < 0.999:
+                raise AssertionError(f"{label} {name}: {frac:.2e} differ, "
+                                     f"{occ:.4f} occluded")
+            results[name].append(
+                {"scene": label, "rays": R, "ms": ms, "call_ms": call_ms,
+                 "plain_ms": plain_ms, "max_abs_err": float(frac > 0),
+                 "differs": frac, **walk["numbers"], **work})
+
+
+def check_env_frames(results):
+    """Phase 22: this slice's full-width frames with phase 4's checks:
+    bundled-ibl-whitted (the headline settings, Whitted at depth 8 under
+    the lat-long sky, cosweight: kernels 1 and 2), heightfield256-ibl-
+    whitted (bench_large's n = 256 frame under the sky, importance: 4
+    and 5) and bundled-pipeline (headline-ao's settings with miefog, the
+    background imager and MOSAICdisplace: 1 and 3).  Each frame's
+    launches of kernels 2 and 5 go beside phase 21's entries."""
+    dense = ("closest_hit", "any_hit")
+    got, _, _ = render_checked("bundled-ibl-whitted", build_renderer(
+        "bundled-ibl-whitted", lambda: ibl_bundled(640, 480, pixelsamples=3),
+        TILE), "chip_smoke_bundled_ibl_whitted.hdr", dense, max_mean=1e4)
+    for e in results["any_hit"]:
+        if e["scene"].startswith("bundled-ibl"):
+            e["frame_launches"] = got["any_hit"]
+    bvh = ("bvh_closest_hit", "bvh_any_hit")
+    got, _, _ = render_checked("heightfield256-ibl-whitted", build_renderer(
+        "heightfield256-ibl-whitted", lambda: heightfield_state(
+            256, light=ibl_line("importance"), method="whitted"), 128),
+        "chip_smoke_heightfield256_ibl_whitted.hdr", bvh, max_mean=1e4)
+    for e in results["bvh_any_hit"]:
+        if e["scene"].startswith("heightfield256-ibl"):
+            e["frame_launches"] = got["bvh_any_hit"]
+    r = build_renderer("bundled-pipeline", lambda: bundled_state(
+        640, 480, 3, 64, sunsky=False, head=PIPELINE_IMAGER,
+        world=pipeline_world()), TILE)
+    if not (r.atmosphere is not None and r.desc.options.imager
+            and all(getattr(g, "_displaced", False) for g in r.desc.geoms)):
+        raise AssertionError("bundled-pipeline: a stage is not bound")
+    render_checked("bundled-pipeline", r, "chip_smoke_bundled_pipeline.hdr",
+                   ("closest_hit", "ao_occlusion"), max_mean=10.0)
+
+
+def check_env_twins():
+    """Phase 23: 80x60 frames on the card against the CPU's twins
+    (`check_frame_twins`, 1x1 samples): Whitted at --maxraydepth 1 under
+    each sampler (bruteforce on the 16x8 sky: 128 shadow wavefronts a
+    bounce, on one 80x80 tile), the angular probe, the path tracer under the lat-long sky;
+    AO under each atmosphere (16 gather rays), the imager, and
+    MOSAICdisplace."""
+    for sampler in IBL_SAMPLERS:
+        brute = sampler == "bruteforce"
+
+        def make(sampler=sampler, brute=brute):
+            s = ibl_bundled(80, 60, sampler,
+                            "sky16.hdr" if brute else "sky.hdr",
+                            pixelsamples=1)
+            s.options.max_ray_depth = 1
+            return s
+
+        check_frame_twins(f"ibl-{sampler}-twins", make, 80 if brute else 32,
+                          mean_range=(0.1, 1e4))
+    check_frame_twins("ibl-angular-twins", lambda: ibl_bundled(
+        80, 60, name="probe.hdr", kind="dome", pixelsamples=1),
+        mean_range=(0.1, 1e4))
+    check_frame_twins("ibl-pathtrace-twins", lambda: ibl_bundled(
+        80, 60, pixelsamples=1, method="pathtrace"), mean_range=(0.1, 1e4))
+    atmospheres = {
+        "fog": 'Atmosphere "fog" "distance" [25.0] "background" [0.5 0.6 0.8]\n',
+        "depthcue": 'Atmosphere "depthcue" "mindistance" [12.0] '
+                    '"maxdistance" [22.0] "background" [0.4 0.4 0.4]\n',
+        "MOSAICfog": 'Atmosphere "MOSAICfog" "isMist" [1] "Sta" [10.0] '
+                     '"Di" [25.0] "MistType" [1] "Hi" [3.0] '
+                     '"MistCol" [0.7 0.7 0.8]\n',
+        "miefog": pipeline_world().splitlines()[0] + "\n",
+    }
+    for name, line in atmospheres.items():
+        check_frame_twins(f"{name}-twins", lambda line=line: bundled_state(
+            80, 60, 1, 16, sunsky=False, world=line), mean_range=(0.1, 10.0))
+    check_frame_twins("imager-twins", lambda: bundled_state(
+        80, 60, 1, 16, sunsky=False, head=PIPELINE_IMAGER))
+    check_frame_twins("displace-twins", lambda: bundled_state(
+        80, 60, 1, 16, sunsky=False,
+        world=pipeline_world().splitlines()[1] + "\n"))
+
+
+def check_recover_imager():
+    """Phase 24: an 80x60 imager frame (the pipeline's stages, 16 gather
+    rays, tile 16: 20 tiles) stopped after a third of its tiles and
+    recovered on the card: the image and the alpha of its last
+    checkpoint (copied as the last tile arrives) equal the uninterrupted
+    frame's exactly, and only the missing tiles are enqueued, none
+    waiting on the card."""
+    import shutil
+
+    import torch
+
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.render.tiles import tile_list
+
+    class Stop(Exception):
+        pass
+
+    def make():
+        return Renderer(bundled_state(
+            80, 60, 2, 16, sunsky=False, head=PIPELINE_IMAGER,
+            world=pipeline_world()).scene, tile_size=16, device="cuda")
+
+    def last_checkpoint(r, ckpt, n_tiles, **kw):
+        """(the frame, the image and alpha of its last checkpoint)."""
+        seen, keep = [], ckpt + ".last.npz"
+
+        def cb(x0, y0, tile):
+            seen.append((x0, y0))
+            if len(seen) == n_tiles:
+                shutil.copy(ckpt, keep)
+
+        img = r.render_frame(tile_cb=cb, checkpoint=ckpt, **kw)
+        with np.load(keep) as data:
+            return img, data["image"].copy(), data["alpha"].copy()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "frame.ckpt.npz")
+        r = make()
+        opt = r.desc.options
+        n_tiles = len(tile_list(opt.width, opt.height, 16, opt.bucket_order))
+        n_stop = n_tiles // 3
+        full, full_img, full_alpha = last_checkpoint(r, ckpt, n_tiles)
+        seen = []
+
+        def stop(x0, y0, tile):
+            seen.append((x0, y0))
+            if len(seen) == n_stop:
+                raise Stop
+
+        try:
+            make().render_frame(tile_cb=stop, checkpoint=ckpt)
+        except Stop:
+            pass
+        torch.cuda.synchronize()
+        r = make()
+        enqueued = []
+        with no_host_sync(r):
+            strict = r._tile
+
+            def spy(*args):
+                enqueued.append(args[:2])
+                return strict(*args)
+
+            r._tile = spy
+            img, ck_img, ck_alpha = last_checkpoint(r, ckpt, n_tiles,
+                                                    recover=True)
+    ok = (np.array_equal(img, full) and np.array_equal(ck_alpha, full_alpha)
+          and np.array_equal(ck_img, full_img)
+          and len(enqueued) == n_tiles - n_stop)
+    print(f"[recover-imager] stopped after {n_stop} of {n_tiles} tiles; "
+          "recovered "
+          f"with {len(enqueued)} enqueued; frame, checkpoint image and alpha "
+          f"(coverage {full_alpha.mean():.4f}) equal to the uninterrupted "
+          f"frame's: {ok}", flush=True)
+    if not (ok and 0.0 < full_alpha.mean() < 1.0):
+        raise AssertionError("recover-imager: the recovered frame is not the "
+                             "uninterrupted one")
+
+
+def check_socket_display():
+    """Phase 25: the CLI's entry point on the card (in this process: phase
+    20 runs it in a subprocess), 80x60, --display socket with
+    LUCILLE_NO_SPAWN_VIEWER=1, streaming to a SocketListener on a free
+    port; the reassembled frame equals the .pfm the same command writes
+    with --display file (the file driver flips rows)."""
+    from lucille_tpu_torch.cli import main as cli_main
+    from lucille_tpu_torch.imageio.loader import load_image
+
+    lis = SocketListener()
+    env = {"LUCILLE_NO_SPAWN_VIEWER": "1", "LUCILLE_SOCKET_PORT": str(lis.port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for display in ("socket", "file"):
+                rc = cli_main([str(BUNDLED_RIB), "--width", "80", "--height",
+                               "60", "--display", display, "-o",
+                               f"{tmp}/{display}.pfm"])
+                if rc != 0:
+                    raise AssertionError(f"socket: --display {display} "
+                                         f"exit {rc}")
+            lis.join()
+            want = load_image(f"{tmp}/file.pfm")[::-1]
+            wrote = os.path.exists(f"{tmp}/socket.pfm")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    same = lis.frame is not None and np.array_equal(lis.frame, want)
+    print(f"[socket] --display socket streamed {len(lis.raw)} bytes "
+          f"({'FINISH' if lis.finished else 'no FINISH'}), frame "
+          f"{None if lis.frame is None else lis.frame.shape}, mean "
+          f"{want.mean():.4f}; equal to --display file's frame: {same}",
+          flush=True)
+    if not (same and lis.finished and not wrote and want.mean() > 1.0):
+        raise AssertionError("socket: the streamed frame is not the file's")
 
 
 def main() -> int:
@@ -2366,7 +2898,17 @@ def main() -> int:
     phase("recover", check_recover)
     phase("cli", check_cli)
 
-    # 21. results
+    # 21.-25. this slice's paths: the environment samplers' shadow rays
+    # through kernels 2 and 5, the environment and pipeline frames, their
+    # 80x60 frames against the twins, an imager frame recovered, the
+    # socket display
+    phase("env-any-hits", check_env_any_hits, results)
+    phase("env-frames", check_env_frames, results)
+    phase("env-twins", check_env_twins)
+    phase("recover-imager", check_recover_imager)
+    phase("socket", check_socket_display)
+
+    # 26. results
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = []
     for name, (src, replaces) in SOURCES.items():

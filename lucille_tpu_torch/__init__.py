@@ -1,9 +1,13 @@
 """lucille_tpu_torch — the PyTorch/CUDA port of lucille_tpu.
 
 The port renders the ambient-occlusion frame, plain or under a Preetham
-sun and sky, end to end on one NVIDIA H100.  RIB ingest and the scene
-description are the port's own copies of lucille_tpu's host modules
-(rib/, ri/, ops/vecmat, lights/, display/, imageio/, base/, native/);
+sun and sky, the Whitted, path-traced and dirt-map frames, environment-map
+lights under their five samplers (lights/ibl.py) and the built-in
+displacement, atmosphere and imager shaders (shading/pipeline.py), end
+to end on one NVIDIA H100, to a file or a socket display.  RIB ingest
+and the scene description are the port's own copies of lucille_tpu's
+host modules (rib/, ri/, ops/vecmat, lights/, display/, imageio/, base/,
+native/);
 everything that runs per ray is torch, and the hot kernels are CUDA C++
 written by hand for sm_90a (csrc/), built at first use by
 kernels/build.py and bound with ctypes: on the dense tiles the closest

@@ -4,8 +4,11 @@
 
     --output FILE      override the display name
     --display D        override the display driver: file (hdr), openexr
-                       (exr), framebuffer (falls back to file), null;
-                       socket is refused
+                       (exr), socket (streams tiles to a viewer on
+                       localhost, LUCILLE_SOCKET_PORT, default 12346;
+                       spawns tools_tpu/rockenfield.py unless
+                       LUCILLE_NO_SPAWN_VIEWER=1), framebuffer (the
+                       socket viewer, else a file), null
     --pixelsamples N   override PixelSamples
     --maxraydepth N    override the maximum ray depth
     --gather-rays N    AO / dirt-map gather rays (ntheta = nphi =
@@ -30,10 +33,15 @@ A scene with an AreaLightSource "sunsky" renders the reference's sunsky
 AO (sky radiance over the open strata plus the sun), on either accel; a
 scene without lights gets the reference's constant dome, which Whitted
 gathers through the AO kernels.  LUCILLE_BVH_AO=fused selects the fused
-tile-BVH AO gather, as it does for lucille_tpu.  lucille_tpu's --mesh,
+tile-BVH AO gather, as it does for lucille_tpu.  A dome or IBL light
+with an environment texture renders through its "sampling" token
+(cosweight, importance, stratified, structured, bruteforce); the
+built-in displacement, atmosphere and imager shaders run as lucille_tpu
+runs them (shading/pipeline.py), and an imager's frame is written to the
+displays again after the post-pass.  lucille_tpu's --mesh,
 --coordinator, --num-processes and --process-id (ROADMAP Queue 1, item
-8), the shader method and the socket display are refused with a message
-naming ROADMAP.
+8), the shader method and shader stages whose .sl is on the search path
+(item 6) are refused with a message naming ROADMAP.
 CLI overrides are applied at WorldBegin through the backdoor callback,
 as lucille_tpu's CLI does (lucille_tpu/cli.py:139-166).
 """
@@ -61,7 +69,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--output", "-o", help="override output file name")
     p.add_argument("--display",
                    help="override the display driver (file|openexr|"
-                        "framebuffer|null)")
+                        "socket|framebuffer|null)")
     p.add_argument("--pixelsamples", type=int, help="subpixel samples per axis")
     p.add_argument("--maxraydepth", type=int, help="maximum ray depth")
     p.add_argument("--gather-rays", type=int, help="AO gather rays")
@@ -102,9 +110,6 @@ def main(argv=None) -> int:
     if args.method in UNPORTED:
         p.error(f"--method {args.method}: not ported "
                 f"({UNPORTED[args.method]}; ROADMAP Queue 1)")
-    if args.display == "socket":
-        p.error("--display socket: the socket display driver is not ported "
-                "(ROADMAP Queue 1)")
     if args.accel not in (None, "auto", "pallas", "bvh"):
         p.error(f"--accel {args.accel}: not ported (only 'auto', 'pallas' "
                 "and 'bvh'; ROADMAP Queue 1)")
@@ -192,8 +197,12 @@ def main(argv=None) -> int:
         base = ((opt.current_display().name or "untitled.hdr")
                 if opt.displays else "untitled.hdr")
         ckpt = base + ".ckpt.npz"
-    renderer.render_frame(tile_cb=tile_cb, progress_cb=progress_cb,
-                          checkpoint=ckpt, recover=args.recover)
+    image = renderer.render_frame(tile_cb=tile_cb, progress_cb=progress_cb,
+                                  checkpoint=ckpt, recover=args.recover)
+    if opt.imager:
+        # the imager ran over the assembled frame: write it again so the
+        # file and socket drivers flush the post-processed pixels
+        tile_cb(0, 0, image)
     if args.verbose:
         print()
     for drv in drivers:

@@ -6,10 +6,8 @@ Interface mirrors ri_display_drv_t (src/render/render.c:224-279):
 bucket_write equivalent (render.c:919-983).
 
 The port's copy of lucille_tpu/display/drivers.py: the same code, with its
-imports pointed at lucille_tpu_torch's own host modules, except that the
-socket driver raises NotImplementedError (the port has no copy of
-lucille_tpu/display/sockdrv.py yet, ROADMAP Queue 1) and the framebuffer
-driver falls back to file output at once.
+imports pointed at lucille_tpu_torch's own host modules (the socket
+driver is the port's display/sockdrv.py).
 """
 
 from __future__ import annotations
@@ -79,23 +77,53 @@ class FileDriver(DisplayDriver):
 class FramebufferDriver(FileDriver):
     """Live preview driver (the reference's framebufferdrv.c GL window).
 
-    lucille_tpu routes it to its socket driver and a spawned viewer; the
-    port has no copy of those yet, so it takes the reference's fallback
-    chain at once (render.c:430-513: unavailable driver -> "file") and
-    the frame lands in a .hdr.
+    A headless container has no window system, but the socket driver
+    auto-spawns the rockenfield progressive viewer (terminal/web) — so
+    ``Display "framebuffer"`` routes THERE first: live tiles appear as
+    they finish, exactly the framebufferdrv experience.  When the socket
+    path cannot come up (viewer spawn disabled or connect fails), the
+    reference's fallback chain applies (render.c:430-513: unavailable
+    driver -> "file") and the frame lands in a .hdr instead.
     """
 
     name = "framebuffer"
 
+    def __init__(self):
+        self._sock = None  # live SocketDriver when the viewer came up
+
     def open(self, fname, width, height):
+        from lucille_tpu_torch.display.sockdrv import SocketDriver
+
+        sock = SocketDriver()
+        # bounded wait on the framebuffer route: if the spawned viewer
+        # never listens, fall back to file output in seconds, not 30
+        sock.spawn_wait = 6.0
+        if sock.open(fname or "framebuffer", width, height):
+            self._sock = sock
+            return True
         log_once(
             LOG_WARN,
-            "framebuffer display: no live viewer in the port; falling back "
-            "to file output",
+            "framebuffer display: viewer unavailable; falling back to file output",
         )
         if not fname or fname == "framebuffer":
             fname = "framebuffer_out.hdr"
         return super().open(fname, width, height)
+
+    def write(self, x0, y0, tile):
+        if self._sock is not None:
+            self._sock.write(x0, y0, tile)
+        else:
+            super().write(x0, y0, tile)
+
+    def close(self):
+        if self._sock is not None:
+            self._sock.close()
+        else:
+            super().close()
+
+    def progress(self, fraction):
+        if self._sock is not None:
+            self._sock.progress(fraction)
 
 
 class OpenEXRDriver(FileDriver):
@@ -113,14 +141,6 @@ class OpenEXRDriver(FileDriver):
         return super().open(fname, width, height)
 
 
-def _not_ported(name: str):
-    def factory():
-        raise NotImplementedError(
-            f"the {name!r} display driver is not ported yet (ROADMAP Queue 1)")
-
-    return factory
-
-
 _registry: Registry = Registry("display")
 
 
@@ -134,6 +154,12 @@ def get_display_driver(name: str) -> DisplayDriver:
     return factory()
 
 
+def _socket_factory():
+    from lucille_tpu_torch.display.sockdrv import SocketDriver
+
+    return SocketDriver()
+
+
 # default registrations (ri_render_init, render.c:224-279)
 register_display_driver("file", FileDriver)
 register_display_driver("hdr", FileDriver)
@@ -142,4 +168,4 @@ register_display_driver("exr", OpenEXRDriver)
 register_display_driver("framebuffer", FramebufferDriver)
 register_display_driver("fb", FramebufferDriver)
 register_display_driver("null", NullDriver)
-register_display_driver("socket", _not_ported("socket"))
+register_display_driver("socket", _socket_factory)

@@ -7,10 +7,10 @@ light type's sampling code specializes at trace time (no dynamic dispatch
 on device).
 
 The port's copy of lucille_tpu/lights/tables.py: the same code, except
-that a dome or IBL light with an environment texture raises (`_load_env`:
-the port has no environment maps yet), and that an area light carries its
-sampling tables on the render device (`LightEntry.area`), built with the
-tables, once, where lucille_tpu uploads them at trace time.
+that every device table is built once, on the render device, with the
+tables (where lucille_tpu uploads at trace time): an area light's
+sampling tables (`LightEntry.area`), and a dome or IBL light's
+environment map with what its sampler reads (`EnvMap.prepare`).
 """
 
 from __future__ import annotations
@@ -71,22 +71,44 @@ class LightTables:
         return iter(self.lights)
 
 
-def _load_env(li, desc):
-    """A dome/IBL light's environment texture (lucille_tpu's _load_env,
-    lightsource.c:127-142).  The port has no environment maps yet
-    (lucille_tpu/lights/envmap.py, ROADMAP Queue 1): such a light is
-    refused (render/renderer.unsupported_features names it first), and
-    every other light has none."""
+def _load_env(li, desc, device="cpu"):
+    """Load a dome/IBL light's environment texture from the searchpaths
+    into an EnvMap on `device` (light->texture, lightsource.c:127-142;
+    fetched per gathered direction like ibl.c:53-540 / texture.c:238),
+    binding any sisfile (light.h:51-52) and building what the light's
+    sampler reads.  A map that is missing or cannot be read is logged and
+    the light keeps its flat colour."""
     if li.type not in (LIGHT_DOME, LIGHT_IBL) or not li.texture:
         return None
-    raise NotImplementedError(
-        f"{li.type} light texture {li.texture!r}: environment maps are not "
-        "ported yet (ROADMAP Queue 1)")
+    from lucille_tpu_torch.base.log import LOG_WARN, log
+    from lucille_tpu_torch.imageio.loader import find_file, load_image
+    from lucille_tpu_torch.lights.envmap import EnvMap
+
+    sp = getattr(getattr(desc, "options", None), "searchpaths", None)
+    found = find_file(li.texture, sp)
+    if found is None:
+        log(LOG_WARN, "IBL texture '%s' not found on searchpath; "
+            "light falls back to flat color", li.texture)
+        return None
+    try:
+        env = EnvMap(load_image(found), mapping=getattr(li, "mapping", None),
+                     name=li.texture, device=device)
+    except (ValueError, OSError) as e:
+        log(LOG_WARN, "cannot load IBL texture '%s': %s", li.texture, e)
+        return None
+    if li.sis_file:
+        sis = find_file(li.sis_file, sp)
+        if sis is not None:
+            env.load_sis(sis)
+        else:
+            log(LOG_WARN, "sisfile '%s' not found; generating SIS samples "
+                "from the map", li.sis_file)
+    return env.prepare(li.ibl_sampler or "cosweight")
 
 
 def build_light_tables(desc, scene=None, device="cpu") -> LightTables:
     """SceneDescription.lights -> LightTables, an area light's sampling
-    tables on `device`.
+    tables and an environment light's map on `device`.
 
     When no light exists, a default dome light is created — matching the
     reference's fallback (render.c:516-536, "There is no light. create
@@ -123,7 +145,7 @@ def build_light_tables(desc, scene=None, device="cpu") -> LightTables:
                 tris=tris,
                 ibl_sampler=li.ibl_sampler,
                 sunsky=li.sunsky,
-                env=_load_env(li, desc),
+                env=_load_env(li, desc, device),
                 area=area,
             )
         )

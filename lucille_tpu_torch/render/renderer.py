@@ -28,18 +28,28 @@ single device:
   paths into one atlas on the render device (`_load_textures`,
   lucille_tpu/render/renderer.py:594-630); a missing or unreadable file
   is logged and ignored;
-- with a `checkpoint` path, the frame's image and tile-done bitmap are
-  written atomically after each pulled tile, in lucille_tpu's file layout
-  (npz keys image, done, meta = [W, H, tile_w, tile_h, xsamples,
-  ysamples, ntiles] and alpha, all zero here: the port has no imager),
-  and removed when the frame completes; `recover` resumes from a
-  matching file, enqueuing only the tiles it lacks and replaying the
-  others to the callbacks (lucille_tpu/render/renderer.py:548-608,
-  724-768).  The saves are host work after a tile's pull.
+- the shading pipeline (shading/pipeline.py) in lucille_tpu's order:
+  the displacement shaders move the vertices before the compile
+  (lucille_tpu/render/renderer.py:199-201); the frame's atmosphere, the
+  first geometry's that binds one (:218-236), fogs each tile's radiance
+  before the pixel filter by the eye rays' lengths, where the integrator
+  reports their t (:106-121), its constants built once per Renderer;
+  with an imager each tile also returns its alpha, the fraction of its
+  subsamples that hit (:145-149), and the imager runs over the assembled
+  frame after the last pull (:566-577);
+- with a `checkpoint` path, the frame's image, alpha and tile-done
+  bitmap are written atomically after each pulled tile, in lucille_tpu's
+  file layout (npz keys image, done, meta = [W, H, tile_w, tile_h,
+  xsamples, ysamples, ntiles] and alpha), and removed when the frame
+  completes; `recover` resumes from a matching file, enqueuing only the
+  tiles it lacks and replaying the others to the callbacks
+  (lucille_tpu/render/renderer.py:548-608, 724-768).  The saves are host
+  work after a tile's pull.
 
 Scenes that need what the port does not have yet raise
-NotImplementedError: displacement, atmosphere, imager, a light with an
-environment texture, the shader method.
+NotImplementedError: a displacement, atmosphere or imager shader whose
+.sl source is on the search path (the RSL compiler, ROADMAP Queue 1,
+item 6), the shader method.
 """
 
 from __future__ import annotations
@@ -64,26 +74,16 @@ from lucille_tpu_torch.ri.camera import generate_rays
 from lucille_tpu_torch.sampling.hammersley import subpixel_samples
 from lucille_tpu_torch.sampling.jitter import TileSampler
 from lucille_tpu_torch.scene.compile import compile_scene
+from lucille_tpu_torch.shading.pipeline import (
+    Atmosphere,
+    apply_imager,
+    displace_scene,
+    sl_stages,
+)
 from lucille_tpu_torch.texture.texture import TextureAtlas
 from lucille_tpu_torch.transport.dispatch import get_integrator
 
 LENS_FOLD = 0x10EF  # the lens samples' stream path (lucille_tpu's fold_in)
-
-
-def unsupported_features(desc) -> list[str]:
-    """What in the scene the port cannot render yet (empty if nothing)."""
-    out = []
-    for g in desc.geoms:
-        a = g.attrs
-        if a.displacement:
-            out.append(f"displacement shader {a.displacement!r}")
-        if a.atmosphere:
-            out.append(f"atmosphere shader {a.atmosphere!r}")
-    if desc.options.imager:
-        out.append(f"imager {desc.options.imager!r}")
-    out += [f"{li.type} light texture {li.texture!r}" for li in desc.lights
-            if li.type in ("dome", "ibl") and li.texture]
-    return sorted(set(out))
 
 
 def tile_eye_rays(camera, x0: int, y0: int, tile_w: int, tile_h: int,
@@ -109,28 +109,37 @@ class Renderer:
 
     def __init__(self, desc, tile_size: int = 64, device="cuda",
                  sampler: Optional[Callable] = None, seed: int = 0):
-        missing = unsupported_features(desc)
+        missing = sl_stages(desc)  # what the port cannot render yet
         if missing:
             raise NotImplementedError(
-                "not ported yet (ROADMAP Queue 1): " + ", ".join(missing)
-            )
+                "not ported yet: " + ", ".join(missing) + " (the RSL "
+                "compiler, ROADMAP Queue 1, item 6)")
         self.desc = desc
         self.tile_size = int(tile_size)
         self.device = resolve_device(device)
         self.integrator = get_integrator(desc.options.render_method)
         timer = get_timer()
         timer.start("Scene compile")
+        displace_scene(desc)  # the bound displacement shaders
         self.textures, texture_ids = _load_textures(desc, self.device)
         self.scene = compile_scene(desc, self.device, texture_ids=texture_ids)
         timer.end("Scene compile")
         self.camera = desc.camera
         self.lights = build_light_tables(desc, device=self.device)
+        # the frame's atmosphere: the first bound volume shader (the
+        # MOSAIC/Blender export binds one global fog)
+        g = next((g for g in desc.geoms if g.attrs.atmosphere), None)
+        self.atmosphere = None if g is None else Atmosphere(
+            g.attrs.atmosphere, g.attrs.atmosphere_params,
+            desc.options.searchpaths, self.device)
         self.sampler = sampler or TileSampler(seed, self.device)
         self.stats = RenderStats()
 
     def _tile(self, x0, y0, tile_w, tile_h, jitter, weights):
-        """One full-size tile -> ((tile_h, tile_w, 3) image, counters
-        [ntests, ntrav, nrays] i64), both still on the device."""
+        """One full-size tile -> ((tile_h, tile_w, 3) image, with an imager
+        (tile_h, tile_w, 4): its alpha rides as a fourth channel, so one
+        copy pulls both; counters [ntests, ntrav, nrays] i64), both still
+        on the device."""
         S = jitter.shape[0]
         dev = self.device
         opt = self.desc.options
@@ -146,6 +155,12 @@ class Renderer:
             max_depth=opt.max_ray_depth, bgcolor=tuple(opt.bgcolor),
             textures=self.textures,
         )
+        if self.atmosphere is not None and aux.get("t") is not None:
+            hit = aux["hit"]
+            t = torch.where(hit, aux["t"], 0.0)
+            ray_len = t * torch.linalg.vector_norm(dirn, dim=-1)
+            radiance = self.atmosphere(radiance, ray_len,
+                                       org + t[:, None] * dirn, hit, dirn)
         r = radiance.reshape(tile_h, tile_w, S, 3)
         img = torch.sum(r * weights[None, None, :, None], dim=2)
         # a missing counter is filled on the device: copying a host 0 there
@@ -156,6 +171,10 @@ class Renderer:
                             device=dev)
             for k in ("ntests", "ntrav", "nrays")
         ])
+        if opt.imager:  # the imager's coverage
+            alpha = aux["hit"].reshape(tile_h, tile_w, S).to(
+                torch.float32).mean(dim=2)
+            img = torch.cat([img, alpha[..., None]], dim=-1)
         return img, counters
 
     def render_frame(self, tile_cb: Optional[Callable] = None,
@@ -197,12 +216,13 @@ class Renderer:
             ]
 
         image = np.zeros((H, W, 3), dtype=np.float32)
-        alpha = np.zeros((H, W), dtype=np.float32)  # lucille_tpu's layout
+        alpha = np.zeros((H, W), dtype=np.float32)  # the imager's coverage
         meta = np.asarray([W, H, tile_w, tile_h, xsamples, ysamples,
                            len(tiles)], dtype=np.int64)
         done = np.zeros(len(tiles), dtype=bool)
         if checkpoint and recover:
-            image, done = _recover(checkpoint, meta, image, done)
+            image, alpha, done = _recover(checkpoint, meta, image, alpha,
+                                          done)
 
         def save_checkpoint():
             tmp = checkpoint + ".tmp.npz"
@@ -231,14 +251,20 @@ class Renderer:
             img, counters = pending[ti]
             tile_np = img.cpu().numpy()
             totals += counters.cpu().numpy()
+            tile_alpha = None
+            if tile_np.shape[-1] == 4:  # the imager's alpha channel
+                tile_np, tile_alpha = tile_np[..., :3], tile_np[..., 3]
             if cropped:
                 wy0, wy1 = max(y0, crop_py0), min(y0 + th, crop_py1)
                 wx0, wx1 = max(x0, crop_px0), min(x0 + tw, crop_px1)
-                image[wy0:wy1, wx0:wx1] = tile_np[
-                    wy0 - y0 : wy1 - y0, wx0 - x0 : wx1 - x0
-                ]
+                window = (slice(wy0 - y0, wy1 - y0), slice(wx0 - x0, wx1 - x0))
+                image[wy0:wy1, wx0:wx1] = tile_np[window]
+                if tile_alpha is not None:
+                    alpha[wy0:wy1, wx0:wx1] = tile_alpha[window]
             else:
                 image[y0 : y0 + th, x0 : x0 + tw] = tile_np[:th, :tw]
+                if tile_alpha is not None:
+                    alpha[y0 : y0 + th, x0 : x0 + tw] = tile_alpha[:th, :tw]
             done[ti] = True
             if checkpoint:
                 save_checkpoint()
@@ -248,6 +274,13 @@ class Renderer:
                 progress_cb((ti + 1) / len(tiles))
         if checkpoint and os.path.exists(checkpoint):
             os.remove(checkpoint)  # the frame is complete
+        if opt.imager:  # the film post-pass over the assembled frame
+            timer.start("Imager")
+            image = np.asarray(apply_imager(image, alpha, opt.imager,
+                                            opt.imager_params,
+                                            opt.searchpaths),
+                               dtype=np.float32)
+            timer.end("Imager")
         self.stats.render_seconds += timer.end("Render frame")
         self.stats.add(nrays=int(totals[2]), ntriangle_tests=int(totals[0]),
                        ntraversals=int(totals[1]))
@@ -256,26 +289,29 @@ class Renderer:
         return image
 
 
-def _recover(checkpoint: str, meta, image, done):
-    """(image, done) from a checkpoint file that matches the frame's meta;
-    the given ones, with a warning, when the file is absent, does not
-    match or cannot be read."""
+def _recover(checkpoint: str, meta, image, alpha, done):
+    """(image, alpha, done) from a checkpoint file that matches the
+    frame's meta (alpha as given where the file has none); the given
+    ones, with a warning, when the file is absent, does not match or
+    cannot be read."""
     if not os.path.exists(checkpoint):
-        return image, done
+        return image, alpha, done
     try:
         with np.load(checkpoint) as data:
             if not np.array_equal(data["meta"], meta):
                 log(LOG_WARN, "checkpoint %s does not match this frame; "
                     "ignoring", checkpoint)
-                return image, done
-            image = np.asarray(data["image"], dtype=np.float32)
-            done = np.asarray(data["done"], dtype=bool)
+                return image, alpha, done
+            got_image = np.asarray(data["image"], dtype=np.float32)
+            got_done = np.asarray(data["done"], dtype=bool)
+            if "alpha" in data:
+                alpha = np.asarray(data["alpha"], dtype=np.float32)
     except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile) as e:
         log(LOG_WARN, "cannot read checkpoint %s: %s", checkpoint, e)
-        return image, done
-    log(LOG_INFO, "recovered %d/%d finished tiles from %s", int(done.sum()),
-        len(done), checkpoint)
-    return image, done
+        return image, alpha, done
+    log(LOG_INFO, "recovered %d/%d finished tiles from %s",
+        int(got_done.sum()), len(got_done), checkpoint)
+    return got_image, alpha, got_done
 
 
 def _load_textures(desc, device):

@@ -11,8 +11,8 @@ the port's RiState and Renderer, with these changes: the shell renders
 on an explicit device (`Shell(device="cuda")`, the default, or "cpu");
 `accel` takes what the port's compile takes (auto, pallas, bvh) and
 prints the compile's refusal for the rest; a refusal of what the port
-does not have yet (the shader method, the socket display) is printed,
-and the shell goes on.
+does not have yet (the shader method) is printed, and the shell goes
+on.
 """
 
 from __future__ import annotations

@@ -10,7 +10,9 @@ Counterpart of lucille_tpu/transport/common.py:
 - `face_forward` flips a normal against the incoming ray;
 - `background_radiance` is what an escaped ray sees: the option's
   bgcolor plus the sky of a sunsky light (lights/sunsky.sky_rgb in the
-  sky's z-up frame) and the colour of a constant dome;
+  sky's z-up frame), the colour of a constant dome, and a dome or IBL
+  light's environment map along the ray (lights/envmap.EnvMap.fetch)
+  times its colour;
 - `apply_texture` modulates an albedo by the material's texture at the
   hit's st (texture.c ri_texture_fetch path): the renderer's texture
   atlas (texture/texture.py), the geometry's `mat_texture` id, -1 for
@@ -89,16 +91,17 @@ def face_forward(N: torch.Tensor, dirn: torch.Tensor) -> torch.Tensor:
 def background_radiance(lights, dirn: torch.Tensor,
                         bgcolor=(0.0, 0.0, 0.0)) -> torch.Tensor:
     """Environment radiance (B, 3) along escaped directions dirn (B, 3):
-    bgcolor, plus each sunsky light's sky and each constant dome's
-    colour x intensity (a dome or IBL light with an environment texture
-    is refused before rendering)."""
+    bgcolor, plus each sunsky light's sky, and each dome or IBL light's
+    colour x intensity, times its environment map along dirn where it has
+    one (pathtrace.c's IBL gather; texture.c:238)."""
     out = const_vec(bgcolor, dirn.device).expand(dirn.shape)
     for light in lights or ():
         if light.type == "sunsky" and light.sunsky is not None:
             out = out + light.sunsky.sky_rgb(sky_frame(dirn))
         elif light.type in ("dome", "ibl"):
+            col = const_vec(light.color, dirn.device) * light.intensity
             if light.env is not None:
-                raise NotImplementedError(
-                    "environment maps are not ported (ROADMAP Queue 1)")
-            out = out + const_vec(light.color, dirn.device) * light.intensity
+                out = out + light.env.fetch(dirn) * col[None, :]
+            else:
+                out = out + col
     return out

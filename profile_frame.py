@@ -20,7 +20,12 @@ depth of field and textures: bundled-dirtmap (the headline settings
 without the sunsky line, dense), heightfield256-dirtmap (tile BVH),
 bundled-dof (the headline AO frame under chip_smoke.DOF_LINE) and
 textured-ao (chip_smoke.textured_state's checker quad at 640x480, 3x3,
-64 rays).
+64 rays); and environment lighting and the shading pipeline:
+bundled-ibl-whitted (the headline settings as Whitted under
+chip_smoke's 2048x1024 lat-long sky, cosweight), heightfield256-ibl-
+whitted (the n = 256 terrain's frame under the sky, importance) and
+bundled-pipeline (headline-ao with miefog, the background imager and
+MOSAICdisplace).
 
 Per cell it prints the warm frame's seconds without the profiler (best
 of N, default 2, and every sample), the profiled frame's wall time
@@ -84,6 +89,13 @@ CELLS = {
     "bundled-dof": (lambda: cs.bundled_state(640, 480, 3, 64, sunsky=False,
                                              dof=True), cs.TILE, "cone"),
     "textured-ao": (lambda: cs.textured_state(640, 480), cs.TILE, "cone"),
+    "bundled-ibl-whitted": (lambda: cs.ibl_bundled(640, 480, pixelsamples=3),
+                            cs.TILE, "cone"),
+    "heightfield256-ibl-whitted": (lambda: cs.heightfield_state(
+        256, light=cs.ibl_line("importance"), method="whitted"), 128, "cone"),
+    "bundled-pipeline": (lambda: cs.bundled_state(
+        640, 480, 3, 64, sunsky=False, head=cs.PIPELINE_IMAGER,
+        world=cs.pipeline_world()), cs.TILE, "cone"),
 }
 
 

@@ -154,3 +154,42 @@ def test_checkpoint_layout_matches_jax(tmp_path):
     assert got["image"].dtype == ref["image"].dtype
     # the done tiles hold the frame, the others are still black
     assert (got["image"] > 0).any()
+
+
+def _imager_renderer(pkg="torch"):
+    """The checkpoint frame under the background imager: the tiles carry
+    their alpha (subsample coverage) into the checkpoint."""
+    s = _state(pkg)
+    s.Imager("background", {"bgcolor": [0.1, 0.2, 0.9]})
+    if pkg == "jax":
+        from lucille_tpu.render.renderer import Renderer
+
+        return Renderer(s.scene, tile_size=16)
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    return Renderer(s.scene, tile_size=16, device="cpu")
+
+
+def test_imager_frame_recovers_with_its_alpha(tmp_path):
+    """An imager frame stopped after 3 tiles and recovered equals the
+    uninterrupted frame exactly: the checkpoint holds the done tiles'
+    real alpha (as lucille_tpu's does for the same tiles) and --recover
+    restores it, so the imager sees every tile's coverage."""
+    full = _imager_renderer().render_frame()
+    files = {}
+    for pkg in ("jax", "torch"):
+        ckpt = str(tmp_path / f"{pkg}.ckpt.npz")
+        _interrupt(_imager_renderer(pkg), ckpt, after=3)
+        with np.load(ckpt) as data:
+            files[pkg] = {k: data[k].copy() for k in data.files}
+    got, ref = files["torch"], files["jax"]
+    np.testing.assert_array_equal(got["done"], ref["done"])
+    np.testing.assert_array_equal(got["alpha"], ref["alpha"])
+    assert 0 < got["alpha"].max() <= 1 and (got["alpha"] < 1).any()
+    assert got["alpha"][got["image"].sum(-1) == 0].max() == 0
+    r = _imager_renderer()
+    img = r.render_frame(checkpoint=str(tmp_path / "torch.ckpt.npz"),
+                         recover=True)
+    np.testing.assert_array_equal(img, full)
+    blue = (full == np.float32([0.1, 0.2, 0.9])).all(-1)
+    assert 0.05 < blue.mean() < 0.95  # the imager's colour where all missed

@@ -199,7 +199,7 @@ def test_shell_refusals(line, refusal, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--method", "shader"], ["--display", "socket"], ["--mesh", "4"],
+    ["--method", "shader"], ["--num-processes", "2"], ["--mesh", "4"],
     ["--process-id", "1"], ["--accel", "grid"]])
 def test_refusals_name_the_roadmap(argv, capsys):
     from lucille_tpu_torch.cli import main

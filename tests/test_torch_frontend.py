@@ -164,13 +164,15 @@ def _imports(path):
 
 def test_port_imports_nothing_of_the_jax_package():
     """No module under lucille_tpu_torch/, nor chip_smoke.py or
-    profile_frame.py, imports jax, lucille_tpu or bench_large, at any
-    depth of the file (function-level imports included)."""
+    profile_frame.py, imports jax, lucille_tpu, tools_tpu (whose modules
+    import lucille_tpu) or bench_large, at any depth of the file
+    (function-level imports included)."""
     files = sorted((REPO / "lucille_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "profile_frame.py"]
     assert len(files) > 40
     bad = [(str(p.relative_to(REPO)), m) for p in files for m in _imports(p)
-           if m in ("jax", "jaxlib", "lucille_tpu", "bench_large")]
+           if m in ("jax", "jaxlib", "lucille_tpu", "tools_tpu",
+                    "bench_large")]
     assert not bad, bad
 
 
@@ -195,36 +197,60 @@ def test_port_logs_under_its_own_name():
 
 @pytest.mark.parametrize("what", ["socket", "socket-display-line",
                                   "socket-shell", "socket-cli-flag"])
-def test_unported_image_formats_and_drivers_raise(what, tmp_path, capsys):
-    """The port has no copy of lucille_tpu's socket driver: every way to
-    reach it refuses, never a fallback that writes something else (the
-    .tex and .exr codecs and the OpenEXR driver are ported now:
+def test_unported_image_formats_and_drivers_raise(what, tmp_path, capsys,
+                                                  monkeypatch):
+    """No image format or display driver is left unported: the socket
+    driver, the last one refused, is the port's own copy now
+    (display/sockdrv.py), and every way to reach it (the registry, a
+    Display line, the shell, --display socket) streams the frame to the
+    viewer on LUCILLE_SOCKET_PORT, never a refusal or a fallback that
+    writes a file (the .tex and .exr codecs and the OpenEXR driver:
     tests/test_torch_texture.py)."""
+    from chip_smoke import SocketListener
     from lucille_tpu_torch.cli import main
     from lucille_tpu_torch.display.drivers import get_display_driver
+    from lucille_tpu_torch.display.sockdrv import SocketDriver
     from lucille_tpu_torch.shell import Shell
 
+    lis = SocketListener()
+    monkeypatch.setenv("LUCILLE_SOCKET_PORT", str(lis.port))
+    monkeypatch.setenv("LUCILLE_NO_SPAWN_VIEWER", "1")
     rib = tmp_path / "s.rib"
-    rib.write_text('Display "s.hdr" "socket" "rgb"\nWorldBegin\nWorldEnd\n')
-    if what == "socket-cli-flag":
-        with pytest.raises(SystemExit):
-            main([str(rib), "--device", "cpu", "--display", "socket"])
-        assert "not ported" in capsys.readouterr().err
+    rib.write_text('Display "s.hdr" "socket" "rgb"\nFormat 8 6 1\n'
+                   'PixelSamples 1 1\nWorldBegin\nWorldEnd\n')
+    if what == "socket":
+        drv = get_display_driver(what)
+        assert isinstance(drv, SocketDriver)
+        assert drv.open("s.hdr", 8, 6)
+        drv.write(0, 0, np.ones((6, 8, 3), np.float32))
+        drv.close()
     elif what == "socket-shell":
         sh = Shell(device="cpu")
         assert sh.one(f"file {rib}") and sh.one("render")
-        assert "not ported" in capsys.readouterr().out
+        assert "not ported" not in capsys.readouterr().out
     else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            if what == "socket":
-                get_display_driver(what)
-            else:
-                main([str(rib), "--device", "cpu"])
+        argv = ["--display", "socket"] if what == "socket-cli-flag" else []
+        assert main([str(rib), "--device", "cpu", "--tile", "8", *argv]) == 0
+    lis.join()
+    assert lis.finished and lis.frame.shape == (6, 8, 3)
+    if what == "socket":
+        assert (lis.frame == 1).all()
     assert not (tmp_path / "s.hdr").exists()
 
 
-def test_framebuffer_falls_back_to_the_file_driver(tmp_path):
+def test_framebuffer_falls_back_to_the_file_driver(tmp_path, monkeypatch):
+    """No viewer listens and none may be spawned: the framebuffer route
+    falls back to the file driver (tests/test_torch_sockdrv.py holds the
+    route to a viewer)."""
+    import socket
+
     from lucille_tpu_torch.display.drivers import get_display_driver
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    monkeypatch.setenv("LUCILLE_SOCKET_PORT", str(s.getsockname()[1]))
+    s.close()
+    monkeypatch.setenv("LUCILLE_NO_SPAWN_VIEWER", "1")
     from lucille_tpu_torch.imageio.rgbe import read_hdr
 
     drv = get_display_driver("framebuffer")

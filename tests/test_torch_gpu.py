@@ -1128,3 +1128,148 @@ def test_integrator_frame_matches_plain(method, accel, mode, monkeypatch):
     assert abs(rg.stats.nrays - rc.stats.nrays) <= 1e-3 * rc.stats.nrays
     assert 0.1 < ref.mean() <= 1.0
     assert (np.abs(got - ref) > 1e-3).mean() <= 0.01
+
+
+def _ibl_renderers(sampler, accel):
+    """The bundled scene under an environment light on chip_smoke's
+    sky (its 256x128 version, written here), as Whitted, on the card
+    (dense tiles or the tile BVH)."""
+    import chip_smoke as cs
+
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    s = cs.bundled_state(48, 32, 2, light=cs.ibl_line(sampler),
+                         method="whitted")
+    s.options.accel_method = accel
+    return Renderer(s.scene, tile_size=16, device="cuda")
+
+
+@pytest.fixture
+def small_sky(monkeypatch):
+    """chip_smoke's environment maps at a test's size."""
+    _need_card()
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "SKY", (256, 128))
+    monkeypatch.setattr(cs, "PROBE", 96)
+    cs.env_dir.cache_clear()
+    yield cs
+    cs.env_dir.cache_clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["importance", "structured"])
+@pytest.mark.parametrize("accel", ["pallas", "bvh"])
+def test_any_hit_kernels_on_environment_shadow_rays(accel, sampler,
+                                                    small_sky):
+    """Kernel 2 (dense) and kernel 5 (tile BVH) on the first bounce's
+    importance-sampled and structured shadow rays (chip_smoke.
+    env_shadow_rays: directions bunched toward the sky's sun), against
+    their twins: answers equal on all but 1e-3 of the live rays, dead
+    rays report no occlusion."""
+    _need_card()
+    from lucille_tpu_torch.accel import bvh_isect, isect
+
+    r = _ibl_renderers(sampler, accel)
+    P_off, wi, live = small_sky.env_shadow_rays(r, sampler)
+    scene, R = r.scene, P_off.shape[0]
+    inf = torch.full((R,), float("inf"), device="cuda")
+    if accel == "pallas":
+        got = isect.any_hit(scene, P_off, wi, None, live)["occ"]
+        ref = isect.any_hit_reference(scene.tris, P_off, wi, inf,
+                                      live)["occ"]
+        assert not torch.any(got[~live])
+    else:
+        got = bvh_isect.bvh_any_hit(scene.tris, scene.nodes, P_off, wi,
+                                    depth=scene.tree_depth,
+                                    leaf_real=scene.leaf_real)["occ"]
+        ref = bvh_isect.bvh_any_hit_reference(scene.tris, P_off, wi,
+                                              inf)["occ"]
+    occ = ref[live].float().mean().item()
+    assert 0.001 < occ < 0.999
+    assert (got[live] != ref[live]).float().mean().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mapping", [((64, 128), None), ((96, 96), None),
+                                           ((64, 128), "angular")])
+def test_env_fetch_on_the_card_matches_the_cpu(shape, mapping):
+    """EnvMap.fetch on the card against the CPU on random directions and
+    the lat-long seam: within 1e-5 of max(|value|, 1) on all but 1% of
+    the lanes (f32 arccos / arctan2 may differ by an ulp and move a seam
+    or rim direction one texel over)."""
+    _need_card()
+    from lucille_tpu_torch.lights.envmap import EnvMap
+
+    rng = np.random.default_rng(2)
+    img = rng.uniform(0.0, 3.0, shape + (3,)).astype(np.float32)
+    v = rng.normal(size=(8192, 3))
+    v[:64] = np.stack([-np.ones(64), rng.uniform(-0.9, 0.9, 64),
+                       rng.choice([-1e-7, 0.0, 1e-7], 64)], axis=-1)
+    d = torch.nn.functional.normalize(torch.tensor(v, dtype=torch.float32),
+                                      dim=-1)
+    got = EnvMap(img, mapping, device="cuda").fetch(d.cuda()).cpu().numpy()
+    ref = EnvMap(img, mapping).fetch(d).numpy()
+    err = np.abs(got - ref).max(-1) / np.maximum(np.abs(ref).max(-1), 1.0)
+    assert (err <= 1e-5).mean() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,params", [
+    ("fog", {"distance": [5.0], "background": [0.2, 0.3, 0.5]}),
+    ("depthcue", {"mindistance": [2.0], "maxdistance": [9.0]}),
+    ("MOSAICfog", {"isMist": [1], "Sta": [1.0], "Di": [12.0], "Hi": [2.0],
+                   "MistCol": [0.5, 0.5, 0.6]}),
+    ("miefog", {"density": [0.1], "sundir": [0.3, 1.0, 0.2]})])
+def test_atmosphere_on_the_card_matches_the_cpu(name, params):
+    """Each built-in atmosphere on the card against the CPU: within 1e-5
+    of max(|value|, 1) (miefog: on all but 1% of the lanes, and within
+    1e-4 on all: the card's f32 arccos may differ from the CPU's by an
+    ulp, which moves the lerp in the phase table's steep forward peak);
+    escaped rays keep their radiance exactly."""
+    _need_card()
+    from lucille_tpu_torch.shading.pipeline import Atmosphere
+
+    rng = np.random.default_rng(3)
+    B = 4096
+    args = [rng.uniform(0, 2, (B, 3)), rng.uniform(0, 20, B),
+            rng.uniform(-3, 3, (B, 3)), rng.uniform(size=B) < 0.7,
+            rng.normal(size=(B, 3))]
+    args = [torch.tensor(a, dtype=torch.bool if a.dtype == bool
+                         else torch.float32) for a in args]
+    ref = Atmosphere(name, params)(*args).numpy()
+    got = Atmosphere(name, params, device="cuda")(
+        *(a.cuda() for a in args)).cpu().numpy()
+    err = (np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)).max(-1)
+    if name == "miefog":
+        assert (err <= 1e-5).mean() >= 0.99 and err.max() <= 1e-4
+    else:
+        assert err.max() <= 1e-5
+    hit = args[3].numpy()
+    np.testing.assert_array_equal(got[~hit], args[0].numpy()[~hit])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["cosweight", "importance",
+                                     "stratified", "structured"])
+def test_ibl_frame_matches_plain(sampler, small_sky):
+    """A 48x32 Whitted frame of the bundled scene under the sky (depth 2)
+    on the card and on the CPU's twins, one numpy stream fed to both:
+    equal ray counts, pixels within 1e-3 of max(|value|, 1) on all but
+    1%."""
+    _need_card()
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.sampling.jitter import HostSampler
+
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        s = small_sky.bundled_state(48, 32, 2, light=small_sky.ibl_line(
+            sampler), method="whitted")
+        s.options.max_ray_depth = 2
+        r = Renderer(s.scene, tile_size=16, device=dev,
+                     sampler=HostSampler(0, dev))
+        frames[dev] = (r.render_frame(), r.stats.nrays)
+    (got, n_got), (ref, n_ref) = frames["cuda"], frames["cpu"]
+    assert n_got == n_ref and ref.mean() > 0.05
+    rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)
+    assert (rel > 1e-3).mean() <= 0.01

@@ -14,20 +14,21 @@ import torch
 from test_torch_scene import one_torch_thread  # noqa: F401
 from test_torch_scene import REPO, bundled_rib_text, bundled_state
 
-# jax, lucille_tpu and bench_large blocked before the port is imported;
+# jax, lucille_tpu, tools_tpu and bench_large blocked before the port is
+# imported;
 # if a startup hook preloaded one anyway, hold the modules the port's
 # import added to the same rule
 _SCRIPT = textwrap.dedent("""
     import sys
     before = {k for k, v in sys.modules.items() if v is not None}
-    for blocked in ("jax", "lucille_tpu", "bench_large"):
+    for blocked in ("jax", "lucille_tpu", "tools_tpu", "bench_large"):
         if blocked not in before:
             sys.modules[blocked] = None
     from lucille_tpu_torch.cli import main
     rc = main(sys.argv[1:])
     added = {k for k, v in sys.modules.items() if v is not None} - before
     bad = sorted(k for k in added if k.split(".")[0] in (
-        "jax", "lucille_tpu", "bench_large"))
+        "jax", "lucille_tpu", "tools_tpu", "bench_large"))
     assert not bad, bad
     import json
     from lucille_tpu_torch.accel import ao, bvh_ao, bvh_isect, isect
@@ -42,9 +43,9 @@ _SCRIPT = textwrap.dedent("""
 
 
 def _render_without_jax(tmp_path, rib_text, *argv, max_mean=1.0, env=None):
-    """The CLI in a fresh interpreter where neither jax nor lucille_tpu
-    can be imported: (the image, {wrapper: (kernel launches, plain twin
-    calls)}); the image's mean lies in (0, max_mean]."""
+    """The CLI in a fresh interpreter where neither jax, lucille_tpu nor
+    tools_tpu can be imported: (the image, {wrapper: (kernel launches,
+    plain twin calls)}); the image's mean lies in (0, max_mean]."""
     from lucille_tpu.imageio.rgbe import read_hdr
 
     rib = tmp_path / "scene.rib"
@@ -188,12 +189,61 @@ def test_port_scan_covers_this_slices_modules():
             "lucille_tpu_torch/transport/dirtmap.py"} <= files
 
 
+@pytest.mark.parametrize("accel", [[], ["--accel", "bvh"]])
+def test_cli_renders_an_ibl_scene_without_jax(tmp_path, accel):
+    """A Whitted frame of the bundled scene under an importance-sampled
+    IBL light (its map written by the port's codec, its table built on
+    the device): the closest hit and the shadow rays' any-hit twins, on
+    the dense tiles or the tile BVH, with jax, lucille_tpu and tools_tpu
+    blocked."""
+    from lucille_tpu_torch.imageio.rgbe import write_hdr
+
+    img = np.full((8, 16, 3), 0.5, np.float32)
+    img[2, 5] = 400.0
+    write_hdr(tmp_path / "sky.hdr", img)
+    rib = bundled_rib_text().replace(
+        "WorldBegin\n", 'WorldBegin\nLightSource "ibl" 1 "texture" '
+        f'["{tmp_path / "sky.hdr"}"] "sampling" ["importance"]\n', 1)
+    out, counts = _render_without_jax(tmp_path, rib, "--method", "whitted",
+                                      "--maxraydepth", "2", *accel,
+                                      max_mean=1e3)
+    assert all(k == 0 for k, _p in counts.values())
+    used = {name for name, (_k, p) in counts.items() if p}
+    assert used == ({"bvh_closest_hit", "bvh_any_hit"} if accel else
+                    {"closest_hit", "any_hit"})
+
+
+def test_cli_renders_fog_and_an_imager_without_jax(tmp_path):
+    """AO under fog with the background imager, with jax, lucille_tpu and
+    tools_tpu blocked: the escaped pixels carry the imager's colour."""
+    rib = bundled_rib_text().replace(
+        "WorldBegin\n", 'Imager "background" "bgcolor" [0 0.5 0]\n'
+        'WorldBegin\nAtmosphere "fog" "distance" [20.0]\n', 1)
+    img, counts = _render_without_jax(tmp_path, rib)
+    assert all(k == 0 for k, _p in counts.values())
+    assert {n for n, (_k, p) in counts.items() if p} == {
+        "closest_hit", "ao_occlusion"}
+    assert ((img == np.float32([0, 0.5, 0])).all(-1)).mean() > 0.05
+
+
+def test_port_scan_covers_the_environment_and_pipeline_modules():
+    """test_torch_frontend's AST scan walks every module of the package:
+    the environment maps, samplers, SIS, pipeline, Mie, noise and socket
+    display modules are among them."""
+    files = {p.relative_to(REPO).as_posix()
+             for p in (REPO / "lucille_tpu_torch").rglob("*.py")}
+    assert {f"lucille_tpu_torch/{m}.py" for m in (
+        "lights/envmap", "lights/ibl", "lights/sisgen", "shading/pipeline",
+        "ops/mie", "ops/noise", "display/sockdrv")} <= files
+
+
 @pytest.mark.parametrize("argv", [["--mesh", "4"], ["--method", "shader"],
-                                  ["--display", "socket"], ["--accel", "grid"],
+                                  ["--num-processes", "2"], ["--accel", "grid"],
                                   ["--coordinator", "localhost:1234"]])
 def test_cli_refuses_unported_flags(argv, capsys):
     """What the port does not have yet (--recover and --method dirtmap
-    are ported now: tests/test_torch_cli.py)."""
+    are ported now: tests/test_torch_cli.py; --display socket too:
+    tests/test_torch_sockdrv.py)."""
     from lucille_tpu_torch.cli import main
 
     with pytest.raises(SystemExit) as e:

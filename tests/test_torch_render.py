@@ -215,17 +215,20 @@ def test_tiles_reach_callbacks_in_spiral_order():
     assert all(shape == (16, 16, 3) for _x, _y, shape in seen)
 
 
-@pytest.mark.parametrize("what", ["sunsky", "texture", "method", "ibl"])
-def test_unported_features_raise(what):
-    """Each feature still to port is refused; ibl: a dome light with an
-    environment texture; texture: an "ibl" light's texture (a material
-    texture renders since its port, tests/test_torch_texture.py); method:
-    the shader method (dirtmap renders since its port,
-    tests/test_torch_dirtmap.py).  sunsky: sunsky AO on the dense tiles
-    above 131,072 triangles (the 257^2-quad terrain has 132,098), refused
-    until the port scanned the strata as lucille_tpu does there, now
-    builds (tests/test_torch_scan.py holds the scan against
-    lucille_tpu)."""
+@pytest.mark.parametrize("what", ["sunsky", "texture", "method", "ibl",
+                                  "sl-stage"])
+def test_unported_features_raise(what, tmp_path):
+    """Each feature still to port is refused: method, the shader method
+    (dirtmap renders since its port, tests/test_torch_dirtmap.py);
+    sl-stage, an atmosphere shader whose .sl is on the search path (the
+    RSL compiler, ROADMAP Queue 1 item 6).  Refused once, now built:
+    ibl, a dome light with an environment texture, and texture, an "ibl"
+    light's texture (environment maps are ported,
+    tests/test_torch_envmap.py; a map not found leaves the light its flat
+    colour, as in lucille_tpu); sunsky, sunsky AO on the dense tiles above
+    131,072 triangles (the 257^2-quad terrain has 132,098), refused until
+    the port scanned the strata as lucille_tpu does there
+    (tests/test_torch_scan.py holds the scan against lucille_tpu)."""
     from lucille_tpu_torch.accel.ao import MAX_TRIS_FOR_MEGAKERNEL
     from lucille_tpu_torch.render.renderer import Renderer
     from lucille_tpu_torch.ri.types import LightDesc
@@ -240,10 +243,17 @@ def test_unported_features_raise(what):
         assert r.scene.tri_v0.shape[0] > MAX_TRIS_FOR_MEGAKERNEL
         assert any(li.type == "sunsky" for li in r.lights)
         return
-    if what == "ibl":
-        desc.lights.append(LightDesc(type="dome", texture="sky.hdr"))
-    elif what == "texture":
-        desc.lights.append(LightDesc(type="ibl", texture="probe.exr"))
+    if what in ("ibl", "texture"):
+        kind, name = ("dome", "sky.hdr") if what == "ibl" else ("ibl",
+                                                                 "probe.exr")
+        desc.lights.append(LightDesc(type=kind, texture=name))
+        light = Renderer(desc, device="cpu").lights.lights[-1]
+        assert light.type == kind and light.env is None
+        return
+    if what == "sl-stage":
+        (tmp_path / "myfog.sl").write_text("volume myfog() { }\n")
+        desc.options.searchpaths = [str(tmp_path)]
+        desc.geoms[0].attrs.atmosphere = "myfog"
     else:  # the method still to port
         desc.options.render_method = "shader"
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -18,7 +18,10 @@ Tolerances:
   test_torch_sunsky.py holds it);
 - light_contribution: hit lanes within 1e-5 of max(|value|, 1), except
   on at most 1% of them, where a shadow ray grazing an edge or an AO
-  stratum can flip (the FMA contraction again);
+  stratum can flip (the FMA contraction again); the same for a dome or
+  IBL light with an environment map under each of its five samplers
+  (`ibl_map_dir`'s 10x5 map, 50 texels, so bruteforce traces 50 shadow
+  wavefronts), and for background_radiance through the map;
 - the integrators on the bundled scene (4 triangle tiles: a lane keeps
   its jitter): the eye hit masks and the ray counts exactly; radiance
   within 1e-4 of max(|value|, 1) on all but 1% of the lanes, and the
@@ -28,6 +31,9 @@ Tolerances:
   masks hold exactly and the mean radiance over hits within 0.005;
 - the materials scene's compiled mat_* rows: exactly.
 """
+
+import functools
+import tempfile
 
 import numpy as np
 import pytest
@@ -55,6 +61,41 @@ MAT_SURFACES = {1: 'Surface "plastic" "Ks" [0.4] "roughness" [0.15]\n',
                 2: 'Surface "glass" "Kd" [0.2] "Ks" [0.3] "Kt" [0.6]\n'}
 
 
+IBL_SAMPLERS = ("cosweight", "importance", "stratified", "structured",
+                "bruteforce")
+
+
+@functools.cache
+def ibl_map_dir() -> tempfile.TemporaryDirectory:
+    """A temporary directory (.name its path, removed at exit) holding
+    env.hdr, a 10x5 lat-long map (a sky, a sun texel ~1000x brighter, a
+    darker ground), and probe.hdr, its 24x24 angular resampling."""
+    from lucille_tpu_torch.imageio.rgbe import write_hdr
+
+    d = tempfile.TemporaryDirectory(prefix="lucille_ibl_")
+    img = np.empty((5, 10, 3), np.float32)
+    img[:2] = (0.6, 0.8, 1.4)
+    img[2:] = (0.25, 0.2, 0.15)
+    img[1, 3] = (900.0, 800.0, 650.0)
+    write_hdr(f"{d.name}/env.hdr", img)
+    ys, xs = np.mgrid[0:24, 0:24]
+    u, v = (xs + 0.5) / 12 - 1, 1 - (ys + 0.5) / 12
+    up = np.clip(1 - np.hypot(u, v), 0, 1)[..., None]
+    write_hdr(f"{d.name}/probe.hdr", (0.2 + 2.0 * up * img[0, 0]).astype(
+        np.float32))
+    return d
+
+
+def ibl_line(kind: str) -> str:
+    """kind "ibl-<sampler>": an IBL light on env.hdr with that sampler;
+    "ibl-angular": a dome light on the angular probe.hdr (cosweight)."""
+    d = ibl_map_dir().name
+    if kind == "ibl-angular":
+        return f'LightSource "dome" 1 "texture" ["{d}/probe.hdr"]\n'
+    return (f'LightSource "ibl" 1 "texture" ["{d}/env.hdr"] '
+            f'"sampling" ["{kind[4:]}"] "intensity" [0.8]\n')
+
+
 def material_rib() -> str:
     """The bundled scene without its sunsky line, lit by a distant, a
     point and an area light, with MAT_SURFACES bound."""
@@ -69,12 +110,17 @@ def material_rib() -> str:
 def state(kind: str, pkg: str, width=16, height=16, method="ao",
           max_depth=None):
     """kind: "bundled" (no light: the default dome), "sunsky" (as
-    shipped), "materials" (material_rib)."""
+    shipped), "materials" (material_rib), "ibl-<sampler>" and
+    "ibl-angular" (the bundled scene under `ibl_line(kind)`)."""
     RiState, parse_rib = front_end(pkg)
     s = RiState()
-    text = {"bundled": lambda: bundled_rib_text(),
-            "sunsky": lambda: bundled_rib_text(sunsky=True),
-            "materials": material_rib}[kind]()
+    if kind.startswith("ibl-"):
+        text = bundled_rib_text().replace(
+            "WorldBegin\n", "WorldBegin\n" + ibl_line(kind), 1)
+    else:
+        text = {"bundled": lambda: bundled_rib_text(),
+                "sunsky": lambda: bundled_rib_text(sunsky=True),
+                "materials": material_rib}[kind]()
     parse_rib(text, s)
     s.Format(width, height)
     s.PixelSamples(1, 1)
@@ -214,10 +260,12 @@ def test_interp_hit_matches_jax():
     assert (kt == np.float32(0.6)).any()
 
 
-@pytest.mark.parametrize("kind", ["bundled", "sunsky", "bgcolor"])
+@pytest.mark.parametrize("kind", ["bundled", "sunsky", "bgcolor",
+                                  "ibl-cosweight", "ibl-angular"])
 def test_background_radiance_matches_jax(kind):
     """A constant dome, the sky of a sunsky light (its "sun" light adds
-    nothing to escaped rays), and no light with a bgcolor."""
+    nothing to escaped rays), no light with a bgcolor, and an IBL light's
+    lat-long map and a dome's angular map along the escaped rays."""
     from lucille_tpu.transport.common import background_radiance as j_bg
     from lucille_tpu_torch.transport.common import background_radiance
 
@@ -234,6 +282,8 @@ def test_background_radiance_matches_jax(kind):
     assert close_rel(got, want, 1e-5).all()
     if kind == "sunsky":
         assert want.max() > 1000
+    if kind.startswith("ibl"):  # the map's texels, not a constant
+        assert want.std(axis=0).min() > 0.01
 
 
 def test_materials_compile_matches_jax():
@@ -260,7 +310,9 @@ def test_materials_compile_matches_jax():
 
 LIGHT_CASES = {"distant": ("materials", 0), "point": ("materials", 1),
                "area": ("materials", 2), "sunsky": ("sunsky", 0),
-               "sun": ("sunsky", 1), "dome": ("bundled", 0)}
+               "sun": ("sunsky", 1), "dome": ("bundled", 0),
+               "dome-angular": ("ibl-angular", 0),
+               **{f"ibl-{s}": (f"ibl-{s}", 0) for s in IBL_SAMPLERS}}
 
 
 @pytest.mark.parametrize("light", sorted(LIGHT_CASES))
@@ -275,8 +327,8 @@ def test_light_contribution_matches_jax(light):
     h = interp_hit(st, res, t(o), t(d))
     P, N = h["P"], face_forward(h["Ns"], t(d))
     hit = res["hit"]
-    n = 4 if light in ("area", "sunsky", "dome") else 1
-    assert lt.lights[i].type == light
+    n = 4 if light.split("-")[0] in ("area", "sunsky", "dome", "ibl") else 1
+    assert lt.lights[i].type == light.split("-")[0]
     key = jax.random.fold_in(jax.random.key(5), 1000 + i)
     got = light_contribution(st, lt.lights[i], P, N,
                              StreamKey(JaxStream(key)), n, active=hit)
