@@ -177,7 +177,33 @@ non-zero):
    spawned) streaming to a listener on a free port: the reassembled
    frame equals the .pfm --display file writes; each of phases 21-25
    prints its wall seconds;
-26. a JSON line of per-kernel results (each with the least time the card
+26. the shader method's full-width frames (`check_shader_frames`), each
+   with phase 4's checks, its device ops, busy share and idle share from
+   one profiled frame (profile_frame.frame_profile), the launches of its
+   kernels against the count its path must make, and its rays against
+   lucille_tpu's count (the eye rays alone): bundled-shader-sl (the
+   headline settings, the scene as shipped, whitted.sl, written at run
+   time into `shader_dir`, bound to every geometry: kernel 1 on 15
+   wavefronts a tile, kernel 2 on each wavefront's illuminance shadow
+   rays, one a light), bundled-shader-ao (the scene without its sunsky
+   line under the built-in ambientocclusion: kernel 1, then 64 launches
+   of kernel 2 a tile) and heightfield256-shader (the n = 256 terrain's
+   frame, plastic under a distant light: kernel 4, then kernel 5 for
+   the diffuse and the specular shadow rays);
+27. 80x60 frames under the shader method on the card against the CPU's
+   twins (`check_frame_twins`, 1x1 samples): each built-in surface,
+   whitted.sl, an illuminance shader under a point and under an area
+   light, a noise() shader, shaders whose Ci is uniform (flatred with
+   its parameter at its default, a constant triple) or reads a uniform
+   triple computed from a parameter and literals; each surface's first
+   frame in a new Renderer with no tile waiting on the card
+   (`no_host_sync`, no warm-up); then AO frames under a displacement, an
+   atmosphere and an imager compiled from .sl;
+28. the CLI's entry point in this process with --method shader on the
+   whitted.sl scene at 160x120, its .hdr equal to the Renderer's frame
+   through the same driver; each of phases 26-28 prints its wall
+   seconds;
+29. a JSON line of per-kernel results (each with the least time the card
    could take for its work, `bound_ms`, from the counts below; kernel
    1's entries include its finite-tmax cases), the card's line, and last
    {"ok": true, "device": {...}}.
@@ -227,6 +253,11 @@ SOURCES = {
                      "lucille_tpu/accel/pallas_bvh.py:810"),
 }
 
+# kernel name -> its CUDA symbol, as the profiler names it
+SYMBOLS = {"closest_hit": "closest_hit_kernel", "any_hit": "any_hit_kernel",
+           "bvh_closest_hit": "bvh_closest_kernel",
+           "bvh_any_hit": "bvh_any_kernel"}
+
 # The card's peaks for bound_ms (NVIDIA H100 SXM data sheet, at 700 W):
 # f32 outside the tensor cores, and HBM3.
 PEAK_FLOPS = 67e12
@@ -261,6 +292,66 @@ IBL_SAMPLERS = ("cosweight", "importance", "stratified", "structured",
                 "bruteforce")
 # the pipeline frame: miefog, the background imager, MOSAICdisplace
 PIPELINE_IMAGER = 'Imager "background" "bgcolor" [0.35 0.45 0.6]\n'
+
+# the shader method's sources, written at run time (`shader_dir`):
+# tests/test_transport.py's whitted.sl; an illuminance and a noise()
+# surface; TestShadedIntegrator's flatred, a constant Ci and a uniform
+# triple computed from a parameter and literals; a displacement, an
+# atmosphere and an imager stage (modelled on tests/test_pipeline.py's)
+SHADER_SOURCES = {
+    "whitted": (
+        "surface whitted(float eta = 1.5; float Kd = .8; float Kr = .8;"
+        "  float Kt = .2; float Ks = .2; float Kss = 2) {\n"
+        "  normal Nn = faceforward(normalize(N), I);\n"
+        "  Ci = Kd * ambient();\n"
+        "  illuminance(P, Nn, PI/2) { Ci += Kd * Cl * (L . Nn); }\n"
+        "  Ci += Ks * trace(P, reflect(I, Nn));\n"
+        "  vector T = refract(I, Nn, (N.I) < 0 ? eta : 1/eta);\n"
+        "  if (length(T) != 0.0) Ci += Kt * trace(P, T);\n"
+        "}\n"),
+    "lambert": (
+        "surface lambert(float Kd = 0.8; color tint = (1, 0.9, 0.8)) {\n"
+        "  normal Nn = faceforward(normalize(N), I);\n"
+        "  illuminance(P, Nn, PI/2) { Ci += Kd * tint * Cs * Cl"
+        " * max(L . Nn, 0); }\n"
+        "}\n"),
+    "noisy": (
+        "surface noisy(float freq = 4) {\n"
+        "  Ci = Cs * noise(P * freq) + 0.25 * noise(s * 8, t * 8);\n"
+        "  if (noise(P * 2) > 0.5) Ci = Ci * (1, 0.5, 0.25);\n"
+        "}\n"),
+    "flatred": "surface flatred(float K = 1) { Ci = K * (1, 0.25, 0.1); }\n",
+    "constred": "surface constred() { Ci = (1, 0, 0); }\n",
+    "tinted": (
+        "surface tinted(float K = 0.5) {\n"
+        "  color c = K * (1, .25, .1) + (0.5, 0, 0.25);\n"
+        "  Ci = c * Cs * diffuse(N);\n"
+        "}\n"),
+    "bumps": (
+        "displacement bumps(float amp = 0.05) {\n"
+        "  P += amp * normalize(N) * (noise(P * 4) - 0.5);\n"
+        "  N = calculatenormal(P);\n"
+        "}\n"),
+    "haze": (
+        "volume haze(float d = 30; color bg = (0.5, 0.6, 0.8)) {\n"
+        "  float f = 1 - exp(-length(I) / d);\n"
+        "  Ci = mix(Ci, bg, f);\n"
+        "  if (ycomp(P) > 1) Ci = Ci * 0.9;\n"
+        "}\n"),
+    "vignette": (
+        "imager vignette(color bg = (0.2, 0.1, 0.3)) {\n"
+        "  float r = distance(P, (0.5, 0.5, 0));\n"
+        "  Ci = Ci * (1 - 0.5 * r) + (1 - alpha) * bg;\n"
+        "}\n"),
+}
+# test_torch_whitted's point light and area light, over the bundled scene
+POINT_LIGHT = ('LightSource "pointlight" 2 "intensity" [12.0] '
+               '"from" [-1 4 1]\n')
+AREA_LIGHT = ('AttributeBegin\nAreaLightSource "arealight" 3 "intensity" '
+              '[3.0]\nPointsPolygons [4] [0 3 2 1] "P" '
+              '[-1 4 -1  1 4 -1  1 4 1  -1 4 1]\nAttributeEnd\n')
+DISTANT_LIGHT = ('LightSource "distantlight" 1 "intensity" [1.0] '
+                 '"from" [2 6 3] "to" [0 0 0]\n')
 
 HEIGHTFIELD_CAMERA = (
     'Projection "perspective" "fov" [45.0]\n'
@@ -338,10 +429,11 @@ def heightfield_grid(n: int):
 
 def heightfield_state(n, width=160, height=120, pixelsamples=2, gather=64,
                       accel="auto", sunsky=False, api=None, method=None,
-                      light=None):
+                      light=None, world=""):
     """bench_large's scene: the camera parsed from RIB text, the terrain
     handed to RiPointsPolygons as one mesh (identity transform), and
-    optionally the bundled scene's sunsky line or the RIB text `light`."""
+    optionally the bundled scene's sunsky line or the RIB text `light`;
+    RIB text `world` binds attributes to the terrain."""
     RiState, parse_rib = api or front_end()
     P, quads = heightfield_grid(n)
     s = RiState()
@@ -354,6 +446,8 @@ def heightfield_state(n, width=160, height=120, pixelsamples=2, gather=64,
     if light is not None:
         parse_rib(f"AttributeBegin\n{light}AttributeEnd\n", s)
     s.AttributeBegin()
+    if world:
+        parse_rib(world, s)
     s.Transform(np.eye(4).reshape(-1))
     s.PointsPolygons(
         np.full(len(quads), 4, np.int64), quads.reshape(-1), {"P": P}
@@ -491,6 +585,44 @@ def pipeline_world() -> str:
             f'[{" ".join(str(v) for v in SUN_DIR)}] "intensity" [1.5]\n'
             'Displacement "MOSAICdisplace" "DispMap" '
             f'["{env_dir().name}/disp.hdr"] "Disp" [0.05] "Mid" [0.5]\n')
+
+
+@functools.cache
+def shader_dir() -> tempfile.TemporaryDirectory:
+    """A temporary directory (.name its path, removed at exit) holding
+    SHADER_SOURCES as <name>.sl."""
+    d = tempfile.TemporaryDirectory(prefix="lucille_sl_")
+    for name, src in SHADER_SOURCES.items():
+        (Path(d.name) / f"{name}.sl").write_text(src)
+    return d
+
+
+def shader_head() -> str:
+    """The Option line that puts shader_dir() on the shader search path."""
+    return f'Option "searchpath" "shader" ["{shader_dir().name}"]\n'
+
+
+def shader_sl_state(width=640, height=480, pixelsamples=3):
+    """bundled-shader-sl: the bundled scene as shipped (its sunsky and
+    sun lights) under the shader method, whitted.sl bound to every
+    geometry."""
+    return bundled_state(width, height, pixelsamples, head=shader_head(),
+                         world='Surface "whitted"\n', method="shader")
+
+
+def shader_ao_state(width=640, height=480, pixelsamples=3):
+    """bundled-shader-ao: the bundled scene without its sunsky line under
+    the built-in ambientocclusion surface (64 samples)."""
+    return bundled_state(width, height, pixelsamples, sunsky=False,
+                         world='Surface "ambientocclusion"\n',
+                         method="shader")
+
+
+def shader_hf_state():
+    """heightfield256-shader: bench_large's n = 256 frame on the tile BVH,
+    plastic under one distant light."""
+    return heightfield_state(256, light=DISTANT_LIGHT, method="shader",
+                             world='Surface "plastic"\n')
 
 
 class SocketListener:
@@ -2711,6 +2843,147 @@ def check_socket_display():
         raise AssertionError("socket: the streamed frame is not the file's")
 
 
+def check_shader_frames():
+    """Phase 26: the shader method's full-width frames with phase 4's
+    checks (module docstring), each with one profiled frame's device
+    ops, busy and idle share; the launches of each path kernel must be
+    the count its path makes, and the rays lucille_tpu's count (B a
+    tile: it counts a wavefront's own rays, not trace()'s)."""
+    from profile_frame import frame_profile
+
+    from lucille_tpu_torch.render.tiles import tile_list
+
+    frames = (
+        ("bundled-shader-sl", shader_sl_state, TILE,
+         ("closest_hit", "any_hit"), lambda nl: (15, 15 * nl)),
+        ("bundled-shader-ao", shader_ao_state, TILE,
+         ("closest_hit", "any_hit"), lambda nl: (1, 64)),
+        ("heightfield256-shader", shader_hf_state, 128,
+         ("bvh_closest_hit", "bvh_any_hit"), lambda nl: (1, 2 * nl)),
+    )
+    for label, make_state, tile, path, per_tile in frames:
+        r = build_renderer(label, make_state, tile)
+        got, best, _img = render_checked(label, r,
+                                         f"chip_smoke_{label}.hdr", path)
+        nrays = r.stats.nrays  # the last timed frame's
+        opt = r.desc.options
+        n_tiles = len(tile_list(opt.width, opt.height, tile,
+                                opt.bucket_order))
+        want = tuple(n_tiles * k for k in per_tile(len(r.lights.lights)))
+        S = int(opt.current_display().sampling_rates[0]) * int(
+            opt.current_display().sampling_rates[1])
+        rays = n_tiles * tile * tile * S
+        p = frame_profile(r, 1)
+        print(f"[{label}] launches {got} (the path's count: "
+              f"{dict(zip(path, want))}); {nrays} rays "
+              f"(lucille_tpu's count: {rays}); profiled frame "
+              f"{p['wall_ms']:.2f} ms, device busy {p['busy_ms']:.2f} ms, "
+              f"idle share {p['idle']:.3f}, {p['ops']} device ops, "
+              f"{p['syncs']} host syncs", flush=True)
+        for name, (ms, n) in sorted(p["by_name"].items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+            print(f"  {ms:9.3f} ms  {n:5d}x  {name[:90]}")
+        for k in path:  # the path kernels' device time in that frame
+            ms, n = (sum(v[i] for name, v in p["by_name"].items()
+                         if SYMBOLS[k] in name) for i in (0, 1))
+            print(f"  {k}: {n} launches, {ms:.3f} ms "
+                  f"({ms / max(n, 1):.4f} ms a launch)", flush=True)
+        if tuple(got[k] for k in path) != want:
+            raise AssertionError(f"{label}: launches {got}, not {want}")
+        if nrays != rays:
+            raise AssertionError(f"{label}: {nrays} rays, not {rays}")
+
+
+def check_shader_twins():
+    """Phase 27: 80x60 frames under the shader method on the card
+    against the CPU's twins (`check_frame_twins`, 1x1 samples): the six
+    built-in surfaces and whitted.sl on the scene as shipped, the
+    illuminance surface under a point and under an area light, the
+    noise() surface, the uniform-Ci and computed-triple surfaces, each
+    also rendered as a new Renderer's first frame with no tile waiting on
+    the card; then AO frames (16 gather rays) under each .sl stage: the
+    displacement, the atmosphere, the imager."""
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.sampling.jitter import HostSampler
+
+    def twins_and_first_frame(label, make_state, mean_range):
+        check_frame_twins(label, make_state, mean_range=mean_range)
+        r = Renderer(make_state().scene, tile_size=32, device="cuda")
+        with no_host_sync(r):
+            img = r.render_frame()
+        if not np.isfinite(img).all():
+            raise AssertionError(f"{label}: the first frame is not finite")
+
+    wide = (0.01, 1e6)  # the sky's radiance on the escaped pixels
+    for name in ("matte", "constant", "plastic", "checker",
+                 "ambientocclusion", "mirror", "whitted", "noisy",
+                 "flatred", "constred", "tinted"):
+        twins_and_first_frame(f"shader-{name}-twins", lambda name=name: (
+            bundled_state(80, 60, 1, head=shader_head(),
+                          world=f'Surface "{name}"\n', method="shader")),
+            wide)
+    for light, line in (("point", POINT_LIGHT), ("area", AREA_LIGHT)):
+        twins_and_first_frame(
+            f"shader-lambert-{light}-twins", lambda line=line: (
+                bundled_state(80, 60, 1, light=line, head=shader_head(),
+                              world='Surface "lambert"\n',
+                              method="shader")),
+            (0.01, 10.0))
+
+    plain = Renderer(bundled_state(80, 60, 1, 16, sunsky=False).scene,
+                     tile_size=32, device="cuda",
+                     sampler=HostSampler(0, "cuda")).render_frame()
+    stages = {"displace": ("", 'Displacement "bumps" "amp" [0.08]\n'),
+              "atmosphere": ("", 'Atmosphere "haze" "d" [25]\n'),
+              "imager": ('Imager "vignette"\n', "")}
+    for name, (head, world) in stages.items():
+        got = check_frame_twins(f"sl-{name}-twins", lambda head=head,
+                                world=world: bundled_state(
+            80, 60, 1, 16, sunsky=False, head=shader_head() + head,
+            world=world), mean_range=(0.05, 10.0))
+        moved = float(np.abs(got - plain).max())
+        print(f"[sl-{name}-twins] the stage moves the frame by up to "
+              f"{moved:.4f}", flush=True)
+        if moved < 0.01:
+            raise AssertionError(f"sl-{name}: the stage was not applied")
+
+
+def check_shader_cli():
+    """Phase 28: the CLI's entry point in this process, --method shader
+    on the whitted.sl scene at 160x120 into an .hdr, equal to the
+    Renderer's frame written through the same driver (both with the
+    default stream, seed 0)."""
+    from lucille_tpu_torch.cli import main as cli_main
+    from lucille_tpu_torch.display.drivers import get_display_driver
+    from lucille_tpu_torch.imageio.rgbe import read_hdr
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rib = Path(tmp) / "whitted.rib"
+        rib.write_text(BUNDLED_RIB.read_text().replace(
+            "WorldBegin\n", shader_head() + 'WorldBegin\nSurface "whitted"\n',
+            1))
+        rc = cli_main([str(rib), "--method", "shader", "--width", "160",
+                       "--height", "120", "--pixelsamples", "2", "--tile",
+                       "64", "-o", f"{tmp}/cli.hdr"])
+        if rc != 0:
+            raise AssertionError(f"shader-cli: exit {rc}")
+        s = shader_sl_state(160, 120, 2)
+        r = Renderer(s.scene, tile_size=64, device="cuda")
+        drv = get_display_driver("file")
+        drv.open(f"{tmp}/renderer.hdr", 160, 120)
+        r.render_frame(tile_cb=drv.write)
+        drv.close()
+        got, want = read_hdr(f"{tmp}/cli.hdr"), read_hdr(f"{tmp}/renderer.hdr")
+    same = np.array_equal(got, want)
+    print(f"[shader-cli] --method shader: {got.shape}, mean {got.mean():.4f}"
+          f"; equal to the Renderer's frame: {same} (max diff "
+          f"{np.abs(got - want).max():.3g})", flush=True)
+    if not (same and got.shape == (120, 160, 3) and got.mean() > 1.0):
+        raise AssertionError("shader-cli: the CLI's frame is not the "
+                             "Renderer's")
+
+
 def main() -> int:
     import torch
 
@@ -2908,7 +3181,14 @@ def main() -> int:
     phase("recover-imager", check_recover_imager)
     phase("socket", check_socket_display)
 
-    # 26. results
+    # 26.-28. this slice's paths: the shader method's frames at full
+    # width, its 80x60 frames and the .sl stages against the twins, the
+    # CLI with --method shader
+    phase("shader-frames", check_shader_frames)
+    phase("shader-twins", check_shader_twins)
+    phase("shader-cli", check_shader_cli)
+
+    # 29. results
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = []
     for name, (src, replaces) in SOURCES.items():

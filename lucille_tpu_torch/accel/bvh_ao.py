@@ -156,7 +156,7 @@ def gather_mode() -> str:
     if mode == "rebinned":
         raise NotImplementedError(
             "LUCILLE_BVH_AO=rebinned: lucille_tpu's re-binned gather "
-            "(_pallas_bvh_ao_rebinned) is not ported (ROADMAP Queue 1)")
+            "(_pallas_bvh_ao_rebinned) is not ported (ROADMAP Queue 1, item 7)")
     return "cone" if mode == "cone" else "fused"
 
 

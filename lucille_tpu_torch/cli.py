@@ -13,15 +13,17 @@
     --maxraydepth N    override the maximum ray depth
     --gather-rays N    AO / dirt-map gather rays (ntheta = nphi =
                        int(sqrt(N)))
-    --method M         ao (default), whitted, pathtrace, dirtmap; shader
-                       is refused
+    --method M         ao (default), whitted, pathtrace, dirtmap, shader
+                       (each geometry's surface shader: a built-in, or
+                       <name>.sl on the shader search path)
     --nthreads N       accepted for lsh compatibility, ignored
     --tile N           tile size, default 64
     --order O          spiral|scanline|zorder|hilbert
     --accel A          auto|pallas|bvh: auto picks the dense tiles up to
                        16384 triangles and the tile BVH above; pallas
                        asks for the dense tiles, bvh for the tile BVH
-                       (grid, bruteforce and mxu are refused)
+                       (grid, bruteforce and mxu are refused: ROADMAP
+                       Queue 1, item 7)
     --recover          tile checkpoints: <display name>.ckpt.npz is
                        written after each tile and resumed from
     --width/--height   override the image size
@@ -36,12 +38,12 @@ gathers through the AO kernels.  LUCILLE_BVH_AO=fused selects the fused
 tile-BVH AO gather, as it does for lucille_tpu.  A dome or IBL light
 with an environment texture renders through its "sampling" token
 (cosweight, importance, stratified, structured, bruteforce); the
-built-in displacement, atmosphere and imager shaders run as lucille_tpu
-runs them (shading/pipeline.py), and an imager's frame is written to the
-displays again after the post-pass.  lucille_tpu's --mesh,
---coordinator, --num-processes and --process-id (ROADMAP Queue 1, item
-8), the shader method and shader stages whose .sl is on the search path
-(item 6) are refused with a message naming ROADMAP.
+displacement, atmosphere and imager shaders, built in or .sl sources on
+the search path, run as lucille_tpu runs them (shading/pipeline.py), and
+an imager's frame is written to the displays again after the post-pass.
+lucille_tpu's --mesh, --coordinator, --num-processes and --process-id
+(ROADMAP Queue 1, item 8) and the accels the port lacks (item 7) are
+refused with a message naming ROADMAP.
 CLI overrides are applied at WorldBegin through the backdoor callback,
 as lucille_tpu's CLI does (lucille_tpu/cli.py:139-166).
 """
@@ -105,14 +107,9 @@ def main(argv=None) -> int:
         if getattr(args, name) is not None:
             p.error(f"--{name.replace('_', '-')}: {what} is not ported "
                     "(ROADMAP Queue 1, item 8)")
-    from lucille_tpu_torch.transport.dispatch import UNPORTED
-
-    if args.method in UNPORTED:
-        p.error(f"--method {args.method}: not ported "
-                f"({UNPORTED[args.method]}; ROADMAP Queue 1)")
     if args.accel not in (None, "auto", "pallas", "bvh"):
         p.error(f"--accel {args.accel}: not ported (only 'auto', 'pallas' "
-                "and 'bvh'; ROADMAP Queue 1)")
+                "and 'bvh'; ROADMAP Queue 1, item 7)")
 
     from lucille_tpu_torch.base.log import set_debug
     from lucille_tpu_torch.base.timer import get_timer

@@ -303,10 +303,15 @@ def direct_diffuse(scene, lights, P, N, key, nsamples: int = 4,
 def direct_specular(scene, lights, P, N, V, roughness, key,
                     active=None) -> torch.Tensor:
     """specular(N, V, roughness) (shader.c:529): a shadowed Blinn-style
-    highlight per distant, sun or point light, (B, 3)."""
+    highlight per distant, sun or point light, (B, 3).  roughness: a
+    tensor on P's device, or a Python number, whose exponent is formed
+    in f32 on the host: nothing is copied to the device."""
     total = torch.zeros_like(P)
-    inv_r = 1.0 / torch.clamp_min(torch.as_tensor(
-        roughness, dtype=torch.float32, device=P.device), 1e-3)
+    if torch.is_tensor(roughness):
+        inv_r = 1.0 / torch.clamp_min(roughness.to(torch.float32), 1e-3)
+    else:
+        r = torch.tensor(roughness, dtype=torch.float32)
+        inv_r = float(1.0 / torch.clamp_min(r, 1e-3))
     for light in lights:
         if light.type in (LIGHT_DISTANT, LIGHT_SUN):
             wi = delta_direction(light, P)

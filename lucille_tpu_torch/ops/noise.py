@@ -60,10 +60,12 @@ def _lerp(t, a, b):
     return a + t * (b - a)
 
 
-def perlin3(p: torch.Tensor) -> torch.Tensor:
+def perlin3(p: torch.Tensor, perm: torch.Tensor | None = None
+            ) -> torch.Tensor:
     """Improved Perlin noise at points p (..., 3) f32, in [0, 1] (the RSL
-    noise() convention)."""
-    perm = _perm(p.device)
+    noise() convention).  perm: `_perm(p.device)`, if the caller holds it."""
+    if perm is None:
+        perm = _perm(p.device)
 
     def at(i):
         return perm[i.long()]

@@ -10,9 +10,13 @@ single device:
   thin lens when the camera has depth of field, the lens samples drawn
   from the tile's stream at the path (0x10EF,), lucille_tpu's
   fold_in(key, 0x10EF)) -> the render method's integrator
-  (transport/dispatch.py: AO, Whitted, path tracing or the dirt map)
-  with Option "trace" "max_ray_depth", the option's bgcolor and the
-  texture atlas -> per-subsample pixel-filter weights;
+  (transport/dispatch.py: AO, Whitted, path tracing, the dirt map or
+  the surface shaders) with Option "trace" "max_ray_depth", the option's
+  bgcolor and the texture atlas -> per-subsample pixel-filter weights;
+- under the shader method the shader table (each geometry's surface
+  shader, built-in or compiled from its .sl, its parameters bound on
+  the device) is built once per Renderer and handed to every tile
+  (lucille_tpu/render/renderer.py:226-230, :66-69);
 - every tile is enqueued on the device before the first is pulled back,
   then tiles reach the display callbacks in tile-list (spiral) order;
 - each tile's random numbers come from its own stream, drawn per tile
@@ -36,7 +40,9 @@ single device:
   reports their t (:106-121), its constants built once per Renderer;
   with an imager each tile also returns its alpha, the fraction of its
   subsamples that hit (:145-149), and the imager runs over the assembled
-  frame after the last pull (:566-577);
+  frame after the last pull (:566-577); a stage whose shader is not
+  built in runs its .sl from the search path, compiled once per
+  Renderer (`self.shaders`, which holds its .sl surfaces too);
 - with a `checkpoint` path, the frame's image, alpha and tile-done
   bitmap are written atomically after each pulled tile, in lucille_tpu's
   file layout (npz keys image, done, meta = [W, H, tile_w, tile_h,
@@ -45,11 +51,6 @@ single device:
   tiles it lacks and replaying the others to the callbacks
   (lucille_tpu/render/renderer.py:548-608, 724-768).  The saves are host
   work after a tile's pull.
-
-Scenes that need what the port does not have yet raise
-NotImplementedError: a displacement, atmosphere or imager shader whose
-.sl source is on the search path (the RSL compiler, ROADMAP Queue 1,
-item 6), the shader method.
 """
 
 from __future__ import annotations
@@ -78,10 +79,10 @@ from lucille_tpu_torch.shading.pipeline import (
     Atmosphere,
     apply_imager,
     displace_scene,
-    sl_stages,
 )
 from lucille_tpu_torch.texture.texture import TextureAtlas
-from lucille_tpu_torch.transport.dispatch import get_integrator
+from lucille_tpu_torch.transport.dispatch import SHADER_NAMES, get_integrator
+from lucille_tpu_torch.transport.shaded import build_shader_table
 
 LENS_FOLD = 0x10EF  # the lens samples' stream path (lucille_tpu's fold_in)
 
@@ -109,18 +110,17 @@ class Renderer:
 
     def __init__(self, desc, tile_size: int = 64, device="cuda",
                  sampler: Optional[Callable] = None, seed: int = 0):
-        missing = sl_stages(desc)  # what the port cannot render yet
-        if missing:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(missing) + " (the RSL "
-                "compiler, ROADMAP Queue 1, item 6)")
         self.desc = desc
         self.tile_size = int(tile_size)
         self.device = resolve_device(device)
-        self.integrator = get_integrator(desc.options.render_method)
+        method = (desc.options.render_method or "").lower()
+        self.integrator = get_integrator(method)
+        # the .sl shaders compiled for this Renderer, by (name, kind): its
+        # surfaces and its other stages (shading/sl.find_sl)
+        self.shaders = {}
         timer = get_timer()
         timer.start("Scene compile")
-        displace_scene(desc)  # the bound displacement shaders
+        displace_scene(desc, self.shaders)  # the bound displacement shaders
         self.textures, texture_ids = _load_textures(desc, self.device)
         self.scene = compile_scene(desc, self.device, texture_ids=texture_ids)
         timer.end("Scene compile")
@@ -131,7 +131,12 @@ class Renderer:
         g = next((g for g in desc.geoms if g.attrs.atmosphere), None)
         self.atmosphere = None if g is None else Atmosphere(
             g.attrs.atmosphere, g.attrs.atmosphere_params,
-            desc.options.searchpaths, self.device)
+            desc.options.searchpaths, self.device, self.shaders)
+        self.shader_table = (build_shader_table(desc, self.device,
+                                                self.shaders)
+                             if method in SHADER_NAMES else None)
+        self._method_kwargs = ({} if self.shader_table is None else
+                               {"shader_table": self.shader_table})
         self.sampler = sampler or TileSampler(seed, self.device)
         self.stats = RenderStats()
 
@@ -153,7 +158,7 @@ class Renderer:
             self.scene, self.lights, org, dirn, stream,
             gather_nsamples=opt.gather_nsamples,
             max_depth=opt.max_ray_depth, bgcolor=tuple(opt.bgcolor),
-            textures=self.textures,
+            textures=self.textures, **self._method_kwargs,
         )
         if self.atmosphere is not None and aux.get("t") is not None:
             hit = aux["hit"]
@@ -278,7 +283,8 @@ class Renderer:
             timer.start("Imager")
             image = np.asarray(apply_imager(image, alpha, opt.imager,
                                             opt.imager_params,
-                                            opt.searchpaths),
+                                            opt.searchpaths, self.device,
+                                            self.shaders),
                                dtype=np.float32)
             timer.end("Imager")
         self.stats.render_seconds += timer.end("Render frame")

@@ -66,8 +66,8 @@ def resolve_accel(requested: str, n_tris: int) -> str:
         return "pbvh"
     raise NotImplementedError(
         f"accel {requested!r} is not ported; use 'auto', 'pallas' (the "
-        "dense tiles) or 'bvh' (the tile BVH); the grid is ROADMAP "
-        "Queue 1, item 8"
+        "dense tiles) or 'bvh' (the tile BVH); the grid, bruteforce and "
+        "mxu are ROADMAP Queue 1, item 7"
     )
 
 

@@ -136,7 +136,7 @@ def from_numpy(scene_arrays, device) -> SceneTensors:
     else:
         raise NotImplementedError(
             f"accel {accel!r} is not ported: the port has the dense tiles "
-            "and the tile BVH (the grid is ROADMAP Queue 1, item 8)"
+            "and the tile BVH (the grid is ROADMAP Queue 1, item 7)"
         )
     kwargs = {f: _to_tensor(getattr(scene_arrays, f), device)
               for f in ARRAY_FIELDS}

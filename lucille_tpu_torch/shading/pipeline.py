@@ -5,25 +5,32 @@ ABI (render/shader.h:27-120) spans more than surface shaders; this
 module executes the other three stages the RIB can bind:
 
 - **Displacement** (``RiDisplacement``): run over each geometry's
-  VERTICES before the scene compile, on the host in NumPy, as
-  lucille_tpu does; ``P`` moves along ``N`` and normals are rebuilt from
+  VERTICES before the scene compile, on the host, as lucille_tpu does
+  (MOSAICdisplace in NumPy, an .sl shader in torch on the CPU, read back
+  as f64 NumPy); ``P`` moves along ``N`` and normals are rebuilt from
   the displaced mesh (area-weighted).
 - **Atmosphere / volume** (``RiAtmosphere``): run per eye ray over (Ci,
   ray length) inside the tile, in torch on the tile's device.
   `Atmosphere` holds a stage's constants on that device, built once a
-  Renderer (miefog's phase table is an f64 host build), so a tile copies
-  nothing from the host; `apply_atmosphere` is lucille_tpu's signature.
-- **Imager** (``RiImager``): run once over the assembled frame on the
-  host (Ci, alpha per pixel), NumPy as lucille_tpu's built-ins are.
+  Renderer (miefog's phase table is an f64 host build; an .sl shader is
+  compiled and its parameters bound), so a tile copies nothing from the
+  host; `apply_atmosphere` is lucille_tpu's signature.
+- **Imager** (``RiImager``): run once over the assembled frame (Ci,
+  alpha per pixel): the built-ins in NumPy on the host, as lucille_tpu's
+  are, an .sl shader in torch on the Renderer's device.
 
 The built-ins are lucille_tpu's: the MOSAIC Blender-export shaders and
 the RenderMan standard fog, depthcue and background (the semantics of
 the .sl sources shipped with examples/plane_sphere/Shaders), and
-miefog.  A stage naming anything else needs the RSL compiler, which the
-port does not have yet (ROADMAP Queue 1, item 6): `sl_stages` lists the
-stages whose ``<name>.sl`` is on the search path, which the Renderer
-refuses up front; a stage whose source is not found warns once and is
-ignored, as lucille_tpu does.
+miefog.  A stage naming anything else runs ``<name>.sl`` from the
+option's search path, compiled by shading/sl.py (`sl.find_sl`): a
+source of another kind warns once and is used anyway; a source that
+does not compile, or none found, warns once and the stage is ignored,
+as in lucille_tpu.  Compiled stages are cached in the dict their caller
+passes (a Renderer's, by (name, kind), which also holds its surfaces),
+not process-wide as lucille_tpu's `_compiled` is, which ignores the
+search path.  A stage whose output is uniform is broadcast over its
+lanes (lucille_tpu's reshape refuses it).
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from lucille_tpu_torch.base.log import LOG_INFO, LOG_WARN, log, log_once
 from lucille_tpu_torch.device import const_vec
 from lucille_tpu_torch.imageio.loader import find_file, load_image
 from lucille_tpu_torch.lights.envmap import _np_bilinear
+from lucille_tpu_torch.shading.shader import ShaderContext, ShaderGlobals
+from lucille_tpu_torch.shading.sl import find_sl
 
 IMAGERS = ("background", "MOSAICbackground")
 ATMOSPHERES = ("miefog", "fog", "depthcue", "MOSAICfog")
@@ -59,36 +68,16 @@ def _pstr(params: dict, name: str, default: str = "") -> str:
     return default
 
 
-def _find_sl(name: str, searchpaths):
-    return find_file(f"{name}.sl", searchpaths)
-
-
-def sl_stages(desc) -> list[str]:
-    """The displacement, atmosphere and imager stages of the scene that
-    name a shader that is not built in and whose ``<name>.sl`` is on the
-    option's search path: these need the RSL compiler."""
-    sp = desc.options.searchpaths
-    stages = []
-    for g in desc.geoms:
-        a = g.attrs
-        if a.displacement and a.displacement not in DISPLACEMENTS:
-            stages.append(("displacement", a.displacement))
-        if a.atmosphere and a.atmosphere not in ATMOSPHERES:
-            stages.append(("atmosphere", a.atmosphere))
-    if desc.options.imager and desc.options.imager not in IMAGERS:
-        stages.append(("imager", desc.options.imager))
-    return sorted({f"{kind} shader {name!r} ({_find_sl(name, sp)})"
-                   for kind, name in stages if _find_sl(name, sp)})
-
-
 # ---------------------------------------------------------------------------
 # imager stage (film post-pass)
 # ---------------------------------------------------------------------------
 
 
-def apply_imager(frame, alpha, name, params, searchpaths=None):
+def apply_imager(frame, alpha, name, params, searchpaths=None,
+                 device="cpu", compiled=None):
     """frame: (H, W, 3) f32; alpha: (H, W) f32 coverage, NumPy on the
-    host.  Returns the post-processed (H, W, 3) frame."""
+    host.  Returns the post-processed (H, W, 3) frame; an .sl imager
+    runs on `device`, compiled into `compiled` (module docstring)."""
     if not name:
         return frame
     if name in IMAGERS:
@@ -96,8 +85,19 @@ def apply_imager(frame, alpha, name, params, searchpaths=None):
         # (examples/plane_sphere/Shaders/MOSAICbackground.sl semantics)
         bg = np.asarray(_p1(params, "bgcolor", np.ones(3)), np.float32)[:3]
         return frame + (1.0 - alpha)[..., None] * bg
-    _compile_stage(name, searchpaths, "imager")
-    return frame
+    fn = find_sl(name, "imager", searchpaths, compiled)
+    if fn is None:
+        return frame
+    dev = torch.device(device)
+    H, W = frame.shape[:2]
+    ci = torch.from_numpy(np.ascontiguousarray(frame, np.float32)).to(dev)
+    sg, ctx = _flat_globals(ci.reshape(-1, 3), W, H)
+    a = torch.from_numpy(np.ascontiguousarray(alpha, np.float32)).to(dev)
+    out = fn.run_vars(sg, dict(params), ctx,
+                      extra_globals={"alpha": a.reshape(-1),
+                                     "Ci": ci.reshape(-1, 3)})
+    return torch.broadcast_to(out["Ci"], (H * W, 3)).reshape(
+        frame.shape).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -110,11 +110,14 @@ class Atmosphere:
     atm(ci, ray_len, P, hit, dirn) fogs the wavefront radiance ci (B, 3)
     by the eye rays' lengths ray_len (B,), at hit points P (B, 3) along
     directions dirn (B, 3); escaped rays (hit False) keep their radiance.
-    A stage that is not built in is ignored (module docstring)."""
+    A stage that is not built in runs its .sl, compiled into `compiled`
+    and bound here, or is ignored (module docstring)."""
 
-    def __init__(self, name, params, searchpaths=None, device="cpu"):
+    def __init__(self, name, params, searchpaths=None, device="cpu",
+                 compiled=None):
         self.name = name
         self.params = dict(params)
+        self.fn = None  # an .sl volume shader
         dev = torch.device(device)
         p = self.params
         if name == "miefog":
@@ -146,10 +149,22 @@ class Atmosphere:
             self.mistcol = const_vec(np.asarray(
                 _p1(p, "MistCol", np.zeros(3)), np.float32)[:3], dev)
         else:
-            _compile_stage(name, searchpaths, "volume")
+            self.fn = find_sl(name, "volume", searchpaths, compiled)
+            if self.fn is not None:
+                self.bound = self.fn.bind(self.params, dev)
+                self.axes = torch.eye(3, device=dev)
 
     def __call__(self, ci, ray_len, P, hit, dirn):
         p = self.params
+        if self.fn is not None:
+            # the volume shader reads the ray vector I (its length the
+            # ray's), along z as in lucille_tpu
+            sg, ctx = _flat_globals(ci, ci.shape[0], 1, self.axes)
+            out = self.fn.run_vars(sg, self.bound, ctx, extra_globals={
+                "Ci": ci, "I": P * 0.0 + ray_len[:, None] * self.axes[2],
+                "P": P})
+            return torch.where(hit[:, None],
+                               torch.broadcast_to(out["Ci"], ci.shape), ci)
         if self.name == "miefog":
             d = dirn / torch.clamp_min(torch.linalg.vector_norm(
                 dirn, dim=-1, keepdim=True), 1e-20)
@@ -224,16 +239,18 @@ def apply_atmosphere(ci, ray_len, P, hit, name, params, searchpaths=None,
 # ---------------------------------------------------------------------------
 
 
-def displace_scene(desc) -> None:
+def displace_scene(desc, compiled=None) -> None:
     """Run bound displacement shaders over their geometries' vertices,
     in place, then rebuild vertex normals from the displaced mesh.
-    Called once before scene compilation."""
+    Called once before scene compilation; .sl shaders are compiled into
+    `compiled` (module docstring)."""
     for g in desc.geoms:
         name = getattr(g.attrs, "displacement", None)
         if not name or getattr(g, "_displaced", False):
             continue  # idempotent: a second Renderer must not re-displace
         params = g.attrs.displacement_params
-        if _displace_geom(g, name, params, desc.options.searchpaths):
+        if _displace_geom(g, name, params, desc.options.searchpaths,
+                          compiled):
             g._displaced = True
             log(LOG_INFO, "displaced '%s' over %d vertices", name,
                 len(g.positions))
@@ -250,10 +267,7 @@ def _vertex_normals(P: np.ndarray, idx: np.ndarray) -> np.ndarray:
     return vn / np.maximum(n, 1e-20)
 
 
-def _displace_geom(g, name, params, searchpaths) -> bool:
-    if name not in DISPLACEMENTS:
-        _compile_stage(name, searchpaths, "displacement")
-        return False
+def _displace_geom(g, name, params, searchpaths, compiled=None) -> bool:
     P = np.asarray(g.positions, dtype=np.float64)
     idx = np.asarray(g.indices)
     N = g.normals
@@ -264,20 +278,34 @@ def _displace_geom(g, name, params, searchpaths) -> bool:
     s = st[:, 0] if st is not None else np.zeros(len(P))
     t = st[:, 1] if st is not None else np.zeros(len(P))
 
-    # examples/plane_sphere/Shaders/MOSAICdisplace.sl: displacement map
-    # moves P along N by Disp * (tex - Mid); empty DispMap = no-op
-    dispmap = _pstr(params, "DispMap", "")
-    if not dispmap:
-        return False
-    found = find_file(dispmap, searchpaths)
-    if found is None:
-        log_once(LOG_WARN, f"DispMap '{dispmap}' not found; skipping")
-        return False
-    img = np.asarray(load_image(found), np.float64)
-    disp = _p1(params, "Disp", 1.0)
-    mid = _p1(params, "Mid", 0.5)
-    amp = disp * (_np_bilinear(img, s, t)[..., 0] - mid)
-    P = P + amp[:, None] * N
+    if name in DISPLACEMENTS:
+        # examples/plane_sphere/Shaders/MOSAICdisplace.sl: displacement
+        # map moves P along N by Disp * (tex - Mid); empty DispMap = no-op
+        dispmap = _pstr(params, "DispMap", "")
+        if not dispmap:
+            return False
+        found = find_file(dispmap, searchpaths)
+        if found is None:
+            log_once(LOG_WARN, f"DispMap '{dispmap}' not found; skipping")
+            return False
+        img = np.asarray(load_image(found), np.float64)
+        disp = _p1(params, "Disp", 1.0)
+        mid = _p1(params, "Mid", 0.5)
+        amp = disp * (_np_bilinear(img, s, t)[..., 0] - mid)
+        P = P + amp[:, None] * N
+    else:
+        fn = find_sl(name, "displacement", searchpaths, compiled)
+        if fn is None:
+            return False
+        sg, ctx = _flat_globals(torch.zeros((len(P), 3)), len(P), 1)
+        sg.P = torch.from_numpy(P.astype(np.float32))
+        sg.N = torch.from_numpy(N.astype(np.float32))
+        sg.Ng = sg.N
+        sg.s = torch.from_numpy(np.asarray(s, np.float32))
+        sg.t = torch.from_numpy(np.asarray(t, np.float32))
+        out = fn.run_vars(sg, dict(params), ctx)
+        P = np.broadcast_to(np.asarray(out["P"], dtype=np.float64),
+                            P.shape).copy()
 
     g.positions = P
     g.normals = _vertex_normals(P, idx)
@@ -289,14 +317,26 @@ def _displace_geom(g, name, params, searchpaths) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _compile_stage(name, searchpaths, kind):
-    """A stage that is not built in: its ``name.sl`` needs the RSL
-    compiler (refused before rendering, `sl_stages`); a missing source
-    warns once and the stage is ignored, as lucille_tpu's does."""
-    path = _find_sl(name, searchpaths)
-    if path is not None:
-        raise NotImplementedError(
-            f"{kind} shader '{name}' ({path}) needs the RSL compiler, which "
-            "is not ported yet (ROADMAP Queue 1, item 6)")
-    log_once(LOG_WARN, f"{kind} shader '{name}' not found on searchpath;"
-             " ignoring")
+def _flat_globals(ci_flat, w, h, axes=None):
+    """The globals and context of a stage that is not a surface: B =
+    ci_flat's rows on its device, P = (x / w, y / h, 0) of lane
+    B = y w + x, N = Ng = +z, dPdu = +x, dPdv = +y, I = E = 0, Cs =
+    ci_flat, no scene.  axes: torch.eye(3) on that device, if the caller
+    holds one (filled there: nothing is copied)."""
+    dev = ci_flat.device
+    B = ci_flat.shape[0]
+    if axes is None:
+        axes = torch.eye(3, device=dev)
+    z = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    zs = torch.zeros((B,), dtype=torch.float32, device=dev)
+    lane = torch.arange(B, dtype=torch.float32, device=dev)
+    xy = torch.stack([torch.remainder(lane, w) / max(w, 1),
+                      torch.div(lane, w, rounding_mode="floor") / max(h, 1)],
+                     dim=-1)
+    sg = ShaderGlobals(
+        P=torch.cat([xy, zs[:, None]], dim=-1), N=z + axes[2],
+        Ng=z + axes[2], I=z, E=z, Cs=ci_flat.to(torch.float32),
+        Os=torch.ones((B, 3), dtype=torch.float32, device=dev),
+        s=xy[:, 0], t=xy[:, 1], u=zs, v=zs, dPdu=z + axes[0],
+        dPdv=z + axes[1])
+    return sg, ShaderContext(scene=None, key=None)

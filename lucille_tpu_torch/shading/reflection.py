@@ -42,14 +42,19 @@ def reflect(inc: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 def refract(inc: torch.Tensor, n: torch.Tensor, eta):
     """Refraction with the TIR fallback (reflection.c:70-127).  eta: the
-    relative IOR (n2 / n1 entering), a float or (B,) per lane.  Returns
-    (dir (..., 3), tir (...,) bool)."""
-    eta = torch.as_tensor(eta, dtype=torch.float32, device=inc.device)
-    if eta.dim() == inc.dim() - 1:  # per-lane eta (B,) against (B, 3) rays
-        eta = eta[..., None]
+    relative IOR (n2 / n1 entering), a tensor on inc's device ((B,) per
+    lane) or a Python number (nothing is copied to the device; 1 / eta is
+    formed in f32 on the host).  Returns (dir (..., 3), tir (...,) bool)."""
     cos1 = _dot(inc, n)
     entering = cos1 < 0.0
-    e = torch.where(entering, 1.0 / eta, eta)
+    if torch.is_tensor(eta):
+        eta = eta.to(torch.float32)
+        if eta.dim() == inc.dim() - 1:  # per-lane eta (B,), (B, 3) rays
+            eta = eta[..., None]
+        e = torch.where(entering, 1.0 / eta, eta)
+    else:
+        eta32 = torch.tensor(eta, dtype=torch.float32)
+        e = torch.where(entering, float(1.0 / eta32), float(eta32))
     N = torch.where(entering, n, -n)
     c1 = cos1.abs()
     k = 1.0 - e * e * (1.0 - c1 * c1)

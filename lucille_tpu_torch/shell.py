@@ -10,9 +10,8 @@ The port's copy of lucille_tpu/shell.py: the same commands and code on
 the port's RiState and Renderer, with these changes: the shell renders
 on an explicit device (`Shell(device="cuda")`, the default, or "cpu");
 `accel` takes what the port's compile takes (auto, pallas, bvh) and
-prints the compile's refusal for the rest; a refusal of what the port
-does not have yet (the shader method) is printed, and the shell goes
-on.
+prints the compile's refusal for the rest (ROADMAP Queue 1, item 7), and
+the shell goes on.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ HELP = """commands:
   render [out.hdr]        render the loaded scene (to display or file)
   nsamples <n>            set AO/final-gather ray count
   maxdepth <n>            set maximum ray depth
-  method <name>           ao | whitted | pathtrace | dirtmap
+  method <name>           ao | whitted | pathtrace | dirtmap | shader
   accel <name>            auto | pallas | bvh
   format <w> <h>          set output resolution
   set <option> <value>    set a raw option field

@@ -8,8 +8,8 @@ Counterpart of lucille_tpu/transport/dispatch.py:17-79:
 - "pathtrace", "path" and "mlt" ("mlt" warns once and path traces);
 - "dirtmap", AO weighted by the occluders' distance (transport/
   dirtmap.py);
-- "shader" (and "sl", "shade") raise NotImplementedError: the shader
-  integrator needs the RSL compiler (ROADMAP Queue 1);
+- "shader" (and "sl", "shade"), each geometry's surface shader at the
+  hits (transport/shaded.py), with the Renderer's shader table;
 - any other name warns once and renders AO.
 
 Contract: fn(scene, lights, org, dirn, stream, *, gather_nsamples,
@@ -18,8 +18,11 @@ fn(scene, lights, org, dirn, key, ...) with the tile's random stream
 (sampling/jitter.py) in place of its key.  The renderer passes
 max_depth = Option "trace" "max_ray_depth", the option's bgcolor and its
 texture atlas (texture/texture.py) to every method, as lucille_tpu's
-does (render/renderer.py:247-249); AO, Whitted and the path tracer
-read the atlas, the dirt map does not (nor does lucille_tpu's).
+does (render/renderer.py:247-249); AO, Whitted, the path tracer and the
+shaders read the atlas, the dirt map does not (nor does lucille_tpu's).
+The shader method also takes `shader_table`, built once per Renderer
+(transport/shaded.build_shader_table), as lucille_tpu's tile kernel
+does (lucille_tpu/render/renderer.py:66-69).
 """
 
 from __future__ import annotations
@@ -31,22 +34,28 @@ from lucille_tpu_torch.sampling.jitter import StreamKey
 from lucille_tpu_torch.transport.ao import ao_radiance
 from lucille_tpu_torch.transport.dirtmap import dirtmap_radiance
 from lucille_tpu_torch.transport.pathtrace import path_radiance
+from lucille_tpu_torch.transport.shaded import shaded_radiance
 from lucille_tpu_torch.transport.whitted import whitted_radiance
 
 AO_NAMES = ("ao", "ambientocclusion", "mcraytrace", "default", "")
 PATH_NAMES = ("pathtrace", "path", "mlt")
-UNPORTED = {
-    name: "the shader integrator needs the RSL compiler"
-    for name in ("shader", "sl", "shade")
-}
+SHADER_NAMES = ("shader", "sl", "shade")
 
 
 def get_integrator(name: str):
     name = (name or "").lower()
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"render method {name!r} is not ported: {UNPORTED[name]} "
-            "(ROADMAP Queue 1)")
+    if name in SHADER_NAMES:
+        def shaded_fn(scene, lights, org, dirn, stream, *,
+                      gather_nsamples: int = 64, max_depth: int = 8,
+                      bgcolor=(0.0, 0.0, 0.0), textures=None,
+                      shader_table=None):
+            return shaded_radiance(scene, lights, org, dirn,
+                                   StreamKey(stream),
+                                   shader_table=shader_table,
+                                   max_depth=max_depth, bgcolor=bgcolor,
+                                   textures=textures)
+
+        return shaded_fn
     if name == "whitted":
         def whitted_fn(scene, lights, org, dirn, stream, *,
                        gather_nsamples: int = 64, max_depth: int = 8,

@@ -25,7 +25,11 @@ bundled-ibl-whitted (the headline settings as Whitted under
 chip_smoke's 2048x1024 lat-long sky, cosweight), heightfield256-ibl-
 whitted (the n = 256 terrain's frame under the sky, importance) and
 bundled-pipeline (headline-ao with miefog, the background imager and
-MOSAICdisplace).
+MOSAICdisplace); and the shader method: bundled-shader-sl (the headline
+settings, the scene as shipped, whitted.sl bound to every geometry),
+bundled-shader-ao (the scene without its sunsky line, the built-in
+ambientocclusion surface) and heightfield256-shader (the n = 256
+terrain's frame, plastic under a distant light).
 
 Per cell it prints the warm frame's seconds without the profiler (best
 of N, default 2, and every sample), the profiled frame's wall time
@@ -96,6 +100,9 @@ CELLS = {
     "bundled-pipeline": (lambda: cs.bundled_state(
         640, 480, 3, 64, sunsky=False, head=cs.PIPELINE_IMAGER,
         world=cs.pipeline_world()), cs.TILE, "cone"),
+    "bundled-shader-sl": (cs.shader_sl_state, cs.TILE, "cone"),
+    "bundled-shader-ao": (cs.shader_ao_state, cs.TILE, "cone"),
+    "heightfield256-shader": (cs.shader_hf_state, 128, "cone"),
 }
 
 
@@ -112,37 +119,35 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile(cell: str, frames: int = 2, top: int = 12) -> None:
+def frame_profile(r, frames: int = 2) -> dict:
+    """Renderer r's warm frame: its seconds without the profiler (best of
+    `frames`, and every sample), then one frame under torch.profiler:
+    wall_ms (host clock around render_frame and a synchronize), busy_ms
+    (the union of the device's intervals), idle (1 - busy / wall), ops
+    (device operations), syncs (the host's waits on the card), by_name
+    {device op name: [ms, count]}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    from lucille_tpu_torch.render.renderer import Renderer
-    from lucille_tpu_torch.render.tiles import tile_list
-
-    make_state, tile, mode = CELLS[cell]
-    r = Renderer(make_state().scene, tile_size=tile, device="cuda")
-    with cs.bvh_ao_mode(mode):
-        r.render_frame()  # warm-up: the kernel build, caches, allocator
+    r.render_frame()  # warm-up: the kernel build, caches, allocator
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        r.render_frame()
         torch.cuda.synchronize()
-        times = []
-        for _ in range(frames):
-            t0 = time.perf_counter()
-            r.render_frame()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        with torch.profiler.profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            r.render_frame()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    opt = r.desc.options
-    n_tiles = len(tile_list(opt.width, opt.height, tile, opt.bucket_order))
+        times.append(time.perf_counter() - t0)
+    with torch.profiler.profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.render_frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    spans = [(e.time_range.start, e.time_range.end) for e in dev]
-    busy_ms = busy_us(spans) / 1e3
+    busy_ms = busy_us([(e.time_range.start, e.time_range.end)
+                       for e in dev]) / 1e3
     by_name = defaultdict(lambda: [0.0, 0])
     for e in dev:
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
@@ -150,13 +155,30 @@ def profile(cell: str, frames: int = 2, top: int = 12) -> None:
     # the host's waits on the card: the runtime's synchronize calls
     syncs = sum(1 for e in events if e.device_type != DeviceType.CUDA
                 and "Synchronize" in e.name)
+    return {"times": times, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle": 1 - busy_ms / wall_ms, "ops": len(dev), "syncs": syncs,
+            "by_name": dict(by_name)}
+
+
+def profile(cell: str, frames: int = 2, top: int = 12) -> None:
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.render.tiles import tile_list
+
+    make_state, tile, mode = CELLS[cell]
+    r = Renderer(make_state().scene, tile_size=tile, device="cuda")
+    with cs.bvh_ao_mode(mode):
+        p = frame_profile(r, frames)
+    opt = r.desc.options
+    n_tiles = len(tile_list(opt.width, opt.height, tile, opt.bucket_order))
+    times = p["times"]
     samples = ", ".join(f"{t * 1e3:.2f}" for t in times)
     print(f"[{cell}] frame {min(times) * 1e3:.2f} ms unprofiled (best of "
-          f"{frames}: {samples}); profiled frame {wall_ms:.2f} ms, device "
-          f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-          f"{len(dev)} device ops, {syncs} host syncs ({n_tiles} "
+          f"{frames}: {samples}); profiled frame {p['wall_ms']:.2f} ms, "
+          f"device busy {p['busy_ms']:.2f} ms, idle share {p['idle']:.3f}, "
+          f"{p['ops']} device ops, {p['syncs']} host syncs ({n_tiles} "
           f"tiles; each tile's pull makes 2)", flush=True)
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+    for name, (ms, n) in sorted(p["by_name"].items(),
+                                key=lambda kv: -kv[1][0])[:top]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:100]}")
 
 

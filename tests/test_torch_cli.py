@@ -85,10 +85,11 @@ def test_debug_and_nthreads(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("method", ["ao", "whitted", "pathtrace", "dirtmap",
-                                    "bogus"])
+                                    "shader", "bogus"])
 def test_method_choices(method, tmp_path, capsys):
-    """lucille_tpu's choices (cli.py:56-60) render; any other name is an
-    argparse error (shader: test_refusals_name_the_roadmap)."""
+    """lucille_tpu's choices (cli.py:56-60) render (shader: each
+    geometry's surface shader, matte on the bundled scene); any other
+    name is an argparse error."""
     from lucille_tpu_torch.cli import main
 
     rib = _rib(tmp_path, bundled_rib_text())
@@ -185,21 +186,30 @@ def test_shell_commands_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("line,refusal", [
-    ("accel grid", "not ported"), ("method shader", "RSL compiler")])
+    ("accel grid", "not ported"), ("method shader", None)])
 def test_shell_refusals(line, refusal, tmp_path, capsys):
+    """accel grid is refused naming ROADMAP (Queue 1, item 7), and the
+    shell goes on; method shader, refused until the RSL compiler was
+    ported, now renders: the image is written."""
+    from lucille_tpu_torch.imageio.loader import load_image
     from lucille_tpu_torch.shell import Shell
 
     sh = Shell(device="cpu")
     assert sh.one(f"file {_rib(tmp_path, bundled_rib_text())}") is True
+    assert sh.one("format 16 12") is True
     assert sh.one(line) is True
-    if line.startswith("method"):
-        assert sh.one(f"render {tmp_path / 'x.hdr'}") is True
+    assert sh.one(f"render {tmp_path / 'x.hdr'}") is True
     out = capsys.readouterr().out
-    assert refusal in out and "ROADMAP" in out
+    if refusal is None:
+        img = load_image(tmp_path / "x.hdr")
+        assert img.shape == (12, 16, 3) and 0 < img.mean() < 10
+        assert "ROADMAP" not in out
+    else:
+        assert refusal in out and "Queue 1, item 7" in out
 
 
 @pytest.mark.parametrize("argv", [
-    ["--method", "shader"], ["--num-processes", "2"], ["--mesh", "4"],
+    ["--accel", "bruteforce"], ["--num-processes", "2"], ["--mesh", "4"],
     ["--process-id", "1"], ["--accel", "grid"]])
 def test_refusals_name_the_roadmap(argv, capsys):
     from lucille_tpu_torch.cli import main
@@ -209,3 +219,30 @@ def test_refusals_name_the_roadmap(argv, capsys):
     assert e.value.code != 0
     err = capsys.readouterr().err
     assert "not ported" in err and "ROADMAP" in err
+
+
+def test_each_refusal_names_its_roadmap_item(monkeypatch, capsys):
+    """The refusals left name the ROADMAP Queue 1 item that will lift
+    them: the accels the port lacks (the compile's grid, bruteforce and
+    mxu, the tile arrays' grid, the CLI's --accel) and the re-binned
+    tile-BVH gather are item 7; the multi-device flags item 8."""
+    from types import SimpleNamespace
+
+    from lucille_tpu_torch.accel.bvh_ao import gather_mode
+    from lucille_tpu_torch.cli import main
+    from lucille_tpu_torch.scene.compile import resolve_accel
+    from lucille_tpu_torch.scene.types import from_numpy
+
+    for accel in ("grid", "bruteforce", "mxu"):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+            resolve_accel(accel, 10)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+        from_numpy(SimpleNamespace(accel="grid"), "cpu")
+    monkeypatch.setenv("LUCILLE_BVH_AO", "rebinned")
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+        gather_mode()
+    for argv, item in ((["--accel", "mxu"], 7), (["--mesh", "2"], 8),
+                       (["--coordinator", "h:1"], 8)):
+        with pytest.raises(SystemExit):
+            main(["scene.rib", *argv])
+        assert f"ROADMAP Queue 1, item {item}" in capsys.readouterr().err

@@ -237,13 +237,53 @@ def test_port_scan_covers_the_environment_and_pipeline_modules():
         "ops/mie", "ops/noise", "display/sockdrv")} <= files
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "4"], ["--method", "shader"],
+@pytest.mark.parametrize("accel", [[], ["--accel", "bvh"]])
+def test_cli_renders_the_shader_method_without_jax(tmp_path, accel):
+    """--method shader with a Surface compiled from an .sl on the search
+    path (ambient, illuminance under the scene's sunsky and sun lights,
+    a reflected trace()), with jax, lucille_tpu and tools_tpu blocked:
+    the closest hit of every traced wavefront and the shadow rays'
+    any-hit, each a twin."""
+    (tmp_path / "nojaxglass.sl").write_text(
+        "surface nojaxglass(float Kd = 0.6; float Kr = 0.3) {\n"
+        "  normal Nn = faceforward(normalize(N), I);\n"
+        "  illuminance(P, Nn, PI/2) { Ci += Kd * Cl * max(L . Nn, 0); }\n"
+        "  Ci += Kr * trace(P, reflect(I, Nn));\n"
+        "}\n")
+    rib = bundled_rib_text(sunsky=True).replace(
+        "WorldBegin\n", f'Option "searchpath" "shader" ["{tmp_path}"]\n'
+        'WorldBegin\nSurface "nojaxglass"\n', 1)
+    img, counts = _render_without_jax(tmp_path, rib, "--method", "shader",
+                                      "--maxraydepth", "2", *accel,
+                                      max_mean=1e5)
+    assert all(k == 0 for k, _p in counts.values())
+    used = {name for name, (_k, p) in counts.items() if p}
+    assert used == ({"bvh_closest_hit", "bvh_any_hit"} if accel else
+                    {"closest_hit", "any_hit"})
+    # 4 tiles, each: the eye wavefront and 2 levels of trace()
+    name = "bvh_closest_hit" if accel else "closest_hit"
+    assert counts[name][1] == 4 * 3
+    assert img.mean() > 1.0  # the sky through the reflections
+
+
+def test_port_scan_covers_the_shader_modules():
+    """test_torch_frontend's AST scan walks every module of the package:
+    the shader system, the RSL compiler and the shader integrator are
+    among them."""
+    files = {p.relative_to(REPO).as_posix()
+             for p in (REPO / "lucille_tpu_torch").rglob("*.py")}
+    assert {f"lucille_tpu_torch/{m}.py" for m in (
+        "shading/shader", "shading/sl", "transport/shaded")} <= files
+
+
+@pytest.mark.parametrize("argv", [["--mesh", "4"], ["--accel", "bruteforce"],
                                   ["--num-processes", "2"], ["--accel", "grid"],
                                   ["--coordinator", "localhost:1234"]])
 def test_cli_refuses_unported_flags(argv, capsys):
     """What the port does not have yet (--recover and --method dirtmap
     are ported now: tests/test_torch_cli.py; --display socket too:
-    tests/test_torch_sockdrv.py)."""
+    tests/test_torch_sockdrv.py; --method shader, once refused here, too:
+    test_cli_renders_the_shader_method_without_jax)."""
     from lucille_tpu_torch.cli import main
 
     with pytest.raises(SystemExit) as e:

@@ -192,7 +192,6 @@ def test_unknown_stages_without_a_source_are_ignored(tmp_path):
         apply_atmosphere,
         apply_imager,
         displace_scene,
-        sl_stages,
     )
 
     frame = np.ones((2, 3, 3), np.float32)
@@ -204,23 +203,41 @@ def test_unknown_stages_without_a_source_are_ignored(tmp_path):
                             dirn) is ci
     desc = _quad_state("torch", tmp_path, 'Displacement "lift"\n').scene
     P0 = desc.geoms[0].positions.copy()
-    displace_scene(desc)
+    compiled = {}
+    displace_scene(desc, compiled)
     np.testing.assert_array_equal(desc.geoms[0].positions, P0)
-    assert sl_stages(desc) == []
+    assert compiled == {("lift", "displacement"): None}  # looked up once
+
+
+STAGE_SOURCES = {
+    "Displacement": "displacement custom(float amp = 0.2) "
+                    "{ P += amp * normalize(N); }\n",
+    "Atmosphere": "volume custom() { Ci = Ci * 0.5 + (0, 0.25, 0); }\n",
+    "Imager": "imager custom() { Ci = Ci + (1 - alpha) * (0.5, 0, 0); }\n",
+}
 
 
 @pytest.mark.parametrize("stage", ["Displacement", "Atmosphere", "Imager"])
 def test_sl_stages_are_refused_naming_the_roadmap(stage, tmp_path):
-    """A stage whose .sl is on the search path needs the RSL compiler
-    (ROADMAP Queue 1, item 6): the Renderer refuses the scene up front."""
+    """A stage whose .sl is on the search path was refused until the RSL
+    compiler was ported (ROADMAP Queue 1, item 6); now the Renderer
+    compiles it once (its `shaders`) and applies it: the displacement
+    lifts the quad, the atmosphere and the imager change the frame."""
     from lucille_tpu_torch.render.renderer import Renderer
-    from lucille_tpu_torch.shading.pipeline import sl_stages
 
-    (tmp_path / "custom.sl").write_text("surface custom() { }\n")
+    (tmp_path / "custom.sl").write_text(STAGE_SOURCES[stage])
+    plain = Renderer(_quad_state("torch", tmp_path, "").scene,
+                     tile_size=16, device="cpu").render_frame()
     desc = _quad_state("torch", tmp_path, f'{stage} "custom"\n').scene
-    assert len(sl_stages(desc)) == 1 and "custom.sl" in sl_stages(desc)[0]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        Renderer(desc, device="cpu")
+    P0 = desc.geoms[0].positions.copy()
+    r = Renderer(desc, tile_size=16, device="cpu")
+    kind = {"Displacement": "displacement", "Atmosphere": "volume",
+            "Imager": "imager"}[stage]
+    img = r.render_frame()
+    assert r.shaders[("custom", kind)].shader_kind == kind
+    moved = np.abs(desc.geoms[0].positions - P0).max()
+    assert moved == (pytest.approx(0.2) if stage == "Displacement" else 0)
+    assert np.isfinite(img).all() and np.abs(img - plain).max() > 0.05
 
 
 # -- the displacement stage ------------------------------------------------
@@ -371,3 +388,154 @@ def test_imager_frame_written_by_the_cli(tmp_path):
     img = load_image(tmp_path / "x.pfm")
     green = (img == np.float32([0, 1, 0])).all(-1)
     assert 0.05 < green.mean() < 0.95
+
+
+# -- .sl stages against lucille_tpu's pipeline -----------------------------
+# (each source declares a name used nowhere else: lucille_tpu caches its
+# compiled stages process-wide by (name, kind))
+
+SL_VOLUME = ("volume {name}(float d = 6; color bg = (0.2, 0.3, 0.5)) {{\n"
+             "  float f = 1 - exp(-length(I) / d);\n"
+             "  Ci = mix(Ci, bg, f) + 0.01 * ycomp(P);\n"
+             "  if (zcomp(I) > 15) Ci = Ci * 0.5;\n"
+             "}}\n")
+# lucille_tpu compiles an atmosphere's .sl inside its jitted tile kernel,
+# where evaluating a parameter's default fails (np.asarray of a tracer)
+# and the stage is dropped with a warning (ROADMAP Queue 3, faults of the
+# reference); its frames are held against a shader without parameters
+SL_VOLUME_FRAME = ("volume {name}() {{\n"
+                   "  float f = 1 - exp(-length(I) / 20);\n"
+                   "  Ci = mix(Ci, (0.2, 0.3, 0.5), f) + 0.01 * ycomp(P);\n"
+                   "}}\n")
+SL_IMAGER = ("imager {name}(color bg = (0.1, 0.2, 0.3)) {{\n"
+             "  Ci = Ci + (1 - alpha) * bg + 0.05 * s - 0.02 * t;\n"
+             "}}\n")
+SL_LIFT = ("displacement {name}(float amp = 0.25;) {{\n"
+           "  P += amp * normalize(N) * (1 + 0.5 * noise(P * 3));\n"
+           "  N = calculatenormal(P);\n"
+           "}}\n")
+
+
+def test_sl_atmosphere_matches_jax(tmp_path):
+    """An .sl volume shader reading I (along z, the ray's length) and P,
+    with a varying if: Ci within 1e-5 of max(|value|, 1), escaped rays
+    unchanged; bound once in the Renderer's Atmosphere, the same."""
+    from lucille_tpu.shading.pipeline import apply_atmosphere as japply
+    from lucille_tpu_torch.shading.pipeline import Atmosphere, apply_atmosphere
+
+    (tmp_path / "ppslfog.sl").write_text(SL_VOLUME.format(name="ppslfog"))
+    sp = [str(tmp_path)]
+    ci, ray_len, P, hit, dirn = _wavefront()
+    args = [torch.from_numpy(a) for a in (ci, ray_len, P, hit, dirn)]
+    for params in ({}, {"d": [3.0], "bg": [0.9, 0.1, 0.1]}):
+        got = apply_atmosphere(*args[:4], "ppslfog", params, sp,
+                               args[4]).numpy()
+        want = np.asarray(japply(
+            *(jnp.asarray(a) for a in (ci, ray_len, P, hit)), "ppslfog",
+            params, sp, dirn=jnp.asarray(dirn)))
+        assert _close(got, want, 1e-5).all()
+        np.testing.assert_array_equal(got[~hit], ci[~hit])
+        assert np.abs(want[hit] - ci[hit]).max() > 0.05
+        compiled = {}
+        atm = Atmosphere("ppslfog", params, sp, "cpu", compiled)
+        assert compiled[("ppslfog", "volume")] is atm.fn
+        np.testing.assert_array_equal(atm(*args).numpy(), got)
+
+
+def test_sl_imager_matches_jax(tmp_path):
+    from lucille_tpu.shading.pipeline import apply_imager as japply
+    from lucille_tpu_torch.shading.pipeline import apply_imager
+
+    (tmp_path / "ppslimg.sl").write_text(SL_IMAGER.format(name="ppslimg"))
+    rng = np.random.default_rng(6)
+    frame = rng.uniform(0, 1, (12, 16, 3)).astype(np.float32)
+    alpha = rng.choice([0.0, 0.25, 1.0], (12, 16)).astype(np.float32)
+    for params in ({}, {"bg": [0.5, 0.0, 0.25]}):
+        got = apply_imager(frame, alpha, "ppslimg", params, [str(tmp_path)])
+        want = np.asarray(japply(frame, alpha, "ppslimg", params,
+                                 [str(tmp_path)]))
+        assert got.shape == frame.shape and got.dtype == np.float32
+        assert _close(got.reshape(-1, 3), want.reshape(-1, 3), 1e-6).all()
+        assert np.abs(got - frame).max() > 0.1
+
+
+def test_sl_displacement_matches_jax(tmp_path):
+    """tests/test_pipeline.py's lift.sl (with noise): positions and the
+    rebuilt normals equal lucille_tpu's within f32 rounding (the shader
+    runs in f32 on both sides); idempotent."""
+    from lucille_tpu.shading.pipeline import displace_scene as jdisplace
+    from lucille_tpu_torch.shading.pipeline import displace_scene
+
+    (tmp_path / "ppsllift.sl").write_text(SL_LIFT.format(name="ppsllift"))
+    line = 'Displacement "ppsllift" "amp" [0.3]\n'
+    got = _quad_state("torch", tmp_path, line).scene
+    want = _quad_state("jax", tmp_path, line).scene
+    P0 = got.geoms[0].positions.copy()
+    compiled = {}
+    displace_scene(got, compiled)
+    jdisplace(want)
+    g, w = got.geoms[0], want.geoms[0]
+    assert g.positions.dtype == np.float64
+    np.testing.assert_allclose(g.positions, w.positions, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(g.normals, w.normals, rtol=0, atol=1e-5)
+    lift = np.abs(g.positions - P0).max(axis=1)
+    assert lift.min() > 0.1 and lift.max() - lift.min() > 0.05
+    P1 = g.positions.copy()
+    displace_scene(got, compiled)
+    np.testing.assert_array_equal(g.positions, P1)
+
+
+def test_sl_stage_of_another_kind_or_malformed(tmp_path):
+    """A stage whose source declares another kind is used anyway (with a
+    warning), as in lucille_tpu; one that does not compile is ignored,
+    and the cache remembers both answers."""
+    from lucille_tpu.shading.pipeline import apply_imager as japply
+    from lucille_tpu_torch.shading.pipeline import apply_imager
+    from lucille_tpu_torch.shading.sl import find_sl
+
+    (tmp_path / "ppslsurf.sl").write_text(
+        "surface ppslsurf() { Ci = Ci * 2; }")
+    (tmp_path / "ppslbad.sl").write_text("imager ppslbad( { Ci = ; }")
+    sp = [str(tmp_path)]
+    compiled = {}
+    assert find_sl("ppslsurf", "imager", sp, compiled).shader_kind \
+        == "surface"
+    assert find_sl("ppslbad", "imager", sp, compiled) is None
+    assert set(compiled) == {("ppslsurf", "imager"), ("ppslbad", "imager")}
+    frame = np.full((4, 6, 3), 0.25, np.float32)
+    alpha = np.ones((4, 6), np.float32)
+    for name in ("ppslsurf", "ppslbad"):
+        got = apply_imager(frame, alpha, name, {}, sp)
+        want = np.asarray(japply(frame, alpha, name, {}, sp))
+        np.testing.assert_array_equal(got, want)
+    assert apply_imager(frame, alpha, "ppslbad", {}, sp) is frame
+
+
+@pytest.mark.parametrize("stage", ["atmosphere-imager", "displacement"])
+def test_sl_stage_frames_match_jax(stage, tmp_path):
+    """The bundled scene's AO frame under an .sl atmosphere and an .sl
+    imager, and the test quad under an .sl displacement, against
+    lucille_tpu's Renderer (the module's frame bounds)."""
+    if stage == "displacement":
+        (tmp_path / "ppslliftf.sl").write_text(
+            SL_LIFT.format(name="ppslliftf"))
+
+        def make(pkg):
+            return _quad_state(pkg, tmp_path,
+                               'Displacement "ppslliftf" "amp" [0.2]\n')
+        r, got, ref = _frame_pair(make)
+        assert r.desc.geoms[0]._displaced
+        flat = _frame_pair(lambda pkg: _quad_state(pkg, tmp_path, ""))[1]
+        assert np.abs(got - flat).max() > 0.05
+        return
+    (tmp_path / "ppslfogf.sl").write_text(
+        SL_VOLUME_FRAME.format(name="ppslfogf"))
+    (tmp_path / "ppslimgf.sl").write_text(SL_IMAGER.format(name="ppslimgf"))
+    sp = f'Option "searchpath" "shader" ["{tmp_path}"]\n'
+    r, got, ref = _frame_pair(lambda pkg: _bundled(
+        pkg, 'Atmosphere "ppslfogf"\n',
+        sp + 'Imager "ppslimgf"\n'))
+    assert r.atmosphere.fn is r.shaders[("ppslfogf", "volume")]
+    assert r.shaders[("ppslimgf", "imager")].shader_kind == "imager"
+    plain = _frame_pair(lambda pkg: _bundled(pkg, ""))[1]
+    assert np.abs(got - plain).max() > 0.05

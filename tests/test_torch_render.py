@@ -218,10 +218,11 @@ def test_tiles_reach_callbacks_in_spiral_order():
 @pytest.mark.parametrize("what", ["sunsky", "texture", "method", "ibl",
                                   "sl-stage"])
 def test_unported_features_raise(what, tmp_path):
-    """Each feature still to port is refused: method, the shader method
-    (dirtmap renders since its port, tests/test_torch_dirtmap.py);
-    sl-stage, an atmosphere shader whose .sl is on the search path (the
-    RSL compiler, ROADMAP Queue 1 item 6).  Refused once, now built:
+    """Each feature still to port is refused: method, now the grid accel
+    (ROADMAP Queue 1, item 7; the shader method, refused here until the
+    RSL compiler was ported, renders: tests/test_torch_shaded.py).
+    Refused once, now built: sl-stage, an atmosphere shader whose .sl is
+    on the search path (compiled and bound to the Renderer);
     ibl, a dome light with an environment texture, and texture, an "ibl"
     light's texture (environment maps are ported,
     tests/test_torch_envmap.py; a map not found leaves the light its flat
@@ -254,9 +255,11 @@ def test_unported_features_raise(what, tmp_path):
         (tmp_path / "myfog.sl").write_text("volume myfog() { }\n")
         desc.options.searchpaths = [str(tmp_path)]
         desc.geoms[0].attrs.atmosphere = "myfog"
-    else:  # the method still to port
-        desc.options.render_method = "shader"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r = Renderer(desc, device="cpu")
+        assert r.atmosphere.fn.shader_name == "myfog"
+        return
+    desc.options.accel_method = "grid"  # the accel still to port
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
         Renderer(desc, device="cpu")
 
 

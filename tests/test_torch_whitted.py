@@ -458,17 +458,21 @@ def test_default_stream_matches_the_ao_draw():
 
 
 def test_dispatch_methods():
-    """whitted, the path names and dirtmap are ported; shader (sl, shade)
-    raises naming ROADMAP; an unknown name renders AO."""
+    """whitted, the path names, dirtmap and the shader names (shader, sl,
+    shade: the shader integrator, which takes the shader table) are
+    ported; an unknown name renders AO."""
+    import inspect
+
     from lucille_tpu_torch.transport import dispatch
 
     assert dispatch.get_integrator("whitted").__name__ == "whitted_fn"
     for name in ("pathtrace", "path", "mlt"):
         assert dispatch.get_integrator(name).__name__ == "path_fn"
     assert dispatch.get_integrator("dirtmap").__name__ == "dirt_fn"
-    for name in ("shader", "sl", "shade"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dispatch.get_integrator(name)
+    for name in ("shader", "sl", "shade", "Shader"):
+        fn = dispatch.get_integrator(name)
+        assert fn.__name__ == "shaded_fn"
+        assert "shader_table" in inspect.signature(fn).parameters
     assert dispatch.get_integrator("bogus").__name__ == "ao_fn"
     assert dispatch.get_integrator("").__name__ == "ao_fn"
 
