@@ -203,9 +203,42 @@ non-zero):
    whitted.sl scene at 160x120, its .hdr equal to the Renderer's frame
    through the same driver; each of phases 26-28 prints its wall
    seconds;
-29. a JSON line of per-kernel results (each with the least time the card
+29. the uniform grid's DDA walk (csrc/ugrid.cu, one thread a ray; it
+   stands for lucille_tpu's lax.while_loop, ugrid.py:166) against its
+   lock-step twin (`check_grid_kernels`): the closest hit on the first
+   tile's eye rays and the any-hit on one stratum of the AO scan's
+   gather rays from their hits, on the bundled scene's headline tile
+   (518,400 rays, a 9^3 grid) and the n = 256 terrain's first tile
+   (65,536 rays, 130,050 triangles, a 64^3 grid): tri, t, u, v,
+   occlusion and the walk's counters (ntests, ntrav) equal exactly; ms
+   a launch, the twin's ms, the bound from the counted work, registers
+   and spills (a spill fails);
+30. the grid's, the dense requests' and the re-binned gather's full-width
+   frames with phase 4's checks, each with its
+   launches against its path's count, its rays against the same scene's
+   frame on its default accel, and one profiled frame's device ops,
+   busy and idle share (`check_accel_frames`): headline-ao-grid and
+   heightfield256-grid (the grid walk: 1 + 64 launches a tile),
+   headline-ao-bruteforce and headline-ao-mxu (lucille_tpu's dense
+   requests, input order: kernel 1, then kernel 2 on each of the 64
+   strata) and heightfield256-rebinned (LUCILLE_BVH_AO=rebinned: kernel
+   4, then kernel 5 once a tile on its 4,194,304 sorted gather rays);
+31. 80x60 frames of those paths on the card against the CPU's twins
+   (phase 12's bound): AO and Whitted on the grid, AO under bruteforce
+   and mxu, the re-binned gather on the 35x35 heightfield;
+32. inverse rendering (lucille_tpu_torch.diff, the inverse-render
+   example's scene) at 640x480, 4 samples, depth 3: forward and
+   backward seconds, the peak memory torch allocated, five Adam steps on
+   mat_kd and mat_color whose loss must fall; at 80x60 every gradient on
+   the card against the CPU's twins (`check_inverse_render`);
+33. single_scattering on the headline tile's hit lanes against the CPU's
+   twins, and tools/bvh_viz.py's counters and heatmap on the card equal
+   to the CPU's (`check_library_paths`); each of phases 29-33 prints its
+   wall seconds;
+34. a JSON line of per-kernel results (each with the least time the card
    could take for its work, `bound_ms`, from the counts below; kernel
-   1's entries include its finite-tmax cases), the card's line, and last
+   1's entries include its finite-tmax cases; the grid's two entry
+   points beside the six TPU kernels' ports), the card's line, and last
    {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it: run from a directory
@@ -251,6 +284,12 @@ SOURCES = {
                     "lucille_tpu/accel/pallas_bvh.py:598"),
     "bvh_ao_fused": ("lucille_tpu_torch/csrc/bvh.cu",
                      "lucille_tpu/accel/pallas_bvh.py:810"),
+    # the grid's DDA walk stands for a JAX loop (`_traverse`'s
+    # lax.while_loop), not a Pallas kernel
+    "grid_closest_hit": ("lucille_tpu_torch/csrc/ugrid.cu",
+                         "lucille_tpu/accel/ugrid.py:166"),
+    "grid_any_hit": ("lucille_tpu_torch/csrc/ugrid.cu",
+                     "lucille_tpu/accel/ugrid.py:166"),
 }
 
 # kernel name -> its CUDA symbol, as the profiler names it
@@ -270,6 +309,9 @@ PEAK_BYTES = 3.35e12
 # stratum's direction from the jitter and basis, and its reciprocals).
 MT_OPS, SV_OPS, AO_OPS, SLAB_OPS, NODE_OPS = 56, 58, 30, 25, 56
 DIR_OPS = 55
+# a grid walk's cell advance (csrc/ugrid.cu: the nearest boundary of
+# three, the settle and exit tests, the step, the next cell's index)
+DDA_OPS = 16
 # rays on which need_walk counts the tile-BVH any-hits' needed work
 N_NEED = 65536
 
@@ -379,13 +421,14 @@ def sunsky_line() -> str:
 
 def bundled_state(width, height, pixelsamples=None, gather=None,
                   sunsky=True, api=None, method=None, dof=False, light=None,
-                  head="", world=""):
+                  head="", world="", accel=None):
     """tests/golden/sunsky_scene.rib, the reference's
     ambient_occlusion.rib (322 triangles) with its sunsky light (as
     shipped), or without that line for plain AO, or with RIB text
     `light` in its place; with dof, under DOF_LINE; `head` RIB lines
     before WorldBegin, `world` right after it; parsed in memory, and
-    rendered by `method` (default the RIB's, AO)."""
+    rendered by `method` (default the RIB's, AO) on `accel` (default the
+    RIB's, auto)."""
     RiState, parse_rib = api or front_end()
     text = BUNDLED_RIB.read_text()
     if light is not None:
@@ -405,6 +448,8 @@ def bundled_state(width, height, pixelsamples=None, gather=None,
         s.options.gather_nsamples = gather
     if method is not None:
         s.options.render_method = method
+    if accel is not None:
+        s.options.accel_method = accel
     return s
 
 
@@ -695,13 +740,15 @@ class SocketListener:
 
 def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
-    from lucille_tpu_torch.accel import ao, bvh_ao, bvh_isect, isect
+    from lucille_tpu_torch.accel import ao, bvh_ao, bvh_isect, isect, ugrid
 
     return {"closest_hit": isect.COUNTS, "any_hit": isect.ANY_COUNTS,
             "ao_occlusion": ao.COUNTS, "ao_occlusion_bits": ao.BITS_COUNTS,
             "bvh_closest_hit": bvh_isect.CLOSEST_COUNTS,
             "bvh_any_hit": bvh_isect.ANY_COUNTS,
-            "bvh_ao_fused": bvh_ao.FUSED_COUNTS}
+            "bvh_ao_fused": bvh_ao.FUSED_COUNTS,
+            "grid_closest_hit": ugrid.COUNTS,
+            "grid_any_hit": ugrid.ANY_COUNTS}
 
 
 @contextmanager
@@ -2172,7 +2219,7 @@ def check_dense_scan(results):
     from lucille_tpu_torch.accel.ao import MAX_TRIS_FOR_MEGAKERNEL
     from lucille_tpu_torch.render.renderer import Renderer
     from lucille_tpu_torch.render.tiles import tile_list
-    from lucille_tpu_torch.transport.ao import dense_scan
+    from lucille_tpu_torch.transport.ao import gather_kind
 
     for sunsky in (False, True):
         label = "heightfield258-scan" + ("-sunsky" if sunsky else "")
@@ -2184,7 +2231,8 @@ def check_dense_scan(results):
             if accel == "bvh":
                 imgs[accel] = r.render_frame()
                 continue
-            if not (dense_scan(r.scene) and r.scene.tri_v0.shape[0]
+            if not (r.scene.accel == "dense" and gather_kind(r.scene)
+                    == "scan" and r.scene.tri_v0.shape[0]
                     > MAX_TRIS_FOR_MEGAKERNEL):
                 raise AssertionError(f"{label}: not the dense scan")
             if not sunsky:
@@ -2984,6 +3032,372 @@ def check_shader_cli():
                              "Renderer's")
 
 
+GRID_PATH = ("grid_closest_hit", "grid_any_hit")
+# a grid walk's entry (csrc/ugrid.cu: the slab test against the grid's
+# box, the entry cell, the steps and boundary distances of three axes)
+GRID_ENTRY_OPS = 70
+
+
+def grid_registers(log: str) -> dict:
+    """{"grid_kernel<any>": (registers, spill bytes)} of csrc/ugrid.cu's
+    two entries; raises if one spills or is missing."""
+    import re
+
+    out = {}
+    for name, (regs, spill) in ptxas_entries(log).items():
+        m = re.search(r"grid_kernelILb([01])E", name)
+        if m:
+            out[f"grid_kernel<{bool(int(m.group(1)))}>"] = (regs, spill)
+    if len(out) != 2 or any(spill for _regs, spill in out.values()):
+        raise AssertionError(f"ugrid.cu: a report missing or a spill: {out}")
+    return out
+
+
+def grid_bound(got, reads, B: int, live: int, tmax: bool, active: bool,
+               any_hit: bool) -> dict:
+    """The least time for a grid walk of B rays, `live` of them walking:
+    its own counted work as operations (each tested slot a
+    Moller-Trumbore test, each cell advance DDA_OPS, each live ray's
+    entry GRID_ENTRY_OPS); as bytes, the inputs it was passed read once
+    (a live ray's origin and direction, its tmax where one was passed,
+    every ray's active byte where a mask was passed), the grid and
+    triangle entries the walk reads once (`reads`, the twin's distinct
+    CSR offsets, slots and tested triangles: 4, 4 and 36 bytes), and its
+    outputs written once (t, u, v, tri; or one occlusion byte)."""
+    ops = (int(got["ntests"]) * MT_OPS + int(got["ntrav"]) * DDA_OPS
+           + live * GRID_ENTRY_OPS)
+    nbytes = (live * (24 + (4 if tmax else 0)) + (B if active else 0)
+              + B * (1 if any_hit else 16)
+              + 4 * int(reads["cell_start"].sum() + reads["tri_idx"].sum())
+              + 36 * int(reads["tris"].sum()))
+    return bound(nbytes, ops)
+
+
+def _check_grid_equal(label, got, ref, keys) -> float:
+    """Every key of the kernel's result equal to the twin's, exactly;
+    returns max |t - t_twin| over the hits (0 when exact)."""
+    import torch
+
+    for k in keys:
+        if not torch.equal(got[k], ref[k]):
+            raise AssertionError(f"{label}: {k} differs from the twin")
+    if "t" not in got:
+        return 0.0
+    hit = ref["tri"] >= 0
+    return float((got["t"][hit] - ref["t"][hit]).abs().max())
+
+
+def check_grid_kernels(label, r, results, log):
+    """Phase 29 for one scene: the grid walk's entry points
+    (csrc/ugrid.cu) against the lock-step twin on the scene's first tile:
+    the closest hit on its eye rays, the any-hit on the AO scan's
+    stratum 7 of 64 (the most grazing of the first row) of gather rays
+    from their hits (the missed lanes dead); tri,
+    t, u, v, occlusion, ntests and ntrav equal exactly; ms a launch (CUDA
+    events, 10 launches), the twin's ms (one run), the bound (from the
+    launch's counters and the twin's record of the walk's reads),
+    registers and spills.  Appends to results[name]."""
+    from lucille_tpu_torch.accel import ugrid
+    from lucille_tpu_torch.transport.ao import _scan_dirs, shading_frame
+
+    scene = r.scene
+    if scene.accel != "ugrid":
+        raise AssertionError(f"{label}: accel {scene.accel}")
+    regs = grid_registers(log)
+    org, dirn, x0, y0 = first_tile_rays(r)
+    B = org.shape[0]
+    got = ugrid.grid_walk_kernel(scene, org, dirn)
+    reads = {}
+    ref = ugrid.grid_walk_reference(scene, org, dirn, reads=reads)
+    err = _check_grid_equal(f"{label} closest", got, ref,
+                            ("tri", "t", "u", "v", "ntests", "ntrav"))
+    _, plain_ms = timed(lambda: ugrid.grid_walk_reference(scene, org, dirn))
+    ms = cuda_ms(lambda: ugrid.grid_walk_kernel(scene, org, dirn), 10)
+    hit = got["tri"] >= 0
+    P_off, b0, b1, b2 = shading_frame(scene, org, dirn, {**got, "hit": hit})
+    wdir = _scan_dirs(b0, b1, b2, r.sampler(x0, y0).uniform((7,), (B, 2)),
+                      7, 8, 8)
+    occ = ugrid.grid_walk_kernel(scene, P_off, wdir, None, hit, any_hit=True)
+    any_reads = {}
+    occ_ref = ugrid.grid_walk_reference(scene, P_off, wdir, None, hit,
+                                        any_hit=True, reads=any_reads)
+    _check_grid_equal(f"{label} any", occ, occ_ref,
+                      ("occ", "ntests", "ntrav"))
+    _, plain_any_ms = timed(lambda: ugrid.grid_walk_reference(
+        scene, P_off, wdir, None, hit, any_hit=True))
+    any_ms = cuda_ms(lambda: ugrid.grid_walk_kernel(
+        scene, P_off, wdir, None, hit, any_hit=True), 10)
+    n_hit, n_occ = int(hit.sum()), int(occ["occ"].sum())
+    for name, res, rd, k_ms, p_ms, any_hit, live, reg in (
+            ("grid_closest_hit", got, reads, ms, plain_ms, False, B,
+             "grid_kernel<False>"),
+            ("grid_any_hit", occ, any_reads, any_ms, plain_any_ms, True,
+             n_hit, "grid_kernel<True>")):
+        # the closest hit is passed neither tmax nor a mask, the any-hit
+        # the eye hits as its mask and no tmax
+        b = grid_bound(res, rd, B, live, False, any_hit, any_hit)
+        entry = {"scene": label, "rays": B, "live": live,
+                 "max_abs_err": err if not any_hit else 0.0, "ms": k_ms,
+                 "plain_ms": p_ms, **b, "ntests": int(res["ntests"]),
+                 "ntrav": int(res["ntrav"]), "registers": regs[reg][0],
+                 "res": scene.grid_res}
+        results[name].append(entry)
+        print(f"[{label}] {name}: {B} rays ({live} live; {n_hit} eye hits, "
+              f"{n_occ} gather rays occluded), grid {scene.grid_res}^3, "
+              f"{scene.n_tris} triangles; equal to the twin (tri, t, u, v "
+              f"/ occlusion, ntests {entry['ntests']}, ntrav "
+              f"{entry['ntrav']}); {k_ms:.3f} ms a launch, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; "
+              f"{entry['ntests'] / max(live, 1):.1f} slots tested and "
+              f"{entry['ntrav'] / max(live, 1):.1f} advances a live ray), "
+              f"twin {p_ms:.3f} ms; {regs[reg][0]} registers, no spill",
+              flush=True)
+
+
+def check_accel_frames(results):
+    """Phase 30: the full-width frames of the grid, the dense requests
+    and the re-binned gather with phase 4's checks,
+    each with its launches against its path's count, its rays against the
+    same scene's frame on its default accel (lucille_tpu's count: the eye
+    rays and S gather rays a hit; the accels find the same hits), and one
+    profiled frame's device ops, busy and idle share: headline-ao-grid
+    and heightfield256-grid (the grid: one closest hit and 64 any-hits a
+    tile), headline-ao-bruteforce and headline-ao-mxu (lucille_tpu's
+    requests on the dense tiles: kernel 1, then kernel 2 on each of the 64
+    strata), heightfield256-rebinned (the tile BVH under
+    LUCILLE_BVH_AO=rebinned: kernel 4, then kernel 5 once a tile on the
+    4,194,304 sorted gather rays).  Returns the grid frame's launches."""
+    from profile_frame import frame_profile
+
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.render.tiles import tile_list
+
+    dense = ("closest_hit", "any_hit")
+    bvh = ("bvh_closest_hit", "bvh_any_hit")
+    headline = lambda **kw: bundled_state(640, 480, 3, 64,  # noqa: E731
+                                          sunsky=False, **kw)
+    frames = (
+        ("headline-ao-grid", lambda: headline(accel="grid"), TILE, "cone",
+         GRID_PATH, (1, 64), "bundled"),
+        ("heightfield256-grid", lambda: heightfield_state(256, accel="grid"),
+         128, "cone", GRID_PATH, (1, 64), "hf"),
+        ("headline-ao-bruteforce", lambda: headline(accel="bruteforce"),
+         TILE, "cone", dense, (1, 64), "bundled"),
+        ("headline-ao-mxu", lambda: headline(accel="mxu"), TILE, "cone",
+         dense, (1, 64), "bundled"),
+        ("heightfield256-rebinned", lambda: heightfield_state(256), 128,
+         "rebinned", bvh, (1, 1), "hf"),
+    )
+    ref_rays = {}
+    for kind, make_state, tile in (("bundled", headline, TILE),
+                                   ("hf", lambda: heightfield_state(256),
+                                    128)):
+        r = Renderer(make_state().scene, tile_size=tile, device="cuda")
+        r.render_frame()
+        ref_rays[kind] = r.stats.nrays
+    grid_launches = None
+    for label, make_state, tile, mode, path, per_tile, kind in frames:
+        r = build_renderer(label, make_state, tile)
+        with bvh_ao_mode(mode):
+            got, _best, _img = render_checked(label, r,
+                                              f"chip_smoke_{label}.hdr", path)
+            nrays = r.stats.nrays  # the last timed frame's
+            p = frame_profile(r, 1)
+        opt = r.desc.options
+        n_tiles = len(tile_list(opt.width, opt.height, tile,
+                                opt.bucket_order))
+        want = tuple(n_tiles * k for k in per_tile)
+        print(f"[{label}] launches {got} (the path's count: "
+              f"{dict(zip(path, want))}); {nrays} rays (the default "
+              f"accel's frame: {ref_rays[kind]}); profiled frame "
+              f"{p['wall_ms']:.2f} ms, device busy {p['busy_ms']:.2f} ms, "
+              f"idle share {p['idle']:.3f}, {p['ops']} device ops, "
+              f"{p['syncs']} host syncs", flush=True)
+        for name, (ms, n) in sorted(p["by_name"].items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+            print(f"  {ms:9.3f} ms  {n:5d}x  {ms / n:.4f} ms a launch  "
+                  f"{name[:90]}")
+        if tuple(got[k] for k in path) != want:
+            raise AssertionError(f"{label}: launches {got}, not {want}")
+        if abs(nrays - ref_rays[kind]) > 1e-5 * ref_rays[kind]:
+            raise AssertionError(f"{label}: {nrays} rays, not "
+                                 f"{ref_rays[kind]}")
+        if label == "headline-ao-grid":
+            grid_launches = got
+            for k in GRID_PATH:
+                results[k][0]["frame_launches"] = got[k]
+    return grid_launches
+
+
+def check_accel_twins():
+    """Phase 31: 80x60 frames of phase 30's paths on the card against
+    the CPU's twins (`check_frame_twins`, phase 12's bound): AO (16 rays)
+    and Whitted (depth 2) on the grid, AO under the bruteforce and mxu
+    requests, and the re-binned gather on the 35x35 heightfield's tile
+    BVH (80x60, 1x1, 16 rays)."""
+    def bundled(accel, method=None):
+        def make():
+            s = bundled_state(80, 60, 1, 16, sunsky=False, accel=accel,
+                              method=method)
+            s.options.max_ray_depth = 2
+            return s
+        return make
+
+    check_frame_twins("grid-ao-twins", bundled("grid"))
+    check_frame_twins("grid-whitted-twins", bundled("grid", "whitted"))
+    check_frame_twins("bruteforce-ao-twins", bundled("bruteforce"))
+    check_frame_twins("mxu-ao-twins", bundled("mxu"))
+    with bvh_ao_mode("rebinned"):
+        check_frame_twins("rebinned-ao-twins", lambda: heightfield_state(
+            35, 80, 60, pixelsamples=1, gather=16, accel="bvh"))
+
+
+def check_inverse_render():
+    """Phase 32: inverse rendering on the card at full width, the
+    inverse-render example's scene at 640x480, 4 samples, depth 3, path
+    traced: one forward and one backward pass timed (host clock and a
+    synchronize) with the peak memory torch allocated over them; five
+    Adam steps on mat_kd and mat_color from the example's start (each
+    step's seconds), the loss falling; then at 80x60 every parameter's
+    gradient of the L2 loss on the card against the CPU's twins, one
+    numpy stream fed to both: within 1e-3 of the largest |gradient| of
+    that parameter (phase 12's bound; cos and sin in the bounce
+    directions round differently on the two devices)."""
+    import torch
+
+    from lucille_tpu_torch.diff import render_loss_and_grad
+    from lucille_tpu_torch.examples.inverse_render import (
+        TRUE_COLOR,
+        TRUE_KD,
+        recover,
+        setup,
+    )
+    from lucille_tpu_torch.sampling.jitter import HostSampler, TileSampler
+
+    render_fn, params = setup(640, 480, "cuda", spp=4, max_depth=3)
+    dev = params["mat_kd"].device
+    stream = TileSampler(0, dev)(0, 0)
+    true = {**params, "mat_kd": torch.tensor(TRUE_KD, device=dev),
+            "mat_color": torch.tensor(TRUE_COLOR, device=dev)}
+    with torch.no_grad():
+        target = render_fn(true, stream)
+    start = {"mat_kd": torch.full((2,), 0.6, device=dev),
+             "mat_color": torch.full((2, 3), 0.5, device=dev)}
+    leaves = {k: v.clone().requires_grad_(True) for k, v in start.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    img = render_fn({**params, **leaves}, stream)
+    loss = torch.mean((img - target) ** 2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    steps = []
+
+    def log(_i, _loss):
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter())
+
+    t3 = time.perf_counter()
+    _theta, losses = recover(render_fn, params, target, stream, start, 5,
+                             log=log)
+    step_s = [b - a for a, b in zip([t3] + steps[:-1], steps)]
+    print(f"[inverse-render] 640x480, 4 samples, depth 3: forward "
+          f"{t1 - t0:.4f} s, backward {t2 - t1:.4f} s, peak memory "
+          f"{(peak - base) / 2**30:.3f} GiB above {base / 2**30:.3f} GiB "
+          f"({peak / 2**30:.3f} GiB in all); 5 Adam steps "
+          f"{[round(s, 4) for s in step_s]} s, loss "
+          f"{[round(v, 6) for v in losses]}", flush=True)
+    if not losses[-1] < losses[0] or not np.isfinite(losses).all():
+        raise AssertionError(f"inverse-render: the loss did not fall: "
+                             f"{losses}")
+
+    grads = {}
+    for d in ("cuda", "cpu"):
+        fn, ps = setup(80, 60, d, spp=4, max_depth=3)
+        st = HostSampler(0, d)(0, 0)
+        with torch.no_grad():
+            tgt = fn({**ps, "mat_kd": torch.tensor(
+                TRUE_KD, device=ps["mat_kd"].device)}, st)
+        grads[d] = render_loss_and_grad(fn, tgt, ps, st)
+    worst = 0.0
+    for k, g in grads["cpu"][1].items():
+        scale = max(float(g.abs().max()), 1e-6)
+        err = float((grads["cuda"][1][k].cpu() - g).abs().max()) / scale
+        worst = max(worst, err)
+    loss_err = abs(float(grads["cuda"][0]) - float(grads["cpu"][0]))
+    print(f"[inverse-render] 80x60 gradients on the card against the CPU: "
+          f"worst |difference| / max |gradient| {worst:.3g} (<= 1e-3); "
+          f"losses {float(grads['cuda'][0]):.6g} and "
+          f"{float(grads['cpu'][0]):.6g}", flush=True)
+    if worst > 1e-3 or loss_err > 1e-3 * float(grads["cpu"][0]):
+        raise AssertionError("inverse-render: the card's gradients disagree "
+                             "with the CPU's")
+
+
+def check_library_paths():
+    """Phase 33: single_scattering on the headline tile's hit lanes (the
+    bundled scene under a point and a distant light, dense tiles, kernel
+    2 for its shadow rays), the card against the CPU's twins on 65,536 of
+    them with one numpy stream: within 1e-4 of max(|value|, 1e-3) on all
+    but 1% of the lanes; its time on all the tile's hit lanes; then
+    tools/bvh_viz.py's traversal counters and heatmap of the bundled
+    scene at 160x120 on the card, equal to the CPU's."""
+    import torch
+
+    from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.render.renderer import Renderer
+    from lucille_tpu_torch.sampling.jitter import HostStream, StreamKey
+    from lucille_tpu_torch.tools import bvh_viz
+    from lucille_tpu_torch.transport.common import interp_hit
+    from lucille_tpu_torch.transport.sss import single_scattering
+
+    def state():
+        return bundled_state(640, 480, 3, light=POINT_LIGHT + DISTANT_LIGHT)
+
+    r = Renderer(state().scene, tile_size=TILE, device="cuda")
+    org, dirn, _x0, _y0 = first_tile_rays(r)
+    res = closest_hit(r.scene, org, dirn)
+    h = interp_hit(r.scene, res, org, dirn)
+    live = res["hit"]
+    P, N, I = h["P"][live], h["Ns"][live], dirn[live]
+    n = P.shape[0]
+    key = StreamKey(HostStream(0, 0, 0, "cuda"))
+    _full, ms = timed(lambda: single_scattering(r.scene, r.lights, P, N, I,
+                                                key))
+    m = min(n, 65536)
+    got = single_scattering(r.scene, r.lights, P[:m], N[:m], I[:m],
+                            key).cpu().numpy()
+    rc = Renderer(state().scene, tile_size=TILE, device="cpu")
+    ref = single_scattering(rc.scene, rc.lights, P[:m].cpu(), N[:m].cpu(),
+                            I[:m].cpu(),
+                            StreamKey(HostStream(0, 0, 0, "cpu"))).numpy()
+    err = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-3)
+    off = float((err > 1e-4).any(axis=1).mean())
+    print(f"[sss] single_scattering on {n} hit lanes: {ms:.3f} ms; on "
+          f"{m} of them against the CPU's twins: lanes off by > 1e-4 "
+          f"{off:.5f} (<= 0.01), mean {ref.mean():.5f}", flush=True)
+    if off > 0.01 or not ref.mean() > 0 or not np.isfinite(got).all():
+        raise AssertionError("sss: the card disagrees with the twins")
+
+    stats = {d: bvh_viz.render_diag(BUNDLED_RIB, 160, 120, "nvisits",
+                                    device=d)[1] for d in ("cuda", "cpu")}
+    same = all(np.array_equal(stats["cuda"][k], stats["cpu"][k])
+               for k in stats["cpu"])
+    print(f"[bvh-viz] 160x120 node visits {int(stats['cuda']['nvisits'].min())}"
+          f"-{int(stats['cuda']['nvisits'].max())}, triangle tests up to "
+          f"{int(stats['cuda']['ntris'].max())}; equal to the CPU's: {same}",
+          flush=True)
+    if not same or not np.array_equal(
+            bvh_viz.heatmap(stats["cuda"]["nvisits"]),
+            bvh_viz.heatmap(stats["cpu"]["nvisits"])):
+        raise AssertionError("bvh-viz: the card's counters differ")
+
+
 def main() -> int:
     import torch
 
@@ -3188,7 +3602,25 @@ def main() -> int:
     phase("shader-twins", check_shader_twins)
     phase("shader-cli", check_shader_cli)
 
-    # 29. results
+    # 29.-33. the grid walk (csrc/ugrid.cu) against its
+    # twin, the grid, bruteforce, mxu and re-binned frames at full width
+    # and at 80x60 against the twins, inverse rendering, the library paths
+    def grid_kernels():
+        for label, make_state, tile in (
+                ("bundled-grid", lambda: bundled_state(
+                    640, 480, 3, 64, sunsky=False, accel="grid"), TILE),
+                ("heightfield256-grid", lambda: heightfield_state(
+                    256, accel="grid"), 128)):
+            check_grid_kernels(label, build_renderer(label, make_state, tile),
+                               results, lib.log)
+
+    phase("grid-kernels", grid_kernels)
+    launches.update(phase("accel-frames", check_accel_frames, results))
+    phase("accel-twins", check_accel_twins)
+    phase("inverse-render", check_inverse_render)
+    phase("library", check_library_paths)
+
+    # 34. results
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -3198,7 +3630,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             **{k: head[k] for k in keys},
             "max_abs_err": max(x["max_abs_err"] for x in results[name]),
-            # no PyTorch call intersects rays with triangles
+            # no PyTorch call intersects rays with triangles or walks a grid
             "library_ms": None,
             "by_scene": results[name],
         })

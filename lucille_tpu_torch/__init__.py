@@ -13,7 +13,10 @@ written by hand for sm_90a (csrc/), built at first use by
 kernels/build.py and bound with ctypes: on the dense tiles the closest
 hit of the eye rays, the fused AO occlusion gather (with per-stratum
 bits for the sky) and the any-hit of the sun's shadow rays; on the tile
-BVH a BVH closest hit and the BVH any-hit that traces the gather rays.
+BVH a BVH closest hit, the BVH any-hit that traces the gather rays and
+the fused BVH gather; on lucille_tpu's uniform grid its DDA walk.
+`diff` differentiates a frame with respect to the material and light
+parameters on torch autograd.
 
 Every kernel wrapper has a plain torch twin with the same contract. A
 wrapper handed CPU tensors runs the twin; handed CUDA tensors it
@@ -21,4 +24,4 @@ launches its kernel or raises.  The package never imports jax,
 nor anything of lucille_tpu.
 """
 
-__version__ = "0.1.0"
+from lucille_tpu_torch.version import __version__  # noqa: F401

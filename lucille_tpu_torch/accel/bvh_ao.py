@@ -27,8 +27,20 @@ Counterpart of lucille_tpu/accel/pallas_bvh.py:965-1233 in its default
 
 lucille_tpu's own switch picks the gather, read at call time as
 pallas_bvh.py:1001 reads it: ``LUCILLE_BVH_AO`` unset or "cone" runs the
-cone-tiled gather above, "rebinned" is refused (not ported), and any
-other value runs the fused gather (`bvh_ao_fused`, kernel 6,
+cone-tiled gather above, "rebinned" the re-binned gather
+(`bvh_ao_rebinned`, pallas_bvh.py:1062-1110, which lucille_tpu measured
+slower and keeps for measurement, :982-994):
+
+- every hit lane's S directions from the same (2, B) draw as the cone
+  gather's, column j belonging to raster lane j (`_stratified_dirs`,
+  :1018-1050), all S x B rays at once, missed lanes parked as above;
+- the rays sorted by a 31-bit key, direction octant | 3-bit direction
+  Morton | 6-bit origin Morton (parked rays last), traced in that order
+  by the tile-BVH any-hit (kernel 5), scattered back and summed over the
+  strata; the order among equal keys changes no answer, and the gather
+  reports no counters (:1006);
+
+and any other value runs the fused gather (`bvh_ao_fused`, kernel 6,
 pallas_bvh.py:810 `_bvh_ao_kernel` behind `_pallas_bvh_ao_occlusion`):
 
 - hit lanes compacted by compaction_order's Morton branch, column j of
@@ -59,7 +71,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lucille_tpu_torch.accel.ao import compaction_order, stratum_directions
+from lucille_tpu_torch.accel.ao import (
+    _spread3,
+    compaction_order,
+    stratum_directions,
+)
 from lucille_tpu_torch.accel.bvh_isect import (
     STACK,
     WARP,
@@ -103,7 +119,13 @@ def stratum_tile_perm(ntheta: int, nphi: int, K: int) -> np.ndarray:
 def _device_consts(ntheta: int, nphi: int, K: int, dev: torch.device):
     """The stratum permutation and the parked direction, on `dev` once."""
     perm = torch.from_numpy(stratum_tile_perm(ntheta, nphi, K)).long()
-    return perm.to(dev), torch.tensor([0.0, 0.0, -1.0], device=dev)
+    return perm.to(dev), _away(dev)
+
+
+@lru_cache(maxsize=None)
+def _away(dev: torch.device) -> torch.Tensor:
+    """The parked rays' direction (0, 0, -1), on `dev` once."""
+    return torch.tensor([0.0, 0.0, -1.0], device=dev)
 
 
 def cone_layout(S: int, B: int):
@@ -151,13 +173,9 @@ def conetile_rays(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
 
 def gather_mode() -> str:
     """lucille_tpu's LUCILLE_BVH_AO switch, read at call time: "cone" (the
-    default) or "fused" (any other value); "rebinned" raises."""
+    default), "rebinned" or "fused" (any other value)."""
     mode = os.environ.get("LUCILLE_BVH_AO", "cone")
-    if mode == "rebinned":
-        raise NotImplementedError(
-            "LUCILLE_BVH_AO=rebinned: lucille_tpu's re-binned gather "
-            "(_pallas_bvh_ao_rebinned) is not ported (ROADMAP Queue 1, item 7)")
-    return "cone" if mode == "cone" else "fused"
+    return mode if mode in ("cone", "rebinned") else "fused"
 
 
 def _check_gather(B, jitter, ntheta, nphi):
@@ -175,14 +193,19 @@ def bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
 
     P_off, b0, b1, b2: (B, 3) f32 offset shading points and orthonormal
     basis (b2 = shading normal); hit: (B,) bool; jitter: (2, B) f32
-    uniforms, column j belonging to raster lane j (cone) or to compacted
-    slot j (fused).  Returns ((B,) f32 occluded-strata counts, 0 where
-    not hit; {ntrav, ntests} of the gather's walks)."""
+    uniforms, column j belonging to raster lane j (cone, rebinned) or to
+    compacted slot j (fused).  Returns ((B,) f32 occluded-strata counts, 0
+    where not hit; {ntrav, ntests} of the gather's walks, none for the
+    re-binned gather)."""
     B = P_off.shape[0]
     _check_gather(B, jitter, ntheta, nphi)
-    if gather_mode() == "fused":
+    mode = gather_mode()
+    if mode == "fused":
         return bvh_ao_fused(scene, P_off, b0, b1, b2, hit, jitter, ntheta,
                             nphi)
+    if mode == "rebinned":
+        return bvh_ao_rebinned(scene, P_off, b0, b1, b2, hit, jitter, ntheta,
+                               nphi), {}
     oo, dd, order, (NG, S, G, Bpad) = conetile_rays(
         scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi)
     res = any_hit(scene, oo, dd)
@@ -191,6 +214,38 @@ def bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     occ[order] = occ_g.reshape(-1)
     stats = {"ntrav": res["ntrav"], "ntests": res["ntests"]}
     return occ[:B] * hit.to(torch.float32), stats
+
+
+def bvh_ao_rebinned(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
+                    nphi: int) -> torch.Tensor:
+    """The re-binned gather (module docstring; pallas_bvh.py:1062-1110):
+    operands as bvh_ao_occlusion, jitter column j belonging to raster
+    lane j.  Returns (B,) f32 occluded-strata counts, 0 where not hit."""
+    B = P_off.shape[0]
+    S = ntheta * nphi
+    d = stratum_directions(b0, b1, b2, jitter, ntheta, nphi).reshape(S * B, 3)
+    o = P_off[None].expand(S, B, 3).reshape(S * B, 3)
+    live = hit[None].expand(S, B).reshape(S * B)
+    bmin, bmax = scene.bbox_min, scene.bbox_max
+    o = torch.where(live[:, None], o, (bmin - (bmax - bmin) - 1.0)[None])
+    d = torch.where(live[:, None], d, _away(P_off.device))
+    octant = ((d[:, 0] > 0).to(torch.int32) * 4
+              + (d[:, 1] > 0).to(torch.int32) * 2
+              + (d[:, 2] > 0).to(torch.int32))
+    qd = ((d * 0.5 + 0.5) * 8.0).to(torch.int32).clamp(0, 7)
+    md = ((_spread3(qd[:, 0]) << 2) | (_spread3(qd[:, 1]) << 1)
+          | _spread3(qd[:, 2]))
+    ext = torch.clamp_min(bmax - bmin, 1e-12)
+    qo = ((o - bmin) / ext * 64.0).to(torch.int32).clamp(0, 63)
+    mo = ((_spread3(qo[:, 0]) << 2) | (_spread3(qo[:, 1]) << 1)
+          | _spread3(qo[:, 2]))
+    key = torch.where(live, (octant << 27) | (md << 18) | mo,
+                      torch.full_like(mo, 1 << 30))
+    order = torch.argsort(key)
+    occ_sorted = any_hit(scene, o[order], d[order])["occ"]
+    occ = torch.empty(S * B, dtype=torch.float32, device=P_off.device)
+    occ[order] = occ_sorted.to(torch.float32)
+    return occ.reshape(S, B).sum(dim=0) * hit.to(torch.float32)
 
 
 def bvh_ao_sunsky(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,

@@ -1,15 +1,17 @@
 """Accel dispatch: route intersection queries to the bound structure.
 
-Counterpart of lucille_tpu/accel/dispatch.py:22-69 for the port's two
-accels: the dense Morton-sorted tiles (lucille_tpu's "pallas") and the
-tile BVH ("pbvh").
+Counterpart of lucille_tpu/accel/dispatch.py:22-69 for the port's three
+layouts: the dense tiles (lucille_tpu's "pallas", Morton-sorted, and its
+"bruteforce" and "mxu", in input order: csrc/isect.cu serves all three),
+the tile BVH ("pbvh", csrc/bvh.cu) and the uniform grid ("ugrid",
+csrc/ugrid.cu).
 """
 
 from __future__ import annotations
 
 import torch
 
-from lucille_tpu_torch.accel import bvh_isect, isect
+from lucille_tpu_torch.accel import bvh_isect, isect, ugrid
 
 
 def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
@@ -30,6 +32,8 @@ def closest_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
                                         leaf_real=scene.leaf_real)
     elif scene.accel == "dense":
         res = isect.closest_hit(scene, org, dirn, tmax, active)
+    elif scene.accel == "ugrid":
+        res = ugrid.closest_hit(scene, org, dirn, tmax, active)
     else:
         raise NotImplementedError(f"accel {scene.accel!r} is not ported")
     tri = res["tri"]
@@ -49,10 +53,10 @@ def any_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
     """Whether each ray (B, 3) hits anything with 0 < t < tmax (None:
     unbounded, a float or (B,)); active: None or a (B,) bool mask of the
     rays that count, the others report False.  Returns {occ (B,) bool},
-    on the tile BVH also ntrav, ntests.  On the dense tiles a dead ray
-    costs no work (csrc/isect.cu); the tile BVH traces it and masks the
-    answer, as lucille_tpu's BVH path ignores the mask
-    (lucille_tpu/accel/dispatch.py:48-65)."""
+    on the tile BVH and the grid also ntrav, ntests.  On the dense tiles
+    and the grid a dead ray costs no work (csrc/isect.cu, csrc/ugrid.cu);
+    the tile BVH traces it and masks the answer, as lucille_tpu's BVH path
+    ignores the mask (lucille_tpu/accel/dispatch.py:48-65)."""
     org, dirn = org.contiguous(), dirn.contiguous()
     if scene.accel == "pbvh":
         res = bvh_isect.bvh_any_hit(scene.tris, scene.nodes, org, dirn,
@@ -63,4 +67,6 @@ def any_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
         return res
     if scene.accel == "dense":
         return isect.any_hit(scene, org, dirn, tmax, active)
+    if scene.accel == "ugrid":
+        return ugrid.any_hit(scene, org, dirn, tmax, active)
     raise NotImplementedError(f"accel {scene.accel!r} is not ported")

@@ -243,6 +243,34 @@ def _hit(valid, u, v, t, t_lim):
             & (t > 0.0) & (t < t_lim))
 
 
+def mt_single(org, dirn, v0, e1, e2):
+    """Moller-Trumbore, one gathered triangle per ray, all (B, 3), in the
+    kernels' operation order (lucille_tpu/accel/ugrid.py:_mt_single):
+    (t, u, v, hit) with hit |det| > DET_EPS, u, v >= 0, u + v <= 1; the
+    grid walk's twin (accel/ugrid.py) and `bvh_diag` (accel/traverse.py)
+    test t themselves."""
+    ox, oy, oz = org.unbind(1)
+    dx, dy, dz = dirn.unbind(1)
+    v0x, v0y, v0z = v0.unbind(1)
+    e1x, e1y, e1z = e1.unbind(1)
+    e2x, e2y, e2z = e2.unbind(1)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    a = e1x * px + e1y * py + e1z * pz
+    valid = a.abs() > DET_EPS
+    inva = torch.where(valid, 1.0 / torch.where(valid, a, 1.0), 0.0)
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    u = (sx * px + sy * py + sz * pz) * inva
+    v = (qx * dx + qy * dy + qz * dz) * inva
+    t = (e2x * qx + e2y * qy + e2z * qz) * inva
+    hit = valid & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+    return t, u, v, hit
+
+
 def closest_scan(tris, org, dirn, tmax, ray_chunk: int = 65536) -> dict:
     """Nearest hit of every ray over every triangle with 0 < t < tmax
     (B,), the lowest index winning a tie: {t (tmax on a miss), u, v,

@@ -19,11 +19,14 @@
     --nthreads N       accepted for lsh compatibility, ignored
     --tile N           tile size, default 64
     --order O          spiral|scanline|zorder|hilbert
-    --accel A          auto|pallas|bvh: auto picks the dense tiles up to
-                       16384 triangles and the tile BVH above; pallas
-                       asks for the dense tiles, bvh for the tile BVH
-                       (grid, bruteforce and mxu are refused: ROADMAP
-                       Queue 1, item 7)
+    --accel A          auto|pallas|bvh|grid|bruteforce|mxu: auto picks
+                       the dense tiles up to 16384 triangles and the tile
+                       BVH above; pallas asks for the dense tiles, bvh for
+                       the tile BVH, grid for lucille_tpu's uniform grid
+                       (a DDA walk, csrc/ugrid.cu); bruteforce and mxu,
+                       lucille_tpu's dense intersectors, render on the
+                       dense tiles in input order, their gathers scanned
+                       stratum by stratum as lucille_tpu scans them
     --recover          tile checkpoints: <display name>.ckpt.npz is
                        written after each tile and resumed from
     --width/--height   override the image size
@@ -35,15 +38,15 @@ A scene with an AreaLightSource "sunsky" renders the reference's sunsky
 AO (sky radiance over the open strata plus the sun), on either accel; a
 scene without lights gets the reference's constant dome, which Whitted
 gathers through the AO kernels.  LUCILLE_BVH_AO=fused selects the fused
-tile-BVH AO gather, as it does for lucille_tpu.  A dome or IBL light
+tile-BVH AO gather, =rebinned the re-binned one, as they do for
+lucille_tpu.  A dome or IBL light
 with an environment texture renders through its "sampling" token
 (cosweight, importance, stratified, structured, bruteforce); the
 displacement, atmosphere and imager shaders, built in or .sl sources on
 the search path, run as lucille_tpu runs them (shading/pipeline.py), and
 an imager's frame is written to the displays again after the post-pass.
 lucille_tpu's --mesh, --coordinator, --num-processes and --process-id
-(ROADMAP Queue 1, item 8) and the accels the port lacks (item 7) are
-refused with a message naming ROADMAP.
+(ROADMAP Queue 1, item 8) are refused with a message naming ROADMAP.
 CLI overrides are applied at WorldBegin through the backdoor callback,
 as lucille_tpu's CLI does (lucille_tpu/cli.py:139-166).
 """
@@ -80,8 +83,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="tile order (default spiral)")
     p.add_argument("--accel",
                    choices=["auto", "bvh", "grid", "bruteforce", "mxu", "pallas"],
-                   help="accel override; auto (by triangle count), pallas "
-                        "(dense tiles) and bvh (tile BVH) are ported")
+                   help="accel override: auto (by triangle count), pallas "
+                        "(dense tiles), bvh (tile BVH), grid (uniform grid), "
+                        "bruteforce and mxu (dense tiles, input order)")
     p.add_argument("--method",
                    choices=["ao", "whitted", "pathtrace", "dirtmap", "shader"],
                    help="integrator override (Option \"renderer\" \"method\")")
@@ -107,9 +111,6 @@ def main(argv=None) -> int:
         if getattr(args, name) is not None:
             p.error(f"--{name.replace('_', '-')}: {what} is not ported "
                     "(ROADMAP Queue 1, item 8)")
-    if args.accel not in (None, "auto", "pallas", "bvh"):
-        p.error(f"--accel {args.accel}: not ported (only 'auto', 'pallas' "
-                "and 'bvh'; ROADMAP Queue 1, item 7)")
 
     from lucille_tpu_torch.base.log import set_debug
     from lucille_tpu_torch.base.timer import get_timer

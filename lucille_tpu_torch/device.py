@@ -19,7 +19,11 @@ import torch
 def const_vec(values, device) -> torch.Tensor:
     """values (a sequence of numbers) as an f32 tensor on `device`, copied
     there once per distinct (values, device) and shared after that; treat
-    it as read-only."""
+    it as read-only.  A tensor passes through (moved to `device` if it
+    lies elsewhere), so a differentiable parameter keeps its gradient
+    (diff/render.py) where float() of its elements would drop it."""
+    if torch.is_tensor(values):
+        return values.to(device=device, dtype=torch.float32)
     return _const_vec(tuple(float(v) for v in values), torch.device(device))
 
 

@@ -27,7 +27,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
-SOURCES = ("isect.cu", "ao.cu", "bvh.cu")
+SOURCES = ("isect.cu", "ao.cu", "bvh.cu", "ugrid.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "--fmad=false",
@@ -62,6 +62,14 @@ SIGNATURES = {
     # warps, ntheta, inv_ntheta, inv_nphi, occ, stats, stream
     "lt_bvh_ao_fused": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                         _I, _F, _F, _P, _P, _P),
+    # org, dir, tmax, active, B, v0, e1, e2, cell_start, tri_idx, box, res,
+    # t, u, v, tri, stats, stream
+    "lt_grid_closest_hit": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                            _P, _P, _P, _P, _P, _P),
+    # org, dir, tmax, active, B, v0, e1, e2, cell_start, tri_idx, box, res,
+    # occ, stats, stream
+    "lt_grid_any_hit": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                        _P, _P),
 }
 
 

@@ -10,10 +10,12 @@ folded at the same places.
 
 A constant dome light's hemisphere visibility is the AO gather's job, as
 in lucille_tpu (`_hemisphere_occlusion`): the dense tiles' fused gather
-(accel/ao.ao_occlusion, kernel 3) up to 131,072 padded triangles, the
-tile BVH's gather (accel/bvh_ao.bvh_ao_occlusion: the cone-tiled gather,
-or kernel 6 under LUCILLE_BVH_AO=fused) on pbvh scenes; anything else
-takes the cosine-weighted loop of shadow rays.  A dome or IBL light with
+(accel/ao.ao_occlusion, kernel 3) up to 131,072 padded triangles under
+lucille_tpu's "pallas" request, the tile BVH's gather
+(accel/bvh_ao.bvh_ao_occlusion: the cone-tiled gather, kernel 6 under
+LUCILLE_BVH_AO=fused, the re-binned gather under =rebinned) on pbvh
+scenes; anything else (the dense scan, "bruteforce", "mxu", the grid)
+takes the cosine-weighted loop of shadow rays, as in lucille_tpu.  A dome or IBL light with
 an environment texture goes through the sampler its RIB selects
 (`_env_contribution`, lights/ibl.py).  `light_wi_cl` is one (direction,
 shadowed colour) sample of a light, the binding of RSL `illuminance`
@@ -42,7 +44,7 @@ from lucille_tpu_torch.lights.tables import (
     LIGHT_SUNSKY,
 )
 from lucille_tpu_torch.shading.reflection import _dot, cosweight_sample
-from lucille_tpu_torch.transport.ao import _norm, dense_scan, ortho_basis
+from lucille_tpu_torch.transport.ao import _norm, gather_kind, ortho_basis
 
 GATHER_LIGHTS = (LIGHT_DOME, LIGHT_AREA, LIGHT_SUNSKY, LIGHT_IBL)
 
@@ -117,10 +119,11 @@ def _hemisphere_occlusion(scene, P, N, key, nsamples: int, active):
         B, dtype=torch.bool, device=P.device)
     b0, b1, b2 = ortho_basis(N)
     P_off = P + N * scene.eps
-    if scene.accel == "dense" and not dense_scan(scene):
+    kind = gather_kind(scene)
+    if kind == "fused-dense":
         return ao_occlusion(scene, P_off, b0, b1, b2, hit,
                             key.uniform((2, B)), nt, nph)
-    if scene.accel == "pbvh" and scene.n_nodes > 0:
+    if kind == "bvh" and scene.n_nodes > 0:
         return bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit,
                                 key.uniform((2, B)), nt, nph)[0]
     return None

@@ -16,8 +16,16 @@ the device once, by from_numpy.
 
 `accel "auto"` decides by triangle count alone: dense up to
 AUTO_DENSE_MAX_TRIS, the tile BVH above.  "pallas" asks for the dense
-tiles, "bvh" and "pbvh" for the tile BVH; lucille_tpu's grid, brute-force
-and MXU accels are not ported.
+tiles, "bvh" and "pbvh" for the tile BVH, "grid" and "ugrid" for the
+uniform grid (accel/ugrid.py's CSR build, `grid_*` arrays), and
+"bruteforce" and "mxu", lucille_tpu's dense intersectors, for the dense
+tiles with the triangles in input order: lucille_tpu Morton-sorts them
+only for "pallas" (lucille_tpu/scene/compile.py:232), and the port's
+dense kernels serve both requests (bruteforce.py and mxu.py have the
+dense kernels' contract).  Any other name is "bruteforce", as in
+lucille_tpu.  The output keeps lucille_tpu's name for the request in
+`intersector`: the AO and dome gathers choose by it as lucille_tpu does
+(transport/ao.gather_kind).
 """
 
 from __future__ import annotations
@@ -56,19 +64,20 @@ def _morton_order(v0, v1, v2, bbmin, bbmax):
     return np.argsort(code, kind="stable")
 
 
-def resolve_accel(requested: str, n_tris: int) -> str:
-    """The RIB's accel request -> "dense" or "pbvh"."""
+def resolve_accel(requested: str, n_tris: int) -> tuple[str, str]:
+    """The RIB's accel request -> (the port's layout, "dense", "pbvh" or
+    "ugrid"; lucille_tpu's intersector, "pallas", "pbvh", "ugrid",
+    "bruteforce" or "mxu")."""
     if requested == "auto":
-        return "pbvh" if n_tris > AUTO_DENSE_MAX_TRIS else "dense"
-    if requested == "pallas":
-        return "dense"
+        return (("pbvh", "pbvh") if n_tris > AUTO_DENSE_MAX_TRIS
+                else ("dense", "pallas"))
     if requested in ("bvh", "pbvh"):
-        return "pbvh"
-    raise NotImplementedError(
-        f"accel {requested!r} is not ported; use 'auto', 'pallas' (the "
-        "dense tiles) or 'bvh' (the tile BVH); the grid, bruteforce and "
-        "mxu are ROADMAP Queue 1, item 7"
-    )
+        return "pbvh", "pbvh"
+    if requested in ("grid", "ugrid"):
+        return "ugrid", "ugrid"
+    if requested in ("pallas", "mxu"):
+        return "dense", requested
+    return "dense", "bruteforce"
 
 
 def _per_triangle(g):
@@ -102,12 +111,14 @@ def _per_triangle(g):
     return (a, b, c), ns, sts, cs
 
 
-def compile_arrays(desc: SceneDescription,
-                   texture_ids: dict | None = None) -> SimpleNamespace:
+def compile_arrays(desc: SceneDescription, texture_ids: dict | None = None,
+                   build_bvh: bool = False) -> SimpleNamespace:
     """The scene as host NumPy arrays (field names as SceneTensors).
     texture_ids: {texture file name: atlas id}, assigned by the renderer
     after it loads the atlas (texture/texture.py); a material whose
-    texture has no id keeps -1."""
+    texture has no id keeps -1.  build_bvh: the tile BVH whatever the
+    request (the BVH visualizer's diagnostics, tools/bvh_viz.py), as
+    lucille_tpu's compile_scene(build_bvh=True)."""
     geoms = [g for g in desc.geoms if g.ntriangles > 0]
     n_geoms = max(1, len(geoms))
     per = [_per_triangle(g) for g in geoms]
@@ -129,7 +140,8 @@ def compile_arrays(desc: SceneDescription,
         st0 = st1 = st2 = np.zeros((0, 2))
         c0 = c1 = c2 = np.zeros((0, 3))
     n_tris = len(v0)
-    accel = resolve_accel(desc.options.accel_method, n_tris)
+    accel, intersector = resolve_accel(
+        "pbvh" if build_bvh else desc.options.accel_method, n_tris)
 
     if n_tris:
         allv = np.concatenate([v0, v1, v2])
@@ -170,11 +182,29 @@ def compile_arrays(desc: SceneDescription,
         node_skip, node_first, node_count = nmeta
         leaf_tiles_max = int(nmeta[2].max())
     else:
-        accel = "dense"
-        if n_tris > 1:
+        if accel == "pbvh":
+            accel, intersector = "dense", "pallas"  # no triangle to build on
+        if intersector == "pallas" and n_tris > 1:
             order = _morton_order(v0, v1, v2, bbmin, bbmax)
             per_tri = [a[order] for a in per_tri]
     v0, v1, v2, geom_id, n0, n1, n2, st0, st1, st2, c0, c1, c2 = per_tri
+
+    # the uniform grid over the unpadded triangles (lucille_tpu/scene/
+    # compile.py:243-271); without a triangle the scene stays dense
+    grid = {}
+    if accel == "ugrid" and n_tris > 0:
+        from lucille_tpu_torch.accel.ugrid import build_ugrid
+
+        timer = get_timer()
+        timer.start("Grid Construction")
+        g = build_ugrid(v0, v1, v2)
+        dt = timer.end("Grid Construction")
+        log(LOG_INFO, "uniform grid built: %d tris, %d^3 cells, %d refs, "
+            "%.3f sec", n_tris, g.res, len(g.tri_idx), dt)
+        grid = dict(grid_cell_start=g.cell_start, grid_tri_idx=g.tri_idx,
+                    grid_bbmin=g.bbmin, grid_bbmax=g.bbmax, grid_res=g.res)
+    elif accel == "ugrid":
+        accel = "dense"
 
     # pbvh arrays are already tile-padded (len(v0) >= n_tris)
     n_pad = max(PAD_MULTIPLE, -(-max(len(v0), 1) // PAD_MULTIPLE) * PAD_MULTIPLE)
@@ -218,12 +248,14 @@ def compile_arrays(desc: SceneDescription,
         node_first=node_first, node_count=node_count,
         bbox_min=bbmin, bbox_max=bbmax, eps=np.float32(eps),
         n_tris=n_tris, n_pad=n_pad, n_geoms=n_geoms, n_nodes=n_nodes,
-        leaf_tiles_max=leaf_tiles_max, accel=accel,
+        leaf_tiles_max=leaf_tiles_max, accel=accel, intersector=intersector,
+        **grid,
     )
 
 
 def compile_scene(desc: SceneDescription, device,
-                  texture_ids: dict | None = None) -> SceneTensors:
-    """SceneDescription -> SceneTensors on `device` (texture_ids as
-    compile_arrays)."""
-    return from_numpy(compile_arrays(desc, texture_ids), device)
+                  texture_ids: dict | None = None,
+                  build_bvh: bool = False) -> SceneTensors:
+    """SceneDescription -> SceneTensors on `device` (texture_ids and
+    build_bvh as compile_arrays)."""
+    return from_numpy(compile_arrays(desc, texture_ids, build_bvh), device)

@@ -15,10 +15,21 @@ are f32, integers i32, on one explicit device.
   the tile culls.
 - accel "pbvh": the triangles in the tile BVH's leaf order, every leaf
   padded to whole tiles; the node arrays are the tree, and `nodes` is
-  their pack for the kernels (accel/pack.pack_nodes), with the tree's
+  their pack for the kernels (accel/pack.pack_nodes; the arrays
+  themselves are kept for accel/traverse.bvh_diag), with the tree's
   depth and each leaf's count of real triangles (`leaf_real`,
   accel/tile_bvh.leaf_real: the any-hit and fused gather's warp walk
   stages no padding) beside it, and `tris` as on the dense accel.
+- accel "ugrid": lucille_tpu's uniform grid (accel/ugrid.py), the
+  triangles in input order: `grid_cell_start` and `grid_tri_idx` (the
+  CSR cell lists), `grid_box` (6,) [bbmin | bbmax] and `grid_res`; the
+  CUDA walk reads the triangle tables themselves, so no pack is built.
+
+`intersector` keeps lucille_tpu's accel name for the scene ("pallas",
+"mxu", "bruteforce", "ugrid" or "pbvh"): lucille_tpu's "mxu" and
+"bruteforce" are the dense layout here, its kernels serving them, and
+the gathers choose by the name as lucille_tpu does
+(transport/ao.gather_kind).
 """
 
 from __future__ import annotations
@@ -77,16 +88,29 @@ class SceneTensors:
     n_geoms: int = 0
     n_nodes: int = 0  # tile-BVH nodes, 0 on the dense accel
     leaf_tiles_max: int = 1  # most tiles in one leaf
-    accel: str = "dense"  # "dense" or "pbvh" (module docstring)
+    accel: str = "dense"  # "dense", "pbvh" or "ugrid" (module docstring)
     nodes: torch.Tensor | None = None  # (M, 8) pack_nodes layout, pbvh only
     tree_depth: int = 0  # depth of the deepest node, pbvh only
     leaf_real: torch.Tensor | None = None  # (M,) i32 real tris a leaf, pbvh
+    # the tree's skip-link arrays, pbvh only (accel/traverse.bvh_diag)
+    node_bbmin: torch.Tensor | None = None  # (M, 3) f32
+    node_bbmax: torch.Tensor | None = None  # (M, 3) f32
+    node_skip: torch.Tensor | None = None  # (M,) i32
+    node_first: torch.Tensor | None = None  # (M,) i32, in tiles
+    node_count: torch.Tensor | None = None  # (M,) i32 tiles, 0 inner
     # the kernels' packs (module docstring), built by from_numpy
     tris: torch.Tensor | None = None  # (16, Npad) pack_tris
     occ: torch.Tensor | None = None  # (16, Npad) pack_occ, dense only
     boxes: torch.Tensor | None = None  # (8, n_tiles) pack_boxes, dense only
     sboxes: torch.Tensor | None = None  # (8, n_super) pack_super_boxes, dense
     sub_boxes: torch.Tensor | None = None  # (8, Npad / SUB), dense only
+    # lucille_tpu's accel name (module docstring)
+    intersector: str = "pallas"
+    # the uniform grid, ugrid only (module docstring)
+    grid_cell_start: torch.Tensor | None = None  # (res^3 + 1,) i32
+    grid_tri_idx: torch.Tensor | None = None  # (M,) i32
+    grid_box: torch.Tensor | None = None  # (6,) f32 [bbmin | bbmax]
+    grid_res: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -96,9 +120,12 @@ class SceneTensors:
 ARRAY_FIELDS = tuple(
     f.name for f in fields(SceneTensors) if f.type == "torch.Tensor"
 )
+NODE_FIELDS = ("node_bbmin", "node_bbmax", "node_skip", "node_first",
+               "node_count")
 STATIC_FIELDS = ("n_tris", "n_pad", "n_geoms", "n_nodes", "leaf_tiles_max")
-# lucille_tpu's name for the same triangle layout
-DENSE_ACCELS = ("dense", "pallas")
+# lucille_tpu's names for the dense triangle layout ("dense" is the port's
+# compile output, whose `intersector` says which)
+DENSE_ACCELS = ("dense", "pallas", "mxu", "bruteforce")
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -115,11 +142,14 @@ def _to_tensor(a, device) -> torch.Tensor:
 def from_numpy(scene_arrays, device) -> SceneTensors:
     """Any object carrying the scene fields as NumPy arrays (the JAX
     package's SceneArrays, or this package's compile output) -> tensors
-    on `device`, f32/i32, same field names.  The dense layout ("pallas"
-    or "dense") and the tile BVH ("pbvh") carry over; the kernels' packs,
-    and for the tile BVH the node pack and the tree's depth, are computed
+    on `device`, f32/i32, same field names.  The dense layout ("pallas",
+    "mxu", "bruteforce" or "dense"), the tile BVH ("pbvh") and the grid
+    ("ugrid") carry over; the kernels' packs, for the tile BVH the node
+    pack and the tree's depth, and for the grid its tensors are built
     here, once.  Any other accel raises."""
     accel = scene_arrays.accel
+    intersector = getattr(scene_arrays, "intersector", None) or (
+        "pallas" if accel == "dense" else accel)
     extra = {}
     if accel in DENSE_ACCELS:
         accel = "dense"
@@ -132,16 +162,30 @@ def from_numpy(scene_arrays, device) -> SceneTensors:
                          scene_arrays.tri_v0, scene_arrays.tri_e1,
                          scene_arrays.tri_e2)
         extra = {"nodes": nodes.to(device), "tree_depth": tree_depth(nodes),
-                 "leaf_real": _to_tensor(real, device)}
+                 "leaf_real": _to_tensor(real, device),
+                 **{f: _to_tensor(getattr(scene_arrays, f), device)
+                    for f in NODE_FIELDS}}
+    elif accel == "ugrid" and scene_arrays.grid_res > 0:
+        box = np.concatenate([scene_arrays.grid_bbmin,
+                              scene_arrays.grid_bbmax])
+        extra = {"grid_cell_start": _to_tensor(scene_arrays.grid_cell_start,
+                                               device),
+                 "grid_tri_idx": _to_tensor(scene_arrays.grid_tri_idx, device),
+                 "grid_box": _to_tensor(box, device),
+                 "grid_res": int(scene_arrays.grid_res)}
     else:
         raise NotImplementedError(
-            f"accel {accel!r} is not ported: the port has the dense tiles "
-            "and the tile BVH (the grid is ROADMAP Queue 1, item 7)"
+            f"accel {accel!r} (n_nodes {getattr(scene_arrays, 'n_nodes', 0)}"
+            f", grid_res {getattr(scene_arrays, 'grid_res', 0)}): the port "
+            "takes the dense tiles, a built tile BVH and a built grid"
         )
     kwargs = {f: _to_tensor(getattr(scene_arrays, f), device)
               for f in ARRAY_FIELDS}
     kwargs.update({f: getattr(scene_arrays, f) for f in STATIC_FIELDS})
-    scene = SceneTensors(accel=accel, **kwargs, **extra)
+    scene = SceneTensors(accel=accel, intersector=intersector, **kwargs,
+                         **extra)
+    if accel == "ugrid":
+        return scene
     packs = {"tris": pack_tris(scene)}
     if accel == "dense":
         boxes = pack_boxes(scene)

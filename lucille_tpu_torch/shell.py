@@ -8,10 +8,7 @@ lucille_tpu_torch.shell [--device cpu]`.
 
 The port's copy of lucille_tpu/shell.py: the same commands and code on
 the port's RiState and Renderer, with these changes: the shell renders
-on an explicit device (`Shell(device="cuda")`, the default, or "cpu");
-`accel` takes what the port's compile takes (auto, pallas, bvh) and
-prints the compile's refusal for the rest (ROADMAP Queue 1, item 7), and
-the shell goes on.
+on an explicit device (`Shell(device="cuda")`, the default, or "cpu").
 """
 
 from __future__ import annotations
@@ -26,7 +23,7 @@ HELP = """commands:
   nsamples <n>            set AO/final-gather ray count
   maxdepth <n>            set maximum ray depth
   method <name>           ao | whitted | pathtrace | dirtmap | shader
-  accel <name>            auto | pallas | bvh
+  accel <name>            auto | pallas | bvh | grid | bruteforce | mxu
   format <w> <h>          set output resolution
   set <option> <value>    set a raw option field
   stat                    print render statistics
@@ -210,9 +207,6 @@ class Shell:
                 self.state.options.render_method = args[0]
                 self.renderer = None
             elif cmd == "accel":
-                from lucille_tpu_torch.scene.compile import resolve_accel
-
-                resolve_accel(args[0], 0)  # refuses what is not ported
                 self.state.options.accel_method = args[0]
                 self.renderer = None
             elif cmd == "format":

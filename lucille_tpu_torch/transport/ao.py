@@ -15,7 +15,10 @@ ao.py:136-171 does:
   (`_scan_occlusion`);
 - pbvh: the tile-BVH closest hit and the cone-tiled gather through the
   tile-BVH any-hit (csrc/bvh.cu); the gather's node visits and triangle
-  tests join the eye rays' counters.
+  tests join the eye rays' counters;
+- lucille_tpu's "bruteforce" and "mxu" on the dense tiles, and the grid
+  (csrc/ugrid.cu): the scan over the strata, as lucille_tpu scans for
+  any accel but "pallas" and "pbvh" (`gather_kind`).
 
 Under a sunsky light the gather is the reference's sunsky AO
 (`_gather_sunsky`, ambientocclusion.c:154-332): the Preetham sky
@@ -109,11 +112,12 @@ def ao_radiance(scene, org, dirn, stream, ntheta: int, nphi: int,
                               ntheta, nphi, sunsky.sunsky, suns, background,
                               B, textures)
     gather = {}
-    if scene.accel == "pbvh":
+    kind = gather_kind(scene)
+    if kind == "bvh":
         occ, gather = bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit,
                                        stream.uniform((), (2, B)), ntheta,
                                        nphi)
-    elif dense_scan(scene):
+    elif kind == "scan":
         occ = _scan_occlusion(scene, P_off, b0, b1, b2, hit, stream, ntheta,
                               nphi)
     else:
@@ -152,12 +156,20 @@ def _modulate(scene, res, hit, radiance, textures=None):
     return radiance
 
 
-def dense_scan(scene) -> bool:
-    """Whether the AO gathers scan the strata through the dense any-hit:
-    a dense scene above MAX_TRIS_FOR_MEGAKERNEL padded triangles, the
-    count lucille_tpu compares (transport/ao.py:142-148, :212-215)."""
-    return (scene.accel == "dense"
-            and scene.tri_v0.shape[0] > MAX_TRIS_FOR_MEGAKERNEL)
+def gather_kind(scene) -> str:
+    """Which gather serves the scene's AO and dome strata, by lucille_tpu's
+    rule (transport/ao.py:136-148, :209-215; lights/sampling.py:83-95):
+    "fused-dense", kernel 3's fused gather, for its "pallas" request up
+    to MAX_TRIS_FOR_MEGAKERNEL padded triangles; "bvh", the tile BVH's
+    gather, for "pbvh"; "scan", the strata through the any-hit, for
+    everything else (the dense tiles above the threshold, "bruteforce",
+    "mxu" and the grid)."""
+    if scene.accel == "pbvh":
+        return "bvh"
+    if (scene.intersector == "pallas"
+            and scene.tri_v0.shape[0] <= MAX_TRIS_FOR_MEGAKERNEL):
+        return "fused-dense"
+    return "scan"
 
 
 def _scan_dirs(b0, b1, b2, ur, si: int, ntheta: int, nphi: int):
@@ -216,10 +228,11 @@ def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, stream, ntheta,
     ray per lane and S + len(suns) rays per hit (ao.py:275-277); the
     gather's own counters are dropped, as lucille_tpu drops them."""
     S = ntheta * nphi
-    if scene.accel == "pbvh":
+    kind = gather_kind(scene)
+    if kind == "bvh":
         col = bvh_ao_sunsky(scene, P_off, b0, b1, b2, hit,
                             stream.uniform((), (2, B)), ntheta, nphi, sky)
-    elif dense_scan(scene):
+    elif kind == "scan":
         col = _scan_sunsky(scene, P_off, b0, b1, b2, hit, stream, ntheta,
                            nphi, sky)
     else:

@@ -62,7 +62,11 @@ def interp_hit(scene, res, org: torch.Tensor, dirn: torch.Tensor) -> dict:
         scene.mat_roughness[:, None],              # 0:5
         scene.mat_color, scene.mat_emission,       # 5:11
     ], dim=1)
-    mrows = mattr[geom]  # (B, 11)
+    # index_select, not mattr[geom]: the same rows, and a backward that
+    # adds each lane's gradient into its row (index_add_); the indexing
+    # backward serializes the lanes of one row, and a scene has few rows
+    # (diff/render.py's material gradients)
+    mrows = torch.index_select(mattr, 0, geom)  # (B, 11)
     return {
         "P": P, "Ns": normalize(n), "Ng": normalize(ng), "st": st, "cs": cs,
         "geom": geom, "kd": mrows[:, 0], "ks": mrows[:, 1],

@@ -29,7 +29,15 @@ MOSAICdisplace); and the shader method: bundled-shader-sl (the headline
 settings, the scene as shipped, whitted.sl bound to every geometry),
 bundled-shader-ao (the scene without its sunsky line, the built-in
 ambientocclusion surface) and heightfield256-shader (the n = 256
-terrain's frame, plastic under a distant light).
+terrain's frame, plastic under a distant light); and lucille_tpu's
+other accels: headline-ao-grid and
+heightfield256-grid (the headline AO and the n = 256 terrain's frames on
+the uniform grid), headline-ao-bruteforce and headline-ao-mxu (the
+headline AO frame under lucille_tpu's dense requests) and
+heightfield256-rebinned (the terrain's frame under
+LUCILLE_BVH_AO=rebinned); and, asked for by name (not among the
+default cells), inverse-render: the inverse-render example's forward
+and backward pass at 640x480, 4 samples, depth 3.
 
 Per cell it prints the warm frame's seconds without the profiler (best
 of N, default 2, and every sample), the profiled frame's wall time
@@ -103,6 +111,16 @@ CELLS = {
     "bundled-shader-sl": (cs.shader_sl_state, cs.TILE, "cone"),
     "bundled-shader-ao": (cs.shader_ao_state, cs.TILE, "cone"),
     "heightfield256-shader": (cs.shader_hf_state, 128, "cone"),
+    "headline-ao-grid": (lambda: cs.bundled_state(
+        640, 480, 3, 64, sunsky=False, accel="grid"), cs.TILE, "cone"),
+    "heightfield256-grid": (lambda: cs.heightfield_state(256, accel="grid"),
+                            128, "cone"),
+    "headline-ao-bruteforce": (lambda: cs.bundled_state(
+        640, 480, 3, 64, sunsky=False, accel="bruteforce"), cs.TILE, "cone"),
+    "headline-ao-mxu": (lambda: cs.bundled_state(
+        640, 480, 3, 64, sunsky=False, accel="mxu"), cs.TILE, "cone"),
+    "heightfield256-rebinned": (lambda: cs.heightfield_state(256), 128,
+                                "rebinned"),
 }
 
 
@@ -182,6 +200,65 @@ def profile(cell: str, frames: int = 2, top: int = 12) -> None:
         print(f"  {ms:9.3f} ms  {n:5d}x  {name[:100]}")
 
 
+INVERSE = "inverse-render"  # not a frame: a forward and backward pass
+
+
+def profile_inverse(frames: int = 2, top: int = 12) -> None:
+    """The inverse-render example's step at 640x480, 4 samples, depth 3
+    (chip_smoke phase 32's): the forward and the backward pass timed on
+    the host clock around each and a synchronize (best of `frames`, every
+    sample), then one step under torch.profiler: device busy, idle share,
+    device ops, and the device time by operation name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from lucille_tpu_torch.examples.inverse_render import TRUE_KD, setup
+    from lucille_tpu_torch.sampling.jitter import TileSampler
+
+    render_fn, params = setup(640, 480, "cuda", spp=4, max_depth=3)
+    dev = params["mat_kd"].device
+    stream = TileSampler(0, dev)(0, 0)
+    with torch.no_grad():
+        target = render_fn({**params, "mat_kd": torch.tensor(
+            TRUE_KD, device=dev)}, stream)
+
+    def step():
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        t0 = time.perf_counter()
+        loss = torch.mean((render_fn(leaves, stream) - target) ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    step()  # warm-up
+    samples = [step() for _ in range(frames)]
+    with torch.profiler.profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = busy_us([(e.time_range.start, e.time_range.end)
+                       for e in dev_events]) / 1e3
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev_events:
+        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name][1] += 1
+    fwd = ", ".join(f"{f * 1e3:.2f}" for f, _b in samples)
+    bwd = ", ".join(f"{b * 1e3:.2f}" for _f, b in samples)
+    print(f"[{INVERSE}] 640x480, 4 samples, depth 3: forward ms {fwd}; "
+          f"backward ms {bwd}; profiled step {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{len(dev_events)} device ops", flush=True)
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {ms:9.3f} ms  {n:5d}x  {name[:100]}")
+
+
 def main(argv) -> int:
     import torch
 
@@ -192,7 +269,7 @@ def main(argv) -> int:
     if argv[:1] == ["--frames"]:
         frames, argv = int(argv[1]), argv[2:]
     cells = argv or list(CELLS)
-    unknown = [c for c in cells if c not in CELLS]
+    unknown = [c for c in cells if c not in CELLS and c != INVERSE]
     if unknown:
         print(f"profile_frame: unknown cells {unknown}; know {list(CELLS)}",
               file=sys.stderr)
@@ -202,7 +279,10 @@ def main(argv) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
     for cell in cells:
-        profile(cell, frames)
+        if cell == INVERSE:
+            profile_inverse(frames)
+        else:
+            profile(cell, frames)
     return 0
 
 

@@ -534,8 +534,9 @@ def test_bvh_ao_fused_matches_pallas(case, ntheta, nphi, monkeypatch):
 @pytest.mark.parametrize("mode", ["unset", "cone", "fused", "rebinned"])
 def test_bvh_ao_mode_selection(mode, monkeypatch):
     """lucille_tpu's LUCILLE_BVH_AO switch, read at call time: cone by
-    default, any value but cone and rebinned the fused gather, rebinned
-    refused naming ROADMAP."""
+    default, rebinned the re-binned gather (through the tile-BVH any-hit,
+    like the cone gather, with the same answers: the same rays in another
+    order), any other value the fused gather."""
     from lucille_tpu_torch.accel import bvh_ao, bvh_isect
     from lucille_tpu_torch.scene.types import from_numpy
 
@@ -548,16 +549,20 @@ def test_bvh_ao_mode_selection(mode, monkeypatch):
     scene = from_numpy(_soup(), "cpu")
     for c in (bvh_ao.FUSED_COUNTS, bvh_isect.ANY_COUNTS):
         c.reset()
-    if mode == "rebinned":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bvh_ao.bvh_ao_occlusion(scene, P, b0, b1, b2, hit, jitter, 2, 2)
-        return
-    occ, _ = bvh_ao.bvh_ao_occlusion(scene, P, b0, b1, b2, hit, jitter, 2, 2)
+    occ, stats = bvh_ao.bvh_ao_occlusion(scene, P, b0, b1, b2, hit, jitter,
+                                         2, 2)
     fused = mode == "fused"
     assert bvh_ao.FUSED_COUNTS.plain == int(fused)
     assert bvh_isect.ANY_COUNTS.plain == int(not fused)
-    assert bvh_ao.gather_mode() == ("fused" if fused else "cone")
+    assert bvh_ao.gather_mode() == {"fused": "fused",
+                                    "rebinned": "rebinned"}.get(mode, "cone")
     assert torch.all(occ[~hit] == 0) and occ[hit].mean() > 0
+    if mode == "rebinned":  # no counters; the cone gather's answers
+        assert stats == {}
+        monkeypatch.setenv("LUCILLE_BVH_AO", "cone")
+        cone, _ = bvh_ao.bvh_ao_occlusion(scene, P, b0, b1, b2, hit, jitter,
+                                          2, 2)
+        assert torch.equal(cone, occ)
 
 
 def _walk_one(tris, nodes, o, d, closest):

@@ -186,11 +186,11 @@ def test_shell_commands_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("line,refusal", [
-    ("accel grid", "not ported"), ("method shader", None)])
+    ("accel grid", None), ("method shader", None)])
 def test_shell_refusals(line, refusal, tmp_path, capsys):
-    """accel grid is refused naming ROADMAP (Queue 1, item 7), and the
-    shell goes on; method shader, refused until the RSL compiler was
-    ported, now renders: the image is written."""
+    """accel grid, refused until the uniform grid was ported, and method
+    shader, refused until the RSL compiler was ported, now render: the
+    image is written, and nothing names ROADMAP."""
     from lucille_tpu_torch.imageio.loader import load_image
     from lucille_tpu_torch.shell import Shell
 
@@ -205,15 +205,30 @@ def test_shell_refusals(line, refusal, tmp_path, capsys):
         assert img.shape == (12, 16, 3) and 0 < img.mean() < 10
         assert "ROADMAP" not in out
     else:
-        assert refusal in out and "Queue 1, item 7" in out
+        assert refusal in out and "Queue 1, item 8" in out
+    if line == "accel grid":
+        assert sh.renderer.scene.accel == "ugrid"
 
 
 @pytest.mark.parametrize("argv", [
     ["--accel", "bruteforce"], ["--num-processes", "2"], ["--mesh", "4"],
     ["--process-id", "1"], ["--accel", "grid"]])
-def test_refusals_name_the_roadmap(argv, capsys):
+def test_refusals_name_the_roadmap(argv, capsys, tmp_path):
+    """The multi-device flags are refused naming ROADMAP; the accels that
+    were refused with them (grid, bruteforce) now render."""
     from lucille_tpu_torch.cli import main
+    from lucille_tpu_torch.imageio.loader import load_image
 
+    if argv[0] == "--accel":
+        out = tmp_path / "x.hdr"
+        assert main([str(_rib(tmp_path, bundled_rib_text())), *argv, "-o",
+                     str(out), "--device", "cpu", "--width", "16",
+                     "--height", "12", "--pixelsamples", "1",
+                     "--gather-rays", "4", "--tile", "16"]) == 0
+        img = load_image(out)
+        assert img.shape == (12, 16, 3) and 0 < img.mean() < 1
+        assert "ROADMAP" not in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as e:
         main(["scene.rib", *argv])
     assert e.value.code != 0
@@ -221,28 +236,34 @@ def test_refusals_name_the_roadmap(argv, capsys):
     assert "not ported" in err and "ROADMAP" in err
 
 
-def test_each_refusal_names_its_roadmap_item(monkeypatch, capsys):
+def test_each_refusal_names_its_roadmap_item(monkeypatch, capsys,
+                                             tmp_path):
     """The refusals left name the ROADMAP Queue 1 item that will lift
-    them: the accels the port lacks (the compile's grid, bruteforce and
-    mxu, the tile arrays' grid, the CLI's --accel) and the re-binned
-    tile-BVH gather are item 7; the multi-device flags item 8."""
-    from types import SimpleNamespace
-
+    them: the multi-device flags, item 8.  What item 7 lifted is accepted
+    now: the compile's grid, bruteforce and mxu requests, lucille_tpu's
+    grid arrays carried over, the CLI's --accel, the re-binned tile-BVH
+    gather."""
+    from lucille_tpu.scene.compile import compile_scene as jax_compile
     from lucille_tpu_torch.accel.bvh_ao import gather_mode
     from lucille_tpu_torch.cli import main
     from lucille_tpu_torch.scene.compile import resolve_accel
     from lucille_tpu_torch.scene.types import from_numpy
+    from test_torch_scene import bundled_state
 
-    for accel in ("grid", "bruteforce", "mxu"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-            resolve_accel(accel, 10)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        from_numpy(SimpleNamespace(accel="grid"), "cpu")
+    assert [resolve_accel(a, 10) for a in ("grid", "bruteforce", "mxu")] == [
+        ("ugrid", "ugrid"), ("dense", "bruteforce"), ("dense", "mxu")]
+    scene = from_numpy(jax_compile(bundled_state(accel="grid",
+                                                 pkg="jax").scene), "cpu")
+    assert scene.accel == "ugrid" and scene.grid_res > 1
     monkeypatch.setenv("LUCILLE_BVH_AO", "rebinned")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        gather_mode()
-    for argv, item in ((["--accel", "mxu"], 7), (["--mesh", "2"], 8),
-                       (["--coordinator", "h:1"], 8)):
+    assert gather_mode() == "rebinned"
+    rib = _rib(tmp_path, bundled_rib_text())
+    assert main([str(rib), "--accel", "mxu", "-o", str(tmp_path / "m.hdr"),
+                 "--device", "cpu", "--width", "8", "--height", "8",
+                 "--pixelsamples", "1", "--gather-rays", "4"]) == 0
+    assert "ROADMAP" not in capsys.readouterr().err
+    for argv, item in ((["--mesh", "2"], 8), (["--coordinator", "h:1"], 8),
+                       (["--num-processes", "2"], 8)):
         with pytest.raises(SystemExit):
             main(["scene.rib", *argv])
         assert f"ROADMAP Queue 1, item {item}" in capsys.readouterr().err

@@ -1387,3 +1387,113 @@ def test_sl_atmosphere_on_the_card_matches_the_cpu(tmp_path):
     hit = args[3].numpy()
     np.testing.assert_array_equal(got[~hit], args[0].numpy()[~hit])
     assert np.abs(got[hit] - args[0].numpy()[hit]).max() > 0.05
+
+
+def _grid_scene(pos, idx, device="cuda"):
+    """Triangles pos[idx] (one mesh) as a scene on the uniform grid."""
+    from lucille_tpu_torch.ri.types import (
+        AttributeState,
+        GeomData,
+        SceneDescription,
+    )
+    from lucille_tpu_torch.scene.compile import compile_scene
+
+    desc = SceneDescription()
+    desc.geoms.append(GeomData(positions=np.asarray(pos, np.float64),
+                               indices=np.asarray(idx, np.int32),
+                               attrs=AttributeState()))
+    desc.options.accel_method = "grid"
+    scene = compile_scene(desc, device)
+    assert scene.accel == "ugrid"
+    return scene
+
+
+def _grid_case(case, rng):
+    """(pos, idx, org (B, 3), dir (B, 3)) numpy of one grid case."""
+    n = 300
+    c = rng.uniform(-5, 5, (n, 3))
+    soup = np.concatenate([c + rng.normal(0, 0.3, (n, 3)) for _ in range(3)])
+    idx = np.stack([np.arange(n), np.arange(n) + n, np.arange(n) + 2 * n], -1)
+    B = 4096
+    o = rng.normal(size=(B, 3))
+    o = 12.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-4, 4, (B, 3)) - o
+    if case == "sparse":  # a few clusters: most cells empty
+        c = rng.uniform(-5, 5, (4, 3))[rng.integers(0, 4, n)]
+        soup = np.concatenate([c + rng.normal(0, 0.2, (n, 3))
+                               for _ in range(3)])
+        d = c[rng.integers(0, n, B)] + rng.normal(0, 0.2, (B, 3)) - o
+    elif case == "spanning":  # one triangle across the whole grid
+        big = np.asarray([[-6, -6, -6], [6, -6, 6], [0, 6, 0]], np.float64)
+        soup = np.concatenate([soup, big])
+        idx = np.concatenate([idx, [[3 * n, 3 * n + 1, 3 * n + 2]]])
+    elif case == "missing":  # rays beside the grid, or pointing away
+        o = o * 2.0
+        d = np.where(rng.uniform(size=(B, 1)) < 0.5, o, d + rng.normal(
+            0, 3, (B, 3)))
+    elif case == "axis":  # axis-parallel: two steps of 0
+        axis = rng.integers(0, 3, B)
+        d = np.zeros((B, 3))
+        d[np.arange(B), axis] = np.where(rng.uniform(size=B) < 0.5, 1, -1)
+        o = rng.uniform(-5, 5, (B, 3))
+        o[np.arange(B), axis] = -12.0 * d[np.arange(B), axis]
+    elif case == "ties":  # each triangle again, 5 ids later: exact ties
+        m = 60       # in t, within a chunk or across chunks and cells
+        tri = soup.reshape(3, n, 3)[:, :m]
+        far = rng.uniform(40, 50, (3, 4, 3))
+        parts = []
+        for k in range(m):
+            parts += [tri[:, k:k + 1], far] if k % 2 else [tri[:, k:k + 1]]
+        parts += [tri]
+        stack = np.concatenate(parts, axis=1)
+        nt = stack.shape[1]
+        soup = stack.reshape(-1, 3)
+        idx = np.stack([np.arange(nt), np.arange(nt) + nt,
+                        np.arange(nt) + 2 * nt], -1)
+        tgt = tri.mean(axis=0)[rng.integers(0, m, B)]
+        d = tgt + rng.normal(0, 0.05, (B, 3)) - o
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return soup, idx, o, d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["soup", "sparse", "spanning", "missing",
+                                  "axis", "ties"])
+@pytest.mark.parametrize("bound", ["unbounded", "random"])
+def test_grid_kernel_matches_plain(case, bound):
+    """csrc/ugrid.cu against the lock-step twin on the same rays: the
+    same walk, so triangles, t, u, v, occlusion and both counters equal
+    exactly (--fmad=false), with and without a finite tmax and an
+    active mask, on empty cells, a triangle listed in every cell, rays
+    that miss the grid, axis-parallel rays and exact ties in t (the
+    first triangle tested wins)."""
+    _need_card()
+    from lucille_tpu_torch.accel import ugrid
+
+    rng = np.random.default_rng(["soup", "sparse", "spanning", "missing",
+                                 "axis", "ties"].index(case))
+    pos, idx, o, d = _grid_case(case, rng)
+    scene = _grid_scene(pos, idx)
+    o = torch.tensor(o, dtype=torch.float32, device="cuda")
+    d = torch.tensor(d, dtype=torch.float32, device="cuda")
+    tmax = None
+    if bound == "random":
+        tmax = torch.tensor(rng.uniform(5, 20, o.shape[0]),
+                            dtype=torch.float32, device="cuda")
+    active = torch.tensor(rng.uniform(size=o.shape[0]) < 0.7, device="cuda")
+    for act in (None, active):
+        got = ugrid.grid_walk_kernel(scene, o, d, tmax, act)
+        ref = ugrid.grid_walk_reference(scene, o, d, tmax, act)
+        hits = (ref["tri"] >= 0).float().mean().item()
+        assert case == "missing" or hits > 0.05, hits
+        for k in ("tri", "t", "u", "v", "ntests", "ntrav"):
+            assert torch.equal(got[k], ref[k]), (k, act is None)
+        occ = ugrid.grid_walk_kernel(scene, o, d, tmax, act, any_hit=True)
+        occ_ref = ugrid.grid_walk_reference(scene, o, d, tmax, act,
+                                            any_hit=True)
+        for k in ("occ", "ntests", "ntrav"):
+            assert torch.equal(occ[k], occ_ref[k]), (k, act is None)
+        assert torch.equal(occ["occ"], ref["tri"] >= 0)
+    if case == "ties":  # the lower id wins each exact tie
+        tied = got["tri"] >= 0
+        assert torch.all(got["tri"][tied] < scene.n_tris - 60)

@@ -279,13 +279,23 @@ def test_port_scan_covers_the_shader_modules():
 @pytest.mark.parametrize("argv", [["--mesh", "4"], ["--accel", "bruteforce"],
                                   ["--num-processes", "2"], ["--accel", "grid"],
                                   ["--coordinator", "localhost:1234"]])
-def test_cli_refuses_unported_flags(argv, capsys):
-    """What the port does not have yet (--recover and --method dirtmap
-    are ported now: tests/test_torch_cli.py; --display socket too:
-    tests/test_torch_sockdrv.py; --method shader, once refused here, too:
-    test_cli_renders_the_shader_method_without_jax)."""
+def test_cli_refuses_unported_flags(argv, capsys, tmp_path):
+    """What the port does not have yet, the multi-device flags (--recover
+    and --method dirtmap are ported now: tests/test_torch_cli.py;
+    --display socket too: tests/test_torch_sockdrv.py; --method shader,
+    once refused here, too: test_cli_renders_the_shader_method_without_jax;
+    --accel bruteforce and grid, once refused here, render too)."""
     from lucille_tpu_torch.cli import main
 
+    if argv[0] == "--accel":
+        rib = tmp_path / "scene.rib"
+        rib.write_text(bundled_rib_text())
+        assert main([str(rib), *argv, "-o", str(tmp_path / "x.hdr"),
+                     "--device", "cpu", "--width", "8", "--height", "6",
+                     "--pixelsamples", "1", "--gather-rays", "4"]) == 0
+        assert (tmp_path / "x.hdr").exists()
+        assert "not ported" not in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as e:
         main(["scene.rib", *argv])
     assert e.value.code != 0

@@ -218,10 +218,10 @@ def test_tiles_reach_callbacks_in_spiral_order():
 @pytest.mark.parametrize("what", ["sunsky", "texture", "method", "ibl",
                                   "sl-stage"])
 def test_unported_features_raise(what, tmp_path):
-    """Each feature still to port is refused: method, now the grid accel
-    (ROADMAP Queue 1, item 7; the shader method, refused here until the
-    RSL compiler was ported, renders: tests/test_torch_shaded.py).
-    Refused once, now built: sl-stage, an atmosphere shader whose .sl is
+    """Each feature once refused here, now built: method, the grid accel
+    (refused until the uniform grid was ported; before it, the shader
+    method, which renders: tests/test_torch_shaded.py), renders a frame
+    through the grid; sl-stage, an atmosphere shader whose .sl is
     on the search path (compiled and bound to the Renderer);
     ibl, a dome light with an environment texture, and texture, an "ibl"
     light's texture (environment maps are ported,
@@ -233,14 +233,14 @@ def test_unported_features_raise(what, tmp_path):
     from lucille_tpu_torch.accel.ao import MAX_TRIS_FOR_MEGAKERNEL
     from lucille_tpu_torch.render.renderer import Renderer
     from lucille_tpu_torch.ri.types import LightDesc
-    from lucille_tpu_torch.transport.ao import dense_scan
+    from lucille_tpu_torch.transport.ao import gather_kind
 
     desc = bundled_state(16, 16).scene
     if what == "sunsky":
         desc = heightfield_state(258, sunsky=True).scene
         assert sum(g.ntriangles for g in desc.geoms) == 132098
         r = Renderer(desc, device="cpu")
-        assert r.scene.accel == "dense" and dense_scan(r.scene)
+        assert r.scene.accel == "dense" and gather_kind(r.scene) == "scan"
         assert r.scene.tri_v0.shape[0] > MAX_TRIS_FOR_MEGAKERNEL
         assert any(li.type == "sunsky" for li in r.lights)
         return
@@ -258,9 +258,11 @@ def test_unported_features_raise(what, tmp_path):
         r = Renderer(desc, device="cpu")
         assert r.atmosphere.fn.shader_name == "myfog"
         return
-    desc.options.accel_method = "grid"  # the accel still to port
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        Renderer(desc, device="cpu")
+    desc.options.accel_method = "grid"
+    r = Renderer(desc, tile_size=16, device="cpu")
+    assert r.scene.accel == "ugrid" and r.scene.grid_res > 1
+    img = r.render_frame()
+    assert img.shape == (16, 16, 3) and 0 < img.mean() < 1
 
 
 def test_matches_lucille_golden_80x60():

@@ -68,7 +68,7 @@ def test_scan_wavefront_matches_jax(sunsky, low_threshold):
     from lucille_tpu.transport.ao import ao_radiance as jax_ao
     from lucille_tpu_torch.lights.tables import build_light_tables
     from lucille_tpu_torch.scene.compile import compile_scene
-    from lucille_tpu_torch.transport.ao import ao_radiance, dense_scan
+    from lucille_tpu_torch.transport.ao import ao_radiance, gather_kind
     from test_torch_whitted import eye_rays
 
     B, S = 512, NTHETA * NPHI
@@ -76,7 +76,7 @@ def test_scan_wavefront_matches_jax(sunsky, low_threshold):
     desc = bundled_state(16, 16, sunsky=sunsky).scene
     jscene = jax_compile(jdesc).device_put()
     scene = compile_scene(desc, "cpu")
-    assert dense_scan(scene)
+    assert scene.accel == "dense" and gather_kind(scene) == "scan"
     o, d = eye_rays(jdesc.camera, B, seed=3)
     key = jax.random.key(11)
     ref, jaux = jax_ao(jscene, jnp.asarray(o), jnp.asarray(d), key, NTHETA,

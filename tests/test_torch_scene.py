@@ -193,7 +193,8 @@ def test_from_numpy_round_trips():
 def test_accel_choice_by_count_and_refusals():
     """auto: dense tiles up to 16384 triangles, the tile BVH above (by
     count alone, on any device); bvh and pbvh ask for the tile BVH; the
-    grid, brute-force and MXU accels are refused."""
+    grid, brute-force and MXU accels, refused until they were ported, ask
+    for the grid and for the dense tiles in input order."""
     from lucille_tpu_torch.scene.compile import compile_arrays, compile_scene
 
     auto = compile_scene(bundled_state(accel="auto").scene, "cpu")
@@ -209,9 +210,12 @@ def test_accel_choice_by_count_and_refusals():
     for accel in ("bvh", "pbvh"):
         assert compile_scene(bundled_state(accel=accel).scene,
                              "cpu").accel == "pbvh"
-    for accel in ("grid", "bruteforce", "mxu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compile_scene(bundled_state(accel=accel).scene, "cpu")
+    for accel, layout in (("grid", "ugrid"), ("bruteforce", "dense"),
+                          ("mxu", "dense")):
+        sc = compile_scene(bundled_state(accel=accel).scene, "cpu")
+        assert (sc.accel, sc.intersector) == (layout, accel.replace(
+            "grid", "ugrid"))
+        assert not torch.equal(sc.tri_v0, dense.tri_v0)  # not Morton-sorted
 
 
 @pytest.mark.parametrize("xs,ys", [(1, 1), (2, 2), (3, 3), (4, 2), (5, 3)])
