@@ -239,7 +239,15 @@ non-zero):
    could take for its work, `bound_ms`, from the counts below; kernel
    1's entries include its finite-tmax cases; the grid's two entry
    points beside the six TPU kernels' ports), the card's line, and last
-   {"ok": true, "device": {...}}.
+   {"ok": true, "device": {...}};
+35. (run before 34) the Renderer's mesh path and the CLI in two
+   processes joined by torch.distributed (`check_mesh`): the headline
+   AO frame on a one-card mesh against phase 4's, under no_host_sync;
+   the CLI's frame in two processes on the one card byte-equal to one
+   process's; __graft_entry__.dryrun_multichip's four integrators on
+   the mesh of every card against the same frames without a mesh; the
+   headline frame over every card where there are two or more; its
+   wall seconds.
 
 It needs one card and the repository around it: run from a directory
 holding only this file, it fails.
@@ -546,6 +554,58 @@ def textured_state(width, height, tex_name="checker.tex", pixelsamples=3,
     s.Format(width, height)
     s.PixelSamples(pixelsamples, pixelsamples)
     s.options.gather_nsamples = gather
+    return s
+
+
+DRYRUN_METHODS = ("ao", "whitted", "pathtrace", "shader")
+
+
+def dryrun_state(method: str, td: str, api=None):
+    """__graft_entry__.dryrun_multichip's scene for `method` at 64x32, one
+    sample a pixel, 4 gather rays, depth 2 (__graft_entry__.py:151-210):
+    lucille_tpu's self-contained scene (a triangle over a ground plane);
+    AO with a checker .hdr bound to every material, Whitted with
+    ks = kd = 0.5, the path tracer, and the shader method's mirrormatte,
+    whose trace() recurses, under a distant light.  Files go in td."""
+    from lucille_tpu_torch.imageio.rgbe import write_hdr
+
+    RiState, parse_rib = api or front_end()
+    world = ('PointsPolygons [4] [0 1 2 3] "P" [-5 0 -5  5 0 -5  5 0 5  '
+             '-5 0 5]\n'
+             'PointsPolygons [3] [0 1 2] "P" [-1 0 -1  1 0 -1  0 2 0]\n')
+    head = ""
+    if method == "shader":
+        Path(td, "mirrormatte.sl").write_text(
+            "surface mirrormatte(float Kd = 0.7; float Kr = 0.3;) {\n"
+            "  normal Nf = faceforward(normalize(N), I);\n"
+            "  Ci = Cs * (Kd * diffuse(Nf)"
+            " + Kr * trace(P, reflect(normalize(I), Nf)));\n"
+            "  Oi = 1;\n"
+            "}\n")
+        head = f'Option "searchpath" "shader" ["{td}"]\n'
+        world = ('LightSource "distantlight" 1 "intensity" [1.0]\n'
+                 'Surface "mirrormatte" "Kd" [0.7] "Kr" [0.3]\n'
+                 + world.replace("[0 1 2 3]", "[0 3 2 1]"))
+    s = RiState()
+    parse_rib(head + 'Display "t.hdr" "file" "rgb"\nPixelSamples 2 2\n'
+              'Projection "perspective" "fov" [45]\nOrientation "rh"\n'
+              "ConcatTransform [1 0 0 0  0 1 0 0  0 0 1 0  0 -1 -8 1]\n"
+              "WorldBegin\n" + world + "WorldEnd\n", s)
+    s.Format(64, 32)
+    if method == "whitted":
+        for g in s.scene.geoms:
+            g.attrs.material.ks = g.attrs.material.kd = 0.5
+    if method == "ao":
+        tex = np.indices((8, 8)).sum(0) % 2
+        write_hdr(Path(td) / "checker.hdr", np.stack(
+            [tex, 1 - tex, np.ones_like(tex)], -1).astype(np.float32))
+        s.options.searchpaths.append(td)
+        for g in s.scene.geoms:
+            g.attrs.material.texture = "checker.hdr"
+    s.options.gather_nsamples = 4
+    s.options.max_ray_depth = 2
+    s.options.render_method = method
+    s.options.current_display().sampling_rates = (1.0, 1.0)
     return s
 
 
@@ -3398,6 +3458,198 @@ def check_library_paths():
         raise AssertionError("bvh-viz: the card's counters differ")
 
 
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free when asked."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cli_ranks(argvs, timeout: float, prefix=("-m", "lucille_tpu_torch.cli"),
+              env=None):
+    """The CLI (python `prefix` argv) once per argv, as ranks 0, 1, ... of
+    one torch.distributed group on a free local port, all started
+    together; again on another port if the first was taken between its
+    pick and its bind.  Returns (each rank's stdout, wall seconds).
+    Raises on a non-zero exit, or when a rank outlives `timeout` seconds
+    (every rank is killed)."""
+    for attempt in range(2):
+        port = free_port()
+        logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+                for _ in argvs]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, *prefix, *argv, "--coordinator",
+             f"127.0.0.1:{port}", "--num-processes", str(len(argvs)),
+             "--process-id", str(rank)],
+            cwd=ROOT, env=env, stdout=out, stderr=err, text=True)
+            for rank, (argv, (out, err)) in enumerate(zip(argvs, logs))]
+        try:
+            for proc in procs:
+                proc.wait(timeout=max(timeout - (time.perf_counter() - t0),
+                                      1.0))
+        finally:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        texts = []
+        for out, err in logs:
+            out.seek(0)
+            err.seek(0)
+            texts.append((out.read(), err.read()))
+            out.close()
+            err.close()
+        taken = any("EADDRINUSE" in e or "address already in use" in e
+                    for _o, e in texts)
+        if attempt == 0 and taken:
+            continue
+        for rank, (proc, (_o, e)) in enumerate(zip(procs, texts)):
+            if proc.returncode != 0:
+                raise AssertionError(f"rank {rank}: exit {proc.returncode}"
+                                     f"\n{e[-4000:]}")
+        return [o for o, _e in texts], seconds
+
+
+def stats_rays(out: str) -> int:
+    """The Total rays of a --stats report."""
+    return int(next(line.split(":")[1] for line in out.splitlines()
+                    if "Total rays" in line))
+
+
+def check_mesh(headline_ao):
+    """Phase 35: the Renderer's mesh path (parallel/mesh.py) and the CLI
+    in two processes joined by torch.distributed (gloo).
+    (a) The headline AO frame (640x480, 3x3, 64 rays, tile 240) on
+    make_mesh(1), its first frame under sync debug "error"
+    (`no_host_sync`): array-equal to phase 4's frame (headline_ao's,
+    rendered again), the same rays; kernels 1 and 3 launched, no other
+    kernel and no twin; the warm frame seconds of both, best of 2.
+    (b) The CLI on the bundled scene as shipped (sunsky AO at its 640x480,
+    tile 64: 80 tiles) in one process, then in two processes sharing the
+    card: rank 0's .hdr byte-equal to the one process's, the same --stats
+    rays, no file from rank 1; the seconds of each run (two ranks on one
+    card: not a speed figure).  The kernels are phase 2's build.
+    (c) __graft_entry__.dryrun_multichip's four integrators (`dryrun_state`,
+    64x32, tile 16) on the mesh of every visible card, each frame equal
+    to the same Renderer's without a mesh, with the same rays.
+    (d) With two cards or more, the headline frame on the mesh of every
+    card, equal to (a)'s; otherwise a line saying it did not run."""
+    import torch
+
+    from lucille_tpu_torch.parallel.mesh import make_mesh
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    def best_of_2(r):
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r.render_frame()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return min(times), times
+
+    counts = counters()
+
+    def counted(frame):
+        for c in counts.values():
+            c.reset()
+        out = frame()
+        return out, {k: c.kernel for k, c in counts.items() if c.kernel}, \
+            any(c.plain for c in counts.values())
+
+    # (a)
+    headline_ao.stats.nrays = 0
+    ref = headline_ao.render_frame()
+    ref_rays = headline_ao.stats.nrays
+    r = Renderer(bundled_state(640, 480, 3, 64, sunsky=False).scene,
+                 tile_size=TILE, mesh=make_mesh(1))
+    if r.mesh.devices != (torch.device("cuda", 0),):
+        raise AssertionError(f"mesh-1: {r.mesh}")
+
+    def first_frame():
+        with no_host_sync(r):
+            return r.render_frame()
+
+    got, launches, plain = counted(first_frame)
+    if set(launches) != {"closest_hit", "ao_occlusion"} or plain:
+        raise AssertionError(f"mesh-1: launches {launches}, twin {plain}")
+    if not np.array_equal(got, ref) or r.stats.nrays != ref_rays:
+        raise AssertionError(f"mesh-1: frame differs (rays {r.stats.nrays}"
+                             f" against {ref_rays})")
+    t_mesh, s_mesh = best_of_2(r)
+    t_one, s_one = best_of_2(headline_ao)
+    print(f"[mesh] (a) headline-ao on make_mesh(1) = {r.mesh}: equal to the "
+          f"one-device frame, {ref_rays} rays, launches {launches}; frame "
+          f"{t_mesh:.4f} s (samples {[round(t, 4) for t in s_mesh]}), the "
+          f"one-device Renderer {t_one:.4f} s (samples "
+          f"{[round(t, 4) for t in s_one]})", flush=True)
+
+    # (b)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        one = subprocess.run(
+            [sys.executable, "-m", "lucille_tpu_torch.cli", str(BUNDLED_RIB),
+             "-o", str(Path(tmp) / "one.hdr"), "--stats"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        t_cli = time.perf_counter() - t0
+        if one.returncode != 0:
+            raise AssertionError(f"cli: exit {one.returncode}\n"
+                                 f"{one.stderr[-4000:]}")
+        outs, t_two = cli_ranks(
+            [[str(BUNDLED_RIB), "-o", str(Path(tmp) / f"rank{k}.hdr"),
+              "--stats"] for k in (0, 1)], 600)
+        same = (Path(tmp) / "rank0.hdr").read_bytes() == (
+            Path(tmp) / "one.hdr").read_bytes()
+        rank1 = (Path(tmp) / "rank1.hdr").exists()
+    rays = stats_rays(one.stdout), stats_rays(outs[0])
+    print(f"[mesh] (b) the CLI, bundled scene as shipped: one process "
+          f"{t_cli:.2f} s, two processes sharing the one card {t_two:.2f} s "
+          f"(two ranks on one card: not a speed figure); rank 0's .hdr "
+          f"byte-equal to the one process's: {same}; rays {rays}; a file "
+          f"from rank 1: {rank1}", flush=True)
+    if not same or rays[0] != rays[1] or rank1:
+        raise AssertionError("mesh: the two-process render differs")
+
+    # (c)
+    mesh = make_mesh()
+    for method in DRYRUN_METHODS:
+        with tempfile.TemporaryDirectory() as td:
+            r0 = Renderer(dryrun_state(method, td).scene, tile_size=16,
+                          device="cuda")
+            ref_m = r0.render_frame()
+            r = Renderer(dryrun_state(method, td).scene, tile_size=16,
+                         mesh=mesh)
+            got, launches, plain = counted(r.render_frame)
+        equal = np.array_equal(got, ref_m)
+        print(f"[mesh] (c) dry run [{method}] on {mesh.size} card(s): equal "
+              f"to the one-device frame: {equal}, rays {r.stats.nrays} / "
+              f"{r0.stats.nrays}, launches {launches}, mean "
+              f"{float(got.mean()):.4f}", flush=True)
+        if (not equal or r.stats.nrays != r0.stats.nrays or plain
+                or not launches or not np.isfinite(got).all()):
+            raise AssertionError(f"mesh: dry run [{method}] differs")
+
+    # (d)
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[mesh] (d) mesh over all cards: not run ({n_cards} card "
+              "visible)", flush=True)
+        return
+    r = Renderer(bundled_state(640, 480, 3, 64, sunsky=False).scene,
+                 tile_size=TILE, mesh=make_mesh())
+    with no_host_sync(r):
+        got = r.render_frame()
+    if not np.array_equal(got, ref) or r.stats.nrays != ref_rays:
+        raise AssertionError("mesh over all cards: the frame differs")
+    t_all, s_all = best_of_2(r)
+    print(f"[mesh] (d) headline-ao on the mesh of all {n_cards} cards: "
+          f"equal to (a)'s; frame {t_all:.4f} s (samples "
+          f"{[round(t, 4) for t in s_all]})", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3466,11 +3718,11 @@ def main() -> int:
         "chip_smoke_sunsky_640x480.hdr", sunsky_path)
     launches.update(got)
     dense = ("closest_hit", "ao_occlusion")
-    got, _, _ = render_checked(
-        "headline-ao", Renderer(bundled_state(640, 480, 3, 64,
-                                              sunsky=False).scene,
-                                tile_size=TILE, device="cuda"),
-        "chip_smoke_ao_640x480.hdr", dense)
+    headline_ao = Renderer(bundled_state(640, 480, 3, 64,
+                                         sunsky=False).scene,
+                           tile_size=TILE, device="cuda")
+    got, _, _ = render_checked("headline-ao", headline_ao,
+                               "chip_smoke_ao_640x480.hdr", dense)
     launches["ao_occlusion"] = got["ao_occlusion"]
 
     # 5. the goldens at 80x60
@@ -3619,6 +3871,9 @@ def main() -> int:
     phase("accel-twins", check_accel_twins)
     phase("inverse-render", check_inverse_render)
     phase("library", check_library_paths)
+
+    # 35. this slice's path: the mesh, and two processes on the card
+    phase("mesh", check_mesh, headline_ao)
 
     # 34. results
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")

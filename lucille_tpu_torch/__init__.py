@@ -16,7 +16,8 @@ bits for the sky) and the any-hit of the sun's shadow rays; on the tile
 BVH a BVH closest hit, the BVH any-hit that traces the gather rays and
 the fused BVH gather; on lucille_tpu's uniform grid its DDA walk.
 `diff` differentiates a frame with respect to the material and light
-parameters on torch autograd.
+parameters on torch autograd; `parallel` shards a frame's tiles over a
+mesh of devices, across processes joined by torch.distributed (gloo).
 
 Every kernel wrapper has a plain torch twin with the same contract. A
 wrapper handed CPU tensors runs the twin; handed CUDA tensors it

@@ -27,6 +27,13 @@
                        lucille_tpu's dense intersectors, render on the
                        dense tiles in input order, their gathers scanned
                        stratum by stratum as lucille_tpu scans them
+    --mesh N           shard tiles over an N-device mesh (default: every
+                       process's card in a multi-process run, one
+                       device otherwise); with --device cpu, N CPU
+                       replicas
+    --coordinator H:P  process 0's address (torch.distributed, gloo)
+    --num-processes N  the processes of a multi-process render
+    --process-id I     this process's index
     --recover          tile checkpoints: <display name>.ckpt.npz is
                        written after each tile and resumed from
     --width/--height   override the image size
@@ -45,8 +52,13 @@ with an environment texture renders through its "sampling" token
 displacement, atmosphere and imager shaders, built in or .sl sources on
 the search path, run as lucille_tpu runs them (shading/pipeline.py), and
 an imager's frame is written to the displays again after the post-pass.
-lucille_tpu's --mesh, --coordinator, --num-processes and --process-id
-(ROADMAP Queue 1, item 8) are refused with a message naming ROADMAP.
+A multi-process render runs this CLI once per process with the same
+--coordinator and --num-processes and each its --process-id: the
+processes join before anything touches a device, each renders its
+mesh slots' tiles on its card (process index modulo the cards visible,
+so two processes on one card share it), every process assembles the
+frame, and process 0 alone opens the displays, reads and writes the
+checkpoint and prints --stats (parallel/, lucille_tpu/cli.py:98-262).
 CLI overrides are applied at WorldBegin through the backdoor callback,
 as lucille_tpu's CLI does (lucille_tpu/cli.py:139-166).
 """
@@ -55,14 +67,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-
-REFUSED = {
-    "mesh": "multi-device tile sharding",
-    "coordinator": "multi-host rendering",
-    "num_processes": "multi-host rendering",
-    "process_id": "multi-host rendering",
-}
-
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -90,6 +94,18 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["ao", "whitted", "pathtrace", "dirtmap", "shader"],
                    help="integrator override (Option \"renderer\" \"method\")")
     p.add_argument("--nthreads", type=int, help="accepted for lsh compatibility")
+    p.add_argument("--mesh", type=int, default=None, metavar="N",
+                   help="shard tiles over an N-device mesh (default: all "
+                        "devices in a multi-process run, single device "
+                        "otherwise)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process coordinator address "
+                        "(torch.distributed; the ri_parallel_init analog, "
+                        "parallel.c:62)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-process process count")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's index")
     p.add_argument("--recover", action="store_true",
                    help="tile-level checkpoint and resume")
     p.add_argument("--width", type=int, help="override image width")
@@ -98,23 +114,40 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true")
     p.add_argument("--stats", action="store_true", help="print ray statistics")
     p.add_argument("--verbose", "-v", action="store_true")
-    for name in REFUSED:
-        p.add_argument("--" + name.replace("_", "-"), default=None,
-                       help="not supported by the port")
     return p
 
 
 def main(argv=None) -> int:
     p = build_argparser()
     args = p.parse_args(argv)
-    for name, what in REFUSED.items():
-        if getattr(args, name) is not None:
-            p.error(f"--{name.replace('_', '-')}: {what} is not ported "
-                    "(ROADMAP Queue 1, item 8)")
+    from lucille_tpu_torch.parallel.distributed import (
+        finalize_distributed,
+        initialize_distributed,
+    )
 
+    # bring-up first, before anything touches a device: the reference
+    # calls ri_parallel_init before RiBegin (main.c:119)
+    try:
+        distributed = initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id)
+    except ValueError as e:
+        p.error(str(e))
+    try:
+        return _run(p, args, distributed)
+    finally:
+        finalize_distributed()
+
+
+def _run(p, args, distributed: bool) -> int:
     from lucille_tpu_torch.base.log import set_debug
     from lucille_tpu_torch.base.timer import get_timer
     from lucille_tpu_torch.display.drivers import get_display_driver
+    from lucille_tpu_torch.parallel.distributed import (
+        barrier,
+        is_primary_host,
+        process_count,
+    )
+    from lucille_tpu_torch.parallel.mesh import make_mesh
     from lucille_tpu_torch.ri.api import RiState
     from lucille_tpu_torch.rib.parser import parse_rib_file
     from lucille_tpu_torch.render.renderer import Renderer
@@ -168,10 +201,24 @@ def main(argv=None) -> int:
 
     desc = state.scene
     opt = desc.options
-    renderer = Renderer(desc, tile_size=opt.tile_size, device=args.device)
+    mesh = None
+    if args.mesh is not None or distributed:
+        # None: every process's devices; on the CPU, the replicas asked
+        # for, shared out over the processes
+        devices = (None if args.device != "cpu" else
+                   ["cpu"] * -(-(args.mesh or process_count())
+                               // process_count()))
+        try:
+            mesh = make_mesh(args.mesh, devices=devices)
+        except (ValueError, RuntimeError) as e:
+            p.error(f"--mesh: {e}")
+    renderer = Renderer(desc, tile_size=opt.tile_size, device=args.device,
+                        mesh=mesh)
 
+    # host 0 owns every display, as lucille's rank 0 alone opens, writes
+    # and closes them (render.c:468-514, 1219-1243)
     drivers = []
-    for d in opt.displays or [None]:
+    for d in (opt.displays or [None]) if is_primary_host() else ():
         if d is None:
             drv = get_display_driver("framebuffer")
             drv.open("untitled.hdr", opt.width, opt.height)
@@ -191,7 +238,7 @@ def main(argv=None) -> int:
             print(f"\r{frac * 100:3.0f}%", end="", flush=True)
 
     ckpt = None
-    if args.recover:  # lucille_tpu/cli.py:236-242
+    if args.recover:  # lucille_tpu/cli.py:236-242; host 0's, broadcast
         base = ((opt.current_display().name or "untitled.hdr")
                 if opt.displays else "untitled.hdr")
         ckpt = base + ".ckpt.npz"
@@ -205,7 +252,8 @@ def main(argv=None) -> int:
         print()
     for drv in drivers:
         drv.close()
-    if args.stats or args.verbose:
+    barrier("frame-end")  # render.c:368's post-frame MPI barrier
+    if (args.stats or args.verbose) and is_primary_host():
         print(renderer.stats.report())
         print(timer.dump())
     return 0

@@ -52,7 +52,7 @@ class EnvImportanceTable:
     dirs, radiance, solid, pdf: the casts lucille_tpu's jnp.asarray
     makes, so a draw picks the same texel)."""
 
-    def __init__(self, image: np.ndarray, device="cpu"):
+    def __init__(self, image: np.ndarray, device):
         self.image = np.asarray(image, dtype=np.float32)
         h, w = self.image.shape[:2]
         self.h, self.w = h, w

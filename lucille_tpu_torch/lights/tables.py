@@ -71,7 +71,7 @@ class LightTables:
         return iter(self.lights)
 
 
-def _load_env(li, desc, device="cpu"):
+def _load_env(li, desc, device):
     """Load a dome/IBL light's environment texture from the searchpaths
     into an EnvMap on `device` (light->texture, lightsource.c:127-142;
     fetched per gathered direction like ibl.c:53-540 / texture.c:238),
@@ -106,7 +106,7 @@ def _load_env(li, desc, device="cpu"):
     return env.prepare(li.ibl_sampler or "cosweight")
 
 
-def build_light_tables(desc, scene=None, device="cpu") -> LightTables:
+def build_light_tables(desc, scene=None, *, device) -> LightTables:
     """SceneDescription.lights -> LightTables, an area light's sampling
     tables and an environment light's map on `device`.
 

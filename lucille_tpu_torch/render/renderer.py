@@ -1,7 +1,6 @@
-"""Frame renderer: the tile loop on one torch device.
+"""Frame renderer: the tile loop on one torch device or over a mesh.
 
-Counterpart of lucille_tpu/render/renderer.py:41-152 and :269-591 for a
-single device:
+Counterpart of lucille_tpu/render/renderer.py:41-152 and :269-591:
 
 - the image is cut into full-size tiles (edge tiles are rendered past the
   image edge and cropped on the host), so every tile traces
@@ -29,7 +28,7 @@ single device:
   integrator: a sunsky light turns the AO gather into the sunsky gather;
   a scene without lights gets the reference's constant dome;
 - the material textures are loaded once through the option's search
-  paths into one atlas on the render device (`_load_textures`,
+  paths into one atlas on the render device (`_texture_images`,
   lucille_tpu/render/renderer.py:594-630); a missing or unreadable file
   is logged and ignored;
 - the shading pipeline (shading/pipeline.py) in lucille_tpu's order:
@@ -50,7 +49,25 @@ single device:
   completes; `recover` resumes from a matching file, enqueuing only the
   tiles it lacks and replaying the others to the callbacks
   (lucille_tpu/render/renderer.py:548-608, 724-768).  The saves are host
-  work after a tile's pull.
+  work after a tile's pull;
+- with a mesh (parallel/mesh.py; lucille_tpu/render/renderer.py:193,
+  259-266, 354-440) the displacement runs once (it edits the scene
+  description) and the scene compiles once on the host, the tile BVH
+  with it; each device this process owns in the mesh gets a replica:
+  the scene's tensors, the atlas, the lights, the atmosphere, the
+  shader table (each .sl compiled once, in `self.shaders`) and its own
+  sampler, so a tile's random numbers depend on (seed, x0, y0, path)
+  alone, whichever device draws them; a card's replica renders the
+  first tile once when it is built, so its per-device constants are
+  copied then.  The tiles not done go in rounds of the mesh's size,
+  tile-list order, slot d of a round on device d; every owned tile of
+  every round is enqueued before the first pull, then one pull a round
+  (one all_gather_host where the mesh spans processes) gives every
+  process the whole frame.  A short last round leaves its slots past
+  the end empty, so the counters equal the one-device frame's.  Under
+  --recover only host 0 reads the checkpoint and, with more than one
+  process, broadcasts (image, alpha, done); only host 0 saves.  Without
+  a mesh the frame is a one-slot mesh of `device`.
 """
 
 from __future__ import annotations
@@ -58,6 +75,7 @@ from __future__ import annotations
 import os
 import zipfile
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Callable, Optional
 
 import numpy as np
@@ -69,12 +87,19 @@ from lucille_tpu_torch.base.timer import get_timer
 from lucille_tpu_torch.device import resolve_device
 from lucille_tpu_torch.imageio.loader import load_image
 from lucille_tpu_torch.lights.tables import build_light_tables
+from lucille_tpu_torch.parallel.distributed import (
+    broadcast_from_primary,
+    is_primary_host,
+    process_count,
+)
+from lucille_tpu_torch.parallel.mesh import Mesh, sharded_tile_batch
 from lucille_tpu_torch.render.film import subsample_filter_table
 from lucille_tpu_torch.render.tiles import tile_list
 from lucille_tpu_torch.ri.camera import generate_rays
 from lucille_tpu_torch.sampling.hammersley import subpixel_samples
 from lucille_tpu_torch.sampling.jitter import TileSampler
-from lucille_tpu_torch.scene.compile import compile_scene
+from lucille_tpu_torch.scene.compile import compile_arrays
+from lucille_tpu_torch.scene.types import from_numpy
 from lucille_tpu_torch.shading.pipeline import (
     Atmosphere,
     apply_imager,
@@ -106,66 +131,129 @@ class Renderer:
     """Holds the compiled scene, camera and sampler; renders frames.
 
     sampler: callable (x0, y0) -> the tile's random stream on `device`
-    (sampling/jitter.py); defaults to TileSampler(seed, device)."""
+    (sampling/jitter.py); defaults to TileSampler(seed, device).
+
+    mesh: a parallel.mesh.Mesh, or None for the one `device`.  With a
+    mesh, each device this process owns in it gets a replica of the
+    render state and the tiles go in rounds of the mesh's size (module
+    docstring); `device` is then the first replica's.  The attributes
+    scene, textures, lights, atmosphere, shader_table and sampler are
+    the first replica's."""
 
     def __init__(self, desc, tile_size: int = 64, device="cuda",
-                 sampler: Optional[Callable] = None, seed: int = 0):
+                 sampler: Optional[Callable] = None, seed: int = 0,
+                 mesh=None):
         self.desc = desc
         self.tile_size = int(tile_size)
-        self.device = resolve_device(device)
-        method = (desc.options.render_method or "").lower()
-        self.integrator = get_integrator(method)
+        self.mesh = mesh
+        self._slots = mesh or Mesh([resolve_device(device)], [0])
+        devices = [resolve_device(self._slots.devices[s])
+                   for s in self._slots.owned]
+        self.device = devices[0]
+        self.integrator = get_integrator(
+            (desc.options.render_method or "").lower())
         # the .sl shaders compiled for this Renderer, by (name, kind): its
         # surfaces and its other stages (shading/sl.find_sl)
         self.shaders = {}
         timer = get_timer()
         timer.start("Scene compile")
         displace_scene(desc, self.shaders)  # the bound displacement shaders
-        self.textures, texture_ids = _load_textures(desc, self.device)
-        self.scene = compile_scene(desc, self.device, texture_ids=texture_ids)
+        images = _texture_images(desc)
+        atlases = [TextureAtlas.build(images, dev) for dev in devices]
+        # the host arrays once (the tile BVH built once), tensors per device
+        arrays = compile_arrays(desc, texture_ids=dict(atlases[0].names))
         timer.end("Scene compile")
         self.camera = desc.camera
-        self.lights = build_light_tables(desc, device=self.device)
-        # the frame's atmosphere: the first bound volume shader (the
-        # MOSAIC/Blender export binds one global fog)
-        g = next((g for g in desc.geoms if g.attrs.atmosphere), None)
-        self.atmosphere = None if g is None else Atmosphere(
-            g.attrs.atmosphere, g.attrs.atmosphere_params,
-            desc.options.searchpaths, self.device, self.shaders)
-        self.shader_table = (build_shader_table(desc, self.device,
-                                                self.shaders)
-                             if method in SHADER_NAMES else None)
-        self._method_kwargs = ({} if self.shader_table is None else
-                               {"shader_table": self.shader_table})
-        self.sampler = sampler or TileSampler(seed, self.device)
+        self.replicas = [
+            self._replica(dev, from_numpy(arrays, dev), atlas, sampler, seed)
+            for dev, atlas in zip(devices, atlases)]
+        first = self.replicas[0]
+        self.scene, self.textures, self.lights = (first.scene, first.textures,
+                                                  first.lights)
+        self.atmosphere, self.shader_table, self.sampler = (
+            first.atmosphere, first.shader_table, first.sampler)
         self.stats = RenderStats()
+        if mesh is not None:
+            self._warm()
 
-    def _tile(self, x0, y0, tile_w, tile_h, jitter, weights):
-        """One full-size tile -> ((tile_h, tile_w, 3) image, with an imager
-        (tile_h, tile_w, 4): its alpha rides as a fourth channel, so one
-        copy pulls both; counters [ntests, ntrav, nrays] i64), both still
-        on the device."""
-        S = jitter.shape[0]
-        dev = self.device
+    def _replica(self, dev, scene, textures, sampler, seed):
+        """The render state on `dev`: the scene and texture atlas given,
+        the light tables (an area light's device tables with them), the
+        frame's atmosphere (the first bound volume shader: the
+        MOSAIC/Blender export binds one global fog), the shader table
+        under the shader method, and the sampler answering on `dev`."""
+        desc = self.desc
+        g = next((g for g in desc.geoms if g.attrs.atmosphere), None)
+        shader_table = (build_shader_table(desc, dev, self.shaders)
+                        if (desc.options.render_method or "").lower()
+                        in SHADER_NAMES else None)
+        return SimpleNamespace(
+            device=dev, scene=scene, textures=textures,
+            lights=build_light_tables(desc, device=dev),
+            atmosphere=None if g is None else Atmosphere(
+                g.attrs.atmosphere, g.attrs.atmosphere_params,
+                desc.options.searchpaths, dev, self.shaders),
+            shader_table=shader_table,
+            method_kwargs=({} if shader_table is None
+                           else {"shader_table": shader_table}),
+            sampler=(TileSampler(seed, dev) if sampler is None
+                     else lambda x0, y0: _OnDevice(sampler(x0, y0), dev)))
+
+    def _warm(self):
+        """Render the frame's first tile on every card's replica and drop
+        it: the per-device constants (device.const_vec, noise._perm,
+        bvh_ao._device_consts, _away) are copied to each card here, not
+        inside a frame's first tile there."""
         opt = self.desc.options
-        stream = self.sampler(x0, y0)
+        x0, y0 = tile_list(opt.width, opt.height, self.tile_size,
+                           opt.bucket_order)[0][:2]
+        jitter_np, weights_np = self._subsamples()[2:]
+        for rep in self.replicas:
+            if rep.device.type == "cuda":
+                with torch.cuda.device(rep.device):
+                    self._tile(x0, y0, self.tile_size, self.tile_size,
+                               *_on_device(jitter_np, weights_np, rep.device),
+                               rep)
+
+    def _subsamples(self):
+        """(xsamples, ysamples, the subpixel positions (S, 2), their
+        pixel-filter weights (S,)) of the current display."""
+        opt = self.desc.options
+        disp = opt.current_display()
+        xsamples = int(disp.sampling_rates[0])
+        ysamples = int(disp.sampling_rates[1])
+        jitter_np, _instance = subpixel_samples(xsamples, ysamples)
+        weights_np = subsample_filter_table(opt.pixel_filter, jitter_np,
+                                            *opt.pixel_filter_width)
+        return xsamples, ysamples, jitter_np, weights_np
+
+    def _tile(self, x0, y0, tile_w, tile_h, jitter, weights, rep):
+        """One full-size tile on replica rep (jitter and weights on its
+        device) -> ((tile_h, tile_w, 3) image, with an imager (tile_h,
+        tile_w, 4): its alpha rides as a fourth channel, so one copy
+        pulls both; counters [ntests, ntrav, nrays] i64), both still on
+        the device."""
+        S = jitter.shape[0]
+        dev = rep.device
+        opt = self.desc.options
+        stream = rep.sampler(x0, y0)
         lens_u = None
         if self.camera.dof_active:
             lens_u = stream.uniform((LENS_FOLD,), (tile_h * tile_w * S, 2))
         org, dirn = tile_eye_rays(self.camera, x0, y0, tile_w, tile_h, jitter,
                                   lens_u)
         radiance, aux = self.integrator(
-            self.scene, self.lights, org, dirn, stream,
+            rep.scene, rep.lights, org, dirn, stream,
             gather_nsamples=opt.gather_nsamples,
             max_depth=opt.max_ray_depth, bgcolor=tuple(opt.bgcolor),
-            textures=self.textures, **self._method_kwargs,
+            textures=rep.textures, **rep.method_kwargs,
         )
-        if self.atmosphere is not None and aux.get("t") is not None:
+        if rep.atmosphere is not None and aux.get("t") is not None:
             hit = aux["hit"]
             t = torch.where(hit, aux["t"], 0.0)
             ray_len = t * torch.linalg.vector_norm(dirn, dim=-1)
-            radiance = self.atmosphere(radiance, ray_len,
-                                       org + t[:, None] * dirn, hit, dirn)
+            radiance = rep.atmosphere(radiance, ray_len,
+                                      org + t[:, None] * dirn, hit, dirn)
         r = radiance.reshape(tile_h, tile_w, S, 3)
         img = torch.sum(r * weights[None, None, :, None], dim=2)
         # a missing counter is filled on the device: copying a host 0 there
@@ -189,19 +277,13 @@ class Renderer:
         """Render the frame; returns (H, W, 3) f32 in raster order (row 0
         is raster y 0; the hdr file driver flips).  checkpoint: a tile
         checkpoint file's path; recover: resume from it (module
-        docstring)."""
+        docstring).  Under a mesh that spans processes every process
+        calls it and gets the whole frame."""
         opt = self.desc.options
         W, H = opt.width, opt.height
-        disp = opt.current_display()
-        xsamples = int(disp.sampling_rates[0])
-        ysamples = int(disp.sampling_rates[1])
-        jitter_np, _instance = subpixel_samples(xsamples, ysamples)
-        jitter = torch.tensor(jitter_np, dtype=torch.float32,
-                              device=self.device)
-        weights = torch.from_numpy(
-            subsample_filter_table(opt.pixel_filter, jitter_np,
-                                   *opt.pixel_filter_width)
-        ).to(self.device)
+        xsamples, ysamples, jitter_np, weights_np = self._subsamples()
+        consts = [_on_device(jitter_np, weights_np, rep.device)
+                  for rep in self.replicas]
 
         # RiCropWindow -> raster rect [ceil(W*xmin), ceil(W*xmax) - 1]
         cxmin, cxmax, cymin, cymax = self.camera.crop_window
@@ -226,23 +308,44 @@ class Renderer:
                            len(tiles)], dtype=np.int64)
         done = np.zeros(len(tiles), dtype=bool)
         if checkpoint and recover:
-            image, alpha, done = _recover(checkpoint, meta, image, alpha,
-                                          done)
+            # host 0 reads the file and ships what it found, so every
+            # process skips the same tiles (the file may exist only there)
+            if is_primary_host():
+                image, alpha, done = _recover(checkpoint, meta, image, alpha,
+                                              done)
+            if process_count() > 1:
+                image, alpha, done = broadcast_from_primary(
+                    (image, alpha, done.astype(np.uint8)))
+                done = done.astype(bool)
 
         def save_checkpoint():
+            if not is_primary_host():
+                return  # host 0 owns the checkpoint as it owns the displays
             tmp = checkpoint + ".tmp.npz"
             with open(tmp, "wb") as f:
                 np.savez(f, image=image, done=done, meta=meta, alpha=alpha)
             os.replace(tmp, checkpoint)  # atomic against a crash mid-write
 
+        first = self._slots.owned[0]
+
+        def tile_fn(slot, x0, y0):
+            i = slot - first
+            return self._tile(x0, y0, tile_w, tile_h, *consts[i],
+                              self.replicas[i])
+
         timer = get_timer()
         timer.start("Render frame")
-        # enqueue every tile first: the device runs ahead of the pulls
-        pending = [
-            None if done[ti] else self._tile(x0, y0, tile_w, tile_h, jitter,
-                                             weights)
-            for ti, (x0, y0, _i, _j) in enumerate(tiles)
-        ]
+        # the tiles not done, in rounds of the mesh's size, every round
+        # enqueued before the first pull: the devices run ahead of the pulls
+        enqueue = sharded_tile_batch(self._slots, tile_fn)
+        todo = [ti for ti in range(len(tiles)) if not done[ti]]
+        pending = [None] * len(tiles)
+        D = self._slots.size
+        for s in range(0, len(todo), D):
+            group = todo[s : s + D]
+            rnd = enqueue([tiles[ti][:2] for ti in group])
+            for slot, ti in enumerate(group):
+                pending[ti] = (rnd, slot)
         totals = np.zeros(3, dtype=np.int64)
         for ti, (x0, y0, _i, _j) in enumerate(tiles):
             th = min(tile_h, H - y0)
@@ -253,9 +356,9 @@ class Renderer:
                 if progress_cb:
                     progress_cb((ti + 1) / len(tiles))
                 continue
-            img, counters = pending[ti]
-            tile_np = img.cpu().numpy()
-            totals += counters.cpu().numpy()
+            rnd, slot = pending[ti]
+            tile_np, counters = rnd.get(slot)
+            totals += counters
             tile_alpha = None
             if tile_np.shape[-1] == 4:  # the imager's alpha channel
                 tile_np, tile_alpha = tile_np[..., :3], tile_np[..., 3]
@@ -277,7 +380,7 @@ class Renderer:
                 tile_cb(x0, y0, tile_np[:th, :tw])
             if progress_cb:
                 progress_cb((ti + 1) / len(tiles))
-        if checkpoint and os.path.exists(checkpoint):
+        if checkpoint and is_primary_host() and os.path.exists(checkpoint):
             os.remove(checkpoint)  # the frame is complete
         if opt.imager:  # the film post-pass over the assembled frame
             timer.start("Imager")
@@ -293,6 +396,28 @@ class Renderer:
         log(LOG_INFO, "frame done: %d tiles, %.2f Mrays/s", len(tiles),
             self.stats.mrays_per_sec)
         return image
+
+
+class _OnDevice:
+    """A caller's tile stream whose draws are moved to `device` (a no-op
+    where they already lie there), so a replica's sampler answers on the
+    replica's device."""
+
+    def __init__(self, stream, device):
+        self.stream, self.device = stream, device
+
+    def uniform(self, path, shape) -> torch.Tensor:
+        return self.stream.uniform(path, shape).to(self.device)
+
+    def randint(self, path, shape, high: int) -> torch.Tensor:
+        return self.stream.randint(path, shape, high).to(self.device)
+
+
+def _on_device(jitter_np, weights_np, device):
+    """The subpixel positions and their weights as f32 tensors on
+    `device` (copied once a frame, outside any tile)."""
+    return (torch.tensor(jitter_np, dtype=torch.float32, device=device),
+            torch.from_numpy(weights_np).to(device))
 
 
 def _recover(checkpoint: str, meta, image, alpha, done):
@@ -320,11 +445,11 @@ def _recover(checkpoint: str, meta, image, alpha, done):
     return got_image, alpha, got_done
 
 
-def _load_textures(desc, device):
+def _texture_images(desc) -> dict:
     """Every material texture, found through the option's search paths
-    (then as given), loaded into one atlas on `device`.  Returns (atlas,
-    {name: id}); a texture that is missing or cannot be read is logged
-    and left out (its materials keep id -1)."""
+    (then as given), as {name: (h, w, 3) array}; a texture that is
+    missing or cannot be read is logged and left out (its materials keep
+    id -1 in the atlas)."""
     names = {g.attrs.material.texture for g in desc.geoms
              if g.attrs.material.texture}
     images = {}
@@ -342,5 +467,4 @@ def _load_textures(desc, device):
             images[name] = load_image(found)
         except (ValueError, OSError) as e:
             log(LOG_WARN, "cannot load texture '%s': %s", name, e)
-    atlas = TextureAtlas.build(images, device)
-    return atlas, dict(atlas.names)
+    return images

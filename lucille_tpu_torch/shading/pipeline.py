@@ -113,8 +113,7 @@ class Atmosphere:
     A stage that is not built in runs its .sl, compiled into `compiled`
     and bound here, or is ignored (module docstring)."""
 
-    def __init__(self, name, params, searchpaths=None, device="cpu",
-                 compiled=None):
+    def __init__(self, name, params, searchpaths, device, compiled=None):
         self.name = name
         self.params = dict(params)
         self.fn = None  # an .sl volume shader

@@ -132,8 +132,7 @@ def _shade_wavefront(scene, lights, org, dirn, key, shader_table, depth,
                       "ntrav": res["ntrav"], "t": res["t"]}
 
 
-def build_shader_table(desc, device="cpu", cache: dict | None = None
-                       ) -> list:
+def build_shader_table(desc, device, cache: dict | None = None) -> list:
     """Each geometry's Surface binding as a ShaderRow (module docstring).
 
     Parameter names are normalised ('uniform float Kd' -> 'Kd'); a name

@@ -1,8 +1,8 @@
 """The port's CLI flags and interactive shell, against lucille_tpu's
 (lucille_tpu/cli.py, lucille_tpu/shell.py): each flag reaches the
 option lucille_tpu's sets, the shell runs when no RIB is given, the
-shells' commands move the camera the same way, and what the port does
-not have yet is refused with a message naming ROADMAP.  Frames render on
+shells' commands move the camera the same way, and what the port once
+refused naming ROADMAP is accepted now, nothing naming it.  Frames render on
 the CPU at 16x16 or 32x24 (the port's default random streams, so a frame
 rendered twice is the same frame)."""
 
@@ -214,32 +214,40 @@ def test_shell_refusals(line, refusal, tmp_path, capsys):
     ["--accel", "bruteforce"], ["--num-processes", "2"], ["--mesh", "4"],
     ["--process-id", "1"], ["--accel", "grid"]])
 def test_refusals_name_the_roadmap(argv, capsys, tmp_path):
-    """The multi-device flags are refused naming ROADMAP; the accels that
-    were refused with them (grid, bruteforce) now render."""
+    """What the port refused until it was ported now works, and nothing
+    names ROADMAP: the accels grid and bruteforce render; --mesh 4 on
+    the CPU (four replicas) renders the frame without a mesh;
+    --process-id 1 alone is lucille_tpu's single-process no-op, the same
+    frame; --num-processes 2 without a coordinator exits naming the
+    missing --coordinator."""
     from lucille_tpu_torch.cli import main
     from lucille_tpu_torch.imageio.loader import load_image
 
-    if argv[0] == "--accel":
-        out = tmp_path / "x.hdr"
-        assert main([str(_rib(tmp_path, bundled_rib_text())), *argv, "-o",
-                     str(out), "--device", "cpu", "--width", "16",
-                     "--height", "12", "--pixelsamples", "1",
-                     "--gather-rays", "4", "--tile", "16"]) == 0
-        img = load_image(out)
-        assert img.shape == (12, 16, 3) and 0 < img.mean() < 1
-        assert "ROADMAP" not in capsys.readouterr().err
+    rib = str(_rib(tmp_path, bundled_rib_text()))
+    small = ["--device", "cpu", "--width", "16", "--height", "12",
+             "--pixelsamples", "1", "--gather-rays", "4", "--tile", "8"]
+    if argv[0] == "--num-processes":
+        with pytest.raises(SystemExit) as e:
+            main([rib, *argv, *small])
+        assert e.value.code != 0
+        err = capsys.readouterr().err
+        assert "--coordinator" in err and "ROADMAP" not in err
         return
-    with pytest.raises(SystemExit) as e:
-        main(["scene.rib", *argv])
-    assert e.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP" in err
+    out = tmp_path / "x.hdr"
+    assert main([rib, *argv, "-o", str(out), *small]) == 0
+    img = load_image(out)
+    assert img.shape == (12, 16, 3) and 0 < img.mean() < 1
+    assert "ROADMAP" not in capsys.readouterr().err
+    if argv[0] in ("--mesh", "--process-id"):
+        assert main([rib, "-o", str(tmp_path / "one.hdr"), *small]) == 0
+        np.testing.assert_array_equal(img, load_image(tmp_path / "one.hdr"))
 
 
 def test_each_refusal_names_its_roadmap_item(monkeypatch, capsys,
                                              tmp_path):
-    """The refusals left name the ROADMAP Queue 1 item that will lift
-    them: the multi-device flags, item 8.  What item 7 lifted is accepted
+    """No refusal is left, and none names ROADMAP: item 8's multi-device
+    flags are accepted (--coordinator and --num-processes each exit
+    naming the other, which they need).  What item 7 lifted is accepted
     now: the compile's grid, bruteforce and mxu requests, lucille_tpu's
     grid arrays carried over, the CLI's --accel, the re-binned tile-BVH
     gather."""
@@ -262,8 +270,14 @@ def test_each_refusal_names_its_roadmap_item(monkeypatch, capsys,
                  "--device", "cpu", "--width", "8", "--height", "8",
                  "--pixelsamples", "1", "--gather-rays", "4"]) == 0
     assert "ROADMAP" not in capsys.readouterr().err
-    for argv, item in ((["--mesh", "2"], 8), (["--coordinator", "h:1"], 8),
-                       (["--num-processes", "2"], 8)):
+    # item 8's flags: accepted, and an incomplete set names what it lacks
+    assert main([str(rib), "--mesh", "2", "-o", str(tmp_path / "d.hdr"),
+                 "--device", "cpu", "--width", "8", "--height", "8",
+                 "--pixelsamples", "1", "--gather-rays", "4"]) == 0
+    for argv, lacks in ((["--coordinator", "h:1"], "--num-processes"),
+                        (["--num-processes", "2"], "--coordinator")):
         with pytest.raises(SystemExit):
             main(["scene.rib", *argv])
-        assert f"ROADMAP Queue 1, item {item}" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert lacks in err and "ROADMAP" not in err
+        assert "not ported" not in err

@@ -211,12 +211,14 @@ def test_light_tables_bind_the_sisfile(tmp_path):
     write_hdr(tmp_path / "env.hdr", _map(8, 16))
     npz, _dat = _sis_files(tmp_path)
     env = build_light_tables(_ibl_desc("torch", tmp_path, "structured",
-                                       sisfile=npz.name)).lights[0].env
+                                       sisfile=npz.name),
+                             device="cpu").lights[0].env
     np.testing.assert_array_equal(env.structured[0].numpy(),
                                   np.load(npz)["dirs"])
     # a sisfile not found: SIS samples generated from the map instead
     env = build_light_tables(_ibl_desc("torch", tmp_path, "structured",
-                                       sisfile="nope.npz")).lights[0].env
+                                       sisfile="nope.npz"),
+                             device="cpu").lights[0].env
     assert env.file_sis is None and len(env.structured[0]) > 0
 
 
@@ -232,7 +234,7 @@ def test_light_keeps_its_flat_colour_without_a_map(what, tmp_path):
         (tmp_path / "env.hdr").write_bytes(b"not an image")
     for kind in ("ibl", "dome"):
         light = build_light_tables(_ibl_desc("torch", tmp_path, "importance",
-                                             kind=kind)).lights[0]
+                                             kind=kind), device="cpu").lights[0]
         ref = jax_tables(_ibl_desc("jax", tmp_path, "importance",
                                    kind=kind)).lights[0]
         assert light.type == kind and light.env is None and ref.env is None

@@ -1237,8 +1237,8 @@ def test_atmosphere_on_the_card_matches_the_cpu(name, params):
             rng.normal(size=(B, 3))]
     args = [torch.tensor(a, dtype=torch.bool if a.dtype == bool
                          else torch.float32) for a in args]
-    ref = Atmosphere(name, params)(*args).numpy()
-    got = Atmosphere(name, params, device="cuda")(
+    ref = Atmosphere(name, params, None, "cpu")(*args).numpy()
+    got = Atmosphere(name, params, None, "cuda")(
         *(a.cuda() for a in args)).cpu().numpy()
     err = (np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)).max(-1)
     if name == "miefog":
@@ -1371,8 +1371,8 @@ def test_sl_atmosphere_on_the_card_matches_the_cpu(tmp_path):
     args = [torch.tensor(a, dtype=torch.bool if a.dtype == bool
                          else torch.float32) for a in args]
     params, sp = {"d": [4.0]}, [str(tmp_path)]
-    ref = Atmosphere("gpuslfog", params, sp)(*args).numpy()
-    atm = Atmosphere("gpuslfog", params, sp, device="cuda")
+    ref = Atmosphere("gpuslfog", params, sp, "cpu")(*args).numpy()
+    atm = Atmosphere("gpuslfog", params, sp, "cuda")
     dev_args = [a.cuda() for a in args]
     atm(*dev_args)
     torch.cuda.synchronize()
@@ -1497,3 +1497,29 @@ def test_grid_kernel_matches_plain(case, bound):
     if case == "ties":  # the lower id wins each exact tie
         tied = got["tri"] >= 0
         assert torch.all(got["tri"][tied] < scene.n_tris - 60)
+
+
+@pytest.mark.gpu
+def test_mesh_of_one_card_matches_no_mesh():
+    """A 64x32 AO frame on make_mesh(1) equals the same frame without a
+    mesh on the card, with the same rays; the replica's constants were
+    copied when it was built, so its first frame waits on the card in no
+    tile (sync debug mode "error")."""
+    _need_card()
+    import chip_smoke as cs
+
+    from lucille_tpu_torch.parallel.mesh import make_mesh
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    def renderer(mesh):
+        return Renderer(cs.bundled_state(64, 32, 2, 16, sunsky=False).scene,
+                        tile_size=16, device="cuda", mesh=mesh)
+
+    r0 = renderer(None)
+    ref = r0.render_frame()
+    r = renderer(make_mesh(1))
+    assert r.mesh.devices == (torch.device("cuda", 0),)
+    with cs.no_host_sync(r):
+        got = r.render_frame()
+    np.testing.assert_array_equal(got, ref)
+    assert r.stats.nrays == r0.stats.nrays > 0

@@ -73,7 +73,7 @@ def _shading_points(kind, B=512):
         sampler = kind[3:]
         js, ts = _hf_ibl("jax", sampler), _hf_ibl("torch", sampler)
         sj, lj = jc(js.scene).device_put(), jl(js.scene)
-        st, lt = compile_scene(ts.scene, "cpu"), build_light_tables(ts.scene)
+        st, lt = compile_scene(ts.scene, "cpu"), build_light_tables(ts.scene, device="cpu")
         assert st.accel == "pbvh"
         o, d = eye_rays(js.scene.camera, B, 1, (160, 120))
         res = closest_hit(st, t(o), t(d))

@@ -70,7 +70,8 @@ def _sss_case(accel, pkg):
     from lucille_tpu_torch.lights.tables import build_light_tables
     from lucille_tpu_torch.scene.compile import compile_scene
 
-    return compile_scene(s.scene, "cpu"), build_light_tables(s.scene), None
+    return (compile_scene(s.scene, "cpu"),
+            build_light_tables(s.scene, device="cpu"), None)
 
 
 @pytest.mark.parametrize("accel,phase", [("pallas", False), ("bvh", False),

@@ -276,30 +276,56 @@ def test_port_scan_covers_the_shader_modules():
         "shading/shader", "shading/sl", "transport/shaded")} <= files
 
 
+def test_port_scan_covers_the_parallel_modules():
+    """test_torch_frontend's AST scan walks every module of the package:
+    parallel/ (the mesh, torch.distributed) is among them."""
+    files = {p.relative_to(REPO).as_posix()
+             for p in (REPO / "lucille_tpu_torch").rglob("*.py")}
+    assert {f"lucille_tpu_torch/parallel/{m}.py" for m in (
+        "__init__", "mesh", "distributed")} <= files
+
+
+def test_cli_renders_a_mesh_without_jax(tmp_path):
+    """--mesh 2 --device cpu (two CPU replicas) renders the frame without
+    a mesh, where jax and lucille_tpu cannot be imported."""
+    img, _ = _render_without_jax(tmp_path, bundled_rib_text())
+    got, _ = _render_without_jax(tmp_path, bundled_rib_text(), "--mesh", "2")
+    np.testing.assert_array_equal(got, img)
+
+
 @pytest.mark.parametrize("argv", [["--mesh", "4"], ["--accel", "bruteforce"],
                                   ["--num-processes", "2"], ["--accel", "grid"],
                                   ["--coordinator", "localhost:1234"]])
-def test_cli_refuses_unported_flags(argv, capsys, tmp_path):
-    """What the port does not have yet, the multi-device flags (--recover
-    and --method dirtmap are ported now: tests/test_torch_cli.py;
-    --display socket too: tests/test_torch_sockdrv.py; --method shader,
-    once refused here, too: test_cli_renders_the_shader_method_without_jax;
-    --accel bruteforce and grid, once refused here, render too)."""
+def test_cli_refuses_unported_flags(argv, capsys, tmp_path, monkeypatch):
+    """Nothing is refused as not ported any more: the multi-device flags
+    are accepted, and where the run cannot go ahead the CLI exits naming
+    what it lacks (--mesh 4 on cuda: the cards torch sees, held at none;
+    --num-processes without --coordinator and the other way round); the
+    accels bruteforce and grid, once refused here, render (--recover,
+    --method dirtmap and shader: tests/test_torch_cli.py and
+    test_cli_renders_the_shader_method_without_jax; --display socket:
+    tests/test_torch_sockdrv.py)."""
     from lucille_tpu_torch.cli import main
 
+    rib = tmp_path / "scene.rib"
+    rib.write_text(bundled_rib_text())
     if argv[0] == "--accel":
-        rib = tmp_path / "scene.rib"
-        rib.write_text(bundled_rib_text())
         assert main([str(rib), *argv, "-o", str(tmp_path / "x.hdr"),
                      "--device", "cpu", "--width", "8", "--height", "6",
                      "--pixelsamples", "1", "--gather-rays", "4"]) == 0
         assert (tmp_path / "x.hdr").exists()
         assert "not ported" not in capsys.readouterr().err
         return
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(SystemExit) as e:
-        main(["scene.rib", *argv])
+        main([str(rib), *argv, "-o", str(tmp_path / "x.hdr")])
     assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported" not in err and "ROADMAP" not in err
+    lacks = {"--mesh": "CUDA card", "--num-processes": "--coordinator",
+             "--coordinator": "--num-processes"}[argv[0]]
+    assert lacks in err
+    assert not (tmp_path / "x.hdr").exists()
 
 
 def test_cuda_without_card_raises():

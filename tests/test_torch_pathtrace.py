@@ -81,7 +81,8 @@ def _plane_scene(extra_rib="", lights_rib=""):
         "WorldBegin\n" + lights_rib
         + 'PointsPolygons [4] [0 3 2 1] "P" [-50 0 -50  50 0 -50  50 0 50  '
         "-50 0 50]\n" + extra_rib + "WorldEnd\n", s)
-    return compile_scene(s.scene, "cpu"), build_light_tables(s.scene)
+    return compile_scene(s.scene, "cpu"), build_light_tables(s.scene,
+                                                             device="cpu")
 
 
 def _down_rays(B=64, height=5.0):

@@ -136,7 +136,8 @@ def test_atmosphere_matches_jax(case):
     np.testing.assert_array_equal(got[~hit], ci[~hit])  # escaped rays
     if case != "MOSAICfog-off":
         assert np.abs(want[hit] - ci[hit]).max() > 0.05
-    atm = Atmosphere(name, params)  # the Renderer's: the same answer
+    # the Renderer's: the same answer
+    atm = Atmosphere(name, params, None, "cpu")
     np.testing.assert_array_equal(atm(*args).numpy(), got)
 
 
@@ -161,7 +162,7 @@ def test_miefog_phase_table_is_built_once():
     from lucille_tpu_torch.ops import mie
     from lucille_tpu_torch.shading.pipeline import Atmosphere
 
-    atm = Atmosphere("miefog", ATMOSPHERES["miefog"], device="cpu")
+    atm = Atmosphere("miefog", ATMOSPHERES["miefog"], None, "cpu")
     assert atm.table.dtype == torch.float32 and atm.table.shape == (1024,)
     args = [torch.from_numpy(a) for a in _wavefront(64)]
     with mock.patch.object(mie, "phase_table", side_effect=AssertionError), \

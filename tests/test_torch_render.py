@@ -130,8 +130,15 @@ CASES = {
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_frame_matches_jax(case):
-    make_state, tile, n_tiles = CASES[case]
-    desc, jr, ref, pr, got = _render_pair(make_state, tile)
+    make_state, tile, _n_tiles = CASES[case]
+    check_frame_against_jax(case, *_render_pair(make_state, tile))
+
+
+def check_frame_against_jax(case, desc, jr, ref, pr, got):
+    """The bounds of the module docstring, for CASES[case]'s frame: the
+    port's Renderer pr (its frame got, of description desc) against
+    lucille_tpu's jr (its frame ref)."""
+    _make_state, tile, n_tiles = CASES[case]
     assert pr.scene.n_pad // 128 == n_tiles
     assert got.shape == ref.shape and np.isfinite(got).all()
 

@@ -84,7 +84,7 @@ def test_scan_wavefront_matches_jax(sunsky, low_threshold):
     counts = _counts()
     got, aux = ao_radiance(scene, torch.from_numpy(o), torch.from_numpy(d),
                            JaxStream(key), NTHETA, NPHI,
-                           lights=build_light_tables(desc))
+                           lights=build_light_tables(desc, device="cpu"))
     # the scan's S any-hit wavefronts (and a sun ray's), no fused gather
     assert counts["any_hit"].plain == S + sunsky
     assert counts["ao"].plain == counts["ao_bits"].plain == 0

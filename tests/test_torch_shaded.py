@@ -144,7 +144,7 @@ def _plane(pkg, extra_rib="", lights_rib=""):
     from lucille_tpu_torch.scene.compile import compile_scene
 
     return s.scene, compile_scene(s.scene, "cpu"), build_light_tables(
-        s.scene)
+        s.scene, device="cpu")
 
 
 def _wavefront_pair(extra_rib, org, dirn, seed, max_depth=8):
@@ -166,7 +166,7 @@ def _wavefront_pair(extra_rib, org, dirn, seed, max_depth=8):
     got, gaux = shaded_radiance(st, lt, torch.from_numpy(org),
                                 torch.from_numpy(dirn),
                                 StreamKey(JaxStream(key)),
-                                shader_table=build_shader_table(desc),
+                                shader_table=build_shader_table(desc, "cpu"),
                                 max_depth=max_depth)
     return (got.numpy(), {k: np.asarray(v) for k, v in gaux.items()},
             np.asarray(want), {k: np.asarray(v) for k, v in waux.items()})
@@ -276,7 +276,8 @@ def _table_pair(tmp_path, surfaces):
     from lucille_tpu_torch.transport.shaded import build_shader_table
 
     out = []
-    for pkg, build in (("jax", jtable), ("torch", build_shader_table)):
+    for pkg, build in (("jax", jtable),
+                       ("torch", lambda d: build_shader_table(d, "cpu"))):
         RiState, parse_rib = front_end(pkg)
         s = RiState()
         quads = "".join(

@@ -50,7 +50,8 @@ def hf_lit(pkg):
     from lucille_tpu_torch.lights.tables import build_light_tables
     from lucille_tpu_torch.scene.compile import compile_scene
 
-    return (compile_scene(s.scene, "cpu"), build_light_tables(s.scene),
+    return (compile_scene(s.scene, "cpu"),
+            build_light_tables(s.scene, device="cpu"),
             s.scene.camera)
 
 

@@ -164,7 +164,8 @@ def _plane_ctx(pkg, B=256):
                           for k, v in arrays.items()})
     return sg, ShaderContext(scene=compile_scene(s.scene, "cpu"),
                              key=StreamKey(JaxStream(key)),
-                             lights=build_light_tables(s.scene))
+                             lights=build_light_tables(s.scene,
+                                                       device="cpu"))
 
 
 # case -> (source, params or None for the defaults, expected Ci[:, 0])

@@ -146,7 +146,8 @@ def compiled(kind: str, pkg: str):
 
     s = (heightfield_state(35, accel="bvh") if kind == "hf"
          else state(kind, "torch"))
-    return (compile_scene(s.scene, "cpu"), build_light_tables(s.scene),
+    return (compile_scene(s.scene, "cpu"),
+            build_light_tables(s.scene, device="cpu"),
             s.scene.camera)
 
 
@@ -509,7 +510,7 @@ def test_light_constants_reach_the_device_once():
     RiState, parse_rib = front_end("torch")
     s = RiState()
     parse_rib(material_rib(), s)
-    lights = build_light_tables(s.scene)
+    lights = build_light_tables(s.scene, device="cpu")
     like = torch.zeros((4, 3))
     for li in lights:
         assert const_vec(li.color, "cpu") is const_vec(li.color, "cpu")
