@@ -203,16 +203,19 @@ non-zero):
    whitted.sl scene at 160x120, its .hdr equal to the Renderer's frame
    through the same driver; each of phases 26-28 prints its wall
    seconds;
-29. the uniform grid's DDA walk (csrc/ugrid.cu, one thread a ray; it
-   stands for lucille_tpu's lax.while_loop, ugrid.py:166) against its
-   lock-step twin (`check_grid_kernels`): the closest hit on the first
-   tile's eye rays and the any-hit on one stratum of the AO scan's
-   gather rays from their hits, on the bundled scene's headline tile
-   (518,400 rays, a 9^3 grid) and the n = 256 terrain's first tile
-   (65,536 rays, 130,050 triangles, a 64^3 grid): tri, t, u, v,
-   occlusion and the walk's counters (ntests, ntrav) equal exactly; ms
-   a launch, the twin's ms, the bound from the counted work, registers
-   and spills (a spill fails);
+29. the uniform grid's DDA walk (csrc/ugrid.cu, `group_lanes` lanes a
+   ray; it stands for lucille_tpu's lax.while_loop, ugrid.py:166)
+   against its lock-step twin (`check_grid_kernels`): the closest hit on
+   the first tile's eye rays and the any-hit on one stratum of the AO
+   scan's gather rays from their hits, on the bundled scene's headline
+   tile (518,400 rays, a 9^3 grid, a lane a ray) and the n = 256
+   terrain's first tile (65,536 rays, 130,050 triangles, a 64^3 grid, 8
+   lanes a ray): tri, t, u, v, occlusion and the walk's counters
+   (ntests, ntrav) equal exactly, also from the calls the render paths
+   make and that are timed; ms a launch as the render paths launch it
+   (the any-hit without counters), the twin's ms, the bound from the
+   counted work, the warps' own advance and chunk steps and the SIMT
+   efficiency, registers (a spill or a stack frame in any entry fails);
 30. the grid's, the dense requests' and the re-binned gather's full-width
    frames with phase 4's checks, each with its
    launches against its path's count, its rays against the same scene's
@@ -3099,17 +3102,38 @@ GRID_ENTRY_OPS = 70
 
 
 def grid_registers(log: str) -> dict:
-    """{"grid_kernel<any>": (registers, spill bytes)} of csrc/ugrid.cu's
-    two entries; raises if one spills or is missing."""
+    """{"grid_kernel<any, lanes, counters>": (registers, stack frame
+    bytes)} of csrc/ugrid.cu's entries (a closest hit and an any-hit for
+    each group of lanes a ray and each counter level); raises if one is
+    missing, spills or keeps a stack frame (the walk's per-axis state
+    belongs in registers)."""
     import re
 
+    stacks, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            name = line.split("'")[1]
+            continue
+        m = name and re.search(r"(\d+) bytes (stack frame|cumulative stack)",
+                               line)
+        if m:
+            stacks[name] = max(stacks.get(name, 0), int(m.group(1)))
+        if "Used " in line:
+            name = None
     out = {}
     for name, (regs, spill) in ptxas_entries(log).items():
-        m = re.search(r"grid_kernelILb([01])E", name)
+        m = re.search(r"grid_kernelILb([01])ELi(\d+)ELi(\d+)EE", name)
         if m:
-            out[f"grid_kernel<{bool(int(m.group(1)))}>"] = (regs, spill)
-    if len(out) != 2 or any(spill for _regs, spill in out.values()):
-        raise AssertionError(f"ugrid.cu: a report missing or a spill: {out}")
+            if spill or stacks.get(name, 0):
+                raise AssertionError(f"ugrid.cu {name}: {spill} bytes "
+                                     f"spilled, {stacks.get(name)} bytes of "
+                                     "stack frame")
+            key = (f"grid_kernel<{bool(int(m.group(1)))}, {m.group(2)}, "
+                   f"{m.group(3)}>")
+            out[key] = (regs, stacks.get(name, 0))
+    if {k.split(",")[0] for k in out} != {"grid_kernel<False",
+                                          "grid_kernel<True"}:
+        raise AssertionError(f"ugrid.cu: an entry's report missing: {out}")
     return out
 
 
@@ -3152,11 +3176,14 @@ def check_grid_kernels(label, r, results, log):
     (csrc/ugrid.cu) against the lock-step twin on the scene's first tile:
     the closest hit on its eye rays, the any-hit on the AO scan's
     stratum 7 of 64 (the most grazing of the first row) of gather rays
-    from their hits (the missed lanes dead); tri,
-    t, u, v, occlusion, ntests and ntrav equal exactly; ms a launch (CUDA
-    events, 10 launches), the twin's ms (one run), the bound (from the
-    launch's counters and the twin's record of the walk's reads),
-    registers and spills.  Appends to results[name]."""
+    from their hits (the missed lanes dead); tri, t, u, v, occlusion,
+    ntests and ntrav equal exactly, both from the launch that also counts
+    the warps' own steps and from the entries as the render paths call
+    them (`closest_hit` with its counters, `any_hit` without), the calls
+    that are timed; ms a launch (CUDA events, 10 launches), the twin's ms
+    (one run), the bound (from the launch's counters and the twin's
+    record of the walk's reads), registers and spills.  Appends to
+    results[name]."""
     from lucille_tpu_torch.accel import ugrid
     from lucille_tpu_torch.transport.ao import _scan_dirs, shading_frame
 
@@ -3166,13 +3193,20 @@ def check_grid_kernels(label, r, results, log):
     regs = grid_registers(log)
     org, dirn, x0, y0 = first_tile_rays(r)
     B = org.shape[0]
+    lanes = ugrid.group_lanes(scene, B)
+    closest_keys = ("tri", "t", "u", "v", "ntests", "ntrav")
+    # with the warps' own steps (an instantiation of its own)
     got = ugrid.grid_walk_kernel(scene, org, dirn)
     reads = {}
     ref = ugrid.grid_walk_reference(scene, org, dirn, reads=reads)
-    err = _check_grid_equal(f"{label} closest", got, ref,
-                            ("tri", "t", "u", "v", "ntests", "ntrav"))
+    err = _check_grid_equal(f"{label} closest", got, ref, closest_keys)
     _, plain_ms = timed(lambda: ugrid.grid_walk_reference(scene, org, dirn))
-    ms = cuda_ms(lambda: ugrid.grid_walk_kernel(scene, org, dirn), 10)
+    # each entry as the render paths launch it, the one timed: the
+    # closest hit with its rays' counters, the any-hit with none
+    err = max(err, _check_grid_equal(
+        f"{label} closest_hit", ugrid.closest_hit(scene, org, dirn), ref,
+        closest_keys))
+    ms = cuda_ms(lambda: ugrid.closest_hit(scene, org, dirn), 10)
     hit = got["tri"] >= 0
     P_off, b0, b1, b2 = shading_frame(scene, org, dirn, {**got, "hit": hit})
     wdir = _scan_dirs(b0, b1, b2, r.sampler(x0, y0).uniform((7,), (B, 2)),
@@ -3183,34 +3217,62 @@ def check_grid_kernels(label, r, results, log):
                                         any_hit=True, reads=any_reads)
     _check_grid_equal(f"{label} any", occ, occ_ref,
                       ("occ", "ntests", "ntrav"))
+    _check_grid_equal(f"{label} any_hit",
+                      ugrid.any_hit(scene, P_off, wdir, None, hit), occ_ref,
+                      ("occ",))
     _, plain_any_ms = timed(lambda: ugrid.grid_walk_reference(
         scene, P_off, wdir, None, hit, any_hit=True))
-    any_ms = cuda_ms(lambda: ugrid.grid_walk_kernel(
-        scene, P_off, wdir, None, hit, any_hit=True), 10)
+    any_ms = cuda_ms(lambda: ugrid.any_hit(scene, P_off, wdir, None, hit),
+                     10)
     n_hit, n_occ = int(hit.sum()), int(occ["occ"].sum())
     for name, res, rd, k_ms, p_ms, any_hit, live, reg in (
             ("grid_closest_hit", got, reads, ms, plain_ms, False, B,
-             "grid_kernel<False>"),
+             f"grid_kernel<False, {lanes}, 1>"),
             ("grid_any_hit", occ, any_reads, any_ms, plain_any_ms, True,
-             n_hit, "grid_kernel<True>")):
+             n_hit, f"grid_kernel<True, {lanes}, 0>")):
         # the closest hit is passed neither tmax nor a mask, the any-hit
         # the eye hits as its mask and no tmax
         b = grid_bound(res, rd, B, live, False, any_hit, any_hit)
+        # SIMT efficiency: lanes busy over lanes issued, in the advance
+        # loop (a ray's advance keeps its group's lanes busy) and in the
+        # chunk steps (up to K slots a lane)
+        w_trav, w_tests = int(res["warp_ntrav"]), int(res["warp_ntests"])
+        # the lock-step twin's walk, counted (not timed): each walking
+        # ray's steps (a chunk of K slots or an advance), and the share of
+        # advances that enter a cell listing no slot
+        walked = rd["steps"][rd["steps"] > 0].double()
         entry = {"scene": label, "rays": B, "live": live,
                  "max_abs_err": err if not any_hit else 0.0, "ms": k_ms,
                  "plain_ms": p_ms, **b, "ntests": int(res["ntests"]),
-                 "ntrav": int(res["ntrav"]), "registers": regs[reg][0],
-                 "res": scene.grid_res}
+                 "ntrav": int(res["ntrav"]), "warp_ntrav": w_trav,
+                 "warp_ntests": w_tests, "lanes": lanes,
+                 "simt_advance": lanes * int(res["ntrav"]) / max(32 * w_trav,
+                                                                 1),
+                 "simt_chunk": int(res["ntests"]) / max(32 * ugrid.K
+                                                        * w_tests, 1),
+                 "twin_steps_mean": float(walked.mean()),
+                 "twin_steps_max": int(walked.max()),
+                 "twin_empty_share": int(rd["empty"].sum())
+                 / max(int(res["ntrav"]), 1),
+                 "registers": regs[reg][0], "res": scene.grid_res}
         results[name].append(entry)
         print(f"[{label}] {name}: {B} rays ({live} live; {n_hit} eye hits, "
               f"{n_occ} gather rays occluded), grid {scene.grid_res}^3, "
-              f"{scene.n_tris} triangles; equal to the twin (tri, t, u, v "
-              f"/ occlusion, ntests {entry['ntests']}, ntrav "
-              f"{entry['ntrav']}); {k_ms:.3f} ms a launch, bound "
+              f"{scene.n_tris} triangles, {lanes} lanes a ray; equal to "
+              f"the twin (tri, t, u, v / occlusion, ntests "
+              f"{entry['ntests']}, ntrav {entry['ntrav']}); "
+              f"{k_ms:.3f} ms a launch, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}; "
               f"{entry['ntests'] / max(live, 1):.1f} slots tested and "
               f"{entry['ntrav'] / max(live, 1):.1f} advances a live ray), "
-              f"twin {p_ms:.3f} ms; {regs[reg][0]} registers, no spill",
+              f"twin {p_ms:.3f} ms; warp steps {w_trav} advance / "
+              f"{w_tests} chunk, SIMT efficiency "
+              f"{entry['simt_advance']:.3f} / {entry['simt_chunk']:.3f}; "
+              f"the twin's walk (counts): {entry['twin_steps_mean']:.1f} "
+              f"steps a walking ray (longest {entry['twin_steps_max']}), "
+              f"{entry['twin_empty_share']:.2f} of the advances into an "
+              f"empty cell; "
+              f"{regs[reg][0]} registers, no spill, no stack frame",
               flush=True)
 
 

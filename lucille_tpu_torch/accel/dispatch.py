@@ -53,7 +53,7 @@ def any_hit(scene, org: torch.Tensor, dirn: torch.Tensor,
     """Whether each ray (B, 3) hits anything with 0 < t < tmax (None:
     unbounded, a float or (B,)); active: None or a (B,) bool mask of the
     rays that count, the others report False.  Returns {occ (B,) bool},
-    on the tile BVH and the grid also ntrav, ntests.  On the dense tiles
+    on the tile BVH also ntrav, ntests.  On the dense tiles
     and the grid a dead ray costs no work (csrc/isect.cu, csrc/ugrid.cu);
     the tile BVH traces it and masks the answer, as lucille_tpu's BVH path
     ignores the mask (lucille_tpu/accel/dispatch.py:48-65)."""

@@ -62,14 +62,14 @@ SIGNATURES = {
     # warps, ntheta, inv_ntheta, inv_nphi, occ, stats, stream
     "lt_bvh_ao_fused": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                         _I, _F, _F, _P, _P, _P),
-    # org, dir, tmax, active, B, v0, e1, e2, cell_start, tri_idx, box, res,
-    # t, u, v, tri, stats, stream
-    "lt_grid_closest_hit": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
-                            _P, _P, _P, _P, _P, _P),
-    # org, dir, tmax, active, B, v0, e1, e2, cell_start, tri_idx, box, res,
-    # occ, stats, stream
-    "lt_grid_any_hit": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
-                        _P, _P),
+    # org, dir, tmax, active, B, tris, cell_start, occupied, box, res,
+    # lanes, t, u, v, tri, stats, counters, stream
+    "lt_grid_closest_hit": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                            _P, _P, _P, _P, _P, _I, _P),
+    # org, dir, tmax, active, B, tris, cell_start, occupied, box, res,
+    # lanes, occ, stats, counters, stream
+    "lt_grid_any_hit": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
+                        _I, _P),
 }
 
 

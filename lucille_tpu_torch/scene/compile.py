@@ -17,7 +17,8 @@ the device once, by from_numpy.
 `accel "auto"` decides by triangle count alone: dense up to
 AUTO_DENSE_MAX_TRIS, the tile BVH above.  "pallas" asks for the dense
 tiles, "bvh" and "pbvh" for the tile BVH, "grid" and "ugrid" for the
-uniform grid (accel/ugrid.py's CSR build, `grid_*` arrays), and
+uniform grid (accel/ugrid.py's CSR build and the walk's two packs,
+`grid_*` arrays), and
 "bruteforce" and "mxu", lucille_tpu's dense intersectors, for the dense
 tiles with the triangles in input order: lucille_tpu Morton-sorts them
 only for "pallas" (lucille_tpu/scene/compile.py:232), and the port's
@@ -193,7 +194,7 @@ def compile_arrays(desc: SceneDescription, texture_ids: dict | None = None,
     # compile.py:243-271); without a triangle the scene stays dense
     grid = {}
     if accel == "ugrid" and n_tris > 0:
-        from lucille_tpu_torch.accel.ugrid import build_ugrid
+        from lucille_tpu_torch.accel.ugrid import build_ugrid, grid_packs
 
         timer = get_timer()
         timer.start("Grid Construction")
@@ -201,8 +202,11 @@ def compile_arrays(desc: SceneDescription, texture_ids: dict | None = None,
         dt = timer.end("Grid Construction")
         log(LOG_INFO, "uniform grid built: %d tris, %d^3 cells, %d refs, "
             "%.3f sec", n_tris, g.res, len(g.tri_idx), dt)
+        occupied, tris = grid_packs(g.cell_start, g.tri_idx, v0, v1 - v0,
+                                    v2 - v0)
         grid = dict(grid_cell_start=g.cell_start, grid_tri_idx=g.tri_idx,
-                    grid_bbmin=g.bbmin, grid_bbmax=g.bbmax, grid_res=g.res)
+                    grid_bbmin=g.bbmin, grid_bbmax=g.bbmax, grid_res=g.res,
+                    grid_occupied=occupied, grid_tris=tris)
     elif accel == "ugrid":
         accel = "dense"
 

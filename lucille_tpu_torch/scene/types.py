@@ -22,8 +22,10 @@ are f32, integers i32, on one explicit device.
   stages no padding) beside it, and `tris` as on the dense accel.
 - accel "ugrid": lucille_tpu's uniform grid (accel/ugrid.py), the
   triangles in input order: `grid_cell_start` and `grid_tri_idx` (the
-  CSR cell lists), `grid_box` (6,) [bbmin | bbmax] and `grid_res`; the
-  CUDA walk reads the triangle tables themselves, so no pack is built.
+  CSR cell lists), `grid_box` (6,) [bbmin | bbmax] and `grid_res`; and
+  the walk's two packs, built once by the compile (scene/compile.py,
+  accel/ugrid.grid_packs): `grid_occupied`, one bit a cell that lists a
+  slot, and `grid_tris`, each slot's triangle in slot order.
 
 `intersector` keeps lucille_tpu's accel name for the scene ("pallas",
 "mxu", "bruteforce", "ugrid" or "pbvh"): lucille_tpu's "mxu" and
@@ -111,6 +113,8 @@ class SceneTensors:
     grid_tri_idx: torch.Tensor | None = None  # (M,) i32
     grid_box: torch.Tensor | None = None  # (6,) f32 [bbmin | bbmax]
     grid_res: int = 0
+    grid_occupied: torch.Tensor | None = None  # (ceil(res^3 / 32),) i32
+    grid_tris: torch.Tensor | None = None  # (M, 12) f32 slot-order pack
 
     @property
     def device(self) -> torch.device:
@@ -144,9 +148,11 @@ def from_numpy(scene_arrays, device) -> SceneTensors:
     package's SceneArrays, or this package's compile output) -> tensors
     on `device`, f32/i32, same field names.  The dense layout ("pallas",
     "mxu", "bruteforce" or "dense"), the tile BVH ("pbvh") and the grid
-    ("ugrid") carry over; the kernels' packs, for the tile BVH the node
-    pack and the tree's depth, and for the grid its tensors are built
-    here, once.  Any other accel raises."""
+    ("ugrid") carry over; the kernels' packs, and for the tile BVH the
+    node pack and the tree's depth, are built here, once; the grid's
+    walk packs come built with its CSR table from this package's compile
+    (scene/compile.py) and are only copied, and are built here only for
+    lucille_tpu's arrays, which lack them.  Any other accel raises."""
     accel = scene_arrays.accel
     intersector = getattr(scene_arrays, "intersector", None) or (
         "pallas" if accel == "dense" else accel)
@@ -168,11 +174,22 @@ def from_numpy(scene_arrays, device) -> SceneTensors:
     elif accel == "ugrid" and scene_arrays.grid_res > 0:
         box = np.concatenate([scene_arrays.grid_bbmin,
                               scene_arrays.grid_bbmax])
+        occupied = getattr(scene_arrays, "grid_occupied", None)
+        tris = getattr(scene_arrays, "grid_tris", None)
+        if occupied is None:  # lucille_tpu's arrays carry no walk packs
+            from lucille_tpu_torch.accel.ugrid import grid_packs
+
+            occupied, tris = grid_packs(
+                scene_arrays.grid_cell_start, scene_arrays.grid_tri_idx,
+                scene_arrays.tri_v0, scene_arrays.tri_e1,
+                scene_arrays.tri_e2)
         extra = {"grid_cell_start": _to_tensor(scene_arrays.grid_cell_start,
                                                device),
                  "grid_tri_idx": _to_tensor(scene_arrays.grid_tri_idx, device),
                  "grid_box": _to_tensor(box, device),
-                 "grid_res": int(scene_arrays.grid_res)}
+                 "grid_res": int(scene_arrays.grid_res),
+                 "grid_occupied": _to_tensor(occupied, device),
+                 "grid_tris": _to_tensor(tris, device)}
     else:
         raise NotImplementedError(
             f"accel {accel!r} (n_nodes {getattr(scene_arrays, 'n_nodes', 0)}"

@@ -36,6 +36,15 @@ bench_large's terrain at n = 256 (130,050 triangles) and n = 724
     chip_smoke.check_closest_active's); closest256-slice,
     closest724-slice: on 16,384 / 4,096 of them, centred on the hits
     (chip_smoke.check_bvh_kernels' slices);
+the grid walk (csrc/ugrid.cu) on chip_smoke phase 29's shapes, the
+closest hit on a tile's eye rays and the any-hit on stratum 7 of 64 of
+the AO scan's gather rays from their hits, each through
+`accel.dispatch`, as the render paths call it (the any-hit of a tree
+that counts where nothing reads the counters sums them there too):
+  grid-headline: the bundled scene's headline tile (518,400 rays, a 9^3
+    grid);
+  grid-hf256: the n = 256 terrain's first tile (65,536 rays, a 64^3
+    grid);
 the dense closest hit and any-hit (csrc/isect.cu, kernels 1 and 2),
 through `accel.dispatch.closest_hit` / `any_hit`, the closest hit on a
 tile's eye rays and the any-hit on its hit lanes' shadow rays toward a
@@ -77,6 +86,7 @@ NAMES = {
     "bvh_closest_hit": ("bvh_kernel<false>", "bvh_closest_kernel"),
     "closest_hit": ("closest_hit_kernel", "closest_epilogue", "Memset"),
     "any_hit": ("any_hit_kernel", "Memset"),
+    "grid": ("grid_kernel<",),
 }
 
 
@@ -217,6 +227,46 @@ def main(argv) -> int:
         print(f"[{label}] any_hit: {int(hit.sum())} live shadow rays of {B}: "
               f"kernel {ms:.3f} ms ({name})", flush=True)
 
+    def grid(label, make_state, tile):
+        from lucille_tpu_torch.accel import ugrid
+        from lucille_tpu_torch.transport.ao import _scan_dirs
+
+        r = renderer(label, make_state, tile)
+        org, dirn, x0, y0 = cs.first_tile_rays(r)
+        B = org.shape[0]
+        got = ugrid.grid_walk_kernel(r.scene, org, dirn)
+        hit = got["tri"] >= 0
+        P_off, b0, b1, b2 = shading_frame(r.scene, org, dirn,
+                                          {**got, "hit": hit})
+        wdir = _scan_dirs(b0, b1, b2, r.sampler(x0, y0).uniform((7,), (B, 2)),
+                          7, 8, 8)
+        for name, fn, live in (
+                ("closest_hit", lambda: closest_hit(r.scene, org, dirn), B),
+                ("any_hit", lambda: any_hit(r.scene, P_off, wdir,
+                                            active=hit), int(hit.sum()))):
+            ms, kname = kernel_ms(fn, "grid")
+            call_ms = cs.cuda_ms(fn, REPS)
+            print(f"[{label}] grid {name}: {B} rays, {live} live: kernel "
+                  f"{ms:.4f} ms ({kname}); a call {call_ms:.4f} ms (CUDA "
+                  f"events, {REPS} calls)", flush=True)
+        # the warps' own steps, where the tree's kernel counts them
+        for name, res, live in (
+                ("closest_hit", ugrid.grid_walk_kernel(r.scene, org, dirn),
+                 B),
+                ("any_hit", ugrid.grid_walk_kernel(r.scene, P_off, wdir, None,
+                                                   hit, any_hit=True),
+                 int(hit.sum()))):
+            if "warp_ntrav" in res:
+                lanes = ugrid.group_lanes(r.scene, B)
+                trav, tests = int(res["ntrav"]), int(res["ntests"])
+                w_trav = max(int(res["warp_ntrav"]), 1)
+                w_tests = max(int(res["warp_ntests"]), 1)
+                print(f"[{label}] grid {name}: {lanes} lanes a ray, ntrav "
+                      f"{trav}, ntests {tests}, warp steps {w_trav} advance "
+                      f"/ {w_tests} chunk, SIMT efficiency "
+                      f"{lanes * trav / (32 * w_trav):.3f} / "
+                      f"{tests / (32 * ugrid.K * w_tests):.3f}", flush=True)
+
     bundled = lambda **kw: cs.bundled_state(  # noqa: E731
         640, 480, 3, sunsky=False, **kw)
     shapes = {
@@ -250,6 +300,12 @@ def main(argv) -> int:
                                             n_slice=16384),
         "closest724-slice": lambda: closest("closest724-slice", 724,
                                             n_slice=4096),
+        "grid-headline": lambda: grid(
+            "grid-headline", lambda: bundled(gather=64, accel="grid"),
+            cs.TILE),
+        "grid-hf256": lambda: grid(
+            "grid-hf256", lambda: cs.heightfield_state(256, accel="grid"),
+            128),
         "isect-headline": lambda: isect(
             "isect-headline", lambda: cs.bundled_state(640, 480, 3, 64),
             cs.TILE),

@@ -163,12 +163,13 @@ def _imports(path):
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No module under lucille_tpu_torch/, nor chip_smoke.py or
-    profile_frame.py, imports jax, lucille_tpu, tools_tpu (whose modules
-    import lucille_tpu) or bench_large, at any depth of the file
-    (function-level imports included)."""
+    """No module under lucille_tpu_torch/, nor chip_smoke.py or the
+    profile_*.py scripts beside it, imports jax, lucille_tpu, tools_tpu
+    (whose modules import lucille_tpu) or bench_large, at any depth of
+    the file (function-level imports included)."""
     files = sorted((REPO / "lucille_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "profile_frame.py"]
+    files += [REPO / "chip_smoke.py", REPO / "profile_frame.py",
+              REPO / "profile_gather.py", REPO / "profile_lanes.py"]
     assert len(files) > 40
     bad = [(str(p.relative_to(REPO)), m) for p in files for m in _imports(p)
            if m in ("jax", "jaxlib", "lucille_tpu", "tools_tpu",

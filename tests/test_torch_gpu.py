@@ -20,6 +20,8 @@ two leaves (the ray onto a shared edge below); hits and occlusion do not
 depend on the order.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1408,8 +1410,89 @@ def _grid_scene(pos, idx, device="cuda"):
     return scene
 
 
-def _grid_case(case, rng):
+def _far_pair():
+    """Two small triangles at opposite corners of a 20-unit box: they
+    stretch the grid's box, so that a cluster near the origin falls in a
+    few cells."""
+    t = np.asarray([[0, 0, 0], [0.1, 0, 0], [0, 0.1, 0]])
+    return np.concatenate([t - 10.0, t + 9.9])
+
+
+def _grid_dense_case(case, rng, lanes):
+    """(pos, idx, org, dir) of a case whose cells hold more than 4 lanes
+    slots: "dense", 300 small triangles clustered at the origin;
+    "group-ties", 13 triangles in one cell listed three times (ids k, k + 13, k + 26: exact
+    ties in t across the lanes of a step and across steps); "hit-first"
+    / "hit-last", 36 small triangles beside the rays' path and two that
+    the rays cross, both in one cell of a res-4 grid, the first of them
+    in the cell's first chunk / in the last chunk of the first step."""
+    B = 4096
+    if case in ("dense", "group-ties"):
+        m = 300 if case == "dense" else 13
+        lo, hi = (-0.8, 0.8) if case == "dense" else (1.5, 3.5)
+        c = rng.uniform(lo, hi, (m, 3))
+        tri = np.stack([c + rng.normal(0, 0.3, (m, 3)) for _ in range(3)])
+        tgt = tri.mean(axis=0)[rng.integers(0, m, B)]
+        if case == "group-ties":
+            tri = np.concatenate([tri, tri, tri], axis=1)
+        soup = np.concatenate([tri.transpose(1, 0, 2).reshape(-1, 3),
+                               _far_pair()])
+        o = rng.normal(size=(B, 3))
+        o = 12.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+        d = tgt + rng.normal(0, 0.05, (B, 3)) - o
+    else:
+        first = 1 if case == "hit-first" else 4 * lanes - 2
+        tris = []
+        for k in range(38):
+            if k in (first, first + 5):  # across the rays' column
+                z = 2.0 + 0.1 * (k != first)
+                tris.append([[1.5, 1.5, z], [4.8, 1.5, z], [1.5, 4.8, z]])
+            else:  # small, beside it, spread along z
+                z = 0.5 + 0.1 * k
+                tris.append([[0.2, 0.2, z], [0.8, 0.2, z + 0.05],
+                             [0.2, 0.8, z + 0.1]])
+        soup = np.concatenate([np.asarray(tris).reshape(-1, 3), _far_pair()])
+        o = np.stack([rng.uniform(2.0, 2.8, B), rng.uniform(2.0, 2.8, B),
+                      np.full(B, -12.0)], -1)
+        d = np.stack([rng.normal(0, 0.005, B), rng.normal(0, 0.005, B),
+                      np.ones(B)], -1)
+    n = len(soup) // 3
+    idx = np.arange(3 * n).reshape(n, 3)
+    return soup, idx, o, d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+@functools.cache
+def _terrain_grid_scene():
+    """The n = 256 terrain on the grid, built once (~5 s on the host)."""
+    import chip_smoke as cs
+
+    P, quads = cs.heightfield_grid(256)
+    return _grid_scene(P, np.concatenate([quads[:, [0, 1, 2]],
+                                          quads[:, [0, 2, 3]]]))
+
+
+def _grid_terrain_case(rng):
+    """(pos, idx, org, dir) on the n = 256 terrain (130,050 triangles: a
+    res-64 grid, the largest bitmask): rays starting inside the grid
+    above the terrain, nearly level, that cross many empty cells."""
+    import chip_smoke as cs
+
+    P, quads = cs.heightfield_grid(256)
+    idx = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
+    B = 4096
+    o = np.stack([rng.uniform(-4.5, 4.5, B), rng.uniform(0.55, 0.7, B),
+                  rng.uniform(-4.5, 4.5, B)], -1)
+    a = rng.uniform(0, 2 * np.pi, B)
+    d = np.stack([np.cos(a), -rng.uniform(0.02, 0.3, B), np.sin(a)], -1)
+    return P, idx, o, d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def _grid_case(case, rng, lanes=1):
     """(pos, idx, org (B, 3), dir (B, 3)) numpy of one grid case."""
+    if case in ("dense", "group-ties", "hit-first", "hit-last"):
+        return _grid_dense_case(case, rng, lanes)
+    if case == "terrain":
+        return _grid_terrain_case(rng)
     n = 300
     c = rng.uniform(-5, 5, (n, 3))
     soup = np.concatenate([c + rng.normal(0, 0.3, (n, 3)) for _ in range(3)])
@@ -1456,47 +1539,81 @@ def _grid_case(case, rng):
     return soup, idx, o, d
 
 
+GRID_CASES = ["soup", "sparse", "spanning", "missing", "axis", "ties",
+              "dense", "group-ties", "hit-first", "hit-last", "terrain"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["soup", "sparse", "spanning", "missing",
-                                  "axis", "ties"])
+@pytest.mark.parametrize("case", GRID_CASES)
 @pytest.mark.parametrize("bound", ["unbounded", "random"])
-def test_grid_kernel_matches_plain(case, bound):
-    """csrc/ugrid.cu against the lock-step twin on the same rays: the
-    same walk, so triangles, t, u, v, occlusion and both counters equal
-    exactly (--fmad=false), with and without a finite tmax and an
-    active mask, on empty cells, a triangle listed in every cell, rays
-    that miss the grid, axis-parallel rays and exact ties in t (the
-    first triangle tested wins)."""
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_grid_kernel_matches_plain(case, bound, lanes, monkeypatch):
+    """csrc/ugrid.cu, at both group sizes a ray, against the lock-step
+    twin on the same rays: the same walk, so triangles, t, u, v,
+    occlusion and both counters equal exactly (--fmad=false), with and
+    without a finite tmax and an active mask (random, and dead rays
+    interleaved with live ones), on empty cells, a triangle listed in
+    every cell, rays that miss the grid, axis-parallel rays, exact ties
+    in t (the first triangle tested wins: in one chunk, across the lanes
+    of a step and across steps), cells of more than 4 lanes slots, an
+    any-hit whose first hit lies in the cell's first chunk or in the last
+    chunk of the step, and rays that start inside the n = 256 terrain's
+    res-64 grid and cross many empty cells.  Both the launch that counts
+    the warps' own steps and the entries as the render paths call them
+    (`closest_hit` with its counters, `any_hit` without) answer the
+    same; the warps' own step counts bound the rays' work."""
     _need_card()
     from lucille_tpu_torch.accel import ugrid
 
-    rng = np.random.default_rng(["soup", "sparse", "spanning", "missing",
-                                 "axis", "ties"].index(case))
-    pos, idx, o, d = _grid_case(case, rng)
-    scene = _grid_scene(pos, idx)
+    monkeypatch.setattr(ugrid, "group_lanes", lambda scene, B: lanes)
+    rng = np.random.default_rng(GRID_CASES.index(case))
+    pos, idx, o, d = _grid_case(case, rng, lanes)
+    scene = (_terrain_grid_scene() if case == "terrain"
+             else _grid_scene(pos, idx))
+    if case in ("dense", "group-ties", "hit-first", "hit-last"):
+        slots = scene.grid_cell_start[1:] - scene.grid_cell_start[:-1]
+        assert int(slots.max()) > 4 * lanes
+    if case == "terrain":
+        assert scene.grid_res == 64
     o = torch.tensor(o, dtype=torch.float32, device="cuda")
     d = torch.tensor(d, dtype=torch.float32, device="cuda")
+    B = o.shape[0]
     tmax = None
     if bound == "random":
-        tmax = torch.tensor(rng.uniform(5, 20, o.shape[0]),
-                            dtype=torch.float32, device="cuda")
-    active = torch.tensor(rng.uniform(size=o.shape[0]) < 0.7, device="cuda")
-    for act in (None, active):
+        tmax = torch.tensor(rng.uniform(5, 20, B), dtype=torch.float32,
+                            device="cuda")
+    active = torch.tensor(rng.uniform(size=B) < 0.7, device="cuda")
+    interleaved = torch.arange(B, device="cuda") % 3 != 1
+    for act in (None, active, interleaved):
         got = ugrid.grid_walk_kernel(scene, o, d, tmax, act)
         ref = ugrid.grid_walk_reference(scene, o, d, tmax, act)
         hits = (ref["tri"] >= 0).float().mean().item()
         assert case == "missing" or hits > 0.05, hits
-        for k in ("tri", "t", "u", "v", "ntests", "ntrav"):
+        # with the warps' own steps, and as the render paths call it
+        closest = ugrid.closest_hit(scene, o, d, tmax, act)
+        keys = ("tri", "t", "u", "v", "ntests", "ntrav")
+        assert set(closest) == set(keys)
+        for k in keys:
             assert torch.equal(got[k], ref[k]), (k, act is None)
+            assert torch.equal(closest[k], ref[k]), (k, act is None)
         occ = ugrid.grid_walk_kernel(scene, o, d, tmax, act, any_hit=True)
         occ_ref = ugrid.grid_walk_reference(scene, o, d, tmax, act,
                                             any_hit=True)
         for k in ("occ", "ntests", "ntrav"):
             assert torch.equal(occ[k], occ_ref[k]), (k, act is None)
         assert torch.equal(occ["occ"], ref["tri"] >= 0)
-    if case == "ties":  # the lower id wins each exact tie
+        plain = ugrid.any_hit(scene, o, d, tmax, act)
+        assert set(plain) == {"occ"} and torch.equal(plain["occ"], occ["occ"])
+        for res in (got, occ):
+            assert int(res["ntests"]) <= 32 * ugrid.K * int(res["warp_ntests"])
+            assert lanes * int(res["ntrav"]) <= 32 * int(res["warp_ntrav"])
+    if case in ("ties", "group-ties"):  # the lower id wins each exact tie
         tied = got["tri"] >= 0
-        assert torch.all(got["tri"][tied] < scene.n_tris - 60)
+        low = scene.n_tris - 60 if case == "ties" else 13
+        assert torch.all(got["tri"][tied] < low)
+    if case in ("hit-first", "hit-last"):  # the first crossing's id
+        first = 1 if case == "hit-first" else 4 * lanes - 2
+        assert torch.all(got["tri"][got["tri"] >= 0] == first)
 
 
 @pytest.mark.gpu

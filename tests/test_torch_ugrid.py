@@ -14,6 +14,16 @@
   (at most 1e-3 of the rays, and the counters' totals within 1e-3).
   On the rays whose triangle agrees, t agrees within 1e-5 of max(t, 1)
   and u, v (in [0, 1], each a difference of products) within 1e-5.
+- The walk's packs (`grid_packs`, built once per scene): the occupancy
+  bitmask equal to cell_start[1:] > cell_start[:-1] bit for bit in the
+  kernel's word and bit order, and the slot-order pack equal to the
+  triangle tables gathered by tri_idx with the id's bits in column 3,
+  on the bundled scene, the 35x35 heightfield and the n = 256 terrain's
+  res-64 grid (the largest bitmask); lucille_tpu's grid arrays carried
+  over by from_numpy get the same packs.
+- The wrappers' counters: the closest hit always returns them, the
+  any-hit only when asked, equal to the twin's; the kernel's lanes a ray
+  (`group_lanes`) from the grid's resolution and the wavefront's size.
 - 80x60 AO and Whitted frames through the grid, both packages fed
   lucille_tpu's draws (`JaxSampler`): the strata scanned through the
   any-hit (AO) and the dome gathered by cosine-weighted shadow rays
@@ -137,7 +147,7 @@ def test_grid_walk_matches_jax(wave):
             tmax=None if bound is None else jnp.asarray(bound)))
         occ = ugrid.any_hit(pscene, torch.from_numpy(o), torch.from_numpy(d),
                             tmax=None if bound is None else
-                            torch.from_numpy(bound))
+                            torch.from_numpy(bound), counters=True)
         assert (occ["occ"].numpy() != occ_ref).mean() <= FMA_SHARE
         assert occ["occ"].numpy().mean() > (0.2 if bound is None else 0.0)
         assert int(occ["ntests"]) > 0 and int(occ["ntrav"]) > 0
@@ -163,13 +173,99 @@ def test_grid_active_lanes_walk_nothing():
     assert not occ[~active].any()
 
 
+@pytest.mark.parametrize("kind", ["bundled", "heightfield35",
+                                  "heightfield256", "bundled-lucille_tpu"])
+def test_grid_packs(kind):
+    from lucille_tpu.scene.compile import compile_scene as jax_compile
+    from lucille_tpu_torch.scene.compile import compile_scene
+    from lucille_tpu_torch.scene.types import from_numpy
+
+    if kind == "heightfield256":  # 130,050 triangles: a res-64 grid
+        state = heightfield_state(256, accel="grid")
+    else:
+        state = _states("bundled" if kind.startswith("bundled") else kind,
+                        "torch")
+    scene = compile_scene(state.scene, "cpu")
+    if kind == "bundled-lucille_tpu":
+        # lucille_tpu's arrays carry no packs: from_numpy builds the same
+        own = scene
+        scene = from_numpy(jax_compile(_states("bundled", "jax").scene),
+                           "cpu")
+        assert torch.equal(scene.grid_occupied, own.grid_occupied)
+        assert torch.equal(scene.grid_tris, own.grid_tris)
+    starts = scene.grid_cell_start.numpy()
+    idx = scene.grid_tri_idx.numpy()
+    res = scene.grid_res
+    assert res == (64 if kind == "heightfield256" else res) > 1
+    full = starts[1:] > starts[:-1]
+    words = scene.grid_occupied.numpy()
+    assert words.dtype == np.int32 and words.shape == (-(-res**3 // 32),)
+    bits = (words[:, None] >> np.arange(32)) & 1  # bit c % 32 of word c // 32
+    np.testing.assert_array_equal(bits.reshape(-1)[:res**3], full)
+    assert not bits.reshape(-1)[res**3:].any()
+    tris = scene.grid_tris.numpy()
+    assert tris.shape == (idx.shape[0], 12) and tris.dtype == np.float32
+    for cols, table in ((slice(0, 3), scene.tri_v0), (slice(4, 7),
+                        scene.tri_e1), (slice(8, 11), scene.tri_e2)):
+        np.testing.assert_array_equal(tris[:, cols], table.numpy()[idx])
+    np.testing.assert_array_equal(tris[:, 3].view(np.int32), idx)
+    assert not tris[:, [7, 11]].any()
+
+
+@pytest.mark.parametrize("entry", ["closest", "any", "any-counted"])
+def test_grid_counters_contract(entry):
+    """The closest hit always returns the walk's counters, the any-hit
+    only with counters=True; both equal the twin's."""
+    from lucille_tpu_torch.accel import ugrid
+
+    _jscene, pscene, o, d = _scenes_and_rays()
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    any_hit = entry != "closest"
+    ref = ugrid.grid_walk_reference(pscene, o, d, any_hit=any_hit)
+    if entry == "closest":
+        got = ugrid.closest_hit(pscene, o, d)
+    else:
+        got = ugrid.any_hit(pscene, o, d, counters=entry == "any-counted")
+    keys = ("occ",) if any_hit else ("tri", "t", "u", "v")
+    if entry == "any":
+        assert set(got) == {"occ"}
+    else:
+        keys += ("ntests", "ntrav")
+        assert set(got) == set(keys)
+    for k in keys:
+        assert torch.equal(got[k], ref[k]), k
+    assert int(ref["ntests"]) > 0 and int(ref["ntrav"]) > 0
+
+
+@pytest.mark.parametrize("res,B,lanes", [
+    (9, 36864, 1), (9, 518400, 1), (17, 65536, 8), (64, 131044, 8),
+    (64, 262144, 1)])
+def test_group_lanes(res, B, lanes):
+    """The walk's lanes a ray from static data alone: GROUP where the
+    grid has at least GROUP_RES cells an axis and B x GROUP lanes stay
+    within GROUP_THREADS, else 1, at the shapes that set the thresholds
+    on the card: the bundled scene's 9^3 grid at the default tile 64 and
+    the headline tile (1), the 35x35 heightfield's 17^3 grid at 65,536
+    rays (8), the n = 256 terrain's 64^3 grid at 131,044 rays (8) and
+    262,144 (1)."""
+    from types import SimpleNamespace
+
+    from lucille_tpu_torch.accel import ugrid
+
+    assert ugrid.group_lanes(SimpleNamespace(grid_res=res), B) == lanes
+    long_walks = res >= ugrid.GROUP_RES
+    room = B * ugrid.GROUP <= ugrid.GROUP_THREADS
+    assert (lanes == ugrid.GROUP) == (long_walks and room)
+
+
 @pytest.mark.parametrize("live", ["all", "none"])
 def test_grid_walk_reads(live):
     """The twin's record of the walk's distinct reads (what
-    chip_smoke.grid_bound charges as bytes) changes no answer; every
-    slot it marks lies in a marked cell, every hit's triangle is marked,
-    and there are at most as many slots and triangles as tests; a
-    wavefront with no live ray reads nothing."""
+    chip_smoke.grid_bound charges as bytes) and of each ray's steps
+    changes no answer; every slot it marks lies in a marked cell, every
+    hit's triangle is marked, and there are at most as many slots and
+    triangles as tests; the steps cover the counted advances and chunks;
+    a wavefront with no live ray reads nothing and steps nowhere."""
     from lucille_tpu_torch.accel import ugrid
 
     _jscene, pscene, o, d = _scenes_and_rays()
@@ -185,6 +281,7 @@ def test_grid_walk_reads(live):
     assert slots.shape == pscene.grid_tri_idx.shape
     if live == "none":
         assert not (cells.any() or slots.any() or tris.any())
+        assert not (reads["steps"].any() or reads["empty"].any())
         return
     starts = pscene.grid_cell_start.long()
     cell_of = torch.searchsorted(starts, torch.nonzero(slots)[:, 0],
@@ -192,6 +289,11 @@ def test_grid_walk_reads(live):
     assert cells[cell_of].all() and cells[cell_of + 1].all()
     assert tris[got["tri"][got["tri"] >= 0].long()].all()
     assert 0 < int(tris.sum()) <= int(slots.sum()) <= int(got["ntests"])
+    # every live ray's steps: its chunks (at least ntests / K in all) and
+    # its advances, some of them into empty cells
+    steps, empty = reads["steps"], reads["empty"]
+    assert int(steps.sum()) >= int(got["ntrav"]) + int(got["ntests"]) // 4
+    assert 0 < int(empty.sum()) < int(got["ntrav"])
 
 
 @pytest.mark.parametrize("method", ["ao", "whitted"])
