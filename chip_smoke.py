@@ -30,11 +30,15 @@ non-zero):
    tile or group under a box the ray reaches), and on the
    bundled tile they answer unchanged when every pad slot past its 322
    triangles holds a triangle each ray would meet (`poisoned`): no pad
-   slot is tested.  Then the gather's counts at 2x2
-   strata on the inputs of headline-whitted's first-bounce dome gather,
-   every hit lane compared, and ptxas's registers and spills of every
-   instantiation of the gather's kernel and of csrc/isect.cu's kernels
-   (a spill fails).  Tolerances:
+   slot is tested.  The AO gather prints its box and triangle tests,
+   set-ups and warp steps (SIMT efficiency) against `gather_need`
+   (`gather_work`), and answers unchanged, counts and bits, when the pad
+   slots of its pack hold a box around the scene (`occ_poisoned`).  Then
+   the gather's counts at 2x2 strata on the inputs of headline-whitted's
+   first-bounce dome gather, every hit lane compared, and ptxas's
+   registers and spills of every instantiation of the gather's kernel
+   (with and without bits, with and without counters) and of
+   csrc/isect.cu's kernels (a spill fails).  Tolerances:
    hit/tri equal on all but 1e-4 of the lanes, t/u/v within 1e-6
    relative; occlusion counts equal on all but 1e-4 of the lanes and
    within 1 there; bits and any-hit answers equal on all but 1e-4 of the
@@ -1003,6 +1007,30 @@ def dense_work(res, need) -> dict:
         **{f"need_{key}": v for key, v in need.items()}}}
 
 
+def gather_work(res, need) -> dict:
+    """The dense AO gather's counters (accel.ao.gather_stats) against
+    gather_need's count.  Returns {"text", "numbers"}."""
+    k = {key: int(res[key]) for key in ("super_tests", "tile_tests",
+                                        "quarter_tests", "group_tests",
+                                        "setups", "tests", "warp_steps")}
+    simt = k["tests"] / max(32 * k["warp_steps"], 1)
+    text = (f"{k['tests']} lane stratum-triangle tests, "
+            f"{k['tests'] / max(need['tests'], 1):.3f}x the "
+            f"{need['tests']} needed; {k['group_tests']} group and "
+            f"{k['tile_tests']} tile box tests ({need['groups']} / "
+            f"{need['tiles']} needed), {k['super_tests']} supertile and "
+            f"{k['quarter_tests']} quarter-tile box tests; {k['setups']} "
+            f"triangle set-ups "
+            f"({k['tests'] / max(k['setups'], 1):.2f} tests each); "
+            f"{k['warp_steps']} warp test steps (SIMT efficiency "
+            f"{simt:.3f})")
+    return {"text": text, "numbers": {
+        **{f"kernel_{key}": v for key, v in k.items()},
+        "simt_efficiency": simt,
+        **{f"need_{key}": need[key] for key in ("tiles", "groups",
+                                               "tests")}}}
+
+
 def poisoned(scene, p, w, size):
     """A copy of the dense scene whose pad slots hold one triangle of
     side ~3 size through point p, normal to w; its boxes and n_tris are
@@ -1022,6 +1050,38 @@ def poisoned(scene, p, w, size):
     tris = scene.tris.clone()
     tris[:9, scene.n_tris:] = tri[:, None]
     return dataclasses.replace(scene, tris=tris)
+
+
+def occ_poisoned(scene):
+    """A copy of the dense scene whose occlusion pack's pad slots hold the
+    12 faces of a box 1% larger than the scene's bounds, repeated: every
+    stratum of every lane on the scene meets one.  Its boxes and n_tris
+    are left as they are, so a gather that tests a pad slot meets it."""
+    import dataclasses
+
+    import torch
+
+    pad = scene.occ.shape[1] - scene.n_tris
+    if pad < 12:
+        raise AssertionError(f"{pad} pad slots: too few for a box")
+    ext = scene.bbox_max - scene.bbox_min
+    lo, hi = scene.bbox_min - 0.01 * ext, scene.bbox_max + 0.01 * ext
+    tris = []
+    for ax in range(3):
+        a, b = (ax + 1) % 3, (ax + 2) % 3
+        for side in (lo[ax], hi[ax]):
+            def corner(u, w):
+                p = torch.empty(3, device=lo.device)
+                p[ax], p[a], p[b] = side, u, w
+                return p
+            p00, p10 = corner(lo[a], lo[b]), corner(hi[a], lo[b])
+            p11, p01 = corner(hi[a], hi[b]), corner(lo[a], hi[b])
+            tris += [(p00, p10, p11), (p00, p11, p01)]
+    rows = torch.stack([torch.cat([v0, v1, v2, torch.linalg.cross(
+        v1 - v0, v2 - v0)]) for v0, v1, v2 in tris], dim=1)  # (12, 12)
+    occ = scene.occ.clone()
+    occ[:12, scene.n_tris:] = rows.repeat(1, -(-pad // 12))[:, :pad]
+    return dataclasses.replace(scene, occ=occ)
 
 
 def check_padding_untouched(label, scene, org, dirn, P_off, wi, hit,
@@ -1140,6 +1200,136 @@ def gather_need(scene, P_off, b0, b1, b2, u01, ntheta: int, nphi: int,
         occluded[:, lo:hi] = (first < none).reshape(S, hi - lo)
     return {"tiles": tiles, "groups": groups, "tests": tests,
             "occluded": occluded}
+
+
+def gather_walk(scene, rays, u01, n_live: int, ntheta: int,
+                nphi: int) -> dict:
+    """csrc/ao.cu's counters, in plain torch, for the launch
+    accel.ao.ao_occlusion_kernel makes on compacted lanes `rays` (12, B)
+    with uniforms u01 (2, B), the first n_live live: every thread (lane,
+    chunk of C strata; warps and rounds as accel.ao.gather_layout lays
+    them out) walks as the kernel does.  A stratum meets each supertile
+    while pending and above its lane's tangent plane (a supertile box
+    test), each tile of a supertile its ray reaches while pending and
+    above the plane (a tile box test), each quarter of a tile it reaches
+    while pending (32 slots, the union of four group boxes: a quarter box
+    test), each group of a quarter it reaches while pending (a group box
+    test), and each triangle of a group it reaches up to its first
+    occluder (a test); the triangles go four at a time (a quad: slots 4q
+    .. 4q + 3 of the real ones), a thread sets a quad's triangles up when
+    one of its strata is pending there, and a warp's test steps over a
+    quad are the most such strata of one of its threads times the quad's
+    triangles.  Tests every (stratum, triangle) pair: small shapes only.
+    Returns Python ints under accel.ao.gather_stats' keys, and
+    "occluded" (S, n_live) bool."""
+    import torch
+
+    from lucille_tpu_torch.accel.ao import (
+        AO_BLOCK,
+        gather_layout,
+        stratum_directions,
+    )
+    from lucille_tpu_torch.accel.isect import DET_EPS
+    from lucille_tpu_torch.accel.pack import SUB, SUPER, TC
+
+    B, S, n, n_tris = rays.shape[1], ntheta * nphi, n_live, scene.n_tris
+    dev = rays.device
+    n_real, n_groups = -(-n_tris // TC), -(-n_tris // SUB)
+    n_sup = -(-n_real // SUPER)
+    o, nrm = rays[0:3, :n].T, rays[9:12, :n].T
+    d = stratum_directions(rays[3:6, :n].T, rays[6:9, :n].T, nrm, u01[:, :n],
+                           ntheta, nphi)  # (S, n, 3)
+
+    def below(boxes, m):  # (n, m): box wholly below the lane's plane
+        c = [torch.where(nrm[:, a:a + 1] > 0, boxes[3 + a, :m][None],
+                         boxes[a, :m][None]) for a in range(3)]
+        dot = ((c[0] - o[:, 0:1]) * nrm[:, 0:1]
+               + (c[1] - o[:, 1:2]) * nrm[:, 1:2]
+               + (c[2] - o[:, 2:3]) * nrm[:, 2:3])
+        return ~(dot >= 0)
+
+    def reached(boxes, m):  # (S, n, m)
+        inf = torch.full((S * n,), float("inf"), device=dev)
+        return tiles_reached(boxes[:, :m], o.repeat(S, 1), d.reshape(-1, 3),
+                             inf).reshape(S, n, m)
+
+    j = torch.arange(n_tris, device=dev)
+    tile_of, sup_of = j // TC, j // (SUPER * TC)
+    open_s = ~below(scene.sboxes, n_sup)  # (n, n_sup)
+    open_t = ~below(scene.boxes, n_real)
+    in_s = open_s[None] & reached(scene.sboxes, n_sup)  # (S, n, n_sup)
+    in_t = (in_s[:, :, torch.arange(n_real, device=dev) // SUPER]
+            & open_t[None] & reached(scene.boxes, n_real))
+    n_quart = -(-n_tris // (4 * SUB))
+    g4 = scene.sub_boxes[:6, :4 * n_quart].reshape(6, n_quart, 4)
+    in_q = (in_t[:, :, torch.arange(n_quart, device=dev) // (TC // SUB // 4)]
+            & reached(torch.cat([g4[:3].amin(dim=2), g4[3:].amax(dim=2)]),
+                      n_quart))
+    in_g = (in_q[:, :, torch.arange(n_groups, device=dev) // 4]
+            & reached(scene.sub_boxes, n_groups))
+    reach = in_g[:, :, j // SUB]  # (S, n, n_tris): tested unless occluded
+    occ = scene.occ[:, :n_tris]
+    hit = torch.zeros_like(reach)
+    for s in range(S):  # the twin's signed-volume test, its order
+        ox, oy, oz = (o[:, c:c + 1] for c in range(3))
+        wx, wy, wz = (d[s, :, c:c + 1] for c in range(3))
+        pax, pay, paz = occ[0][None] - ox, occ[1][None] - oy, occ[2][None] - oz
+        pbx, pby, pbz = occ[3][None] - ox, occ[4][None] - oy, occ[5][None] - oz
+        pcx, pcy, pcz = occ[6][None] - ox, occ[7][None] - oy, occ[8][None] - oz
+        nx, ny, nz = occ[9][None], occ[10][None], occ[11][None]
+        U = (wx * (pby * pcz - pbz * pcy) + wy * (pbz * pcx - pbx * pcz)
+             + wz * (pbx * pcy - pby * pcx))
+        V = (wx * (pcy * paz - pcz * pay) + wy * (pcz * pax - pcx * paz)
+             + wz * (pcx * pay - pcy * pax))
+        dn = wx * nx + wy * ny + wz * nz
+        W = dn - U - V
+        s_n = pax * nx + pay * ny + paz * nz
+        hit[s] = (((torch.minimum(torch.minimum(U, V), W) >= 0)
+                   | (torch.maximum(torch.maximum(U, V), W) <= 0))
+                  & (s_n * dn > 0) & (dn.abs() > DET_EPS))
+    none = scene.n_pad
+    first = torch.where(hit & reach, j, none).amin(dim=2,
+                                                  keepdim=True)  # (S, n, 1)
+    k_s = torch.arange(n_sup, device=dev) * (SUPER * TC)
+    k_t = torch.arange(n_real, device=dev) * TC
+    k_q = torch.arange(n_quart, device=dev) * (4 * SUB)
+    k_g = torch.arange(n_groups, device=dev) * SUB
+    tested = reach & (j <= first)
+    quad = j - j % 4
+    enters = reach & (quad <= first)  # the stratum meets the quad
+    counts = {
+        "super_tests": (open_s[None] & (first >= k_s)).sum(),
+        "tile_tests": (in_s[:, :, torch.arange(n_real, device=dev) // SUPER]
+                       & open_t[None] & (first >= k_t)).sum(),
+        "quarter_tests": (in_t[:, :, torch.arange(n_quart, device=dev)
+                               // (TC // SUB // 4)] & (first >= k_q)).sum(),
+        "group_tests": (in_q[:, :, torch.arange(n_groups, device=dev) // 4]
+                        & (first >= k_g)).sum(),
+        "tests": tested.sum()}
+    # threads: chunks of C strata; a warp holds 32 consecutive thread ids
+    C, T, grid = gather_layout(S, B)
+    n_chunks, lanes = -(-S // C), AO_BLOCK // T
+    per = torch.zeros((n_chunks * C, n, n_tris), dtype=torch.int32,
+                      device=dev)
+    per[:S] = enters[:, :, quad].to(torch.int32)  # at the quad's first slot
+    per = per.reshape(n_chunks, C, n, n_tris).sum(dim=1)  # (chunk, lane, j)
+    counts["setups"] = (per > 0).sum()
+    gt = torch.arange(grid * AO_BLOCK, device=dev)
+    lane = gt // AO_BLOCK * lanes + gt % AO_BLOCK % lanes
+    t = gt % AO_BLOCK // lanes
+    steps = 0
+    for r in range(-(-n_chunks // T)):
+        chunk = r * T + t
+        ok = (lane < n) & (chunk < n_chunks)
+        rows = per[chunk[ok], lane[ok]]  # (threads, n_tris)
+        warp = (gt[ok] // 32)[:, None].expand_as(rows)
+        most = torch.zeros((grid * AO_BLOCK // 32, n_tris), dtype=rows.dtype,
+                           device=dev).scatter_reduce(0, warp, rows, "amax")
+        steps += int(most.sum())
+    counts = {k: int(v) for k, v in counts.items()}
+    counts["warp_steps"] = steps
+    counts["occluded"] = (first[:, :, 0] < none)
+    return counts
 
 
 def need_walk(tris, nodes, org, dirn, closest: bool, depth: int,
@@ -1482,6 +1672,28 @@ def check_gather(label, scene, inputs, ntheta, nphi, n_slice, results,
                              "differ")
     rays = frame[order].T.contiguous()
     n = int(nhit)
+    # no pad slot tested: a box around the scene in the pad slots, which
+    # the twin meets on every stratum of a slice, changes no answer
+    bad = occ_poisoned(scene)
+    met = (ao.ao_occlusion_reference(
+        bad.occ, rays[:, :256], jitter[:, :256], ntheta, nphi) == S
+           ).float().mean().item()
+    same = True
+    for want_bits in (False, True):
+        clean, poison = (ao.ao_occlusion_kernel(sc, rays, jitter, nhit,
+                                                ntheta, nphi, want_bits)
+                         for sc in (scene, bad))
+        if not want_bits:
+            clean, poison = (clean,), (poison,)
+        same &= all(torch.equal(x, y) for x, y in zip(clean, poison))
+    print(f"[{label}] gather padding: {scene.n_pad - scene.n_tris} pad "
+          f"slots past triangle {scene.n_tris} hold a box around the scene "
+          f"that the twin meets on {met:.4f} of 256 lanes' strata; counts "
+          f"and bits {'unchanged' if same else 'CHANGED'}: no pad slot "
+          f"tested", flush=True)
+    if not same or met < 0.99:
+        raise AssertionError(f"{label}: the gather tested a pad slot, or "
+                             f"the poison is not met ({met})")
     # the work this data needs (gather_need: the box and triangle tests
     # up to each stratum's occluder, at the kernel's grain; the strata's
     # directions not counted); its occluders must be the kernel's bits
@@ -1501,6 +1713,17 @@ def check_gather(label, scene, inputs, ntheta, nphi, n_slice, results,
     for name in names:
         want_bits = name == "ao_occlusion_bits"
         err_ = float(bits_frac > 0) if want_bits else diff.max().item()
+        out, stats = ao.ao_occlusion_kernel(scene, rays, jitter, nhit, ntheta,
+                                            nphi, want_bits, counters=True)
+        if want_bits:
+            same = (torch.equal(out[0], occ_b[order])
+                    and torch.equal(out[1], bits[:, order]))
+        else:
+            same = torch.equal(out, occ_b[order])
+        if not same:
+            raise AssertionError(f"{name}: the counting launch answers "
+                                 "otherwise")
+        walk = gather_work(stats, need)
         ms = cuda_ms(lambda: ao.ao_occlusion_kernel(
             scene, rays, jitter, nhit, ntheta, nphi, want_bits), 5)
         plain_ms = cuda_ms(lambda: ao.ao_occlusion_reference(
@@ -1515,12 +1738,13 @@ def check_gather(label, scene, inputs, ntheta, nphi, n_slice, results,
               f"{need['groups']} group box tests, {ao_tests} stratum-"
               f"triangle tests; "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{work['bound_ms']:.3f} ms ({work['bound_by']})", flush=True)
+              f"{work['bound_ms']:.3f} ms ({work['bound_by']}); "
+              f"{walk['text']}", flush=True)
         results[name].append(
             {"scene": label, "strata": S, "max_abs_err": err_, "ms": ms,
              "plain_ms": plain_ms, "tests": ao_tests,
              "tile_box_tests": need["tiles"],
-             "group_box_tests": need["groups"], **work})
+             "group_box_tests": need["groups"], **walk["numbers"], **work})
 
 
 def render_checked(label, r, out_name, path, max_mean=None):
@@ -1864,17 +2088,18 @@ def kernel_registers(log: str, kernel: str) -> tuple[int, int]:
 
 
 def gather_registers(log: str) -> dict:
-    """{"ao_kernel<C, bits>": (registers, spill bytes)} of every
+    """{"ao_kernel<C, bits, counters>": (registers, spill bytes)} of every
     instantiation of csrc/ao.cu's kernel; raises if one spills or none is
     reported."""
     import re
 
     out = {}
     for name, (regs, spill) in ptxas_entries(log).items():
-        m = re.search(r"9ao_kernelILi(\d+)ELb([01])E", name)
+        m = re.search(r"9ao_kernelILi(\d+)ELb([01])ELb([01])E", name)
         if m:
-            c, bits = m.groups()
-            out[f"ao_kernel<{c}, {bool(int(bits))}>"] = (regs, spill)
+            c, bits, count = m.groups()
+            key = f"ao_kernel<{c}, {bool(int(bits))}, {bool(int(count))}>"
+            out[key] = (regs, spill)
     if not out or any(spill for _regs, spill in out.values()):
         raise AssertionError(f"ao_kernel: no report or a spill: {out}")
     return out
@@ -3761,7 +3986,7 @@ def main() -> int:
     for name in ("ao_occlusion", "ao_occlusion_bits"):
         results[name][0]["registers"] = {
             k: v[0] for k, v in regs.items()
-            if k.endswith(f"{name.endswith('bits')}>")}
+            if f", {name.endswith('bits')}, " in k}
     regs = isect_registers(lib.log)
     for inst, (n_regs, spill) in regs.items():
         print(f"  {inst}: {n_regs} registers, {spill} bytes spilled",

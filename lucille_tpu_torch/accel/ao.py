@@ -40,6 +40,7 @@ STRATUM_CULL_MIN_TILES = 8  # lucille_tpu's switch to the Morton lane order
 # scans the strata with another jitter, which the port does not copy
 MAX_TRIS_FOR_MEGAKERNEL = 131072
 AO_BLOCK = 128  # threads a block of csrc/ao.cu
+NSTAT = 7  # the kernel's counters per warp (gather_stats)
 
 COUNTS = LaunchCounts()  # the counts alone
 BITS_COUNTS = LaunchCounts()  # the counts with the per-stratum bits
@@ -173,8 +174,19 @@ def gather_layout(S: int, B: int) -> tuple[int, int, int]:
     return C, T, -(-B * T // AO_BLOCK)
 
 
+def gather_stats(stats: torch.Tensor) -> dict:
+    """The gather's NSTAT counters a warp, summed on the device:
+    supertile, tile, quarter-tile and group box tests (a stratum against a
+    box), triangle set-ups, (triangle, stratum) tests, and the warps' test
+    steps."""
+    s = stats.view(-1, NSTAT).sum(dim=0, dtype=torch.int64)
+    return {"super_tests": s[0], "tile_tests": s[1], "quarter_tests": s[2],
+            "group_tests": s[3], "setups": s[4], "tests": s[5],
+            "warp_steps": s[6]}
+
+
 def ao_occlusion_kernel(scene, rays, jitter, nact, ntheta: int, nphi: int,
-                        want_bits: bool = False):
+                        want_bits: bool = False, counters: bool = False):
     """Launch csrc/ao.cu on the current stream (CUDA tensors only).
 
     scene: a dense scene, whose packs (occ, boxes, sboxes, sub_boxes) the
@@ -182,7 +194,8 @@ def ao_occlusion_kernel(scene, rays, jitter, nact, ntheta: int, nphi: int,
     rays (12, B) [P_off | b0 | b1 | b2] in compacted order, jitter (2, B),
     nact () i32 on the device (lanes at or past it report 0).  Returns
     occ (B,) f32, or (occ, bits (ceil(S/32), B) i32) with want_bits, in
-    compacted order."""
+    compacted order; with counters, (that, `gather_stats`'s dict), the
+    counters read nowhere on the render paths."""
     B = rays.shape[1]
     dev = rays.device
     if dev.type != "cuda":
@@ -199,9 +212,9 @@ def ao_occlusion_kernel(scene, rays, jitter, nact, ntheta: int, nphi: int,
         raise ValueError(f"occ {tuple(tris.shape)} / boxes "
                          f"{tuple(boxes.shape)} / sub_boxes "
                          f"{tuple(sub.shape)} mismatch")
-    if tris.data_ptr() % 16:
-        raise ValueError("occ: the kernel stages it 16 bytes at a time and "
-                         "needs it 16-byte aligned")
+    if tris.data_ptr() % 16 or sub.data_ptr() % 16:
+        raise ValueError("occ, sub_boxes: the kernel reads them 16 bytes at "
+                         "a time and needs them 16-byte aligned")
     n_tris = scene.n_tris
     if not 0 <= n_tris <= tris.shape[1]:
         raise ValueError(f"n_tris {n_tris} outside 0..{tris.shape[1]}")
@@ -214,6 +227,8 @@ def ao_occlusion_kernel(scene, rays, jitter, nact, ntheta: int, nphi: int,
     bits = (torch.empty((-(-ntheta * nphi // 32), B), dtype=torch.int32,
                         device=dev) if want_bits else None)
     chunk, tpl, grid = gather_layout(ntheta * nphi, B)
+    stats = (torch.zeros(NSTAT * grid * (AO_BLOCK // 32), dtype=torch.int32,
+                         device=dev) if counters else None)
     lib = library().lib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -223,14 +238,13 @@ def ao_occlusion_kernel(scene, rays, jitter, nact, ntheta: int, nphi: int,
             boxes.shape[1], sboxes.data_ptr(), sboxes.shape[1],
             sub.data_ptr(), ntheta, nphi, 1.0 / ntheta, 1.0 / nphi, chunk,
             tpl, grid, occ.data_ptr(),
-            None if bits is None else bits.data_ptr(), stream,
+            None if bits is None else bits.data_ptr(),
+            None if stats is None else stats.data_ptr(), stream,
         )
     check("lt_ao_occlusion", err)
-    if want_bits:
-        BITS_COUNTS.kernel += 1
-        return occ, bits
-    COUNTS.kernel += 1
-    return occ
+    (BITS_COUNTS if want_bits else COUNTS).kernel += 1
+    out = (occ, bits) if want_bits else occ
+    return (out, gather_stats(stats)) if counters else out
 
 
 def stratum_directions(b0, b1, b2, u01, ntheta: int, nphi: int):

@@ -16,11 +16,15 @@
 // W = dn - U - V, a hit needs U, V, W of one sign, s_n * dn > 0 and
 // |dn| > 1e-14.  All-zero pad triangles never occlude.
 //
-// What bounds it on the H100: f32 ALU work per (lane, stratum, triangle):
-// three 3-term dot products and the sign tests, ~30 operations.  Built
-// with --fmad=false (the twin's roundings), each issues as its own
-// instruction, so ~2x the f32 peak's bound is its floor.  The triangles of
-// a <= 16384-triangle scene (<= 1 MB packed) sit in L2.
+// What bounds it on the H100: issued instructions.  Per stratum the data
+// needs its (stratum, triangle) tests up to its first occluder (~30 f32
+// operations each) and a slab test (~25) against each box of a tile it
+// reaches (chip_smoke.gather_need); built with --fmad=false every product
+// and sum issues alone, so ~2x the f32 peak's bound is the floor.  On the
+// main path's shapes a stratum takes about as many group box tests as
+// triangle tests, so a division in the slab test costs as much as the
+// test itself; on a terrain of 127 tiles, testing every tile box for every
+// pending stratum takes 13x the tile box tests the data needs.
 //
 // What the design does about it:
 //   * a thread per (lane, chunk of C strata), C and the lane's T threads
@@ -32,28 +36,43 @@
 //     row is ORed from its chunks through shared memory and stored by one
 //     thread (C divides 32: a chunk never straddles two rows), so every
 //     output is written exactly once, without atomics;
-//   * a thread's directions live in shared memory, indexed by stratum, and
-//     every loop runs over the set bits of a mask (__ffs), so an occluded
-//     stratum stops costing at its occluder and one whose ray misses a box
-//     is never tested against what is in it;
-//   * culls, all conservative: per lane a tangent-plane test against the
-//     16-tile supertile box and the tile box (hemisphere directions
-//     satisfy d . n >= 0, so a box wholly below the lane's tangent plane
-//     cannot occlude it), then per stratum a slab test against the tile
-//     box and against the box of each SUB-triangle group in it;
-//   * triangle tiles of 128 ([v0 | v1 | v2 | n], component-major, a
-//     broadcast read per triangle) are copied to shared memory by
-//     cp.async: a scene of at most NBUF tiles whole, once a block, which
-//     each warp then walks at its own pace; a larger one through a ring
-//     of two buffers, tile k + 1's copy in flight while tile k is tested,
-//     one block vote a tile both deciding whether k + 1 is wanted (from
-//     the strata still pending before tile k: a superset, so the answer
-//     stays exact) and publishing tile k;
-//   * the origin-only terms (vertex offsets, two cross products, s_n) are
-//     computed once per (triangle, thread) and reused by its strata;
-//   * tiles past the scene's real triangles are never staged, and a tile's
-//     loop stops at its last real one (pad slots never occlude).
-//
+//   * a thread's directions and their reciprocals live in shared memory
+//     (dynamic, C x 6 floats a thread), indexed by stratum: a slab test
+//     takes no division;
+//   * one walk a warp, in slot order, with warp-uniform control flow and
+//     no block barrier: each supertile, each tile of a supertile, each
+//     quarter of a tile (32 triangles, its box the union of its four
+//     group boxes) and each 8-triangle group of a quarter is entered when
+//     some lane has a stratum that reaches its box (votes), skipped by
+//     the whole warp otherwise.  Culls, all conservative: per lane a
+//     tangent-plane test against the supertile and the tile box
+//     (hemisphere directions satisfy d . n >= 0, so a box wholly below
+//     the lane's tangent plane cannot occlude it), then per stratum a
+//     slab test against the supertile, the tile, the quarter and the
+//     group box (the slab test's roundings are monotone, so a ray that
+//     reaches a box reaches every box around it: the quarter cull drops
+//     no group a stratum reaches).  Every loop runs over the set bits of
+//     a mask (__ffs), so an occluded stratum stops costing at its
+//     occluder;
+//   * the triangles are read where the warp's walk is, four at a time,
+//     with warp-uniform 16-byte loads through L1 (a dense scene's pack is
+//     at most 8 MB, in the 50 MB L2); a thread sets the four up against
+//     its lane (vertex offsets, two cross products, s_n) and then takes
+//     each of its strata that reach the group through the four in slot
+//     order, a direction read once for four tests; the hit test combines
+//     its conditions without short circuits (no branch);
+//   * the walk stops at the scene's last real triangle (n_tris): no pad
+//     slot is ever tested;
+//   * counters, NSTAT ints a warp, only when the caller passes a buffer,
+//     in instantiations of their own (kCount; the others count nothing):
+//     supertile, tile, quarter and group box tests (a stratum against a
+//     box), triangle set-ups, (triangle, stratum) tests and the warp's
+//     test steps (over each four triangles, the most strata one of its
+//     threads takes through them, times the triangles), so tests / (32
+//     steps) is the walk's SIMT efficiency.  The walk keeps slot order, so
+//     its tests equal gather_need's; its group box tests are those of
+//     gather_need in a quarter the stratum reaches.
+
 // Built with --fmad=false so every product and sum rounds separately, as
 // in the plain torch twin (accel/ao.py: ao_occlusion_reference).
 
@@ -64,138 +83,268 @@ namespace {
 
 constexpr int TC = 128;        // triangles per tile
 constexpr int SUPER = 16;      // tiles per supertile
-constexpr int SUB = 8;         // triangles per sub-tile box (accel/pack.py)
+constexpr int SUB = 8;         // triangles per group box (accel/pack.py)
+constexpr int QUARTER = 4;     // groups per quarter of a tile
 constexpr int AO_BLOCK = 128;  // threads per block (accel/ao.py: AO_BLOCK)
-constexpr int NBUF = 3;        // tile buffers: the largest scene staged whole
+constexpr int NSTAT = 7;       // counters per warp (accel/ao.py: NSTAT)
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float DET_EPS = 1e-14f;
 constexpr float R2_A1 = 0.7548776662466927f;
 constexpr float R2_A2 = 0.5698402909980532f;
 constexpr float TWO_PI = 6.283185307179586f;
 
+// A thread's strata in shared memory, one column a thread: at(q, 0..2)
+// the direction of its stratum q, at(q, 3..5) the reciprocals its slab
+// tests take.
+struct Strata {
+  float* col;  // smem + threadIdx.x
+
+  __device__ __forceinline__ float& at(int q, int c) const {
+    return col[(q * 6 + c) * AO_BLOCK];
+  }
+};
+
 __device__ __forceinline__ float bounded_inv(float d) {
   return 1.0f / (fabsf(d) > 1e-20f ? d : 1e-20f);
 }
 
-// Is the corner of box k that is farthest along n on or above the plane
-// through o with normal n?  Rows of `box` are [min xyz | max xyz].
-__device__ __forceinline__ bool above_plane(const float* __restrict__ box,
-                                            int stride, int k, float ox,
-                                            float oy, float oz, float nx,
-                                            float ny, float nz) {
-  const float cx = nx > 0.f ? box[3 * stride + k] : box[0 * stride + k];
-  const float cy = ny > 0.f ? box[4 * stride + k] : box[1 * stride + k];
-  const float cz = nz > 0.f ? box[5 * stride + k] : box[2 * stride + k];
-  return (cx - ox) * nx + (cy - oy) * ny + (cz - oz) * nz >= 0.f;
+__device__ __forceinline__ float comp(const float4& a, int q) {
+  return q == 0 ? a.x : q == 1 ? a.y : q == 2 ? a.z : a.w;
 }
 
-// Tile k ([12][TC] floats of the pack) into a shared buffer, 16 bytes a
-// cp.async, as one commit group of this thread.
-__device__ __forceinline__ void stage_tile(float (*dst)[TC],
-                                           const float* __restrict__ tris,
-                                           int npad, int k) {
-  for (int e = threadIdx.x; e < 12 * TC / 4; e += AO_BLOCK) {
-    const int row = e / (TC / 4), col = (e % (TC / 4)) * 4;
-    const unsigned s =
-        static_cast<unsigned>(__cvta_generic_to_shared(&dst[row][col]));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(tris + (size_t)row * npad + (size_t)k * TC + col)
-                 : "memory");
+struct Stats {
+  int supers = 0, tiles = 0, quarters = 0, groups = 0, setups = 0, tests = 0,
+      steps = 0;
+
+  // the warp's sums into out[0:NSTAT]
+  __device__ __forceinline__ void store(int* out) const {
+    const int v[NSTAT] = {
+        __reduce_add_sync(FULL, supers), __reduce_add_sync(FULL, tiles),
+        __reduce_add_sync(FULL, quarters), __reduce_add_sync(FULL, groups),
+        __reduce_add_sync(FULL, setups), __reduce_add_sync(FULL, tests),
+        steps};
+    if ((threadIdx.x & 31) == 0) {
+      for (int c = 0; c < NSTAT; ++c) out[c] = v[c];
+    }
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+};
 
-__device__ __forceinline__ void wait_staged() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+// A lane's shading point and normal.
+struct Lane {
+  float ox, oy, oz, nx, ny, nz;
 
-// The strata of `mask` whose rays reach box k (rows [min xyz | max xyz],
-// stride n): a slab test of each against the box.
-__device__ __forceinline__ unsigned slab_reach(const float* __restrict__ box,
-                                               int n, int k, unsigned mask,
-                                               float ox, float oy, float oz,
-                                               float (*dir)[3][AO_BLOCK]) {
-  const float bminx = box[0 * n + k];
-  const float bminy = box[1 * n + k];
-  const float bminz = box[2 * n + k];
-  const float bmaxx = box[3 * n + k];
-  const float bmaxy = box[4 * n + k];
-  const float bmaxz = box[5 * n + k];
-  const int tid = threadIdx.x;
-  unsigned reach = 0u;
-  for (unsigned m = mask; m != 0u; m &= m - 1u) {
-    const int q = __ffs(m) - 1;
-    const float ix = bounded_inv(dir[q][0][tid]);
-    const float iy = bounded_inv(dir[q][1][tid]);
-    const float iz = bounded_inv(dir[q][2][tid]);
-    const float t0x = (bminx - ox) * ix, t1x = (bmaxx - ox) * ix;
-    const float t0y = (bminy - oy) * iy, t1y = (bmaxy - oy) * iy;
-    const float t0z = (bminz - oz) * iz, t1z = (bmaxz - oz) * iz;
-    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fminf(t0z, t1z));
-    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                           fmaxf(t0z, t1z));
-    if (tn <= tf && tf > 0.f) reach |= 1u << q;
+  // Is the corner of box k that is farthest along n below the plane
+  // through o with normal n (the whole box below it)?  Rows of `box` are
+  // [min xyz | max xyz].
+  __device__ __forceinline__ bool below(const float* __restrict__ box,
+                                        int n, int k) const {
+    const float cx = __ldg(box + (nx > 0.f ? 3 : 0) * n + k);
+    const float cy = __ldg(box + (ny > 0.f ? 4 : 1) * n + k);
+    const float cz = __ldg(box + (nz > 0.f ? 5 : 2) * n + k);
+    return !((cx - ox) * nx + (cy - oy) * ny + (cz - oz) * nz >= 0.f);
   }
-  return reach;
-}
 
-// The strata of `pending` whose rays may hit tile k: none if the lane's
-// tangent plane is above the tile's supertile or the tile, else those
-// whose ray reaches the tile's box.
-__device__ __forceinline__ unsigned tile_reach(
-    int k, unsigned pending, const float* __restrict__ boxes, int n_tiles,
-    const float* __restrict__ sboxes, int n_super, float ox, float oy,
-    float oz, float nx, float ny, float nz, float (*dir)[3][AO_BLOCK]) {
-  if (pending == 0u ||
-      !above_plane(sboxes, n_super, k / SUPER, ox, oy, oz, nx, ny, nz) ||
-      !above_plane(boxes, n_tiles, k, ox, oy, oz, nx, ny, nz)) {
-    return 0u;
+  // The strata of `mask` whose rays reach box k (rows [min xyz | max
+  // xyz], n columns); `count` grows by the strata tested.
+  __device__ __forceinline__ unsigned reach(const float* __restrict__ box,
+                                            int n, int k, unsigned mask,
+                                            Strata v, int& count) const {
+    if (mask == 0u) return 0u;
+    float b[6];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) b[r] = __ldg(box + r * n + k);
+    return reach(b, mask, v, count);
   }
-  return slab_reach(boxes, n_tiles, k, pending, ox, oy, oz, dir);
+
+  // The strata of `mask` whose rays reach the box b [min xyz | max xyz]: a
+  // slab test of each; `count` grows by the strata tested.
+  __device__ __forceinline__ unsigned reach(const float (&b)[6],
+                                            unsigned mask, Strata v,
+                                            int& count) const {
+    if (mask == 0u) return 0u;
+    count += __popc(mask);
+    const float bminx = b[0], bminy = b[1], bminz = b[2];
+    const float bmaxx = b[3], bmaxy = b[4], bmaxz = b[5];
+    unsigned hit = 0u;
+    for (unsigned m = mask; m != 0u; m &= m - 1u) {
+      const int q = __ffs(m) - 1;
+      const float ix = v.at(q, 3);
+      const float iy = v.at(q, 4);
+      const float iz = v.at(q, 5);
+      const float t0x = (bminx - ox) * ix, t1x = (bmaxx - ox) * ix;
+      const float t0y = (bminy - oy) * iy, t1y = (bmaxy - oy) * iy;
+      const float t0z = (bminz - oz) * iz, t1z = (bmaxz - oz) * iz;
+      const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                             fminf(t0z, t1z));
+      const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                             fmaxf(t0z, t1z));
+      if (tn <= tf && tf > 0.f) hit |= 1u << q;
+    }
+    return hit;
+  }
+};
+
+// Triangles c .. c + 3 (c % 4 == 0) of the occlusion pack: one 16-byte
+// load of each of its twelve rows [v0 | v1 | v2 | n], the same address in
+// every lane.
+struct Quad {
+  float4 r[12];
+
+  __device__ __forceinline__ void load(const float* __restrict__ tris,
+                                       int npad, int c) {
+#pragma unroll
+    for (int row = 0; row < 12; ++row) {
+      r[row] = __ldg(reinterpret_cast<const float4*>(
+          tris + (size_t)row * npad + c));
+    }
+  }
+};
+
+// The origin-only terms of a triangle against a lane: the cross products
+// of its vertex offsets, its normal and s_n.
+struct Setup {
+  float cbcx, cbcy, cbcz, ccax, ccay, ccaz, nx, ny, nz, s_n;
+
+  __device__ __forceinline__ void make(const Quad& quad, int q,
+                                       const Lane& L) {
+    const float pax = comp(quad.r[0], q) - L.ox;
+    const float pay = comp(quad.r[1], q) - L.oy;
+    const float paz = comp(quad.r[2], q) - L.oz;
+    const float pbx = comp(quad.r[3], q) - L.ox;
+    const float pby = comp(quad.r[4], q) - L.oy;
+    const float pbz = comp(quad.r[5], q) - L.oz;
+    const float pcx = comp(quad.r[6], q) - L.ox;
+    const float pcy = comp(quad.r[7], q) - L.oy;
+    const float pcz = comp(quad.r[8], q) - L.oz;
+    nx = comp(quad.r[9], q);
+    ny = comp(quad.r[10], q);
+    nz = comp(quad.r[11], q);
+    cbcx = pby * pcz - pbz * pcy;
+    cbcy = pbz * pcx - pbx * pcz;
+    cbcz = pbx * pcy - pby * pcx;
+    ccax = pcy * paz - pcz * pay;
+    ccay = pcz * pax - pcx * paz;
+    ccaz = pcx * pay - pcy * pax;
+    s_n = pax * nx + pay * ny + paz * nz;
+  }
+
+  // does the ray along w from the lane's point hit the triangle?  (The
+  // conditions combine without short circuits: one predicate chain, no
+  // branch.)
+  __device__ __forceinline__ bool hit(float wx, float wy, float wz) const {
+    const float U = wx * cbcx + wy * cbcy + wz * cbcz;
+    const float V = wx * ccax + wy * ccay + wz * ccaz;
+    const float dn = wx * nx + wy * ny + wz * nz;
+    const float W = dn - U - V;
+    const bool inside = (fminf(fminf(U, V), W) >= 0.f) |
+                        (fmaxf(fmaxf(U, V), W) <= 0.f);
+    return inside & (s_n * dn > 0.f) & (fabsf(dn) > DET_EPS);
+  }
+};
+
+// The quad's first nq triangles (nq warp-uniform) against the strata of
+// `sr` (which reach their group): the four set-ups first, then each
+// stratum against them in slot order up to its first occluder, which
+// takes the stratum out of sr and pending; `tests` grows by the pairs
+// tested.
+__device__ __forceinline__ void test_quad(const Quad& quad, int nq,
+                                          const Lane& L, Strata v,
+                                          unsigned& sr, unsigned& pending,
+                                          int& tests) {
+  Setup tri[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (q < nq) tri[q].make(quad, q, L);
+  }
+  for (unsigned m = sr; m != 0u; m &= m - 1u) {
+    const int s = __ffs(m) - 1;
+    const float wx = v.at(s, 0);
+    const float wy = v.at(s, 1);
+    const float wz = v.at(s, 2);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q < nq) {
+        ++tests;
+        if (tri[q].hit(wx, wy, wz)) {
+          sr &= ~(1u << s);
+          pending &= ~(1u << s);
+          break;
+        }
+      }
+    }
+  }
 }
 
-// Tile k's triangles s[12][TC] (its first jn real) against the strata of
-// `reach`, SUB triangles at a time, each group against the strata that
-// reach its box (sub, stride n_sub): an occluded stratum leaves `pending`.
-__device__ __forceinline__ void test_tile(float (*s)[TC], int k, int jn,
-                                          unsigned reach, unsigned& pending,
-                                          const float* __restrict__ sub,
-                                          int n_sub, float ox, float oy,
-                                          float oz,
-                                          float (*dir)[3][AO_BLOCK]) {
-  const int tid = threadIdx.x;
-  for (int j0 = 0; j0 < jn && (reach &= pending) != 0u; j0 += SUB) {
-    unsigned sr = slab_reach(sub, n_sub, k * (TC / SUB) + j0 / SUB, reach, ox,
-                             oy, oz, dir);
-    const int j1 = min(j0 + SUB, jn);
-    for (int j = j0; j < j1 && sr != 0u; ++j) {
-      const float pax = s[0][j] - ox, pay = s[1][j] - oy;
-      const float paz = s[2][j] - oz, pbx = s[3][j] - ox;
-      const float pby = s[4][j] - oy, pbz = s[5][j] - oz;
-      const float pcx = s[6][j] - ox, pcy = s[7][j] - oy;
-      const float pcz = s[8][j] - oz;
-      const float nx = s[9][j], ny = s[10][j], nz = s[11][j];
-      const float cbcx = pby * pcz - pbz * pcy;
-      const float cbcy = pbz * pcx - pbx * pcz;
-      const float cbcz = pbx * pcy - pby * pcx;
-      const float ccax = pcy * paz - pcz * pay;
-      const float ccay = pcz * pax - pcx * paz;
-      const float ccaz = pcx * pay - pcy * pax;
-      const float s_n = pax * nx + pay * ny + paz * nz;
-      for (unsigned m = sr; m != 0u; m &= m - 1u) {
-        const int q = __ffs(m) - 1;
-        const float wx = dir[q][0][tid];
-        const float wy = dir[q][1][tid];
-        const float wz = dir[q][2][tid];
-        const float U = wx * cbcx + wy * cbcy + wz * cbcz;
-        const float V = wx * ccax + wy * ccay + wz * ccaz;
-        const float dn = wx * nx + wy * ny + wz * nz;
-        const float W = dn - U - V;
-        const bool inside = fminf(fminf(U, V), W) >= 0.f ||
-                            fmaxf(fmaxf(U, V), W) <= 0.f;
-        if (inside && s_n * dn > 0.f && fabsf(dn) > DET_EPS) {
-          pending &= ~(1u << q);
-          sr &= ~(1u << q);
+struct Scene {
+  const float* tris;  // (16, npad) [v0 | v1 | v2 | n | 0]
+  int npad, n_tris;
+  const float* boxes;  // (8, n_tiles)
+  int n_tiles;
+  const float* sboxes;  // (8, n_super)
+  int n_super;
+  const float* sub;  // (8, npad / SUB)
+};
+
+// The warp's walk of the scene for the strata of `pending` (bit q: the
+// thread's stratum q, not yet occluded): every real triangle some lane's
+// pending stratum reaches through its supertile, tile, quarter and group
+// boxes is tested, in slot order.  Warp-uniform control flow; counting: the warp's
+// test steps are counted (a reduction a triangle).
+__device__ __forceinline__ void walk(const Scene& sc, const Lane& L, Strata v,
+                                     unsigned& pending, Stats& st,
+                                     bool counting) {
+  const int n_real = (sc.n_tris + TC - 1) / TC;
+  const int n_groups = sc.n_tiles * (TC / SUB);
+  for (int sk = 0; sk * SUPER < n_real; ++sk) {
+    if (!__any_sync(FULL, pending != 0u)) return;
+    const unsigned in_s =
+        pending != 0u && !L.below(sc.sboxes, sc.n_super, sk)
+            ? L.reach(sc.sboxes, sc.n_super, sk, pending, v, st.supers)
+            : 0u;
+    if (!__any_sync(FULL, in_s != 0u)) continue;
+    const int k1 = min(n_real, (sk + 1) * SUPER);
+    for (int k = sk * SUPER; k < k1; ++k) {
+      unsigned in_t = in_s & pending;
+      in_t = in_t != 0u && !L.below(sc.boxes, sc.n_tiles, k)
+                 ? L.reach(sc.boxes, sc.n_tiles, k, in_t, v, st.tiles)
+                 : 0u;
+      if (!__any_sync(FULL, in_t != 0u)) continue;
+      const int c_end = min((k + 1) * TC, sc.n_tris);
+      for (int q0 = k * TC; q0 < c_end; q0 += QUARTER * SUB) {
+        in_t &= pending;
+        if (!__any_sync(FULL, in_t != 0u)) break;
+        // the quarter's box: the union of its groups' boxes (a group of
+        // padding alone has an empty box, +inf / -inf, and adds nothing)
+        float qb[6];
+#pragma unroll
+        for (int r = 0; r < 6; ++r) {
+          const float4 g = __ldg(reinterpret_cast<const float4*>(
+              sc.sub + r * n_groups + q0 / SUB));
+          qb[r] = r < 3 ? fminf(fminf(g.x, g.y), fminf(g.z, g.w))
+                        : fmaxf(fmaxf(g.x, g.y), fmaxf(g.z, g.w));
+        }
+        unsigned in_q = L.reach(qb, in_t, v, st.quarters);
+        if (!__any_sync(FULL, in_q != 0u)) continue;
+        const int q_end = min(q0 + QUARTER * SUB, c_end);
+        for (int c0 = q0; c0 < q_end; c0 += SUB) {
+          in_q &= pending;
+          if (!__any_sync(FULL, in_q != 0u)) break;
+          unsigned sr = L.reach(sc.sub, n_groups, c0 / SUB, in_q, v,
+                                st.groups);
+          if (!__any_sync(FULL, sr != 0u)) continue;
+          const int c1 = min(c0 + SUB, q_end);
+          for (int c = c0; c < c1 && __any_sync(FULL, sr != 0u); c += 4) {
+            const int nq = min(4, c1 - c);
+            if (counting) {
+              st.steps += nq * __reduce_max_sync(FULL, __popc(sr));
+            }
+            if (sr != 0u) {
+              Quad quad;
+              quad.load(sc.tris, sc.npad, c);
+              st.setups += nq;
+              test_quad(quad, nq, L, v, sr, pending, st.tests);
+            }
+          }
         }
       }
     }
@@ -203,20 +352,20 @@ __device__ __forceinline__ void test_tile(float (*s)[TC], int k, int jn,
 }
 
 // tpl: threads a lane (a power of two <= 32) and the grid from
-// accel/ao.py:gather_layout; the layout is the header's.  Every loop with
-// a barrier is block-uniform.
-template <int C, bool kWantBits>
-__global__ void __launch_bounds__(AO_BLOCK, 4)
+// accel/ao.py:gather_layout; the layout is the header's.  Dynamic shared
+// memory: C x 6 x AO_BLOCK floats of strata, then AO_BLOCK words.  The
+// only barriers are the rows' and the counts' sums.
+// (kCount: the counters, in an instantiation of their own that may hold
+// more registers; without them the compiler drops every count)
+template <int C, bool kWantBits, bool kCount>
+__global__ void __launch_bounds__(AO_BLOCK, kCount ? 3 : 4)
 ao_kernel(const float* __restrict__ rays, const float* __restrict__ jit, int B,
-          const int* __restrict__ nact, const float* __restrict__ tris,
-          int npad, int n_tris, const float* __restrict__ boxes, int n_tiles,
-          const float* __restrict__ sboxes, int n_super,
-          const float* __restrict__ sub, int ntheta, int nphi,
+          const int* __restrict__ nact, Scene sc, int ntheta, int nphi,
           float inv_nt, float inv_np, int tpl, float* __restrict__ occ_out,
-          int* __restrict__ bits_out) {
-  __shared__ __align__(16) float tile[NBUF][12][TC];
-  __shared__ float dir[C][3][AO_BLOCK];  // each thread's chunk, by stratum
-  __shared__ unsigned part[AO_BLOCK];  // a thread's share of its lane's row
+          int* __restrict__ bits_out, int* __restrict__ stats) {
+  extern __shared__ float smem[];
+  const Strata v{smem + threadIdx.x};
+  unsigned* part = reinterpret_cast<unsigned*>(smem + C * 6 * AO_BLOCK);
 
   const int tid = threadIdx.x;
   const int lanes = AO_BLOCK / tpl;
@@ -239,36 +388,29 @@ ao_kernel(const float* __restrict__ rays, const float* __restrict__ jit, int B,
   float r[12];
 #pragma unroll
   for (int c = 0; c < 12; ++c) r[c] = live ? rays[(size_t)c * B + i] : 0.f;
-  const float ox = r[0], oy = r[1], oz = r[2];
-  const float b2x = r[9], b2y = r[10], b2z = r[11];
+  const Lane L{r[0], r[1], r[2], r[9], r[10], r[11]};
   const float u0l = live ? jit[i] : 0.f;
   const float u1l = live ? jit[(size_t)B + i] : 0.f;
   const int n_chunks = (S + C - 1) / C;
-  const int n_real = (n_tris + TC - 1) / TC;  // tiles holding a triangle
-  const bool whole = n_real <= NBUF;  // the scene staged once, whole
-  if (whole) {
-    for (int k = 0; k < n_real; ++k) stage_tile(tile[k], tris, npad, k);
-    wait_staged();
-    __syncthreads();
-  }
 
+  Stats st;
   int occluded = 0;
   for (int c0 = 0; c0 < n_chunks; c0 += tpl) {  // block-uniform rounds
     const int s0 = (c0 + t) * C;  // this thread's first stratum
     unsigned pending = 0u;  // bit q: stratum s0 + q not yet occluded
 #pragma unroll
     for (int q = 0; q < C; ++q) {
-      const int st = s0 + q;
-      if (!live || st >= S) continue;
-      const float sf = (float)st;
+      const int s = s0 + q;
+      if (!live || s >= S) continue;
+      const float sf = (float)s;
       const float sh0 = sf * R2_A1;
       const float sh1 = sf * R2_A2;
       float u0 = u0l + (sh0 - floorf(sh0));
       u0 = u0 - floorf(u0);
       float u1 = u1l + (sh1 - floorf(sh1));
       u1 = u1 - floorf(u1);
-      const float fi = (float)(st % ntheta);
-      const float fj = (float)(st / ntheta);
+      const float fi = (float)(s % ntheta);
+      const float fj = (float)(s / ntheta);
       const float z0 = (fi + u0) * inv_nt;
       const float z1 = (fj + u1) * inv_np;
       const float cos_t = sqrtf(z0);
@@ -276,49 +418,19 @@ ao_kernel(const float* __restrict__ rays, const float* __restrict__ jit, int B,
       const float lx = cosf(phi) * cos_t;
       const float ly = sinf(phi) * cos_t;
       const float lz = sqrtf(fmaxf(1.0f - z0, 0.0f));
-      dir[q][0][tid] = lx * r[3] + ly * r[6] + lz * r[9];
-      dir[q][1][tid] = lx * r[4] + ly * r[7] + lz * r[10];
-      dir[q][2][tid] = lx * r[5] + ly * r[8] + lz * r[11];
+      const float dx = lx * r[3] + ly * r[6] + lz * r[9];
+      const float dy = lx * r[4] + ly * r[7] + lz * r[10];
+      const float dz = lx * r[5] + ly * r[8] + lz * r[11];
+      v.at(q, 0) = dx;
+      v.at(q, 1) = dy;
+      v.at(q, 2) = dz;
+      v.at(q, 3) = bounded_inv(dx);
+      v.at(q, 4) = bounded_inv(dy);
+      v.at(q, 5) = bounded_inv(dz);
       pending |= 1u << q;
     }
     const unsigned valid = pending;
-
-    if (whole) {  // no barrier: each warp runs at its own pace
-      for (int k = 0; k < n_real; ++k) {
-        const unsigned reach = tile_reach(
-            k, pending, boxes, n_tiles, sboxes, n_super, ox, oy, oz, b2x,
-            b2y, b2z, dir);
-        test_tile(tile[k], k, min(TC, n_tris - k * TC), reach, pending, sub,
-                  n_tiles * (TC / SUB), ox, oy, oz, dir);
-      }
-    } else {
-      // the ring: tile k in buffer k & 1, tile k + 1's copy in flight (the
-      // first vote also keeps an earlier round's last tile from being
-      // overwritten while it is tested)
-      unsigned reach = tile_reach(
-          0, pending, boxes, n_tiles, sboxes, n_super, ox, oy, oz, b2x, b2y,
-          b2z, dir);
-      bool want = __syncthreads_or(reach != 0u);
-      if (want) stage_tile(tile[0], tris, npad, 0);
-      for (int k = 0; k < n_real; ++k) {
-        // from the strata pending before tile k: a superset of tile k + 1's
-        const unsigned reach_next = k + 1 < n_real
-            ? tile_reach(k + 1, pending, boxes, n_tiles,
-                                       sboxes, n_super, ox, oy, oz, b2x, b2y,
-                                       b2z, dir)
-            : 0u;
-        wait_staged();  // this thread's part of tile k
-        // one vote: tile k is in for every thread, buffer (k + 1) & 1 free
-        const bool want_next = __syncthreads_or(reach_next != 0u);
-        if (want_next) stage_tile(tile[(k + 1) & 1], tris, npad, k + 1);
-        if (want) {
-          test_tile(tile[k & 1], k, min(TC, n_tris - k * TC), reach, pending,
-                    sub, n_tiles * (TC / SUB), ox, oy, oz, dir);
-        }
-        reach = reach_next;
-        want = want_next;
-      }
-    }
+    walk(sc, L, v, pending, st, kCount);
 
     const unsigned hit_bits = valid & ~pending;
     occluded += __popc(hit_bits);
@@ -343,26 +455,42 @@ ao_kernel(const float* __restrict__ rays, const float* __restrict__ jit, int B,
     for (int u = 0; u < tpl; ++u) sum += (int)part[tid + u * lanes];
     occ_out[i] = (float)sum;
   }
+  if constexpr (kCount) {
+    st.store(stats + NSTAT * ((blockIdx.x * AO_BLOCK + tid) >> 5));
+  }
 }
 
-template <bool kWantBits>
+template <int C, bool kWantBits, bool kCount>
+int launch_c(int grid, cudaStream_t s, const float* rays, const float* jit,
+             int B, const int* nact, const Scene& sc, int ntheta, int nphi,
+             float inv_nt, float inv_np, int tpl, float* occ, int* bits,
+             int* stats) {
+  const int smem = (C * 6 + 1) * AO_BLOCK * static_cast<int>(sizeof(float));
+  const cudaError_t err = cudaFuncSetAttribute(
+      ao_kernel<C, kWantBits, kCount>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ao_kernel<C, kWantBits, kCount><<<grid, AO_BLOCK, smem, s>>>(
+      rays, jit, B, nact, sc, ntheta, nphi, inv_nt, inv_np, tpl, occ, bits,
+      stats);
+  return 0;
+}
+
+template <bool kWantBits, bool kCount>
 int launch(int chunk, int grid, cudaStream_t s, const float* rays,
-           const float* jit, int B, const int* nact, const float* tris,
-           int npad, int n_tris, const float* boxes, int n_tiles,
-           const float* sboxes, int n_super, const float* sub, int ntheta,
-           int nphi, float inv_nt, float inv_np, int tpl, float* occ,
-           int* bits) {
+           const float* jit, int B, const int* nact, const Scene& sc,
+           int ntheta, int nphi, float inv_nt, float inv_np, int tpl,
+           float* occ, int* bits, int* stats) {
   switch (chunk) {
     case 4:
-      ao_kernel<4, kWantBits><<<grid, AO_BLOCK, 0, s>>>(
-          rays, jit, B, nact, tris, npad, n_tris, boxes, n_tiles, sboxes,
-          n_super, sub, ntheta, nphi, inv_nt, inv_np, tpl, occ, bits);
-      return 0;
+      return launch_c<4, kWantBits, kCount>(grid, s, rays, jit, B, nact, sc,
+                                            ntheta, nphi, inv_nt, inv_np, tpl,
+                                            occ, bits, stats);
     case 16:
-      ao_kernel<16, kWantBits><<<grid, AO_BLOCK, 0, s>>>(
-          rays, jit, B, nact, tris, npad, n_tris, boxes, n_tiles, sboxes,
-          n_super, sub, ntheta, nphi, inv_nt, inv_np, tpl, occ, bits);
-      return 0;
+      return launch_c<16, kWantBits, kCount>(grid, s, rays, jit, B, nact, sc,
+                                             ntheta, nphi, inv_nt, inv_np,
+                                             tpl, occ, bits, stats);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -373,7 +501,9 @@ int launch(int chunk, int grid, cudaStream_t s, const float* rays,
 // n_tris: the real triangles, the first columns of tris; sub: the boxes
 // of its SUB-triangle groups (8 x npad / SUB); chunk (strata a thread),
 // tpl (threads a lane) and grid from accel/ao.py:gather_layout; bits:
-// ceil(S / 32) x B int32 rows, or null for the counts alone
+// ceil(S / 32) x B int32 rows, or null for the counts alone; stats: NSTAT
+// ints a warp (grid x AO_BLOCK / 32 warps, zeroed: a warp without a live
+// lane leaves its own), or null (no counters)
 extern "C" int lt_ao_occlusion(const float* rays, const float* jit, int B,
                                const int* nact, const float* tris, int npad,
                                int n_tris, const float* boxes, int n_tiles,
@@ -381,21 +511,23 @@ extern "C" int lt_ao_occlusion(const float* rays, const float* jit, int B,
                                const float* sub, int ntheta, int nphi,
                                float inv_ntheta, float inv_nphi, int chunk,
                                int tpl, int grid, float* occ, int* bits,
-                               void* stream) {
+                               int* stats, void* stream) {
   if (B <= 0) return 0;
   if (tpl < 1 || tpl > 32 || (tpl & (tpl - 1)) != 0 || n_tris < 0 ||
-      n_tris > npad || (long long)grid * (AO_BLOCK / tpl) < B) {
+      n_tris > npad || npad != n_tiles * TC ||
+      n_super != (n_tiles + SUPER - 1) / SUPER ||
+      (long long)grid * (AO_BLOCK / tpl) < B) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Scene sc{tris, npad, n_tris, boxes, n_tiles, sboxes, n_super, sub};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err =
-      bits != nullptr
-          ? launch<true>(chunk, grid, s, rays, jit, B, nact, tris, npad,
-                         n_tris, boxes, n_tiles, sboxes, n_super, sub, ntheta,
-                         nphi, inv_ntheta, inv_nphi, tpl, occ, bits)
-          : launch<false>(chunk, grid, s, rays, jit, B, nact, tris, npad,
-                          n_tris, boxes, n_tiles, sboxes, n_super, sub,
-                          ntheta, nphi, inv_ntheta, inv_nphi, tpl, occ, bits);
+  const auto go = bits != nullptr
+                     ? (stats != nullptr ? launch<true, true>
+                                         : launch<true, false>)
+                     : (stats != nullptr ? launch<false, true>
+                                         : launch<false, false>);
+  const int err = go(chunk, grid, s, rays, jit, B, nact, sc, ntheta, nphi,
+                     inv_ntheta, inv_nphi, tpl, occ, bits, stats);
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,9 +49,9 @@ SIGNATURES = {
                    _I, _P, _P, _P),
     # rays, jitter, B, nact, tris, npad, n_tris, boxes, n_tiles, sboxes,
     # n_super, sub, ntheta, nphi, inv_ntheta, inv_nphi, chunk, tpl, grid,
-    # occ, bits, stream
+    # occ, bits, stats, stream
     "lt_ao_occlusion": (_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _P,
-                        _I, _I, _F, _F, _I, _I, _I, _P, _P, _P),
+                        _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _P),
     # org, dir, tmax, active, B, tris, npad, nodes, leaf_real, depth, t,
     # u, v, tri, stats, stream
     "lt_bvh_closest_hit": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P,

@@ -20,6 +20,9 @@ the dense AO gather (csrc/ao.cu, kernels 3 and 3b), through
     terrain (128 tiles), 8x8 strata, both outputs;
   whitted-2x2: headline-whitted's first-bounce dome gather on the
     bundled tile, 2x2 strata, the counts;
+  each line also gives the gather's counters (box and triangle tests,
+  set-ups, warp steps and SIMT efficiency; one more launch, with
+  counters=True) where the tree's kernel counts;
 the tile-BVH kernels (csrc/bvh.cu) on the first 128x128x4 tile of
 bench_large's terrain at n = 256 (130,050 triangles) and n = 724
 (1,045,458), through the public entry points:
@@ -72,6 +75,7 @@ print.  Needs one card; imports nothing of lucille_tpu.
 
 from __future__ import annotations
 
+import inspect
 import re
 import subprocess
 import sys
@@ -162,12 +166,33 @@ def main(argv) -> int:
         r = renderer(label, make_state, tile)
         P_off, b0, b1, b2, hit, jitter = make_inputs(r)
         nhit = int(hit.sum())
+        # the kernel's counters, where the tree's kernel counts
+        counts = "counters" in inspect.signature(
+            ao.ao_occlusion_kernel).parameters
+        if counts:
+            order, nact = ao.compaction_order(
+                r.scene.bbox_min, r.scene.bbox_max, P_off, b2, hit,
+                r.scene.boxes.shape[1])
+            rays = torch.cat([P_off, b0, b1, b2], dim=1)[order].T.contiguous()
         for fn in (ao.ao_occlusion, ao.ao_occlusion_bits)[: 2 if both else 1]:
             ms, name = kernel_ms(lambda: fn(r.scene, P_off, b0, b1, b2, hit,
                                             jitter, nt, nph), "ao_kernel")
+            work = ""
+            if counts:
+                st = ao.ao_occlusion_kernel(
+                    r.scene, rays, jitter, nact, nt, nph,
+                    fn is ao.ao_occlusion_bits, counters=True)[1]
+                st = {k: int(v) for k, v in st.items()}
+                work = (f"; supertile / tile / quarter / group box tests "
+                        f"{st.get('super_tests', 0)} / {st['tile_tests']} / "
+                        f"{st.get('quarter_tests', 0)} / "
+                        f"{st['group_tests']}, set-ups {st['setups']}, "
+                        f"tests {st['tests']}, warp steps "
+                        f"{st['warp_steps']} (SIMT efficiency "
+                        f"{st['tests'] / max(32 * st['warp_steps'], 1):.3f})")
             print(f"[{label}] {fn.__name__}: {P_off.shape[0]} lanes, {nhit} "
-                  f"hit, {nt}x{nph} strata: kernel {ms:.3f} ms ({name})",
-                  flush=True)
+                  f"hit, {nt}x{nph} strata: kernel {ms:.3f} ms ({name})"
+                  f"{work}", flush=True)
 
     def bvh_gather(label, n, method, make_inputs, nt, nph, mode):
         r = renderer(f"hf{n}-{method}", lambda: cs.heightfield_state(

@@ -100,7 +100,7 @@ def test_ao_occlusion_matches_pallas(n_tris, ntheta, nphi):
     assert ref[hit].mean() > 0.5  # the case exercises occlusion
 
 
-@pytest.mark.parametrize("S", [1, 4, 15, 25, 64, 256])
+@pytest.mark.parametrize("S", [1, 4, 15, 25, 64, 256, 576])
 def test_gather_layout_covers_every_stratum_once(S):
     """csrc/ao.cu's work split as accel/ao.py:gather_layout lays it out:
     thread t of a lane, in round r, takes chunk c = r * T + t, strata [c *
@@ -222,6 +222,150 @@ def test_gather_need_counts(n_tris):
         sum(w[j] for w in walks) for j in (1, 2, 3))
     # the culls: far fewer triangle tests than every real one per stratum
     assert 0 < got["tests"] < 0.5 * n_tris * S * B
+
+
+def _walk_thread(scene, o, nrm, dirs):
+    """One thread of csrc/ao.cu walking its strata `dirs` (C, 3) from
+    point o with normal nrm (3,) f32, as the kernel's `walk` does, one
+    slot at a time.  Returns ((supertile, tile, quarter and group box
+    tests, set-ups, tests), {quad's first slot: its strata that meet
+    it})."""
+    f32 = np.float32
+    occ, sboxes, boxes, sub = (a.numpy() for a in (
+        scene.occ, scene.sboxes, scene.boxes, scene.sub_boxes))
+    n_tris = scene.n_tris
+    inv = f32(1) / np.where(np.abs(dirs) > f32(1e-20), dirs, f32(1e-20))
+
+    def reaches(box, k, q):
+        t0, t1 = (box[0:3, k] - o) * inv[q], (box[3:6, k] - o) * inv[q]
+        tn, tf = np.minimum(t0, t1).max(), np.maximum(t0, t1).min()
+        return bool(tn <= tf and tf > 0)
+
+    def below(box, k):
+        c = np.where(nrm > 0, box[3:6, k], box[0:3, k])
+        return not ((c[0] - o[0]) * nrm[0] + (c[1] - o[1]) * nrm[1]
+                    + (c[2] - o[2]) * nrm[2] >= 0)
+
+    def occludes(j, q):
+        w = dirs[q]
+        pa, pb, pc = (occ[3 * r : 3 * r + 3, j] - o for r in range(3))
+        n = occ[9:12, j]
+        cbc = (pb[1] * pc[2] - pb[2] * pc[1], pb[2] * pc[0] - pb[0] * pc[2],
+               pb[0] * pc[1] - pb[1] * pc[0])
+        cca = (pc[1] * pa[2] - pc[2] * pa[1], pc[2] * pa[0] - pc[0] * pa[2],
+               pc[0] * pa[1] - pc[1] * pa[0])
+        U = w[0] * cbc[0] + w[1] * cbc[1] + w[2] * cbc[2]
+        V = w[0] * cca[0] + w[1] * cca[1] + w[2] * cca[2]
+        dn = w[0] * n[0] + w[1] * n[1] + w[2] * n[2]
+        W = dn - U - V
+        s_n = pa[0] * n[0] + pa[1] * n[1] + pa[2] * n[2]
+        inside = min(U, V, W) >= 0 or max(U, V, W) <= 0
+        return inside and s_n * dn > 0 and abs(dn) > f32(1e-14)
+
+    def quarter_box(c0):
+        g = sub[:, c0 // 8 : c0 // 8 + 4]
+        return np.concatenate([g[0:3].min(axis=1), g[3:6].max(axis=1)])[
+            :, None]
+
+    pending = set(range(len(dirs)))
+    supers = tiles = quarters = groups = setups = tests = 0
+    quads = {}
+    n_real = -(-n_tris // 128)
+    for sk in range(-(-n_real // 16)):
+        if not pending or below(sboxes, sk):
+            continue
+        supers += len(pending)
+        in_s = {q for q in pending if reaches(sboxes, sk, q)}
+        for k in range(16 * sk, min(16 * sk + 16, n_real)):
+            in_t = in_s & pending
+            if not in_t or below(boxes, k):
+                continue
+            tiles += len(in_t)
+            in_t = {q for q in in_t if reaches(boxes, k, q)}
+            for q0 in range(128 * k, min(128 * k + 128, n_tris), 32):
+                in_t &= pending
+                quarters += len(in_t)
+                box = quarter_box(q0)
+                in_q = {q for q in in_t if reaches(box, 0, q)}
+                for c0 in range(q0, min(q0 + 32, n_tris), 8):
+                    in_q &= pending
+                    groups += len(in_q)
+                    sr = {q for q in in_q if reaches(sub, c0 // 8, q)}
+                    for c in range(c0, min(c0 + 8, n_tris), 4):
+                        quads[c] = len(sr)
+                        if sr:
+                            setups += min(4, n_tris - c)
+                        for q in sorted(sr):
+                            for j in range(c, min(c + 4, n_tris)):
+                                tests += 1
+                                if occludes(j, q):
+                                    sr.discard(q)
+                                    pending.discard(q)
+                                    break
+    return (supers, tiles, quarters, groups, setups, tests), quads
+
+
+@pytest.mark.parametrize("n_tris,nphi", [(300, 4), (1100, 4), (300, 7)])
+def test_gather_walk_counts(n_tris, nphi):
+    """chip_smoke.gather_walk, the plain count of csrc/ao.cu's counters
+    that tests/test_torch_gpu.py holds the kernel's to, on the soups of
+    test_gather_need_counts: its occluded strata are gather_need's, and
+    the walk keeps slot order, so its tests equal gather_need's, and it
+    box-tests only the groups of quarters a stratum reaches, so its group
+    box tests are at most gather_need's; every counter equals one thread
+    at a time walking as
+    the kernel does (`_walk_thread`), the warps' test steps the most
+    strata a thread of the warp takes into each quad times its
+    triangles, with lanes past n_live idle.  3x4 strata: 4 a thread; 3x7:
+    16 a thread."""
+    from chip_smoke import gather_need, gather_walk
+
+    from lucille_tpu_torch.accel.ao import AO_BLOCK, gather_layout
+    from lucille_tpu_torch.scene.types import from_numpy
+    from lucille_tpu_torch.transport.ao import ortho_basis
+
+    scene = from_numpy(_soup(n_tris), "cpu")
+    B, n_live, ntheta = 200, 150, 3
+    S = ntheta * nphi
+    P, N, _hit = _lanes(B)
+    P = torch.from_numpy(P)
+    b0, b1, b2 = ortho_basis(torch.from_numpy(N))
+    rng = np.random.default_rng(3)
+    u01 = torch.from_numpy(rng.uniform(size=(2, B)).astype(np.float32))
+    rays = torch.cat([P, b0, b1, b2], dim=1).T.contiguous()
+    got = gather_walk(scene, rays, u01, n_live, ntheta, nphi)
+    need = gather_need(scene, P[:n_live], b0[:n_live], b1[:n_live],
+                       b2[:n_live], u01[:, :n_live], ntheta, nphi)
+    assert torch.equal(got.pop("occluded"), need["occluded"])
+    assert got["tests"] == need["tests"]
+    assert got["group_tests"] <= need["groups"]
+    assert got["tile_tests"] >= need["tiles"]
+    from lucille_tpu_torch.accel.ao import stratum_directions
+
+    dirs = stratum_directions(b0, b1, b2, u01, ntheta, nphi).numpy()
+    C, T, grid = gather_layout(S, B)
+    lanes = AO_BLOCK // T
+    total = np.zeros(6, dtype=np.int64)
+    warp_quads = {}
+    for gt in range(grid * AO_BLOCK):
+        lane = gt // AO_BLOCK * lanes + gt % AO_BLOCK % lanes
+        chunk = gt % AO_BLOCK // lanes
+        strata = [s for s in range(chunk * C, chunk * C + C) if s < S]
+        if lane >= n_live or not strata:
+            continue
+        counts, quads = _walk_thread(scene, P[lane].numpy(),
+                                     b2[lane].numpy(),
+                                     dirs[strata, lane])
+        total += counts
+        most = warp_quads.setdefault(gt // 32, {})
+        for c, m in quads.items():
+            most[c] = max(most.get(c, 0), m)
+    steps = sum(m * min(4, n_tris - c) for most in warp_quads.values()
+                for c, m in most.items())
+    assert (got["super_tests"], got["tile_tests"], got["quarter_tests"],
+            got["group_tests"], got["setups"], got["tests"]) == tuple(
+                int(x) for x in total)
+    assert got["warp_steps"] == steps
 
 
 def test_scene_packs_are_the_pack_functions():

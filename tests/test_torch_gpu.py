@@ -441,15 +441,17 @@ def test_closest_hit_kernel_tmax_cases(path, bound):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_tris,ntheta",
-                         [(400, 5), (1100, 8), (400, 16), (300, 8)])
+                         [(400, 5), (1100, 8), (400, 16), (300, 8),
+                          (2500, 24)])
 def test_ao_bits_kernel_matches_plain(n_tris, ntheta):
     """The gather's bits output below and above the Morton-order threshold,
-    S = 25 (one part-filled row), 64 (two rows) and 256 (eight, for
-    --gather-rays 256), on soups the kernel stages whole (300 triangles:
-    3 tiles, the last part-filled) and through its ring (400 and 1100
-    triangles: 4 and 9 tiles): counts as
-    test_ao_kernel_matches_plain, bits on all but 1e-3 of the lanes, each
-    lane's count equal to its popcount, rows 0 at or past nact."""
+    S = 25 (one part-filled row), 64 (two rows), 256 (eight, for
+    --gather-rays 256) and 576 (eighteen: 36 chunks of 16, so each
+    thread of a lane's 32 takes two rounds), on soups of 3 tiles (the
+    last part-filled), 4, 9 and 20 tiles (two supertiles, the second
+    ragged): counts as test_ao_kernel_matches_plain, bits on all but
+    1e-3 of the lanes, each lane's count equal to its popcount, rows 0
+    at or past nact."""
     _need_card()
     from lucille_tpu_torch.accel import ao
 
@@ -478,13 +480,11 @@ def test_ao_bits_kernel_matches_plain(n_tris, ntheta):
 def test_ao_kernel_layouts_match_plain(n_tris, ntheta, nphi, n_live):
     """Both instantiations at S = 4 (2x2, Whitted's dome: one thread a
     lane) and S = 15 (3x5, ntheta != nphi: four threads of 4 strata, the
-    last chunk ragged), on soups of 3 tiles (staged whole, the last tile
-    part-filled: warps run without a barrier), 4 tiles (the cp.async
-    ring, hit-first lane order) and 11 tiles (the ring, Morton order),
-    with nact = 0 (the dead-bounce launch: every output 0) and nact = B
-    (every lane live): counts and bits as
-    test_ao_bits_kernel_matches_plain, each lane's count its bits'
-    popcount."""
+    last chunk ragged), on soups of 3 tiles (the last part-filled), 4
+    tiles (hit-first lane order) and 11 tiles (Morton order), with nact
+    = 0 (the dead-bounce launch: every output 0) and nact = B (every
+    lane live): counts and bits as test_ao_bits_kernel_matches_plain,
+    each lane's count its bits' popcount."""
     _need_card()
     from lucille_tpu_torch.accel import ao
 
@@ -508,6 +508,95 @@ def test_ao_kernel_layouts_match_plain(n_tris, ntheta, nphi, n_live):
     diff = (occ - ref_occ).abs()
     assert diff.max() <= 1 and (diff != 0).float().mean() <= 1e-3
     assert (bits != ref_bits).any(dim=0).float().mean() <= 1e-3
+
+
+def _occ_poison(scene, lo, hi):
+    """A copy of the dense scene whose occlusion pack's pad slots hold the
+    box [lo, hi]^3 (`_cube_faces`, as [v0 | v1 | v2 | n]), its boxes and
+    n_tris left as they are: a gather that tested a pad slot would find
+    every stratum of a lane inside the box occluded."""
+    import dataclasses
+
+    f = _cube_faces(lo, hi, scene.occ.shape[1] - scene.n_tris)
+    v0, e1, e2 = f[0:3], f[3:6], f[6:9]
+    occ = scene.occ.clone()
+    occ[:12, scene.n_tris:] = torch.cat(
+        [v0, v0 + e1, v0 + e2, torch.linalg.cross(e1, e2, dim=0)])
+    return dataclasses.replace(scene, occ=occ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("want_bits", [False, True])
+@pytest.mark.parametrize("n_tris,ntheta,nphi", [
+    (300, 8, 8), (322, 2, 2), (400, 8, 8), (600, 3, 5), (3000, 8, 8)])
+def test_ao_kernel_never_tests_padding(n_tris, ntheta, nphi, want_bits):
+    """The pad slots past n_tris of a copy hold a box around the lanes'
+    points (every stratum of every lane meets it): the gather answers on
+    the copy exactly as on the scene.  300 and 322 triangles: the last
+    tile part-filled; 400 and 600: a part-filled tile then one of padding
+    alone; 3000: two supertiles, the second ragged."""
+    _need_card()
+    from lucille_tpu_torch.accel import ao
+
+    scene, rays, u01 = _gather_inputs(n_tris, 1000)
+    poisoned = _occ_poison(scene, -6.5, 6.5)
+    nact = torch.tensor(900, dtype=torch.int32, device="cuda")
+    S = ntheta * nphi
+    ref = ao.ao_occlusion_reference(poisoned.occ, rays[:, :100],
+                                    u01[:, :100], ntheta, nphi)
+    assert torch.all(ref == S)  # the twin, which tests them, meets them
+    got = ao.ao_occlusion_kernel(poisoned, rays, u01, nact, ntheta, nphi,
+                                 want_bits)
+    want = ao.ao_occlusion_kernel(scene, rays, u01, nact, ntheta, nphi,
+                                  want_bits)
+    for g, w in zip(got if want_bits else (got,),
+                    want if want_bits else (want,)):
+        assert torch.equal(g, w)
+    occ = want[0] if want_bits else want
+    assert occ[:900].mean() < S - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tris,ntheta,nphi,n_live", [
+    (300, 3, 4, 1000), (1100, 8, 8, 700), (2500, 8, 8, 1000),
+    (400, 2, 2, 300), (600, 16, 16, 200)])
+def test_ao_kernel_counters(n_tris, ntheta, nphi, n_live):
+    """The gather's counters (counters=True): two launches on equal
+    inputs count alike; every counter equals chip_smoke.gather_walk's
+    plain count of the same walk; and the walk keeps slot order, so its
+    (stratum, triangle) tests equal chip_smoke.gather_need's, the work
+    the data needs (its group box tests, of the quarters a stratum
+    reaches, at most gather_need's).  Answers as without counters."""
+    _need_card()
+    from chip_smoke import gather_need, gather_walk
+
+    from lucille_tpu_torch.accel import ao
+
+    scene, rays, u01 = _gather_inputs(n_tris, 1000)
+    nact = torch.tensor(n_live, dtype=torch.int32, device="cuda")
+    S = ntheta * nphi
+    (occ, bits), st = ao.ao_occlusion_kernel(scene, rays, u01, nact, ntheta,
+                                             nphi, True, counters=True)
+    (occ2, bits2), st2 = ao.ao_occlusion_kernel(scene, rays, u01, nact,
+                                                ntheta, nphi, True,
+                                                counters=True)
+    plain = ao.ao_occlusion_kernel(scene, rays, u01, nact, ntheta, nphi,
+                                   True)
+    assert torch.equal(occ, plain[0]) and torch.equal(bits, plain[1])
+    assert torch.equal(occ, occ2) and torch.equal(bits, bits2)
+    got = {k: int(v) for k, v in st.items()}
+    assert got == {k: int(v) for k, v in st2.items()}
+    walk = gather_walk(scene, rays, u01, n_live, ntheta, nphi)
+    assert torch.equal(walk.pop("occluded"),
+                       ao.unpack_bits(bits[:, :n_live], S))
+    assert got == walk
+    b0, b1, b2 = (rays[3 * c:3 * c + 3, :n_live].T for c in (1, 2, 3))
+    need = gather_need(scene, rays[0:3, :n_live].T, b0, b1, b2,
+                       u01[:, :n_live], ntheta, nphi)
+    assert got["tests"] == need["tests"] > 0
+    assert got["group_tests"] <= need["groups"]
+    assert got["tile_tests"] >= need["tiles"]
+    assert 0 < got["tests"] <= 32 * got["warp_steps"]
 
 
 @pytest.mark.gpu
