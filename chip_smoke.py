@@ -254,7 +254,24 @@ non-zero):
    process's; __graft_entry__.dryrun_multichip's four integrators on
    the mesh of every card against the same frames without a mesh; the
    headline frame over every card where there are two or more; its
-   wall seconds.
+   wall seconds;
+36. (run before 34) the entry points outside the package core
+   (`check_tools`), each with its wall seconds beside the card's name
+   and power limit: (a) the fur example at its defaults (400 strands,
+   25,602 triangles, the tile BVH) through its entry point, then with
+   phase 4's checks and timing, kernels 4 and 5 against their twins on
+   its first tile (phase 7; its entries join theirs in the results
+   line), and its 80x60 frame against the CPU's twins (phase 12's
+   bound); (b) the bundled scene at 640x480 through the CLI with
+   --display socket: the port's viewer spawned for real (argv
+   `-m lucille_tpu_torch.tools.rockenfield`, nothing under tools_tpu;
+   every pixel reassembled; exit 0), then the viewer started by hand
+   with --out: its .hdr byte-equal to --display file's in raster order;
+   (c) the sisgen command on the 2048x1024 sky, timed: its .npz equal to
+   the samples the Renderer generates from the map, and the structured
+   IBL frame with it as the sisfile equal to the generated samples'
+   frame; (d) the n = 256 terrain as an OBJ through obj2rib and the CLI:
+   kernels 4 and 5 only, no twin.
 
 It needs one card and the repository around it: run from a directory
 holding only this file, it fails.
@@ -819,18 +836,29 @@ def counters():
 
 
 @contextmanager
-def bvh_ao_mode(mode: str):
-    """LUCILLE_BVH_AO set to `mode` inside the block (the tile BVH's
-    gathers read it at call time), restored after."""
-    saved = os.environ.get("LUCILLE_BVH_AO")
-    os.environ["LUCILLE_BVH_AO"] = mode
+def environ(**changes):
+    """os.environ with `changes` applied inside the block (a value of None
+    unsets the variable), restored after."""
+    saved = {k: os.environ.get(k) for k in changes}
+    for k, v in changes.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
-        if saved is None:
-            os.environ.pop("LUCILLE_BVH_AO", None)
-        else:
-            os.environ["LUCILLE_BVH_AO"] = saved
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bvh_ao_mode(mode: str):
+    """LUCILLE_BVH_AO set to `mode` inside the block (the tile BVH's
+    gathers read it at call time), restored after."""
+    return environ(LUCILLE_BVH_AO=mode)
 
 
 @contextmanager
@@ -3148,27 +3176,19 @@ def check_socket_display():
     from lucille_tpu_torch.imageio.loader import load_image
 
     lis = SocketListener()
-    env = {"LUCILLE_NO_SPAWN_VIEWER": "1", "LUCILLE_SOCKET_PORT": str(lis.port)}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            for display in ("socket", "file"):
-                rc = cli_main([str(BUNDLED_RIB), "--width", "80", "--height",
-                               "60", "--display", display, "-o",
-                               f"{tmp}/{display}.pfm"])
-                if rc != 0:
-                    raise AssertionError(f"socket: --display {display} "
-                                         f"exit {rc}")
-            lis.join()
-            want = load_image(f"{tmp}/file.pfm")[::-1]
-            wrote = os.path.exists(f"{tmp}/socket.pfm")
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    with environ(LUCILLE_NO_SPAWN_VIEWER="1",
+                 LUCILLE_SOCKET_PORT=str(lis.port)), \
+            tempfile.TemporaryDirectory() as tmp:
+        for display in ("socket", "file"):
+            rc = cli_main([str(BUNDLED_RIB), "--width", "80", "--height",
+                           "60", "--display", display, "-o",
+                           f"{tmp}/{display}.pfm"])
+            if rc != 0:
+                raise AssertionError(f"socket: --display {display} "
+                                     f"exit {rc}")
+        lis.join()
+        want = load_image(f"{tmp}/file.pfm")[::-1]
+        wrote = os.path.exists(f"{tmp}/socket.pfm")
     same = lis.frame is not None and np.array_equal(lis.frame, want)
     print(f"[socket] --display socket streamed {len(lis.raw)} bytes "
           f"({'FINISH' if lis.finished else 'no FINISH'}), frame "
@@ -3937,6 +3957,281 @@ def check_mesh(headline_ao):
           f"{[round(t, 4) for t in s_all]})", flush=True)
 
 
+@contextmanager
+def stdout_to(path):
+    """This process's file descriptor 1 (so also its children's standard
+    output) written to `path` inside the block."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "wb") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def check_fur(results, smi):
+    """Phase 36 (a): the fur example (lucille_tpu_torch/examples/fur.py)
+    at its defaults on the card: 400 Bezier strands tessellated into
+    25,602 triangles, above the dense accel's 16,384, so the tile BVH
+    (kernels 4 and 5) at 320x240, 2x2 samples, 64 AO rays, tile 128.
+    The example's entry point once; then the frame with phase 4's checks
+    and timing (`render_checked`, under no_host_sync); kernels 4 and 5
+    against their twins on the scene's first tile (`check_bvh_kernels`,
+    phase 7's tolerances; its entries go under those kernels' names in
+    the results line); the frame at 80x60 (1x1 samples, 4 AO rays: the
+    CPU's twins test every ray against all 37,632 slots) on the card
+    against the CPU's twins (`check_frame_twins`, phase 12's bound)."""
+    from lucille_tpu_torch.examples import fur
+    from lucille_tpu_torch.imageio.rgbe import read_hdr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/fur.hdr"
+        if fur.main(["--out", out]) != 0:
+            raise AssertionError("fur: the example failed")
+        img = read_hdr(out)
+    if img.shape != (240, 320, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"fur: the example wrote {img.shape}")
+    r = build_renderer("fur", fur.fur_state, 128)
+    if r.scene.accel != "pbvh" or r.scene.n_tris != 25602:
+        raise AssertionError(f"fur: {r.scene.n_tris} triangles, accel "
+                             f"{r.scene.accel}")
+    bvh = ("bvh_closest_hit", "bvh_any_hit")
+    got, best, _ = render_checked("fur", r, "chip_smoke_fur.hdr", bvh)
+    print(f"[fur] 400 strands, 25,602 triangles, 320x240: frame {best:.4f} "
+          f"s, {r.stats.nrays / best / 1e6:.1f} Mrays/s on {smi}",
+          flush=True)
+    check_bvh_kernels("fur", r, 16384, 32768, results)
+    for k in bvh:
+        results[k][-1]["frame_launches"] = got[k]
+    t0 = time.perf_counter()
+    check_frame_twins("fur-twins", fur_twins_state)
+    print(f"[fur-twins] {time.perf_counter() - t0:.2f} s, the CPU's frame "
+          "included", flush=True)
+
+
+def fur_twins_state():
+    """The fur example's scene (400 strands, the tile BVH) at 80x60, 1x1
+    samples, 4 AO rays: its frame for the CPU's twins."""
+    from lucille_tpu_torch.examples.fur import fur_state
+
+    s = fur_state(400, (80, 60))
+    s.PixelSamples(1, 1)
+    s.options.gather_nsamples = 4
+    return s
+
+
+def check_viewer(smi):
+    """Phase 36 (b): the bundled scene as shipped at 640x480 through the
+    CLI (in this process) with --display socket and nothing listening on
+    LUCILLE_SOCKET_PORT, LUCILLE_NO_SPAWN_VIEWER unset: the socket display
+    spawns the port's viewer, whose argv must name
+    lucille_tpu_torch.tools.rockenfield and nothing under tools_tpu, which
+    must reassemble every pixel and exit 0 (its terminal previews go to a
+    file).  Then the port's viewer started by hand (--out v.hdr --quiet,
+    on a free port) for the same command: v.hdr byte-equal to the .hdr
+    the command writes with --display file, rows reversed as the file
+    driver stores them (phase 25)."""
+    from lucille_tpu_torch.cli import main as cli_main
+    from lucille_tpu_torch.display import sockdrv
+    from lucille_tpu_torch.imageio.rgbe import read_hdr, write_hdr
+
+    argv = [str(BUNDLED_RIB), "--width", "640", "--height", "480"]
+    spawned = []
+    spawn = sockdrv.SocketDriver._spawn_viewer
+
+    def spy(self):
+        ok = spawn(self)
+        spawned.append(self._viewer)
+        return ok
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sockdrv.SocketDriver._spawn_viewer = spy
+        try:
+            with environ(LUCILLE_SOCKET_PORT=str(free_port()),
+                         LUCILLE_NO_SPAWN_VIEWER=None), \
+                    stdout_to(f"{tmp}/viewer.log"):
+                rc = cli_main([*argv, "--display", "socket", "-o",
+                               f"{tmp}/live"])
+        finally:
+            sockdrv.SocketDriver._spawn_viewer = spawn
+        if rc != 0 or len(spawned) != 1 or spawned[0] is None:
+            raise AssertionError(f"viewer: exit {rc}, spawned {spawned}")
+        viewer = spawned[0]
+        code = viewer.wait(timeout=60)
+        args = [str(a) for a in viewer.args]
+        with open(f"{tmp}/viewer.log", errors="replace") as f:
+            said = [l for l in f.read().splitlines()
+                    if l.startswith("[rockenfield]")]
+        print(f"[viewer] --display socket at 640x480: spawned {args[1:]}, "
+              f"exit {code}; it said {said} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        if (args[1:3] != ["-m", "lucille_tpu_torch.tools.rockenfield"]
+                or any("tools_tpu" in a for a in args) or code != 0
+                or "[rockenfield] frame complete (307200 pixels)" not in said):
+            raise AssertionError("viewer: the spawned viewer is not the "
+                                 "port's, or it failed")
+
+        port = free_port()
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "lucille_tpu_torch.tools.rockenfield",
+             "--port", str(port), "--out", f"{tmp}/v.hdr", "--quiet"],
+            cwd=tmp, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            line = proc.stdout.readline()
+            if line != f"[rockenfield] listening on 127.0.0.1:{port}\n":
+                raise AssertionError(f"viewer: by hand it said {line!r}")
+            with environ(LUCILLE_SOCKET_PORT=str(port),
+                         LUCILLE_NO_SPAWN_VIEWER="1"):
+                rc = cli_main([*argv, "--display", "socket", "-o",
+                               f"{tmp}/live"])
+            out, err = proc.communicate(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if rc != 0 or proc.returncode != 0:
+            raise AssertionError(f"viewer: exit {rc}, the viewer's "
+                                 f"{proc.returncode}\n{err[-4000:]}")
+        if cli_main([*argv, "--display", "file", "-o", f"{tmp}/f.hdr"]) != 0:
+            raise AssertionError("viewer: --display file failed")
+        want = read_hdr(f"{tmp}/f.hdr")[::-1]  # the file driver flips rows
+        got = read_hdr(f"{tmp}/v.hdr")
+        write_hdr(f"{tmp}/raster.hdr", want)  # RGBE decodes and re-encodes exactly
+        same = (Path(f"{tmp}/v.hdr").read_bytes()
+                == Path(f"{tmp}/raster.hdr").read_bytes())
+    print(f"[viewer] by hand on port {port}: v.hdr {got.shape}, mean "
+          f"{got.mean():.4f}; byte-equal to --display file's .hdr in raster "
+          f"order: {same}; array-equal: {np.array_equal(got, want)} "
+          f"(on {smi})", flush=True)
+    if not (same and np.array_equal(got, want) and want.mean() > 1.0):
+        raise AssertionError("viewer: v.hdr is not the file display's frame")
+
+
+def check_sisgen_cli(smi):
+    """Phase 36 (c): the sisgen command (python -m
+    lucille_tpu_torch.tools.sisgen) on env_dir()'s 2048x1024 sky.hdr,
+    timed; its .npz equal, exactly, to generate_sis_samples(load_image(
+    sky.hdr)), the samples a Renderer generates from the map when its
+    structured light names no sisfile; an 80x60 Whitted frame of the
+    bundled scene under the structured IBL light with the .npz as its
+    sisfile equal to the frame whose Renderer generated the samples.
+    env_dir()'s own sky_sis.npz (phases 21-24's) is left as it is."""
+    from lucille_tpu_torch.imageio.loader import load_image
+    from lucille_tpu_torch.lights.envmap import SIS_SAMPLES
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    sky = Path(env_dir().name) / "sky.hdr"
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = Path(tmp) / "sky_cli.npz"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lucille_tpu_torch.tools.sisgen", str(sky),
+             "-o", str(npz), "--text", f"{tmp}/sky_cli.txt"],
+            cwd=tmp, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"sisgen: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-4000:]}")
+        data = np.load(npz)
+        dirs, rgb = data["dirs"], data["rgb"]
+        line = 'LightSource "ibl" 1 "texture" ["{}"] "sampling" ["structured"]'
+        frames, renderers = {}, {}
+        for name, sis in (("sisfile", f' "sisfile" ["{npz}"]'),
+                          ("generated", "")):
+            s = bundled_state(80, 60, 1, light=line.format(sky) + sis + "\n",
+                              method="whitted")
+            t1 = time.perf_counter()
+            renderers[name] = r = Renderer(s.scene, tile_size=32,
+                                           device="cuda")
+            t2 = time.perf_counter()
+            frames[name] = r.render_frame()
+            print(f"[sisgen] the structured frame, samples {name}: Renderer "
+                  f"{t2 - t1:.2f} s (the light's samples included), first "
+                  f"frame {time.perf_counter() - t2:.2f} s", flush=True)
+    env = next(li.env for li in renderers["generated"].lights
+               if li.env is not None)
+    if not np.array_equal(env.image, load_image(sky)):
+        raise AssertionError("sisgen: the Renderer's map is not sky.hdr's")
+    gen = env.sis_samples(SIS_SAMPLES)
+    equal = all(np.array_equal(a, b) for a, b in zip((dirs, rgb), gen))
+    same = np.array_equal(frames["sisfile"], frames["generated"])
+    print(f"[sisgen] {sky.name} {SKY[0]}x{SKY[1]} -> {len(dirs)} samples in "
+          f"{seconds:.2f} s (the command, interpreter start included) on "
+          f"{smi}; .npz equal to generate_sis_samples(load_image(sky.hdr)): "
+          f"{equal}; the frame with the .npz as its sisfile equal to the "
+          f"generated samples' frame: {same} (mean "
+          f"{frames['sisfile'].mean():.4f})", flush=True)
+    if not (equal and same and len(dirs) > 0
+            and np.isfinite(frames["sisfile"]).all()):
+        raise AssertionError("sisgen: the command's samples differ")
+
+
+def check_obj2rib(smi):
+    """Phase 36 (d): the n = 256 terrain (`heightfield_grid`, 130,050
+    triangles) written as an OBJ, converted by the port's obj2rib (its
+    ground plane and auto-framed camera added: 130,052 triangles, the
+    RIB's defaults, 640x480, 2x2 samples, 64 AO rays), and rendered by
+    the port's CLI on the card (in this process): the image finite, its
+    mean in (0, 1]; kernels 4 and 5 launched, no other kernel, no plain
+    twin."""
+    from lucille_tpu_torch.cli import main as cli_main
+    from lucille_tpu_torch.imageio.rgbe import read_hdr
+    from lucille_tpu_torch.tools import obj2rib
+
+    P, quads = heightfield_grid(256)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with open(f"{tmp}/terrain.obj", "w") as f:
+            f.write("".join(f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in P))
+            f.write("".join(f"f {a} {b} {c} {d}\n" for a, b, c, d in quads + 1))
+        t1 = time.perf_counter()
+        if obj2rib.main([f"{tmp}/terrain.obj", "-o", f"{tmp}/terrain.rib"]):
+            raise AssertionError("obj2rib failed")
+        t2 = time.perf_counter()
+        counts = counters()
+        for c in counts.values():
+            c.reset()
+        rc = cli_main([f"{tmp}/terrain.rib", "-o", f"{tmp}/terrain.hdr",
+                       "--stats"])
+        t3 = time.perf_counter()
+        img = read_hdr(f"{tmp}/terrain.hdr")
+    launches = {k: c.kernel for k, c in counts.items()}
+    plain = {k: c.plain for k, c in counts.items() if c.plain}
+    print(f"[obj2rib] terrain OBJ ({len(quads)} quads) written in "
+          f"{t1 - t0:.2f} s, converted in {t2 - t1:.2f} s, rendered by the "
+          f"CLI in {t3 - t2:.2f} s (parse, compile, tile-BVH build, frame) on "
+          f"{smi}: {img.shape}, mean {img.mean():.4f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }, plain twins "
+          f"{plain}", flush=True)
+    used = {k for k, v in launches.items() if v}
+    if not (rc == 0 and img.shape == (480, 640, 3) and np.isfinite(img).all()
+            and 0.0 < img.mean() <= 1.0):
+        raise AssertionError(f"obj2rib: exit {rc}, image {img.shape}")
+    if used != {"bvh_closest_hit", "bvh_any_hit"} or plain:
+        raise AssertionError(f"obj2rib: launches {launches}, twins {plain}")
+
+
+def check_tools(results, smi):
+    """Phase 36: the port's entry points outside the package core on the
+    card, each with its wall seconds: (a) the fur example, (b) the
+    progressive viewer, (c) the sisgen command, (d) obj2rib."""
+    for name, fn, args in (("fur", check_fur, (results, smi)),
+                           ("viewer", check_viewer, (smi,)),
+                           ("sisgen", check_sisgen_cli, (smi,)),
+                           ("obj2rib", check_obj2rib, (smi,))):
+        t0 = time.perf_counter()
+        fn(*args)
+        print(f"[tools/{name}] wall {time.perf_counter() - t0:.2f} s "
+              f"({smi})", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4161,6 +4456,10 @@ def main() -> int:
 
     # 35. this slice's path: the mesh, and two processes on the card
     phase("mesh", check_mesh, headline_ao)
+
+    # 36. the entry points outside the package core: the fur example on
+    # the tile BVH, the progressive viewer, the sisgen command, obj2rib
+    phase("tools", check_tools, results, smi)
 
     # 34. results
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")

@@ -6,7 +6,8 @@
     --display D        override the display driver: file (hdr), openexr
                        (exr), socket (streams tiles to a viewer on
                        localhost, LUCILLE_SOCKET_PORT, default 12346;
-                       spawns tools_tpu/rockenfield.py unless
+                       spawns the port's viewer, python -m
+                       lucille_tpu_torch.tools.rockenfield, unless
                        LUCILLE_NO_SPAWN_VIEWER=1), framebuffer (the
                        socket viewer, else a file), null
     --pixelsamples N   override PixelSamples

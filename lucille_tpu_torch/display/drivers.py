@@ -78,7 +78,8 @@ class FramebufferDriver(FileDriver):
     """Live preview driver (the reference's framebufferdrv.c GL window).
 
     A headless container has no window system, but the socket driver
-    auto-spawns the rockenfield progressive viewer (terminal/web) — so
+    auto-spawns the port's progressive viewer (tools/rockenfield.py, a
+    terminal viewer run as `python -m lucille_tpu_torch.tools.rockenfield`) — so
     ``Display "framebuffer"`` routes THERE first: live tiles appear as
     they finish, exactly the framebufferdrv experience.  When the socket
     path cannot come up (viewer spawn disabled or connect fails), the

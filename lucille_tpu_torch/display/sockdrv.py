@@ -4,9 +4,10 @@ Implements the reference's sockdrv protocol (src/display/sockdrv.c,
 sockdrv_defs.h): connect to localhost:12346 with retry, send COMMAND_NEW
 with {width, height}, stream COMMAND_PIXEL batches, finish with
 COMMAND_FINISH; the server may push COMMAND_CANCEL.  The companion viewer
-is tools_tpu/rockenfield.py (the reference's FLTK viewer re-imagined as a
-dependency-free web/terminal viewer), a separate program that speaks the
-protocol: it is spawned by path, never imported.
+is the port's tools/rockenfield.py (the reference's FLTK viewer
+re-imagined as a dependency-free terminal viewer), a separate program
+that speaks the protocol: it is spawned as a module
+(`python -m lucille_tpu_torch.tools.rockenfield`), never imported.
 
 Wire format (little-endian int32s, matching sockdrv_defs.h:6-19):
     NEW    = 0, followed by width, height
@@ -15,8 +16,9 @@ Wire format (little-endian int32s, matching sockdrv_defs.h:6-19):
     CANCEL = 3 (server -> renderer)
 
 The port's copy of lucille_tpu/display/sockdrv.py: the same code, with its
-imports pointed at lucille_tpu_torch's own host modules.  The spawned
-viewer gets --port alone (its --out branch imports lucille_tpu).
+imports pointed at lucille_tpu_torch's own host modules, and the port's
+own viewer spawned in place of lucille_tpu's tools_tpu/rockenfield.py.
+The spawned viewer gets --port alone, as lucille_tpu's does.
 """
 
 from __future__ import annotations
@@ -62,8 +64,11 @@ class SocketDriver(DisplayDriver):
         self.spawn_wait = 30.0
 
     def _spawn_viewer(self) -> bool:
-        """Launch tools_tpu/rockenfield.py as the progressive viewer
-        (the reference's viewer-fork, sockdrv.c:154-190).  Disable with
+        """Launch the port's viewer, `python -m
+        lucille_tpu_torch.tools.rockenfield`, as the progressive viewer
+        (the reference's viewer-fork, sockdrv.c:154-190), with the
+        directory holding this package first on the child's PYTHONPATH,
+        so it starts from any working directory.  Disable with
         LUCILLE_NO_SPAWN_VIEWER=1 (tests, headless batch jobs)."""
         import os
         import subprocess
@@ -72,13 +77,15 @@ class SocketDriver(DisplayDriver):
 
         if os.environ.get("LUCILLE_NO_SPAWN_VIEWER") == "1":
             return False
-        script = Path(__file__).resolve().parents[2] / "tools_tpu" / "rockenfield.py"
-        if not script.exists():
-            return False
+        root = str(Path(__file__).resolve().parents[2])
+        path = os.environ.get("PYTHONPATH")
+        env = dict(os.environ,
+                   PYTHONPATH=root if not path else root + os.pathsep + path)
         try:
             self._viewer = subprocess.Popen(
-                [sys.executable, str(script), "--port", str(self.port)],
-                stdin=subprocess.DEVNULL,
+                [sys.executable, "-m", "lucille_tpu_torch.tools.rockenfield",
+                 "--port", str(self.port)],
+                stdin=subprocess.DEVNULL, env=env,
             )
         except OSError as e:
             log(LOG_WARN, "cannot spawn viewer: %s", e)

@@ -4,7 +4,8 @@ Equivalent capability to the reference testbed's OBJ loader
 (src/testbed/glm.cpp, used by the interactive visual dev harness):
 vertices, normals, texcoords, polygonal faces (fan-triangulated),
 negative indices, groups ignored.  Produces GeomData directly or RIB text
-via tools_tpu/obj2rib.py (the exporters/ counterpart).
+via the port's tools/obj2rib.py (the exporters/ counterpart;
+`python -m lucille_tpu_torch.tools.obj2rib model.obj`).
 
 The port's copy of lucille_tpu/ri/wavefront.py: the same code, with its
 imports pointed at lucille_tpu_torch's own host modules.

@@ -35,7 +35,9 @@ heightfield256-grid (the headline AO and the n = 256 terrain's frames on
 the uniform grid), headline-ao-bruteforce and headline-ao-mxu (the
 headline AO frame under lucille_tpu's dense requests) and
 heightfield256-rebinned (the terrain's frame under
-LUCILLE_BVH_AO=rebinned); and, asked for by name (not among the
+LUCILLE_BVH_AO=rebinned); and fur (the fur example at its defaults:
+400 Bezier strands, 25,602 triangles on the tile BVH, 320x240, 2x2, 64
+rays, tile 128); and, asked for by name (not among the
 default cells), inverse-render: the inverse-render example's forward
 and backward pass at 640x480, 4 samples, depth 3.
 
@@ -121,7 +123,15 @@ CELLS = {
         640, 480, 3, 64, sunsky=False, accel="mxu"), cs.TILE, "cone"),
     "heightfield256-rebinned": (lambda: cs.heightfield_state(256), 128,
                                 "rebinned"),
+    "fur": (lambda: fur_state(), 128, "cone"),
 }
+
+
+def fur_state():
+    """The fur example's scene at its defaults (examples/fur.py)."""
+    from lucille_tpu_torch.examples.fur import fur_state as state
+
+    return state()
 
 
 def busy_us(intervals) -> float:

@@ -1729,3 +1729,22 @@ def test_mesh_of_one_card_matches_no_mesh():
         got = r.render_frame()
     np.testing.assert_array_equal(got, ref)
     assert r.stats.nrays == r0.stats.nrays > 0
+
+
+@pytest.mark.gpu
+def test_fur_frame_on_the_card_matches_the_cpu():
+    """The fur example's scene (400 strands, 25,602 triangles: the tile
+    BVH's kernels 4 and 5) at 80x60, 1x1 samples, 4 AO rays, on the card
+    against the CPU's twins, one numpy stream fed to both
+    (chip_smoke.check_frame_twins: rays within 1e-3, pixels within 1e-3
+    on all but 1%)."""
+    _need_card()
+    import chip_smoke as cs
+
+    from lucille_tpu_torch.accel import bvh_isect
+
+    assert cs.fur_twins_state().scene.ntriangles == 25602
+    bvh_isect.CLOSEST_COUNTS.reset()
+    got = cs.check_frame_twins("fur-twins", cs.fur_twins_state)
+    assert got.shape == (60, 80, 3) and np.isfinite(got).all()
+    assert bvh_isect.CLOSEST_COUNTS.kernel > 0

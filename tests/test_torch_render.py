@@ -167,7 +167,7 @@ def check_frame_against_jax(case, desc, jr, ref, pr, got):
         allhit[y0 : y0 + th, x0 : x0 + tw] = h[:th, :tw]
     assert allhit.mean() > 0.2
     assert pr.scene.accel == ("pbvh" if case.endswith("_bvh") else "dense")
-    if case in ("bundled", "heightfield35_bvh"):
+    if n_tiles < 8 or case.endswith("_bvh"):  # each lane keeps its jitter
         assert diff.mean() <= 1e-3
         assert diff[agree].max() <= 0.07
     else:

@@ -6,8 +6,8 @@ viewer: it records every byte the driver sends and reassembles the frame.
 The two packages' drivers must send the same bytes for the same tiles
 (exactly); the CLI's socket display must stream the frame its file
 display writes (exactly: the file is a .pfm, f32 like the wire).  Every
-test sets LUCILLE_NO_SPAWN_VIEWER=1 but the one that spawns the viewer,
-tools_tpu/rockenfield.py, by path.
+test sets LUCILLE_NO_SPAWN_VIEWER=1 but the one that spawns the port's
+viewer, `python -m lucille_tpu_torch.tools.rockenfield`.
 """
 
 import socket
@@ -175,21 +175,24 @@ def test_cli_socket_display_streams_the_file_displays_frame(monkeypatch,
     assert not (tmp_path / "live.pfm").exists()
 
 
-def test_socket_driver_spawns_the_viewer(monkeypatch):
-    """Nothing listening: the driver spawns tools_tpu/rockenfield.py by
-    path with --port alone (no --out: that branch imports lucille_tpu),
-    connects to it, streams, and the viewer exits cleanly on FINISH."""
+def test_socket_driver_spawns_the_ports_viewer(monkeypatch, tmp_path):
+    """Nothing listening: the driver spawns the port's viewer (python -m
+    lucille_tpu_torch.tools.rockenfield, nothing under tools_tpu) with
+    --port alone, from a working directory outside the repo, connects to
+    it, streams, and the viewer exits cleanly on FINISH."""
     from lucille_tpu_torch.display.sockdrv import SocketDriver
 
     monkeypatch.delenv("LUCILLE_NO_SPAWN_VIEWER")
+    monkeypatch.chdir(tmp_path)
     port = _free_port()
     drv = SocketDriver(port=port)
     try:
         assert drv.open("spawned", 8, 8)
         viewer = drv._viewer
         assert viewer is not None and drv.sock is not None
-        assert viewer.args[1].endswith("tools_tpu/rockenfield.py")
-        assert viewer.args[2:] == ["--port", str(port)]
+        assert viewer.args[1:] == ["-m", "lucille_tpu_torch.tools.rockenfield",
+                                   "--port", str(port)]
+        assert not any("tools_tpu" in str(a) for a in viewer.args)
         drv.write(0, 0, np.full((8, 8, 3), 0.5, np.float32))
     finally:
         viewer = drv._viewer
