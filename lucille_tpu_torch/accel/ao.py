@@ -30,6 +30,7 @@ import torch
 
 from lucille_tpu_torch.accel.isect import DET_EPS
 from lucille_tpu_torch.accel.pack import SUB, TC
+from lucille_tpu_torch.base.timer import traced
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 
 R2_A1 = 0.7548776662466927  # R2 additive-recurrence constants (plastic
@@ -185,6 +186,7 @@ def gather_stats(stats: torch.Tensor) -> dict:
             "warp_steps": s[6]}
 
 
+@traced("accel.ao_occlusion_kernel")
 def ao_occlusion_kernel(scene, rays, jitter, nact, ntheta: int, nphi: int,
                         want_bits: bool = False, counters: bool = False):
     """Launch csrc/ao.cu on the current stream (CUDA tensors only).
@@ -301,6 +303,7 @@ def unpack_bits(bits: torch.Tensor, S: int) -> torch.Tensor:
     return ((bits[s // 32] >> (s % 32)[:, None].to(torch.int32)) & 1) == 1
 
 
+@traced("accel.ao_occlusion_reference")
 def ao_occlusion_reference(tris, rays, u01, ntheta: int, nphi: int,
                            lane_chunk: int = 16384, want_bits: bool = False):
     """Plain torch twin for lanes that all hit: rays (12, n) [P_off | b0 |

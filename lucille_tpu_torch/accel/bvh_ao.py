@@ -85,6 +85,7 @@ from lucille_tpu_torch.accel.bvh_isect import (
 from lucille_tpu_torch.accel.dispatch import any_hit
 from lucille_tpu_torch.accel.isect import NSTAT, walk_stats
 from lucille_tpu_torch.accel.pack import TC
+from lucille_tpu_torch.base.timer import traced
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 from lucille_tpu_torch.lights.sunsky import sky_frame
 
@@ -307,6 +308,7 @@ def fused_layout(S: int):
     return K, min(S // K, FUSED_WARPS)
 
 
+@traced("accel.bvh_ao_fused_kernel")
 def bvh_ao_fused_kernel(tris, nodes, leaf_real, rays, jitter, nact,
                         ntheta: int, nphi: int, *, depth: int):
     """Launch csrc/bvh.cu's fused gather on the current stream (CUDA
@@ -357,6 +359,7 @@ def bvh_ao_fused_kernel(tris, nodes, leaf_real, rays, jitter, nact,
     return occ, walk_stats(stats)
 
 
+@traced("accel.bvh_ao_fused_reference")
 def bvh_ao_fused_reference(tris, rays, u01, ntheta: int, nphi: int,
                            lane_chunk: int = 4096):
     """Plain torch twin of the fused gather for slots that all hit: rays

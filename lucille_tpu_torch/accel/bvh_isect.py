@@ -44,6 +44,8 @@ from lucille_tpu_torch.accel.isect import (
     walk_stats,
 )
 from lucille_tpu_torch.accel.pack import TC
+from lucille_tpu_torch.base.timer import traced
+from lucille_tpu_torch.device import host_sync
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 
 STACK = 64  # stack entries of csrc/bvh.cu's walks (per thread or warp)
@@ -94,6 +96,7 @@ def check_leaf_real(leaf_real, nodes) -> None:
                          f"{nodes.device}")
 
 
+@traced("accel.bvh_closest_hit")
 def bvh_closest_hit(tris, nodes, org, dirn, tmax=None, active=None, *,
                     depth: int, leaf_real=None) -> dict:
     """tris (16, Npad) [v0|e1|e2] from pack_tris, nodes (M, 8) from
@@ -128,6 +131,7 @@ def bvh_closest_hit(tris, nodes, org, dirn, tmax=None, active=None, *,
     return {"t": t, "u": u, "v": v, "tri": tri, **walk_stats(stats)}
 
 
+@traced("accel.bvh_any_hit")
 def bvh_any_hit(tris, nodes, org, dirn, tmax=None, *, depth: int,
                 leaf_real=None) -> dict:
     """Operands as bvh_closest_hit; leaf_real (M,) int32, each leaf's
@@ -159,6 +163,7 @@ def _plain_stats(tris, B, dev) -> dict:
                                    device=dev)}
 
 
+@traced("accel.bvh_closest_hit_reference")
 def bvh_closest_hit_reference(tris, org, dirn, tmax, active=None,
                               ray_chunk: int = 65536) -> dict:
     """Plain torch twin of the closest hit: every live ray against every
@@ -170,10 +175,12 @@ def bvh_closest_hit_reference(tris, org, dirn, tmax, active=None,
                     {"t": 0.0, "u": 0.0, "v": 0.0, "tri": -1})
     if active is not None:
         res["t"] = torch.where(active, res["t"], tmax)
-    n_live = org.shape[0] if active is None else int(active.sum())
+    n_live = (org.shape[0] if active is None
+              else host_sync(int, active.sum()))
     return {**res, **_plain_stats(tris, n_live, org.device)}
 
 
+@traced("accel.bvh_any_hit_reference")
 def bvh_any_hit_reference(tris, org, dirn, tmax,
                           ray_chunk: int = 65536) -> dict:
     """Plain torch twin of the any-hit: every ray against every triangle

@@ -44,6 +44,8 @@ import functools
 import torch
 
 from lucille_tpu_torch.accel.pack import SUB, SUPER, TC
+from lucille_tpu_torch.base.timer import traced
+from lucille_tpu_torch.device import host_sync
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 
 DET_EPS = 1.0e-14  # the reference's |det| floor (bvh.c:746)
@@ -151,6 +153,7 @@ def _scene_args(scene) -> tuple:
             scene.sub_boxes.data_ptr())
 
 
+@traced("accel.closest_hit_kernel")
 def closest_hit_kernel(scene, org, dirn, tmax=None, active=None) -> dict:
     """Launch csrc/isect.cu's closest hit on the current stream (CUDA
     tensors only); tmax None passes no bound to the kernel."""
@@ -193,6 +196,7 @@ def _plain_stats(tris, org, active) -> dict:
             "ntests": n_live.to(torch.int64) * tris.shape[1]}
 
 
+@traced("accel.closest_hit_reference")
 def closest_hit_reference(tris, org, dirn, tmax=None, active=None,
                           ray_chunk: int = 65536) -> dict:
     """Plain torch twin: every live ray against every tile, t_best
@@ -312,7 +316,7 @@ def live_scan(scan, org, dirn, tmax, active, dead: dict) -> dict:
     `dead` fill values."""
     if active is None:
         return scan(org, dirn, tmax)
-    live = torch.nonzero(active)[:, 0]
+    live = host_sync(torch.nonzero, active)[:, 0]
     got = scan(org[live], dirn[live], tmax[live])
     out = {}
     for k, v in got.items():
@@ -362,6 +366,7 @@ def any_hit(scene, org, dirn, tmax=None, active=None,
     return any_hit_kernel(scene, org, dirn, tmax, active, counters)
 
 
+@traced("accel.any_hit_kernel")
 def any_hit_kernel(scene, org, dirn, tmax, active=None,
                    counters: bool = False) -> dict:
     """Launch csrc/isect.cu's any-hit on the current stream (CUDA tensors
@@ -390,6 +395,7 @@ def any_hit_kernel(scene, org, dirn, tmax, active=None,
                                                 **walk_stats(stats)}
 
 
+@traced("accel.any_hit_reference")
 def any_hit_reference(tris, org, dirn, tmax, active=None,
                       ray_chunk: int = 65536) -> dict:
     """Plain torch twin of the any-hit: every ray against every triangle

@@ -52,6 +52,7 @@ from lucille_tpu_torch.accel.isect import (
     ray_limits,
     walk_stats,
 )
+from lucille_tpu_torch.base.timer import traced
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
 
 K = 4  # triangles tested a step (4-wide packets, ugrid.c:657)
@@ -231,6 +232,7 @@ def _walk(scene, org, dirn, tmax, active, any_hit: bool,
                             counters, warp_steps=False)
 
 
+@traced("accel.grid_walk_kernel")
 def grid_walk_kernel(scene, org, dirn, tmax=None, active=None,
                      any_hit: bool = False, counters: bool = True,
                      warp_steps: bool = True) -> dict:
@@ -321,6 +323,7 @@ def _cell_range(scene, cell, reads=None, entering=None):
     return starts[cid], starts[cid + 1]
 
 
+@traced("accel.grid_walk_reference")
 def grid_walk_reference(scene, org, dirn, tmax=None, active=None,
                         any_hit: bool = False, reads=None) -> dict:
     """Plain torch twin: lucille_tpu's lock-step walk (ugrid.py:166-268) of

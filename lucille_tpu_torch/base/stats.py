@@ -5,19 +5,17 @@ Equivalent capability to lucille's ``ri_statistic_t`` + report
 traced, triangle tests, and accel-structure traversal steps, plus the
 derived **M rays/sec** headline metric.
 
-On TPU the counters cannot be mutable globals incremented from the hot loop;
-integrator kernels *return* counter vectors (summed per tile under jit) and
-the host accumulates them here.  Counts that are statically known from the
-launch shape (e.g. rays dispatched in a dense wavefront) are computed
-host-side without touching the device.
+The counters are not globals incremented from the hot loop: each tile's
+integrator returns them as device tensors, the renderer pulls them with
+the tile's image and accumulates them here once a frame.
 
-The port's copy of lucille_tpu/base/stats.py: the same code, with its
-imports pointed at lucille_tpu_torch's own host modules.
+The port's copy of lucille_tpu/base/stats.py, without its unread
+`extra` field.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 
 @dataclass
@@ -26,7 +24,6 @@ class RenderStats:
     ntriangle_tests: int = 0
     ntraversals: int = 0
     render_seconds: float = 0.0
-    extra: dict = field(default_factory=dict)
 
     def add(self, nrays: int = 0, ntriangle_tests: int = 0, ntraversals: int = 0):
         self.nrays += int(nrays)

@@ -39,6 +39,13 @@
                        written after each tile and resumed from
     --width/--height   override the image size
     --debug --stats --verbose   debug logging, ray statistics, progress
+    --profile FILE     render under torch.profiler (CPU, and CUDA on a
+                       card) and write its Chrome trace to FILE: the
+                       renderer's spans (frame, frame.enqueue, tile,
+                       tile.rays, tile.integrate, accel.*, tile.filter,
+                       tile.pull, tile.deliver; base/timer.py) beside
+                       the torch ops and kernels; with --stats also
+                       each span's self time a frame (process 0 only)
     --device D         cuda (default) or cpu
 
 With no RIB the CLI enters the interactive shell (shell.py) on --device.
@@ -68,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+from contextlib import nullcontext
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -114,6 +122,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--stats", action="store_true", help="print ray statistics")
+    p.add_argument("--profile", metavar="FILE",
+                   help="write a torch.profiler Chrome trace of the frame, "
+                        "with the renderer's spans, to FILE")
     p.add_argument("--verbose", "-v", action="store_true")
     return p
 
@@ -243,8 +254,19 @@ def _run(p, args, distributed: bool) -> int:
         base = ((opt.current_display().name or "untitled.hdr")
                 if opt.displays else "untitled.hdr")
         ckpt = base + ".ckpt.npz"
-    image = renderer.render_frame(tile_cb=tile_cb, progress_cb=progress_cb,
-                                  checkpoint=ckpt, recover=args.recover)
+    profiling = nullcontext()
+    if args.profile and is_primary_host():
+        from torch.profiler import ProfilerActivity, profile
+
+        profiling = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if renderer.device.type == "cuda"
+            else []))
+    with profiling as prof:
+        image = renderer.render_frame(tile_cb=tile_cb,
+                                      progress_cb=progress_cb,
+                                      checkpoint=ckpt, recover=args.recover)
+    if prof is not None:
+        prof.export_chrome_trace(args.profile)
     if opt.imager:
         # the imager ran over the assembled frame: write it again so the
         # file and socket drivers flush the post-processed pixels
@@ -257,6 +279,8 @@ def _run(p, args, distributed: bool) -> int:
     if (args.stats or args.verbose) and is_primary_host():
         print(renderer.stats.report())
         print(timer.dump())
+        if args.profile:
+            print(timer.span_report(timer.recorded_frames(1)))
     return 0
 
 

@@ -7,6 +7,12 @@ twins of every kernel.  Nothing silently drops to the CPU.
 `const_vec` keeps the small constants the integrators read (colours,
 directions, positions) on the device: a host-to-device copy waits for
 the device to drain, so the bounce loops never make one per tile.
+
+`host_sync` is the one door for a call that makes the host wait on the
+card (a copy to the host, a blocking copy from it, a result whose size
+the device decides): it counts the call in the recording frame's
+`host_syncs` (base/timer.py), wherever the tensors lie, so a CPU frame
+counts what the same frame waits for on a card.
 """
 
 from __future__ import annotations
@@ -14,6 +20,15 @@ from __future__ import annotations
 from functools import lru_cache
 
 import torch
+
+from lucille_tpu_torch.base.timer import get_timer
+
+
+def host_sync(op, *args):
+    """op(*args), a call that makes the host wait on the card when its
+    tensors lie there, counted as one host sync of the frame."""
+    get_timer().count("host_syncs")
+    return op(*args)
 
 
 def const_vec(values, device) -> torch.Tensor:

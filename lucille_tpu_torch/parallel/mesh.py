@@ -27,7 +27,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from lucille_tpu_torch.device import resolve_device
+from lucille_tpu_torch.base.timer import get_timer
+from lucille_tpu_torch.device import host_sync, resolve_device
 from lucille_tpu_torch.parallel.distributed import (
     all_gather_host,
     local_devices,
@@ -116,16 +117,18 @@ class _Round:
         self._np = None
 
     def get(self, slot: int) -> tuple:
-        """Slot `slot`'s (image, counters) as numpy."""
-        if self._np is None:
-            slots = sorted(self._outs)
-            local = tuple(
-                np.stack([self._outs[s][i].cpu().numpy() for s in slots])
-                if slots else np.zeros(0, np.float32) for i in (0, 1))
-            if not self._mesh.local:
-                local = all_gather_host(local)
-            self._np, self._outs = local, None
-        return self._np[0][slot], self._np[1][slot]
+        """Slot `slot`'s (image, counters) as numpy (span tile.pull)."""
+        with get_timer().span("tile.pull"):
+            if self._np is None:
+                slots = sorted(self._outs)
+                local = tuple(
+                    np.stack([host_sync(torch.Tensor.cpu, self._outs[s][i])
+                              .numpy() for s in slots])
+                    if slots else np.zeros(0, np.float32) for i in (0, 1))
+                if not self._mesh.local:
+                    local = all_gather_host(local)
+                self._np, self._outs = local, None
+            return self._np[0][slot], self._np[1][slot]
 
 
 def sharded_tile_batch(mesh: Mesh, tile_fn):

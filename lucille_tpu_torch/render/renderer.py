@@ -67,7 +67,12 @@ Counterpart of lucille_tpu/render/renderer.py:41-152 and :269-591:
   the end empty, so the counters equal the one-device frame's.  Under
   --recover only host 0 reads the checkpoint and, with more than one
   process, broadcasts (image, alpha, done); only host 0 saves.  Without
-  a mesh the frame is a one-slot mesh of `device`.
+  a mesh the frame is a one-slot mesh of `device`;
+- under a torch profiler a frame records its spans (frame,
+  frame.enqueue, tile, tile.rays, tile.integrate, tile.filter, tile.pull,
+  tile.deliver, frame.imager) and its host syncs (base/timer.py,
+  device.host_sync): two copies a pulled tile, and the subpixel table
+  and its weights copied to the device at the frame's start.
 """
 
 from __future__ import annotations
@@ -84,7 +89,7 @@ import torch
 from lucille_tpu_torch.base.log import LOG_INFO, LOG_WARN, log
 from lucille_tpu_torch.base.stats import RenderStats
 from lucille_tpu_torch.base.timer import get_timer
-from lucille_tpu_torch.device import resolve_device
+from lucille_tpu_torch.device import host_sync, resolve_device
 from lucille_tpu_torch.imageio.loader import load_image
 from lucille_tpu_torch.lights.tables import build_light_tables
 from lucille_tpu_torch.parallel.distributed import (
@@ -234,20 +239,34 @@ class Renderer:
         pulls both; counters [ntests, ntrav, nrays] i64), both still on
         the device."""
         S = jitter.shape[0]
-        dev = rep.device
         opt = self.desc.options
-        stream = rep.sampler(x0, y0)
-        lens_u = None
-        if self.camera.dof_active:
-            lens_u = stream.uniform((LENS_FOLD,), (tile_h * tile_w * S, 2))
-        org, dirn = tile_eye_rays(self.camera, x0, y0, tile_w, tile_h, jitter,
-                                  lens_u)
-        radiance, aux = self.integrator(
-            rep.scene, rep.lights, org, dirn, stream,
-            gather_nsamples=opt.gather_nsamples,
-            max_depth=opt.max_ray_depth, bgcolor=tuple(opt.bgcolor),
-            textures=rep.textures, **rep.method_kwargs,
-        )
+        timer = get_timer()
+        with timer.span("tile", x0=x0, y0=y0):
+            with timer.span("tile.rays"):
+                stream = rep.sampler(x0, y0)
+                lens_u = None
+                if self.camera.dof_active:
+                    lens_u = stream.uniform((LENS_FOLD,),
+                                            (tile_h * tile_w * S, 2))
+                org, dirn = tile_eye_rays(self.camera, x0, y0, tile_w,
+                                          tile_h, jitter, lens_u)
+            with timer.span("tile.integrate"):
+                radiance, aux = self.integrator(
+                    rep.scene, rep.lights, org, dirn, stream,
+                    gather_nsamples=opt.gather_nsamples,
+                    max_depth=opt.max_ray_depth, bgcolor=tuple(opt.bgcolor),
+                    textures=rep.textures, **rep.method_kwargs,
+                )
+            with timer.span("tile.filter"):
+                return self._filter(radiance, aux, org, dirn, tile_w, tile_h,
+                                    weights, rep)
+
+    def _filter(self, radiance, aux, org, dirn, tile_w, tile_h, weights,
+                rep):
+        """The tile's integrator output -> (image, counters) on the device
+        (`_tile`): the atmosphere, the pixel filter, the counters and, with
+        an imager, the alpha channel."""
+        S = weights.shape[0]
         if rep.atmosphere is not None and aux.get("t") is not None:
             hit = aux["hit"]
             t = torch.where(hit, aux["t"], 0.0)
@@ -261,10 +280,10 @@ class Renderer:
         counters = torch.stack([
             aux[k].to(torch.int64) if torch.is_tensor(aux.get(k))
             else torch.full((), int(aux.get(k, 0)), dtype=torch.int64,
-                            device=dev)
+                            device=rep.device)
             for k in ("ntests", "ntrav", "nrays")
         ])
-        if opt.imager:  # the imager's coverage
+        if self.desc.options.imager:  # the imager's coverage
             alpha = aux["hit"].reshape(tile_h, tile_w, S).to(
                 torch.float32).mean(dim=2)
             img = torch.cat([img, alpha[..., None]], dim=-1)
@@ -278,7 +297,13 @@ class Renderer:
         is raster y 0; the hdr file driver flips).  checkpoint: a tile
         checkpoint file's path; recover: resume from it (module
         docstring).  Under a mesh that spans processes every process
-        calls it and gets the whole frame."""
+        calls it and gets the whole frame.  Under a torch profiler the
+        frame records its spans and host syncs (base/timer.py)."""
+        with get_timer().frame():
+            return self._render_frame(tile_cb, progress_cb, checkpoint,
+                                      recover)
+
+    def _render_frame(self, tile_cb, progress_cb, checkpoint, recover):
         opt = self.desc.options
         W, H = opt.width, opt.height
         xsamples, ysamples, jitter_np, weights_np = self._subsamples()
@@ -341,54 +366,60 @@ class Renderer:
         todo = [ti for ti in range(len(tiles)) if not done[ti]]
         pending = [None] * len(tiles)
         D = self._slots.size
-        for s in range(0, len(todo), D):
-            group = todo[s : s + D]
-            rnd = enqueue([tiles[ti][:2] for ti in group])
-            for slot, ti in enumerate(group):
-                pending[ti] = (rnd, slot)
+        with timer.span("frame.enqueue"):
+            for s in range(0, len(todo), D):
+                group = todo[s : s + D]
+                rnd = enqueue([tiles[ti][:2] for ti in group])
+                for slot, ti in enumerate(group):
+                    pending[ti] = (rnd, slot)
         totals = np.zeros(3, dtype=np.int64)
         for ti, (x0, y0, _i, _j) in enumerate(tiles):
             th = min(tile_h, H - y0)
             tw = min(tile_w, W - x0)
             if pending[ti] is None:  # recovered: replay to the callbacks
-                if tile_cb:
-                    tile_cb(x0, y0, image[y0 : y0 + th, x0 : x0 + tw])
-                if progress_cb:
-                    progress_cb((ti + 1) / len(tiles))
+                with timer.span("tile.deliver"):
+                    if tile_cb:
+                        tile_cb(x0, y0, image[y0 : y0 + th, x0 : x0 + tw])
+                    if progress_cb:
+                        progress_cb((ti + 1) / len(tiles))
                 continue
             rnd, slot = pending[ti]
-            tile_np, counters = rnd.get(slot)
-            totals += counters
-            tile_alpha = None
-            if tile_np.shape[-1] == 4:  # the imager's alpha channel
-                tile_np, tile_alpha = tile_np[..., :3], tile_np[..., 3]
-            if cropped:
-                wy0, wy1 = max(y0, crop_py0), min(y0 + th, crop_py1)
-                wx0, wx1 = max(x0, crop_px0), min(x0 + tw, crop_px1)
-                window = (slice(wy0 - y0, wy1 - y0), slice(wx0 - x0, wx1 - x0))
-                image[wy0:wy1, wx0:wx1] = tile_np[window]
-                if tile_alpha is not None:
-                    alpha[wy0:wy1, wx0:wx1] = tile_alpha[window]
-            else:
-                image[y0 : y0 + th, x0 : x0 + tw] = tile_np[:th, :tw]
-                if tile_alpha is not None:
-                    alpha[y0 : y0 + th, x0 : x0 + tw] = tile_alpha[:th, :tw]
-            done[ti] = True
-            if checkpoint:
-                save_checkpoint()
-            if tile_cb:
-                tile_cb(x0, y0, tile_np[:th, :tw])
-            if progress_cb:
-                progress_cb((ti + 1) / len(tiles))
+            tile_np, counters = rnd.get(slot)  # span tile.pull
+            with timer.span("tile.deliver"):
+                totals += counters
+                tile_alpha = None
+                if tile_np.shape[-1] == 4:  # the imager's alpha channel
+                    tile_np, tile_alpha = tile_np[..., :3], tile_np[..., 3]
+                if cropped:
+                    wy0, wy1 = max(y0, crop_py0), min(y0 + th, crop_py1)
+                    wx0, wx1 = max(x0, crop_px0), min(x0 + tw, crop_px1)
+                    window = (slice(wy0 - y0, wy1 - y0),
+                              slice(wx0 - x0, wx1 - x0))
+                    image[wy0:wy1, wx0:wx1] = tile_np[window]
+                    if tile_alpha is not None:
+                        alpha[wy0:wy1, wx0:wx1] = tile_alpha[window]
+                else:
+                    image[y0 : y0 + th, x0 : x0 + tw] = tile_np[:th, :tw]
+                    if tile_alpha is not None:
+                        alpha[y0 : y0 + th, x0 : x0 + tw] = (
+                            tile_alpha[:th, :tw])
+                done[ti] = True
+                if checkpoint:
+                    save_checkpoint()
+                if tile_cb:
+                    tile_cb(x0, y0, tile_np[:th, :tw])
+                if progress_cb:
+                    progress_cb((ti + 1) / len(tiles))
         if checkpoint and is_primary_host() and os.path.exists(checkpoint):
             os.remove(checkpoint)  # the frame is complete
         if opt.imager:  # the film post-pass over the assembled frame
             timer.start("Imager")
-            image = np.asarray(apply_imager(image, alpha, opt.imager,
-                                            opt.imager_params,
-                                            opt.searchpaths, self.device,
-                                            self.shaders),
-                               dtype=np.float32)
+            with timer.span("frame.imager"):
+                image = np.asarray(apply_imager(image, alpha, opt.imager,
+                                                opt.imager_params,
+                                                opt.searchpaths, self.device,
+                                                self.shaders),
+                                   dtype=np.float32)
             timer.end("Imager")
         self.stats.render_seconds += timer.end("Render frame")
         self.stats.add(nrays=int(totals[2]), ntriangle_tests=int(totals[0]),
@@ -415,9 +446,10 @@ class _OnDevice:
 
 def _on_device(jitter_np, weights_np, device):
     """The subpixel positions and their weights as f32 tensors on
-    `device` (copied once a frame, outside any tile)."""
-    return (torch.tensor(jitter_np, dtype=torch.float32, device=device),
-            torch.from_numpy(weights_np).to(device))
+    `device` (copied once a frame, outside any tile: two host syncs)."""
+    return (host_sync(torch.Tensor.to,
+                      torch.tensor(jitter_np, dtype=torch.float32), device),
+            host_sync(torch.Tensor.to, torch.from_numpy(weights_np), device))
 
 
 def _recover(checkpoint: str, meta, image, alpha, done):
