@@ -50,8 +50,9 @@ non-zero):
    kernels launched, no other kernel, no plain twin, no tile waiting on
    the card while it is enqueued; the warm frame seconds (best of 2) and
    Mrays/s.  First as shipped, with its sunsky
-   light (the sunsky gather: closest hit, AO gather with bits, dense
-   any-hit), then without it (plain AO: closest hit, AO gather);
+   light (the sunsky gather: closest hit, AO gather with bits, the sky
+   over them, dense any-hit), then without it (plain AO: closest hit, AO
+   gather);
 5. the 80x60 frames against CPU-lucille's own: plain AO against
    tests/golden/ao_80x60_ref.hdr (tests/test_render.py's bound), sunsky
    AO with the reference's turbidity-0 sun against
@@ -255,6 +256,13 @@ non-zero):
    the mesh of every card against the same frames without a mesh; the
    headline frame over every card where there are two or more; its
    wall seconds;
+37. (run after 4) the sunsky gather's sky (csrc/ao.cu sky_gather_kernel;
+   it stands for lucille_tpu's jnp glue, _sunsky_megakernel) on the
+   headline tile's compacted lanes and kernel 3b's bits of them against
+   its twin (`check_sky_gather`): every hit lane within 1e-5 relative
+   plus 1e-3, its ms, the twin's, the bound, the open share of the
+   (lane, stratum) pairs, its registers and spills, and 6 launches a
+   frame;
 36. (run before 34) the entry points outside the package core
    (`check_tools`), each with its wall seconds beside the card's name
    and power limit: (a) the fur example at its defaults (400 strands,
@@ -322,6 +330,10 @@ SOURCES = {
                          "lucille_tpu/accel/ugrid.py:166"),
     "grid_any_hit": ("lucille_tpu_torch/csrc/ugrid.cu",
                      "lucille_tpu/accel/ugrid.py:166"),
+    # the sunsky gather's sky stands for jnp glue (_sunsky_megakernel's
+    # scan over the strata), not a Pallas kernel
+    "sky_gather": ("lucille_tpu_torch/csrc/ao.cu",
+                   "lucille_tpu/transport/ao.py:286"),
 }
 
 # kernel name -> its CUDA symbol, as the profiler names it
@@ -341,6 +353,10 @@ PEAK_BYTES = 3.35e12
 # stratum's direction from the jitter and basis, and its reciprocals).
 MT_OPS, SV_OPS, AO_OPS, SLAB_OPS, NODE_OPS = 56, 58, 30, 25, 56
 DIR_OPS = 55
+# the sunsky gather's sky (csrc/ao.cu sky_gather_kernel) for one open
+# (lane, stratum) pair: the stratum's direction (43), the Preetham sky
+# along it and the sum (124), a transcendental counted once
+SKY_OPS = 167
 # a grid walk's cell advance (csrc/ugrid.cu: the nearest boundary of
 # three, the settle and exit tests, the step, the next cell's index)
 DDA_OPS = 16
@@ -832,7 +848,8 @@ def counters():
             "bvh_any_hit": bvh_isect.ANY_COUNTS,
             "bvh_ao_fused": bvh_ao.FUSED_COUNTS,
             "grid_closest_hit": ugrid.COUNTS,
-            "grid_any_hit": ugrid.ANY_COUNTS}
+            "grid_any_hit": ugrid.ANY_COUNTS,
+            "sky_gather": ao.SKY_COUNTS}
 
 
 @contextmanager
@@ -1773,6 +1790,90 @@ def check_gather(label, scene, inputs, ntheta, nphi, n_slice, results,
              "plain_ms": plain_ms, "tests": ao_tests,
              "tile_box_tests": need["tiles"],
              "group_box_tests": need["groups"], **walk["numbers"], **work})
+
+
+def check_sky_gather(results, log: str):
+    """Phase 37: the sunsky gather's sky (csrc/ao.cu sky_gather_kernel) on
+    the headline tile (the bundled scene as shipped, 640x480, 3x3, 64
+    rays: 518,400 lanes, S = 64), on kernel 3b's own compacted bits of
+    it, against its plain twin on every hit lane: each lane's sum within
+    1e-5 of its value, relatively, plus 1e-3; lanes at or past nact 0;
+    the counters' open pairs the clear bits of the hit lanes.  Prints the
+    kernel's device ms (profiler) and ms a launch (events), the twin's,
+    the bound (SKY_OPS a pair the counters count, or the bytes), the open
+    share and the registers and spills (a spill in the render path's
+    instantiation fails; the counting one's is printed); one frame of the
+    headline renderer must launch the kernel once a tile (6).  Appends to
+    results["sky_gather"]."""
+    import torch
+    from profile_gather import kernel_ms
+
+    from lucille_tpu_torch.accel import ao
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    ntheta = nphi = 8
+    S = ntheta * nphi
+    r = Renderer(bundled_state(640, 480, 3, 64).scene, tile_size=TILE,
+                 device="cuda")
+    sky = next(li.sunsky for li in r.lights if li.type == "sunsky")
+    P_off, b0, b1, b2, hit, jitter = ao_gather_inputs(r)
+    B = P_off.shape[0]
+    _order, nhit, rays, (_occ, bits) = ao._gather(
+        r.scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi, True)
+    n = int(nhit)
+    col, cnt = ao.sky_gather_kernel(rays, jitter, bits, nhit, ntheta, nphi,
+                                    sky, counters=True)
+    if not torch.equal(ao.sky_gather_kernel(rays, jitter, bits, nhit, ntheta,
+                                            nphi, sky), col):
+        raise AssertionError("sky_gather: the counting launch answers "
+                             "otherwise")
+    ref = ao.sky_gather_reference(rays[:, :n], jitter[:, :n], bits[:, :n],
+                                  ntheta, nphi, sky)
+    rel = ((col[:n] - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
+    ok = bool(((col[:n] - ref).abs() <= 1e-5 * ref.abs() + 1e-3).all())
+    if not ok or torch.any(col[n:] != 0):
+        raise AssertionError(f"sky_gather: max relative error {rel:.2e}, or "
+                             "a lane past nact is not 0")
+    open_pairs = int(cnt["open_pairs"])
+    if (open_pairs != int((~ao.unpack_bits(bits[:, :n], S)).sum())
+            or int(cnt["live_lanes"]) != n):
+        raise AssertionError(f"sky_gather: counters {cnt} against the bits")
+    launch = lambda: ao.sky_gather_kernel(  # noqa: E731
+        rays, jitter, bits, nhit, ntheta, nphi, sky)
+    ms = kernel_ms(launch, "sky_gather")[0]
+    launch_ms = cuda_ms(launch, 20)
+    plain_ms = cuda_ms(lambda: ao.sky_gather_reference(
+        rays[:, :n], jitter[:, :n], bits[:, :n], ntheta, nphi, sky), 2)
+    # read: 9 basis floats, 2 uniforms and the bits words of a live lane;
+    # written: 3 floats a lane
+    work = bound(n * 4 * (9 + 2 + bits.shape[0]) + B * 12,
+                 float(open_pairs * SKY_OPS))
+    entries = {f"sky_gather_kernel<{'ILb1E' in name}>": v
+               for name, v in ptxas_entries(log).items()
+               if "sky_gather_kernel" in name}
+    if len(entries) != 2 or entries["sky_gather_kernel<False>"][1]:
+        raise AssertionError(f"sky_gather_kernel: no report, or the render "
+                             f"path's instantiation spills: {entries}")
+    ao.SKY_COUNTS.reset()
+    r.render_frame()
+    torch.cuda.synchronize()
+    frame_launches = ao.SKY_COUNTS.kernel
+    if frame_launches != 6:
+        raise AssertionError(f"sky_gather: {frame_launches} launches in a "
+                             "headline-sunsky frame, not 6")
+    print(f"[headline-sunsky] sky_gather: {n} of {B} lanes live, {S} strata, "
+          f"{open_pairs} open pairs (open share {open_pairs / (n * S):.4f}), "
+          f"max relative error {rel:.2e}; kernel {ms:.4f} ms ({launch_ms:.4f}"
+          f" ms a launch), plain {plain_ms:.3f} ms, bound "
+          f"{work['bound_ms']:.4f} ms ({work['bound_by']}); (registers, "
+          f"spill bytes) {entries}; {frame_launches} launches a frame",
+          flush=True)
+    results["sky_gather"].append(
+        {"scene": "headline-sunsky", "strata": S, "max_abs_err": rel,
+         "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+         "open_pairs": open_pairs, "live_lanes": n,
+         "registers": {k: v[0] for k, v in entries.items()},
+         "frame_launches": frame_launches, **work})
 
 
 def render_checked(label, r, out_name, path, max_mean=None):
@@ -4293,7 +4394,8 @@ def main() -> int:
     # 4. the headline frames: the bundled scene as shipped (sunsky AO),
     # then plain AO
     launches = {}
-    sunsky_path = ("closest_hit", "ao_occlusion_bits", "any_hit")
+    sunsky_path = ("closest_hit", "ao_occlusion_bits", "sky_gather",
+                   "any_hit")
     got, _, _ = render_checked(
         "headline-sunsky", Renderer(bundled_state(640, 480, 3, 64).scene,
                                     tile_size=TILE, device="cuda"),
@@ -4306,6 +4408,9 @@ def main() -> int:
     got, _, _ = render_checked("headline-ao", headline_ao,
                                "chip_smoke_ao_640x480.hdr", dense)
     launches["ao_occlusion"] = got["ao_occlusion"]
+
+    # 37. the sunsky gather's sky against its twin on the headline tile
+    check_sky_gather(results, lib.log)
 
     # 5. the goldens at 80x60
     check_goldens()

@@ -11,16 +11,20 @@ counts are scattered back to raster order.
 `ao_occlusion_bits` (pallas_ao_occlusion_bits) returns, beside the
 counts, which strata are occluded — ceil(S/32) int32 rows, bit s % 32 of
 row s // 32 for stratum s — and the jitter, both scattered back to
-raster order, so that the sunsky gather can recompute each stratum's
-direction (`stratum_directions`, the kernel's own formula) and weight
-the open ones by the sky.
+raster order.
 
-The kernel is csrc/ao.cu; `ao_occlusion` and `ao_occlusion_bits` launch
-it for CUDA tensors, laid out by `gather_layout`, and run
-`ao_occlusion_reference` on the compacted hit lanes for CPU tensors.
-The packs they read are the scene's own (`scene.occ`, `scene.boxes`,
-`scene.sboxes`, `scene.sub_boxes`, built once in
-scene/types.from_numpy).
+`ao_sunsky` is the dense sunsky gather's sky: the gather's bits in
+compacted order, then each hit lane's open strata, their directions
+recomputed with the kernel's own formula (`stratum_directions`), weighted
+by the Preetham sky and summed, the sum scattered to raster order once.
+
+The kernels are csrc/ao.cu's.  `ao_occlusion` and `ao_occlusion_bits`
+launch `ao_kernel` for CUDA tensors, laid out by `gather_layout`, and
+run `ao_occlusion_reference` on the compacted hit lanes for CPU tensors;
+`ao_sunsky` launches `sky_gather_kernel` after it for CUDA tensors and
+runs `sky_gather_reference` for CPU tensors.  The packs they read are
+the scene's own (`scene.occ`, `scene.boxes`, `scene.sboxes`,
+`scene.sub_boxes`, built once in scene/types.from_numpy).
 """
 
 from __future__ import annotations
@@ -32,6 +36,11 @@ from lucille_tpu_torch.accel.isect import DET_EPS
 from lucille_tpu_torch.accel.pack import SUB, TC
 from lucille_tpu_torch.base.timer import traced
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
+from lucille_tpu_torch.lights.sunsky import (
+    _XYZ2RGB_CIE,
+    _folded_basis,
+    sky_frame,
+)
 
 R2_A1 = 0.7548776662466927  # R2 additive-recurrence constants (plastic
 R2_A2 = 0.5698402909980532  # number alpha, alpha^2), rounded to f32 in use
@@ -45,6 +54,7 @@ NSTAT = 7  # the kernel's counters per warp (gather_stats)
 
 COUNTS = LaunchCounts()  # the counts alone
 BITS_COUNTS = LaunchCounts()  # the counts with the per-stratum bits
+SKY_COUNTS = LaunchCounts()  # the sunsky gather's sky over the bits
 
 
 def partition_order(hit: torch.Tensor):
@@ -90,8 +100,9 @@ def compaction_order(bbox_min, bbox_max, P_off, b2, hit, n_tri_tiles: int):
 
 def _gather(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int, nphi: int,
             want_bits: bool):
-    """The compacted gather: (order, occ (B,) and, with want_bits, bits
-    (ceil(S/32), B) i32, both in compacted order)."""
+    """The compacted gather: (order, nhit () i32, rays (12, B) [P_off | b0
+    | b1 | b2] in compacted order, occ (B,) or with want_bits (occ, bits
+    (ceil(S/32), B) i32), both in compacted order)."""
     B = P_off.shape[0]
     if tuple(jitter.shape) != (2, B) or jitter.dtype != torch.float32:
         raise ValueError(f"jitter: need (2, {B}) f32, got "
@@ -122,7 +133,7 @@ def _gather(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int, nphi: int,
             out = occ
     else:
         raise ValueError(f"unsupported device {dev}")
-    return order, out
+    return order, nhit, rays, out
 
 
 def ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
@@ -133,8 +144,8 @@ def ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     basis (b2 = shading normal); hit: (B,) bool; jitter: (2, B) f32
     uniforms, column j belonging to compacted slot j.  Returns (B,) f32:
     how many of the ntheta * nphi strata are occluded (0 where not hit)."""
-    order, occ_sorted = _gather(scene, P_off, b0, b1, b2, hit, jitter,
-                                ntheta, nphi, False)
+    order, _nhit, _rays, occ_sorted = _gather(scene, P_off, b0, b1, b2, hit,
+                                              jitter, ntheta, nphi, False)
     occ = torch.empty_like(occ_sorted)
     occ[order] = occ_sorted
     return occ
@@ -149,7 +160,7 @@ def ao_occlusion_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     lane b is occluded (0 where not hit), and u01[:, b] is the jitter
     column lane b's strata were drawn from (the column of its compacted
     slot)."""
-    order, (occ_sorted, bits_sorted) = _gather(
+    order, _nhit, _rays, (occ_sorted, bits_sorted) = _gather(
         scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi, True)
     occ = torch.empty_like(occ_sorted)
     occ[order] = occ_sorted
@@ -158,6 +169,31 @@ def ao_occlusion_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     u01 = torch.empty_like(jitter)
     u01[:, order] = jitter
     return occ, bits, u01
+
+
+def ao_sunsky(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
+              nphi: int, sky) -> torch.Tensor:
+    """The dense sunsky gather's sky (lucille_tpu's _sunsky_megakernel,
+    transport/ao.py:286-332): the gather's per-stratum bits in compacted
+    order (kernel 3b), then each hit lane's Preetham sky radiance summed
+    over its open strata (`sky_gather_kernel` for CUDA tensors,
+    `sky_gather_reference` for CPU tensors), scattered to raster order.
+    Operands as ao_occlusion; sky a PreethamSunSky.  Returns (B, 3) f32,
+    0 where not hit."""
+    order, nhit, rays, (_occ, bits) = _gather(
+        scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi, True)
+    jitter = jitter.contiguous()
+    if P_off.device.type == "cuda":
+        col_sorted = sky_gather_kernel(rays, jitter, bits, nhit, ntheta, nphi,
+                                       sky)
+    else:
+        n = int(nhit)
+        col_sorted = torch.zeros((P_off.shape[0], 3), device=P_off.device)
+        col_sorted[:n] = sky_gather_reference(rays[:, :n], jitter[:, :n],
+                                              bits[:, :n], ntheta, nphi, sky)
+    col = torch.empty_like(col_sorted)
+    col[order] = col_sorted
+    return col
 
 
 def gather_layout(S: int, B: int) -> tuple[int, int, int]:
@@ -247,6 +283,91 @@ def ao_occlusion_kernel(scene, rays, jitter, nact, ntheta: int, nphi: int,
     (BITS_COUNTS if want_bits else COUNTS).kernel += 1
     out = (occ, bits) if want_bits else occ
     return (out, gather_stats(stats)) if counters else out
+
+
+def sky_params(sky) -> np.ndarray:
+    """The sky's constants as csrc/ao.cu's SkyParams holds them, in its
+    order: (40,) f32, each the f32 rounding of a PreethamSunSky
+    field, as torch rounds a Python float against an f32 tensor: the
+    sun's direction, Yz, xz, yz, the Perez A..E of Y, of x and of y,
+    theta_s, the folded basis rows S0, S1, S2 (`_folded_basis`) and the
+    CIEsystem matrix by rows."""
+    perez = [getattr(sky, f"{c}{k}") for k in "Yxy" for c in "ABCDE"]
+    vals = [*sky.sun_direction(), sky.Yz, sky.xz, sky.yz, *perez,
+            sky.theta_s, *(v for row in _folded_basis() for v in row),
+            *_XYZ2RGB_CIE.ravel()]
+    return np.array(vals, dtype=np.float32)
+
+
+@traced("accel.sky_gather_kernel")
+def sky_gather_kernel(rays, jitter, bits, nact, ntheta: int, nphi: int, sky,
+                      counters: bool = False):
+    """Launch csrc/ao.cu's sky_gather_kernel on the current stream (CUDA
+    tensors only).
+
+    rays (12, B) [P_off | b0 | b1 | b2] and jitter (2, B) f32 as
+    ao_occlusion_kernel takes them, bits (ceil(S/32), B) i32 its output,
+    all in compacted order; nact () i32 on the device (lanes at or past
+    it report 0); sky a PreethamSunSky.  Returns col (B, 3) f32, each live
+    lane's sky radiance summed over its open strata, in compacted order;
+    with counters, (col, {"open_pairs", "live_lanes"}: () i64 on the
+    device), read nowhere on the render paths."""
+    B = rays.shape[1]
+    dev = rays.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if ntheta < 1 or nphi < 1:
+        raise ValueError(f"ntheta, nphi must be >= 1, got {ntheta}, {nphi}")
+    rows = -(-ntheta * nphi // 32)
+    for name, a, dtype, shape in (
+            ("rays", rays, torch.float32, (12, B)),
+            ("jitter", jitter, torch.float32, (2, B)),
+            ("bits", bits, torch.int32, (rows, B))):
+        if (a.dtype != dtype or tuple(a.shape) != shape
+                or not a.is_contiguous() or a.device != dev):
+            raise ValueError(f"{name}: need contiguous {dtype} {shape} on "
+                             f"{dev}, got {a.dtype} {tuple(a.shape)} on "
+                             f"{a.device}")
+    if nact.dtype != torch.int32 or nact.numel() != 1 or nact.device != dev:
+        raise ValueError("nact: need one int32 on the rays' device")
+    params = sky_params(sky)
+    col = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    stats = (torch.zeros(2, dtype=torch.int64, device=dev) if counters
+             else None)
+    lib = library().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lt_sky_gather(
+            rays.data_ptr(), jitter.data_ptr(), bits.data_ptr(), B,
+            nact.data_ptr(), ntheta, nphi, 1.0 / ntheta, 1.0 / nphi,
+            params.ctypes.data, params.size, col.data_ptr(),
+            None if stats is None else stats.data_ptr(), stream,
+        )
+    check("lt_sky_gather", err)
+    SKY_COUNTS.kernel += 1
+    if counters:
+        return col, {"open_pairs": stats[0], "live_lanes": stats[1]}
+    return col
+
+
+@traced("accel.sky_gather_reference")
+def sky_gather_reference(rays, jitter, bits, ntheta: int, nphi: int, sky):
+    """Plain torch twin of sky_gather_kernel for lanes that all hit: rays
+    (12, n), jitter (2, n), bits (ceil(S/32), n) i32.  Every stratum of
+    every lane at once: the open strata (`unpack_bits`), their directions
+    (`stratum_directions`), sky.sky_rgb along them in the sky's z-up
+    frame, the sum over the open strata in stratum order (the kernel's
+    order, and lucille_tpu's scan's; torch's `.sum(dim=0)` orders its
+    terms by the tensor's layout).  Returns (n, 3) f32."""
+    SKY_COUNTS.plain += 1
+    vis = ~unpack_bits(bits, ntheta * nphi)  # (S, n)
+    b0, b1, b2 = (rays[3 * c:3 * c + 3].T for c in (1, 2, 3))
+    d = stratum_directions(b0, b1, b2, jitter, ntheta, nphi)  # (S, n, 3)
+    rgb = vis[..., None] * sky.sky_rgb(sky_frame(d))
+    col = torch.zeros_like(rgb[0])
+    for s in range(rgb.shape[0]):
+        col = col + rgb[s]
+    return col
 
 
 def stratum_directions(b0, b1, b2, u01, ntheta: int, nphi: int):

@@ -14,7 +14,8 @@
 // lz = sqrt(max(1 - z0, 0)), rotated into the lane's basis (b0, b1, b2).
 // The hit test is the signed-volume form: U, V triple products,
 // W = dn - U - V, a hit needs U, V, W of one sign, s_n * dn > 0 and
-// |dn| > 1e-14.  All-zero pad triangles never occlude.
+// |dn| > 1e-14.  All-zero pad triangles never occlude.  The file's second
+// kernel, sky_gather_kernel (below), weights the bits by the sunsky sky.
 //
 // What bounds it on the H100: issued instructions.  Per stratum the data
 // needs its (stratum, triangle) tests up to its first occluder (~30 f32
@@ -78,6 +79,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <string.h>
 
 namespace {
 
@@ -110,6 +112,37 @@ __device__ __forceinline__ float bounded_inv(float d) {
 
 __device__ __forceinline__ float comp(const float4& a, int q) {
   return q == 0 ? a.x : q == 1 ? a.y : q == 2 ? a.z : a.w;
+}
+
+// Stratum s's direction for a lane with uniforms (u0l, u1l) and the
+// basis b0 = r[3..5], b1 = r[6..8], b2 = r[9..11] (the rays pack's rows):
+// the header's formula, every operation rounded in f32 as
+// accel/ao.py:stratum_directions rounds it.  ao_kernel tests this
+// direction and sky_gather_kernel weights the sky along it, so the sky is
+// read along the very direction whose occlusion bit kernel 3b computed.
+__device__ __forceinline__ float3 stratum_dir(int s, float u0l, float u1l,
+                                              int ntheta, float inv_nt,
+                                              float inv_np,
+                                              const float (&r)[12]) {
+  const float sf = (float)s;
+  const float sh0 = sf * R2_A1;
+  const float sh1 = sf * R2_A2;
+  float u0 = u0l + (sh0 - floorf(sh0));
+  u0 = u0 - floorf(u0);
+  float u1 = u1l + (sh1 - floorf(sh1));
+  u1 = u1 - floorf(u1);
+  const float fi = (float)(s % ntheta);
+  const float fj = (float)(s / ntheta);
+  const float z0 = (fi + u0) * inv_nt;
+  const float z1 = (fj + u1) * inv_np;
+  const float cos_t = sqrtf(z0);
+  const float phi = TWO_PI * z1;
+  const float lx = cosf(phi) * cos_t;
+  const float ly = sinf(phi) * cos_t;
+  const float lz = sqrtf(fmaxf(1.0f - z0, 0.0f));
+  return make_float3(lx * r[3] + ly * r[6] + lz * r[9],
+                     lx * r[4] + ly * r[7] + lz * r[10],
+                     lx * r[5] + ly * r[8] + lz * r[11]);
 }
 
 struct Stats {
@@ -402,31 +435,13 @@ ao_kernel(const float* __restrict__ rays, const float* __restrict__ jit, int B,
     for (int q = 0; q < C; ++q) {
       const int s = s0 + q;
       if (!live || s >= S) continue;
-      const float sf = (float)s;
-      const float sh0 = sf * R2_A1;
-      const float sh1 = sf * R2_A2;
-      float u0 = u0l + (sh0 - floorf(sh0));
-      u0 = u0 - floorf(u0);
-      float u1 = u1l + (sh1 - floorf(sh1));
-      u1 = u1 - floorf(u1);
-      const float fi = (float)(s % ntheta);
-      const float fj = (float)(s / ntheta);
-      const float z0 = (fi + u0) * inv_nt;
-      const float z1 = (fj + u1) * inv_np;
-      const float cos_t = sqrtf(z0);
-      const float phi = TWO_PI * z1;
-      const float lx = cosf(phi) * cos_t;
-      const float ly = sinf(phi) * cos_t;
-      const float lz = sqrtf(fmaxf(1.0f - z0, 0.0f));
-      const float dx = lx * r[3] + ly * r[6] + lz * r[9];
-      const float dy = lx * r[4] + ly * r[7] + lz * r[10];
-      const float dz = lx * r[5] + ly * r[8] + lz * r[11];
-      v.at(q, 0) = dx;
-      v.at(q, 1) = dy;
-      v.at(q, 2) = dz;
-      v.at(q, 3) = bounded_inv(dx);
-      v.at(q, 4) = bounded_inv(dy);
-      v.at(q, 5) = bounded_inv(dz);
+      const float3 d = stratum_dir(s, u0l, u1l, ntheta, inv_nt, inv_np, r);
+      v.at(q, 0) = d.x;
+      v.at(q, 1) = d.y;
+      v.at(q, 2) = d.z;
+      v.at(q, 3) = bounded_inv(d.x);
+      v.at(q, 4) = bounded_inv(d.y);
+      v.at(q, 5) = bounded_inv(d.z);
       pending |= 1u << q;
     }
     const unsigned valid = pending;
@@ -496,6 +511,207 @@ int launch(int chunk, int grid, cudaStream_t s, const float* rays,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The sunsky gather's sky: sky_gather_kernel.
+//
+// Replaces: no Pallas kernel.  lucille_tpu's dense sunsky gather evaluates
+// the sky in jnp glue after the fused gather (_sunsky_megakernel,
+// lucille_tpu/transport/ao.py:286-332: a scan over the strata); the
+// port's torch counterpart ran ~230 full-width ops a tile, every stratum
+// of every lane of the wavefront at once ((64, 518,400) directions on the
+// headline tile, missed lanes and occluded strata included).  Contract:
+// for each compacted hit lane j < nact, the Preetham sky radiance summed
+// over its open strata, those whose bit in kernel 3b's bits rows (the
+// compacted-order output above, before any scatter) is clear, along
+// stratum s's direction (stratum_dir, ao_kernel's own chain) taken into
+// the sky's z-up frame (x, z, y); the sky exactly as
+// lights/sunsky.py:PreethamSunSky.sky_rgb writes it (arccos, the Perez
+// ratios over their zenith denominators, M1/M2, the folded CIE basis,
+// the CIEsystem matrix, the clamp and the horizon test), in f32, each
+// operation in its order (a Python constant rounds to f32 as torch rounds
+// it; `B / cos_t` is torch's reciprocal times B).  col (B, 3) f32: the
+// sum in stratum order, as the plain twin sums
+// (accel/ao.py:sky_gather_reference); 0 for lanes at or past nact.
+//
+// What bounds it on the H100: issued f32 instructions and the special
+// function unit.  Each open (lane, stratum) pair takes 167 f32
+// operations as the source writes them (a transcendental, a divide, a min,
+// max, compare or select counted once: 43 for the direction, 124 for the
+// sky and the sum; 2 acosf, 3 cosf, 1 sinf, 6 expf, 2 sqrtf and 9
+// divisions among them; chip_smoke.SKY_OPS), many more as issued, since
+// a full-precision acosf, expf, cosf or sinf is a dozen or more
+// instructions; built with --fmad=false every product and sum issues
+// alone.  Nothing is read twice: per lane 9 basis floats, 2 uniforms and
+// ceil(S / 32) bits words in, 3 floats out.
+//
+// What the design does about it:
+//   * one thread a lane, its strata in order: the lane's basis, uniforms
+//     and three sums stay in registers; the open strata are visited over
+//     the set bits of each row's complement (__ffs), so an occluded
+//     stratum costs nothing and a warp runs as many evaluations as its
+//     lane with the most open strata;
+//   * the sky's ~40 constants cross by value in a kernel parameter
+//     (SkyParams, in constant memory): no copy to the card and no host
+//     sync a tile; the three zenith denominators are computed once a
+//     thread with the f32 operations sky_rgb uses (a host double would
+//     not round the same way);
+//   * full-precision acosf/expf/cosf/sinf/sqrtf (no fast-math intrinsic)
+//     and the build's --fmad=false: nothing is evaluated below f32;
+//   * counters, only when the caller passes a buffer, in an instantiation
+//     of their own: the open (lane, stratum) pairs evaluated and the live
+//     lanes, summed a warp and added atomically.
+
+constexpr int SKY_BLOCK = 128;   // threads per block of sky_gather_kernel
+constexpr int SKY_NPARAMS = 40;  // floats of SkyParams (ao.py:sky_params)
+
+// a Python float as torch rounds it against an f32 tensor
+__host__ __device__ constexpr float f32(double v) {
+  return static_cast<float>(v);
+}
+
+// The Preetham sky's constants, in accel/ao.py:sky_params's order, each
+// the f32 rounding of the PreethamSunSky field.
+struct SkyParams {
+  float sun[3];       // toward the sun, the sky's z-up frame
+  float Yz, xz, yz;   // zenith luminance and chromaticity
+  float perez[3][5];  // A, B, C, D, E for Y, x, y
+  float theta_s;      // the sun's zenith angle
+  float basis[3][3];  // S0, S1, S2 against the CIE weights (X, Y, Z)
+  float m[3][3];      // XYZ -> RGB, CIEsystem primaries (row: channel)
+};
+static_assert(sizeof(SkyParams) == SKY_NPARAMS * sizeof(float),
+              "SkyParams is SKY_NPARAMS floats");
+
+// The Perez function's value at the zenith (theta 0, gamma theta_s): the
+// denominator of its ratio, as sky_rgb computes it on 0-d f32 tensors.
+__device__ __forceinline__ float perez_zenith(const float (&p)[5],
+                                              float ths) {
+  const float cos_z = fmaxf(cosf(0.0f), f32(1e-4));
+  const float cs = cosf(ths);
+  return (1.0f + p[0] * expf((1.0f / cos_z) * p[1])) *
+         ((1.0f + p[2] * expf(p[3] * ths)) + (p[4] * cs) * cs);
+}
+
+// The Perez ratio F(theta, gamma) / F(0, theta_s), its cosines given.
+__device__ __forceinline__ float perez_ratio(const float (&p)[5], float den,
+                                             float cos_t, float gamma,
+                                             float cg) {
+  const float num = (1.0f + p[0] * expf((1.0f / cos_t) * p[1])) *
+                    ((1.0f + p[2] * expf(p[3] * gamma)) + (p[4] * cg) * cg);
+  return num / den;
+}
+
+// The sky's RGB radiance along the unit direction (x, y, z) of its z-up
+// frame (lights/sunsky.py:PreethamSunSky.sky_rgb); den: the three
+// zenith denominators.
+__device__ __forceinline__ float3 sky_rgb(const SkyParams& sky,
+                                          const float (&den)[3], float x,
+                                          float y, float z) {
+  const float theta = acosf(fminf(fmaxf(z, -1.0f), 1.0f));
+  const float cgamma = fminf(
+      fmaxf(x * sky.sun[0] + y * sky.sun[1] + z * sky.sun[2], -1.0f), 1.0f);
+  const float gamma = acosf(cgamma);
+  const float cos_t = fmaxf(cosf(theta), f32(1e-4));
+  const float cg = cosf(gamma);
+  const float Y =
+      sky.Yz * perez_ratio(sky.perez[0], den[0], cos_t, gamma, cg);
+  const float cx =
+      sky.xz * perez_ratio(sky.perez[1], den[1], cos_t, gamma, cg);
+  const float cy =
+      sky.yz * perez_ratio(sky.perez[2], den[2], cos_t, gamma, cg);
+  // (x, y, Y) -> a CIE-daylight spectrum's XYZ -> RGB
+  float d = (f32(0.0241) + f32(0.2562) * cx) - f32(0.7341) * cy;
+  d = fabsf(d) > f32(1e-9) ? d : f32(1e-9);
+  const float M1 = ((f32(-1.3515) - f32(1.7703) * cx) + f32(5.9114) * cy) / d;
+  const float M2 = ((f32(0.03) - f32(31.4424) * cx) + f32(30.0717) * cy) / d;
+  float xyz[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    xyz[c] = (sky.basis[0][c] + M1 * sky.basis[1][c]) + M2 * sky.basis[2][c];
+  }
+  const float ly = fabsf(xyz[1]) > f32(1e-9) ? xyz[1] : 1.0f;
+  const float scale = (Y * 1000.0f) / ly;
+  const float X = xyz[0] * scale, Yv = xyz[1] * scale, Z = xyz[2] * scale;
+  float rgb[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float v = (X * sky.m[c][0] + Yv * sky.m[c][1]) + Z * sky.m[c][2];
+    // torch.clamp_min(v, 0) (a NaN stays NaN), then the horizon
+    rgb[c] = z > 0.0f ? (v < 0.0f ? 0.0f : v) : 0.0f;
+  }
+  return make_float3(rgb[0], rgb[1], rgb[2]);
+}
+
+// One thread a lane (the header's layout above); counters: [open pairs,
+// live lanes] (kCount only).
+template <bool kCount>
+__global__ void __launch_bounds__(SKY_BLOCK)
+sky_gather_kernel(const float* __restrict__ rays,
+                  const float* __restrict__ jit, const int* __restrict__ bits,
+                  int B, const int* __restrict__ nact, int ntheta, int nphi,
+                  float inv_nt, float inv_np, SkyParams sky,
+                  float* __restrict__ col,
+                  unsigned long long* __restrict__ counters) {
+  const int i = blockIdx.x * SKY_BLOCK + threadIdx.x;
+  const bool live = i < min(*nact, B);
+  const int S = ntheta * nphi;
+  float3 acc = make_float3(0.0f, 0.0f, 0.0f);
+  int open = 0;
+  if (live) {
+    float r[12];  // the basis in r[3..11], as ao_kernel holds it
+#pragma unroll
+    for (int c = 0; c < 12; ++c) r[c] = c < 3 ? 0.0f : rays[(size_t)c * B + i];
+    const float u0l = jit[i];
+    const float u1l = jit[(size_t)B + i];
+    float den[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      den[k] = perez_zenith(sky.perez[k], sky.theta_s);
+    }
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      const int n = min(32, S - s0);
+      const unsigned valid = n == 32 ? FULL : (1u << n) - 1u;
+      const unsigned open_bits =
+          ~static_cast<unsigned>(bits[(size_t)(s0 >> 5) * B + i]) & valid;
+      for (unsigned m = open_bits; m != 0u; m &= m - 1u) {
+        const int s = s0 + __ffs(m) - 1;
+        const float3 d = stratum_dir(s, u0l, u1l, ntheta, inv_nt, inv_np, r);
+        // the sky's z-up frame: y and z swapped
+        const float3 rgb = sky_rgb(sky, den, d.x, d.z, d.y);
+        acc.x = acc.x + rgb.x;
+        acc.y = acc.y + rgb.y;
+        acc.z = acc.z + rgb.z;
+        if constexpr (kCount) ++open;
+      }
+    }
+  }
+  if (i < B) {
+    col[(size_t)i * 3 + 0] = acc.x;
+    col[(size_t)i * 3 + 1] = acc.y;
+    col[(size_t)i * 3 + 2] = acc.z;
+  }
+  if constexpr (kCount) {
+    const int pairs = __reduce_add_sync(FULL, open);
+    const int lanes = __reduce_add_sync(FULL, live ? 1 : 0);
+    if ((threadIdx.x & 31) == 0 && lanes > 0) {
+      atomicAdd(counters, static_cast<unsigned long long>(pairs));
+      atomicAdd(counters + 1, static_cast<unsigned long long>(lanes));
+    }
+  }
+}
+
+template <bool kCount>
+void launch_sky(cudaStream_t s, const float* rays, const float* jit,
+               const int* bits, int B, const int* nact, int ntheta, int nphi,
+               float inv_nt, float inv_np, const SkyParams& sky, float* col,
+               unsigned long long* counters) {
+  const int grid = (B + SKY_BLOCK - 1) / SKY_BLOCK;
+  sky_gather_kernel<kCount><<<grid, SKY_BLOCK, 0, s>>>(
+      rays, jit, bits, B, nact, ntheta, nphi, inv_nt, inv_np, sky, col,
+      counters);
+}
+
 }  // namespace
 
 // n_tris: the real triangles, the first columns of tris; sub: the boxes
@@ -529,5 +745,29 @@ extern "C" int lt_ao_occlusion(const float* rays, const float* jit, int B,
   const int err = go(chunk, grid, s, rays, jit, B, nact, sc, ntheta, nphi,
                      inv_ntheta, inv_nphi, tpl, occ, bits, stats);
   if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rays (12, B) and jit (2, B) as lt_ao_occlusion takes them, bits its
+// ceil(S / 32) x B rows, all in compacted lane order; params: the host's
+// nparams floats of SkyParams (accel/ao.py:sky_params), copied into the
+// kernel's parameter; col: B x 3 floats; counters: 2 unsigned 64-bit ints
+// (open pairs, live lanes), zeroed, or null (no counters)
+extern "C" int lt_sky_gather(const float* rays, const float* jit,
+                             const int* bits, int B, const int* nact,
+                             int ntheta, int nphi, float inv_ntheta,
+                             float inv_nphi, const float* params, int nparams,
+                             float* col, unsigned long long* counters,
+                             void* stream) {
+  if (nparams != SKY_NPARAMS || ntheta < 1 || nphi < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B <= 0) return 0;
+  SkyParams sky;
+  memcpy(&sky, params, sizeof sky);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto go = counters != nullptr ? launch_sky<true> : launch_sky<false>;
+  go(s, rays, jit, bits, B, nact, ntheta, nphi, inv_ntheta, inv_nphi, sky, col,
+     counters);
   return static_cast<int>(cudaGetLastError());
 }

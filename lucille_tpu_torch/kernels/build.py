@@ -52,6 +52,10 @@ SIGNATURES = {
     # occ, bits, stats, stream
     "lt_ao_occlusion": (_P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _P,
                         _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _P),
+    # rays, jitter, bits, B, nact, ntheta, nphi, inv_ntheta, inv_nphi,
+    # params, nparams, col, counters, stream
+    "lt_sky_gather": (_P, _P, _P, _I, _P, _I, _I, _F, _F, _P, _I, _P, _P,
+                      _P),
     # org, dir, tmax, active, B, tris, npad, nodes, leaf_real, depth, t,
     # u, v, tri, stats, stream
     "lt_bvh_closest_hit": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P,

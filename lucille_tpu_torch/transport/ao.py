@@ -26,8 +26,9 @@ radiance summed over each lane's unoccluded strata, plus, per "sun"
 light, one shadow ray toward the sun (the dense any-hit, or the tile
 BVH's) that adds the sun's colour where it is open; ``Lo = col / (pi
 S)``, then the same modulation.  On the dense accel the fused gather's
-per-stratum bits say which strata are open (`ao_occlusion_bits`) and the
-directions are recomputed with the kernel's formula, or, above the
+per-stratum bits say which strata are open and the directions are
+recomputed with the kernel's formula (`accel/ao.ao_sunsky`: the sky
+summed over them in csrc/ao.cu's sky_gather_kernel), or, above the
 threshold, the strata are scanned (`_scan_sunsky`, lucille_tpu's
 ao.py:230-257); on the tile BVH the cone-tiled gather rays carry the sky
 directly (`bvh_ao_sunsky`).
@@ -53,9 +54,7 @@ import torch
 from lucille_tpu_torch.accel.ao import (
     MAX_TRIS_FOR_MEGAKERNEL,
     ao_occlusion,
-    ao_occlusion_bits,
-    stratum_directions,
-    unpack_bits,
+    ao_sunsky,
 )
 from lucille_tpu_torch.accel.bvh_ao import bvh_ao_occlusion, bvh_ao_sunsky
 from lucille_tpu_torch.accel.dispatch import any_hit, closest_hit
@@ -236,8 +235,8 @@ def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, stream, ntheta,
         col = _scan_sunsky(scene, P_off, b0, b1, b2, hit, stream, ntheta,
                            nphi, sky)
     else:
-        col = _sunsky_bits(scene, P_off, b0, b1, b2, hit,
-                           stream.uniform((), (2, B)), ntheta, nphi, sky)
+        col = ao_sunsky(scene, P_off, b0, b1, b2, hit,
+                        stream.uniform((), (2, B)), ntheta, nphi, sky)
     for sun in suns:
         wi = const_vec(sun.direction, P_off.device)
         wi = wi / torch.clamp_min(torch.sqrt(torch.sum(wi * wi)), 1e-20)
@@ -256,20 +255,6 @@ def _gather_sunsky(scene, res, hit, P_off, b0, b1, b2, stream, ntheta,
         "t": res["t"],
     }
     return radiance, aux
-
-
-def _sunsky_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi, sky):
-    """The dense sky gather (lucille_tpu's _sunsky_megakernel, ao.py:
-    286-332): the fused gather's per-stratum bits, each stratum's
-    direction recomputed from the lane's jitter, the sky summed over the
-    open strata; all S strata at once, in the sky's z-up frame."""
-    _occ, bits, u01 = ao_occlusion_bits(scene, P_off, b0, b1, b2, hit,
-                                        jitter, ntheta, nphi)
-    S = ntheta * nphi
-    vis = ~unpack_bits(bits, S) & hit[None, :]  # (S, B)
-    d = stratum_directions(b0, b1, b2, u01, ntheta, nphi)  # (S, B, 3)
-    sky_rgb = sky.sky_rgb(sky_frame(d))
-    return (vis[..., None] * sky_rgb).sum(dim=0)
 
 
 def _finish(scene, res, hit, occ, nsamples: int, background: float, B: int,

@@ -91,6 +91,7 @@ NAMES = {
     "closest_hit": ("closest_hit_kernel", "closest_epilogue", "Memset"),
     "any_hit": ("any_hit_kernel", "Memset"),
     "grid": ("grid_kernel<",),
+    "sky_gather": ("sky_gather_kernel<",),
 }
 
 

@@ -13,7 +13,8 @@ kernels' conservative culls or the device's cos/sin round a boundary case
 the other way: triangle ids on all but 1e-3 of the rays, t/u/v within
 1e-6 relative, occlusion counts on all but 1e-3 of the lanes and within 1,
 the dense any-hit's answers and the AO gather's per-stratum bits on all
-but 1e-3 of the rays / lanes.
+but 1e-3 of the rays / lanes, the sunsky gather's sky sums within 1e-5
+relative plus 1e-3.
 The tile-BVH kernels visit leaves in another order than their twins
 test slots, so a triangle id may also differ at an exact tie in t across
 two leaves (the ray onto a shared edge below); hits and occlusion do not
@@ -633,6 +634,70 @@ def test_sunsky_frame_matches_plain(accel):
     assert ref.mean() > 100.0
     rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)
     assert (rel > 1e-3).mean() <= 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ntheta,nphi", [(8, 8), (2, 2), (6, 7)])
+def test_sky_gather_kernel_matches_plain(ntheta, nphi):
+    """The sunsky gather's sky (csrc/ao.cu sky_gather_kernel) against its
+    plain twin on the same compacted inputs: the first tile of the
+    bundled scene as shipped (48x32, 2x2 samples, tile 16), kernel 3b's
+    own bits of it, nact below the hit lanes and below B.  S = 64, 4 and
+    42 (a bits row part-filled).  Every live lane's sum within 1e-5 of
+    its value, relatively, plus 1e-3 (the values are in the thousands;
+    the two sum in one order, and the device's arccos, exp, cos and sin
+    may round an ulp apart from torch's); lanes at or past nact exactly
+    0; the counters: the open (lane, stratum) pairs are the clear bits of
+    the live lanes, the live lanes nact."""
+    _need_card()
+    from pathlib import Path
+
+    from lucille_tpu_torch.accel import ao
+    from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.render.renderer import Renderer, tile_eye_rays
+    from lucille_tpu_torch.ri.api import RiState
+    from lucille_tpu_torch.rib.parser import parse_rib
+    from lucille_tpu_torch.sampling.hammersley import subpixel_samples
+    from lucille_tpu_torch.sampling.jitter import HostSampler
+    from lucille_tpu_torch.transport.ao import shading_frame
+
+    rib = Path(__file__).resolve().parent / "golden" / "sunsky_scene.rib"
+    st = RiState()
+    parse_rib(rib.read_text(), st)
+    st.Format(48, 32)
+    st.PixelSamples(2, 2)
+    r = Renderer(st.scene, tile_size=16, device="cuda",
+                 sampler=HostSampler(0, "cuda"))
+    sky = next(li.sunsky for li in r.lights if li.type == "sunsky")
+    sub = torch.tensor(subpixel_samples(2, 2)[0], dtype=torch.float32,
+                       device="cuda")
+    org, dirn = tile_eye_rays(r.camera, 16, 0, 16, 16, sub)
+    res = closest_hit(r.scene, org, dirn)
+    P_off, b0, b1, b2 = shading_frame(r.scene, org, dirn, res)
+    B = org.shape[0]
+    jitter = r.sampler(16, 0).uniform((), (2, B))
+    _order, nhit, rays, (_occ, bits) = ao._gather(
+        r.scene, P_off, b0, b1, b2, res["hit"], jitter, ntheta, nphi, True)
+    n = int(nhit) * 3 // 4
+    assert 0 < n < int(nhit) < B
+    nact = torch.tensor(n, dtype=torch.int32, device="cuda")
+    S = ntheta * nphi
+    ao.SKY_COUNTS.reset()
+    col, cnt = ao.sky_gather_kernel(rays, jitter, bits, nact, ntheta, nphi,
+                                    sky, counters=True)
+    assert torch.equal(ao.sky_gather_kernel(rays, jitter, bits, nact, ntheta,
+                                            nphi, sky), col)
+    assert (ao.SKY_COUNTS.kernel, ao.SKY_COUNTS.plain) == (2, 0)
+    ref = ao.sky_gather_reference(rays[:, :n], jitter[:, :n], bits[:, :n],
+                                  ntheta, nphi, sky)
+    assert col.shape == (B, 3) and col.dtype == torch.float32
+    assert torch.all(col[n:] == 0)
+    assert ref.min() > 100.0
+    assert ((col[:n] - ref).abs() <= 1e-5 * ref.abs() + 1e-3).all()
+    open_bits = ~ao.unpack_bits(bits[:, :n], S)
+    assert 0 < open_bits.float().mean() < 1
+    assert int(cnt["open_pairs"]) == int(open_bits.sum())
+    assert int(cnt["live_lanes"]) == n
 
 
 @pytest.mark.gpu

@@ -37,7 +37,8 @@ _SCRIPT = textwrap.dedent("""
         ("ao_occlusion", ao.COUNTS), ("ao_occlusion_bits", ao.BITS_COUNTS),
         ("bvh_closest_hit", bvh_isect.CLOSEST_COUNTS),
         ("bvh_any_hit", bvh_isect.ANY_COUNTS),
-        ("bvh_ao_fused", bvh_ao.FUSED_COUNTS))}
+        ("bvh_ao_fused", bvh_ao.FUSED_COUNTS),
+        ("sky_gather", ao.SKY_COUNTS))}
     print("NOJAX-OK", rc, len(added), json.dumps(counts))
 """)
 
@@ -84,15 +85,17 @@ def test_cli_renders_without_jax(tmp_path):
 def test_cli_renders_the_shipped_scene_without_jax(tmp_path, accel):
     """tests/golden/sunsky_scene.rib as shipped, its sunsky light
     included: the sunsky gather on the dense tiles (the closest hit, the
-    AO gather with bits, the any-hit of the sun ray; not the plain
-    gather) or on the tile BVH (both BVH twins), every one a twin."""
+    AO gather with bits, the sky over its bits, the any-hit of the sun
+    ray; not the plain gather) or on the tile BVH (both BVH twins), every
+    one a twin."""
     img, counts = _render_without_jax(
         tmp_path, bundled_rib_text(sunsky=True), *accel, max_mean=1e5)
     assert img.mean() > 100.0  # sky radiance, not an AO fraction
     assert all(k == 0 for k, _p in counts.values())
     used = {name for name, (_k, p) in counts.items() if p}
     assert used == ({"bvh_closest_hit", "bvh_any_hit"} if accel else
-                    {"closest_hit", "ao_occlusion_bits", "any_hit"})
+                    {"closest_hit", "ao_occlusion_bits", "any_hit",
+                     "sky_gather"})
 
 
 def _heightfield_rib(n: int) -> str:

@@ -198,6 +198,158 @@ def test_stratum_directions_pair_with_the_bits():
                        flags[:, :5])
 
 
+def _tile_gather(make_state, tile, seed=3):
+    """The sunsky gather's inputs on the first tile of a frame rendered on
+    the CPU: (scene, P_off, b0, b1, b2, hit, the tile stream's (2, B)
+    draw, the scene's sky)."""
+    from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.render.renderer import Renderer, tile_eye_rays
+    from lucille_tpu_torch.render.tiles import tile_list
+    from lucille_tpu_torch.sampling.hammersley import subpixel_samples
+    from lucille_tpu_torch.sampling.jitter import HostSampler
+    from lucille_tpu_torch.transport.ao import shading_frame
+
+    r = Renderer(make_state().scene, tile_size=tile, device="cpu",
+                 sampler=HostSampler(seed, "cpu"))
+    opt = r.desc.options
+    xs, ys = (int(v) for v in opt.current_display().sampling_rates)
+    sub = torch.tensor(subpixel_samples(xs, ys)[0], dtype=torch.float32)
+    x0, y0, _i, _j = tile_list(opt.width, opt.height, tile,
+                               opt.bucket_order)[0]
+    org, dirn = tile_eye_rays(r.camera, x0, y0, tile, tile, sub)
+    res = closest_hit(r.scene, org, dirn)
+    P_off, b0, b1, b2 = shading_frame(r.scene, org, dirn, res)
+    sky = next(li.sunsky for li in r.lights if li.type == "sunsky")
+    return (r.scene, P_off, b0, b1, b2, res["hit"],
+            r.sampler(x0, y0).uniform((), (2, org.shape[0])), sky)
+
+
+# the bundled scene (4 triangle tiles: hit-first lane order) and the 35x35
+# heightfield (20 tiles: octant + Morton order), at S = 64 and 42 (the
+# second bits row part-filled)
+@pytest.mark.parametrize("ntheta,nphi", [(8, 8), (6, 7)])
+@pytest.mark.parametrize("scene", ["bundled", "heightfield35"])
+def test_ao_sunsky_cpu_route_equals_the_bits_arithmetic(scene, ntheta, nphi):
+    """accel/ao.ao_sunsky on CPU tensors (the gather's twin, then the
+    sky's twin on the compacted hit lanes, scattered once) against the
+    arithmetic the dense sunsky gather ran before the sky had its kernel:
+    the bits and the jitter scattered to raster order, every stratum of
+    every lane unpacked, its direction rebuilt, the sky along it in the
+    z-up frame and the sum over the open strata of the hit lanes.  Every
+    (lane, stratum) term is the same number, so the sum in stratum order
+    (the twin's and the kernel's) is equal exactly; torch's `.sum(dim=0)`,
+    which that arithmetic took, orders its terms by the tensor's layout
+    (raster against compacted lanes), within S roundings of it."""
+    from lucille_tpu_torch.accel import ao
+    from lucille_tpu_torch.lights.sunsky import sky_frame
+
+    make = {"bundled": lambda: bundled_state(32, 24, pixelsamples=2,
+                                             sunsky=True),
+            "heightfield35": lambda: heightfield_state(
+                35, 32, 32, pixelsamples=2, sunsky=True)}[scene]
+    sc, P_off, b0, b1, b2, hit, jitter, sky = _tile_gather(make, 16)
+    assert sc.boxes.shape[1] == (4 if scene == "bundled" else 20)
+    ao.SKY_COUNTS.reset()
+    got = ao.ao_sunsky(sc, P_off, b0, b1, b2, hit, jitter, ntheta, nphi, sky)
+    assert (ao.SKY_COUNTS.kernel, ao.SKY_COUNTS.plain) == (0, 1)
+    S = ntheta * nphi
+    _occ, bits, u01 = ao.ao_occlusion_bits(sc, P_off, b0, b1, b2, hit, jitter,
+                                           ntheta, nphi)
+    vis = ~ao.unpack_bits(bits, S) & hit[None, :]
+    d = ao.stratum_directions(b0, b1, b2, u01, ntheta, nphi)
+    terms = vis[..., None] * sky.sky_rgb(sky_frame(d))  # (S, B, 3)
+    assert got.shape == (hit.shape[0], 3) and got.dtype == torch.float32
+    assert 0.2 < hit.float().mean() < 1.0 and not got[~hit].any()
+    assert 0 < vis.float().mean() < hit.float().mean()  # some strata closed
+    assert got[hit].min() > 100.0  # sky radiance in the thousands
+    want = torch.zeros_like(got)
+    for s in range(S):
+        want = want + terms[s]
+    assert torch.equal(got, want)
+    old = terms.sum(dim=0)
+    assert ((got - old).abs() <= S * 2.0**-24 * old).all()
+
+
+def test_sky_params_follow_the_kernels_struct():
+    """accel/ao.sky_params: each float the f32 rounding (as torch rounds
+    a Python float against an f32 tensor) of the PreethamSunSky field
+    that csrc/ao.cu's SkyParams holds at that place; as many as the
+    struct holds, its SKY_NPARAMS, the count lt_sky_gather refuses
+    anything else than, which it takes as an int after the params'
+    pointer."""
+    import ctypes
+    import re
+
+    from lucille_tpu_torch.accel import ao
+    from lucille_tpu_torch.kernels.build import CSRC, SIGNATURES
+    from lucille_tpu_torch.lights.sunsky import (
+        _XYZ2RGB_CIE,
+        PreethamSunSky,
+        _folded_basis,
+    )
+
+    sky = PreethamSunSky(turbidity=3.1, julian_day=200, hour=14.25)
+    got = ao.sky_params(sky)
+    assert got.dtype == np.float32 and got.shape == (40,)
+    fields = {
+        "sun": sky.sun_direction(), "Yz": [sky.Yz], "xz": [sky.xz],
+        "yz": [sky.yz],
+        "perez": [getattr(sky, c + k) for k in "Yxy" for c in "ABCDE"],
+        "theta_s": [sky.theta_s],
+        "basis": [v for row in _folded_basis() for v in row],
+        "m": _XYZ2RGB_CIE.ravel(),
+    }
+    src = (CSRC / "ao.cu").read_text()
+    body = re.search(r"struct SkyParams \{(.*?)\};", src, re.S).group(1)
+    decls = re.findall(r"float ([^;]+);", body)
+    order, sizes = [], {}
+    for decl in decls:
+        for name in (x.strip() for x in decl.split(",")):
+            dims = [int(n) for n in re.findall(r"\[(\d+)\]", name)]
+            name = name.split("[")[0]
+            order.append(name)
+            sizes[name] = int(np.prod(dims)) if dims else 1
+    assert order == list(fields)
+    want = []
+    for name in order:
+        assert len(fields[name]) == sizes[name], name
+        want += [float(v) for v in fields[name]]
+    assert len(want) == int(re.search(
+        r"constexpr int SKY_NPARAMS = (\d+);", src).group(1))
+    assert "nparams != SKY_NPARAMS" in src
+    # each value rounds as torch rounds it in sky_rgb's arithmetic
+    ref = (torch.ones(len(want)) * torch.tensor(want, dtype=torch.float64)
+           .to(torch.float32)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    one = torch.ones((), dtype=torch.float32)
+    for i, v in enumerate(want):
+        assert (one * v).item() == got[i]
+    sig = SIGNATURES["lt_sky_gather"]
+    assert len(sig) == 14 and sig[9] is ctypes.c_void_p
+    assert sig[10] is ctypes.c_int
+
+
+def test_glue_reader_counts_the_sky_kernel_as_hand_written():
+    """The benchmark's trace reader takes csrc/*.cu's __global__ functions
+    for the port's own kernels, so the sky's kernel is not glue."""
+    import sys
+
+    sys.path.insert(0, str(REPO / "benchmark"))
+    try:
+        from harness.trace import hand_kernel_names, kernel_pattern
+    finally:
+        sys.path.remove(str(REPO / "benchmark"))
+
+    names = hand_kernel_names(REPO / "lucille_tpu_torch")
+    assert {"sky_gather_kernel", "ao_kernel"} <= names
+    pat = kernel_pattern(names)
+    assert pat.search("void (anonymous namespace)::sky_gather_kernel<false>"
+                      "(float const*, float const*, int const*, int)")
+    # the AO gather's roofline reads ao_kernel's time alone
+    assert not kernel_pattern({"ao_kernel"}).search(
+        "void (anonymous namespace)::sky_gather_kernel<false>(float const*)")
+
+
 @pytest.mark.parametrize("turbidity", [2.2, 6.0])
 def test_sky_rgb_close_to_jax(turbidity):
     from lucille_tpu.lights.sunsky import PreethamSunSky as JaxSky
@@ -238,15 +390,16 @@ def test_sunsky_frame_matches_jax(accel):
     from lucille_tpu_torch.accel import ao, bvh_isect, isect
 
     counts = (isect.COUNTS, isect.ANY_COUNTS, ao.COUNTS, ao.BITS_COUNTS,
-              bvh_isect.CLOSEST_COUNTS, bvh_isect.ANY_COUNTS)
+              bvh_isect.CLOSEST_COUNTS, bvh_isect.ANY_COUNTS, ao.SKY_COUNTS)
     for c in counts:
         c.reset()
     jr, r, ref, got = _frame_pair(lambda pkg: bundled_state(
         32, 24, pixelsamples=1, gather=16, accel=accel, sunsky=True,
         pkg=pkg), 16)
     used = [c.plain > 0 for c in counts]
-    assert used == ([True, True, False, True, False, False] if accel ==
-                    "pallas" else [False, False, False, False, True, True])
+    assert used == ([True, True, False, True, False, False, True]
+                    if accel == "pallas"
+                    else [False, False, False, False, True, True, False])
     assert got.shape == ref.shape == (24, 32, 3) and np.isfinite(got).all()
     assert ref.mean() > 100.0  # sky radiance, not an AO fraction
     diff = np.abs(got - ref)
