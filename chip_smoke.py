@@ -294,6 +294,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -850,6 +851,39 @@ def counters():
             "grid_closest_hit": ugrid.COUNTS,
             "grid_any_hit": ugrid.ANY_COUNTS,
             "sky_gather": ao.SKY_COUNTS}
+
+
+# each wrapper counter's __global__ function (csrc/*.cu)
+KERNELS = {"closest_hit": "closest_hit_kernel", "any_hit": "any_hit_kernel",
+           "ao_occlusion": "ao_kernel", "ao_occlusion_bits": "ao_kernel",
+           "bvh_closest_hit": "bvh_closest_kernel",
+           "bvh_any_hit": "bvh_any_kernel", "bvh_ao_fused": "bvh_ao_kernel",
+           "grid_closest_hit": "grid_kernel", "grid_any_hit": "grid_kernel",
+           "sky_gather": "sky_gather_kernel"}
+
+
+def by_kernel(launches: dict) -> dict:
+    """Wrapper counts {counter name: n} summed by __global__ function."""
+    out = dict.fromkeys(sorted(set(KERNELS.values())), 0)
+    for name, n in launches.items():
+        out[KERNELS[name]] += n
+    return out
+
+
+def traced_launches(prof) -> dict:
+    """{__global__ function: launches} of the hand-written kernels among
+    the device events of a torch.profiler run (a graph's replay
+    included: its kernels are traced one by one)."""
+    from torch.autograd import DeviceType
+
+    names = sorted(set(KERNELS.values()))
+    pattern = re.compile(rf"\b({'|'.join(names)})\s*[<(]")
+    out = dict.fromkeys(names, 0)
+    for e in prof.events():
+        m = e.device_type == DeviceType.CUDA and pattern.search(e.name)
+        if m:
+            out[m.group(1)] += 1
+    return out
 
 
 @contextmanager
@@ -1877,11 +1911,15 @@ def check_sky_gather(results, log: str):
 
 
 def render_checked(label, r, out_name, path, max_mean=None):
-    """Phases 4, 6 and 8 on Renderer r: warm-up, then one counted frame
-    through the display driver into an .hdr that is read back and
-    checked, then best of 2.  `path` names the kernels the frame must
-    launch; every other kernel must launch none, and no twin may run; no
-    tile of the counted frame may wait on the card (`no_host_sync`).
+    """Phases 4, 6 and 8 on Renderer r: two warm-up frames (a tile graph
+    is captured the second time its tile is seen, render/graphs.py), then
+    one counted frame through the display driver into an .hdr that is
+    read back and checked, then best of 2.  `path` names the kernels the
+    frame must launch; every other kernel must launch none, and no twin
+    may run; no tile of the counted frame may wait on the card
+    (`no_host_sync`).  The counted frame runs under the profiler: the
+    launches its wrappers counted (a replayed tile adds its capture's)
+    must be the hand-written kernels its device trace shows.
     The image mean must lie in (0, max_mean] (default 1, 1e6 under a
     sunsky light); an imager's frame is written again after the
     post-pass, as the CLI writes it.  Returns (the counted frame's
@@ -1892,7 +1930,10 @@ def render_checked(label, r, out_name, path, max_mean=None):
     from lucille_tpu_torch.display.drivers import get_display_driver
     from lucille_tpu_torch.imageio.rgbe import read_hdr
 
-    r.render_frame()  # warm-up
+    from torch.profiler import ProfilerActivity, profile
+
+    r.render_frame()  # warm-up: each tile seen once
+    r.render_frame()  # each tile captured, where its integrator allows
     torch.cuda.synchronize()
     counts = counters()
     for c in counts.values():
@@ -1902,12 +1943,19 @@ def render_checked(label, r, out_name, path, max_mean=None):
     drv = get_display_driver("file")
     opt = r.desc.options
     drv.open(str(path_file), opt.width, opt.height)
-    with no_host_sync(r):
+    with no_host_sync(r), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         frame = r.render_frame(tile_cb=drv.write)
+        torch.cuda.synchronize()
     if opt.imager:
         drv.write(0, 0, frame)
     drv.close()
     launches = {k: c.kernel for k, c in counts.items()}
+    traced = traced_launches(prof)
+    if traced != by_kernel(launches):
+        raise AssertionError(f"{label}: the device trace shows {traced} "
+                             f"launches, the wrappers counted "
+                             f"{by_kernel(launches)}")
     if min(launches[k] for k in path) <= 0:
         raise AssertionError(f"{label}: a kernel was not launched: {launches}")
     if any(launches[k] for k in counts if k not in path):

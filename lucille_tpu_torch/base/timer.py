@@ -12,15 +12,23 @@ Spans.  Inside `Timer.frame()` (one a `Renderer.render_frame`), the
 renderer and the accel wrappers open named spans (`span`, `traced`):
 
     frame                 the root; its attrs carry the frame's counters
-                          (host_syncs, device.host_sync's count) and
-                          tiles (its `tile` spans)
+                          (host_syncs, device.host_sync's count;
+                          graph_tiles, the tiles that replayed a tile
+                          graph) and tiles (its `tile` spans)
       frame.enqueue       every tile of the frame enqueued on the device
         tile (x0, y0)     Renderer._tile
-          tile.rays       the tile's stream, lens draw and eye rays
-          tile.integrate  the integrator call
-            accel.<fn>    each kernel launch wrapper and plain twin
-          tile.filter     atmosphere, pixel filter, counters, alpha
-      tile.pull           the copies of a tile to the host (mesh._Round)
+          tile.capture    a tile graph's capture (render/graphs.py)
+          tile.rays       the tile's stream, lens draw and eye rays; in a
+                          replayed tile, its draws into the graph's
+                          buffers
+          tile.integrate  the integrator call; in a replayed tile, the
+                          graph's replay
+            accel.<fn>    each kernel launch wrapper and plain twin (an
+                          eager tile's only)
+          tile.filter     atmosphere, pixel filter, counters, alpha (an
+                          eager tile's only)
+      tile.pull           the wait for a tile's copies to the host
+                          (mesh._Round)
       tile.deliver        crop and copy into the frame, checkpoint,
                           tile_cb, progress_cb
       frame.imager        the imager over the assembled frame
@@ -45,7 +53,7 @@ from __future__ import annotations
 
 import time
 from collections import defaultdict, deque
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from functools import wraps
 
@@ -170,6 +178,7 @@ class Timer:
     _frames: deque = field(default_factory=lambda: deque(maxlen=MAX_FRAMES),
                            repr=False)
     _frame_count: int = field(default=0, repr=False)
+    _launches: set | None = field(default=None, repr=False)
 
     def start(self, name: str) -> None:
         self.entries.setdefault(name, _Entry())._start = time.perf_counter()
@@ -218,6 +227,25 @@ class Timer:
             return _NOOP
         return _OpenSpan(self._frame, name, attrs)
 
+    @contextmanager
+    def paused(self):
+        """Inside the block nothing is recorded (render/graphs.py)."""
+        frame, self._frame = self._frame, None
+        try:
+            yield
+        finally:
+            self._frame = frame
+
+    @contextmanager
+    def recording_launches(self):
+        """Inside the block each `traced` function called is added to the
+        set it gives (render/graphs.py)."""
+        saved, self._launches = self._launches, set()
+        try:
+            yield self._launches
+        finally:
+            self._launches = saved
+
     def count(self, name: str, n: int = 1) -> None:
         """Add n to the recording frame's counter `name` (nothing when no
         frame is recording)."""
@@ -264,6 +292,8 @@ def traced(name: str):
     def wrap(fn):
         @wraps(fn)
         def call(*args, **kwargs):
+            if _global_timer._launches is not None:
+                _global_timer._launches.add(call)
             if _global_timer._frame is None:
                 return fn(*args, **kwargs)
             with _OpenSpan(_global_timer._frame, name, {}):

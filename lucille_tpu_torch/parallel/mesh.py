@@ -12,7 +12,11 @@ Counterpart of lucille_tpu/parallel/mesh.py:32-112 (SURVEY.md sections
 - the slots of the mesh span the processes: process r owns the slots of
   its own devices, laid out in rank order, and enqueues only those;
 - a round's tiles and counters come back through one all_gather_host,
-  so every process assembles the whole frame; host 0 owns the displays.
+  so every process assembles the whole frame; host 0 owns the displays;
+- each tile's image and counters are copied to pinned host memory right
+  behind its own work on the card, and an event is recorded after the
+  copies (`_Pull`): the pull waits for that tile alone, not for every
+  tile enqueued after it, and is one host sync a tile.
 
 `sharded_tile_batch` takes the place of lucille_tpu's shard_map: where
 XLA runs one program over the mesh, the port enqueues slot d's tile on
@@ -105,15 +109,44 @@ def _on(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else nullcontext()
 
 
+class _Pull:
+    """A tile's (image, counters) on their way to the host.  On the card
+    both are copied into pinned host buffers on the tile's stream, right
+    behind its work, and an event is recorded after them; a CPU tile's
+    tensors are the host's already."""
+
+    def __init__(self, outs):
+        if outs[0].device.type != "cuda":
+            self._host, self._done = outs, None
+            return
+        self._host = tuple(
+            torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                t, non_blocking=True) for t in outs)
+        self._done = torch.cuda.Event()
+        self._done.record()
+
+    def wait(self) -> tuple:
+        """The tile's (image, counters) as numpy arrays once the copies
+        are done: one host sync (a CPU tile counts the one it would make
+        on a card)."""
+        host_sync(self._sync)
+        return tuple(t.numpy() for t in self._host)
+
+    def _sync(self):
+        if self._done is not None:
+            self._done.synchronize()
+
+
 class _Round:
     """One round of up to D tiles in flight, one a slot.  It pulls to the
-    host lazily, once, on the first get(): one all_gather_host of every
-    owned slot's image and counters (lucille_tpu/render/renderer.py:
-    155-180)."""
+    host lazily, once, on the first get(): each owned slot's copies
+    waited for, then one all_gather_host of every owned slot's image and
+    counters (lucille_tpu/render/renderer.py:155-180).  The arrays it
+    hands out are its own (np.stack copies out of the pinned buffers)."""
 
     def __init__(self, mesh: Mesh, outs: dict):
         self._mesh = mesh
-        self._outs = outs  # {slot: (image, counters)} still on the devices
+        self._outs = outs  # {slot: _Pull}
         self._np = None
 
     def get(self, slot: int) -> tuple:
@@ -121,9 +154,9 @@ class _Round:
         with get_timer().span("tile.pull"):
             if self._np is None:
                 slots = sorted(self._outs)
+                pulled = [self._outs[s].wait() for s in slots]
                 local = tuple(
-                    np.stack([host_sync(torch.Tensor.cpu, self._outs[s][i])
-                              .numpy() for s in slots])
+                    np.stack([p[i] for p in pulled])
                     if slots else np.zeros(0, np.float32) for i in (0, 1))
                 if not self._mesh.local:
                     local = all_gather_host(local)
@@ -144,7 +177,7 @@ def sharded_tile_batch(mesh: Mesh, tile_fn):
         for slot in mesh.owned:
             if slot < len(origins):
                 with _on(mesh.devices[slot]):
-                    outs[slot] = tile_fn(slot, *origins[slot])
+                    outs[slot] = _Pull(tile_fn(slot, *origins[slot]))
         return _Round(mesh, outs)
 
     return enqueue

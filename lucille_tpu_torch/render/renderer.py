@@ -18,6 +18,25 @@ Counterpart of lucille_tpu/render/renderer.py:41-152 and :269-591:
   (lucille_tpu/render/renderer.py:226-230, :66-69);
 - every tile is enqueued on the device before the first is pulled back,
   then tiles reach the display callbacks in tile-list (spiral) order;
+  each tile's image and counters are copied to pinned host memory right
+  behind its own work, so its pull waits for that tile alone
+  (parallel/mesh.py);
+- a tile graph (render/graphs.py): on a card, a tile of an integrator
+  that declares itself capturable (its `graph_key`; the AO integrator
+  does, Whitted, the path tracer, the dirt map and the shaders do not)
+  renders eagerly the first time it is seen, as without graphs; the
+  second time it is captured as one CUDA graph (its eye rays, the
+  integrator, the pixel filter and the counters) and replayed, and from
+  then on replayed, its random draws made eagerly into the graph's
+  buffers first.  A frame rendered once (the CLI, a view that changes
+  every frame) runs no graph.  One graph a tile key (the replica, the
+  tile's rectangle, the render method, the options the integrator
+  reads, the camera, the subpixel table and the integrator's own
+  switches); a replica's graphs share one memory pool, and it keeps the
+  graphs of one frame key (one view) at a time.  A tile renders
+  eagerly where it is on the CPU, where its integrator is not
+  capturable, where its capture failed, and where a launch function it
+  called has been replaced since;
 - each tile's random numbers come from its own stream, drawn per tile
   origin (sampling/jitter.py), so cropped pixels equal the full render's;
 - counters per tile: nrays (as lucille_tpu counts them), ntests, ntrav
@@ -70,9 +89,12 @@ Counterpart of lucille_tpu/render/renderer.py:41-152 and :269-591:
   a mesh the frame is a one-slot mesh of `device`;
 - under a torch profiler a frame records its spans (frame,
   frame.enqueue, tile, tile.rays, tile.integrate, tile.filter, tile.pull,
-  tile.deliver, frame.imager) and its host syncs (base/timer.py,
-  device.host_sync): two copies a pulled tile, and the subpixel table
-  and its weights copied to the device at the frame's start.
+  tile.deliver, frame.imager; a replayed tile has tile.rays for its draws
+  and tile.integrate for its replay, and tile.capture where it was
+  captured in the same frame), its host syncs (base/timer.py,
+  device.host_sync: one wait a pulled tile; the subpixel table and its
+  weights are copied to a replica once, in its first frame) and its
+  graph_tiles, the tiles that replayed a graph.
 """
 
 from __future__ import annotations
@@ -99,6 +121,13 @@ from lucille_tpu_torch.parallel.distributed import (
 )
 from lucille_tpu_torch.parallel.mesh import Mesh, sharded_tile_batch
 from lucille_tpu_torch.render.film import subsample_filter_table
+from lucille_tpu_torch.render.graphs import (
+    NotingStream,
+    SeenTile,
+    TileGraph,
+    camera_key,
+    capture_tile,
+)
 from lucille_tpu_torch.render.tiles import tile_list
 from lucille_tpu_torch.ri.camera import generate_rays
 from lucille_tpu_torch.sampling.hammersley import subpixel_samples
@@ -202,23 +231,31 @@ class Renderer:
             method_kwargs=({} if shader_table is None
                            else {"shader_table": shader_table}),
             sampler=(TileSampler(seed, dev) if sampler is None
-                     else lambda x0, y0: _OnDevice(sampler(x0, y0), dev)))
+                     else lambda x0, y0: _OnDevice(sampler(x0, y0), dev)),
+            consts={},  # the subpixel table and weights, by their values
+            graph_key=None,  # the frame key (`_frame_key`) of `graphs`
+            graphs_here=dev.type == "cuda",  # tile graphs run on a card
+            graphs={},  # tile rectangle -> SeenTile, TileGraph or None
+            graph_pool=None)  # the tile graphs' memory pool, made at need
 
     def _warm(self):
         """Render the frame's first tile on every card's replica and drop
         it: the per-device constants (device.const_vec, noise._perm,
-        bvh_ao._device_consts, _away) are copied to each card here, not
-        inside a frame's first tile there."""
+        bvh_ao._device_consts, _away, the subpixel table) are copied to
+        each card here, not inside a frame's first tile there; where the
+        integrator allows graphs, this is the tile's first sight, so the
+        first frame captures it (`_tile`)."""
         opt = self.desc.options
         x0, y0 = tile_list(opt.width, opt.height, self.tile_size,
                            opt.bucket_order)[0][:2]
         jitter_np, weights_np = self._subsamples()[2:]
+        graphs = self._graph_frame(jitter_np, weights_np)
         for rep in self.replicas:
             if rep.device.type == "cuda":
                 with torch.cuda.device(rep.device):
                     self._tile(x0, y0, self.tile_size, self.tile_size,
-                               *_on_device(jitter_np, weights_np, rep.device),
-                               rep)
+                               *self._consts(rep, jitter_np, weights_np),
+                               rep, graphs)
 
     def _subsamples(self):
         """(xsamples, ysamples, the subpixel positions (S, 2), their
@@ -232,34 +269,111 @@ class Renderer:
                                             *opt.pixel_filter_width)
         return xsamples, ysamples, jitter_np, weights_np
 
-    def _tile(self, x0, y0, tile_w, tile_h, jitter, weights, rep):
+    def _consts(self, rep, jitter_np, weights_np):
+        """The subpixel positions and their weights on rep's device,
+        copied there once for each distinct table (`_on_device`); a tile
+        graph reads them in place."""
+        key = (jitter_np.tobytes(), weights_np.tobytes())
+        if key not in rep.consts:
+            rep.consts[key] = _on_device(jitter_np, weights_np, rep.device)
+        return rep.consts[key]
+
+    def _graph_frame(self, jitter_np, weights_np) -> bool:
+        """Whether the frame's tiles may run as graphs (its integrator is
+        capturable).  A replica whose graphs were captured under another
+        frame key drops them, and their memory pool, first: a replica
+        holds the graphs of one view at a time."""
+        key = self._frame_key(jitter_np, weights_np)
+        for rep in self.replicas:
+            if rep.graph_key != key:
+                rep.graph_key, rep.graphs, rep.graph_pool = key, {}, None
+        return key is not None
+
+    def _frame_key(self, jitter_np, weights_np):
+        """The part of a tile graph's key that is the same for every tile
+        of a frame: everything a tile's Python reads but its origin, size
+        and replica (render method, the options passed to the integrator,
+        the imager's alpha channel, the camera, the subpixel table and
+        weights, the integrator's own switches).  None where the
+        integrator does not declare itself capturable (`graph_key`)."""
+        graph_key = getattr(self.integrator, "graph_key", None)
+        if graph_key is None:
+            return None
+        opt = self.desc.options
+        return ((opt.render_method or "").lower(), opt.gather_nsamples,
+                opt.max_ray_depth, tuple(opt.bgcolor), bool(opt.imager),
+                camera_key(self.camera), jitter_np.tobytes(),
+                weights_np.tobytes(), graph_key())
+
+    def _tile(self, x0, y0, tile_w, tile_h, jitter, weights, rep,
+              graphs=False):
         """One full-size tile on replica rep (jitter and weights on its
         device) -> ((tile_h, tile_w, 3) image, with an imager (tile_h,
         tile_w, 4): its alpha rides as a fourth channel, so one copy
         pulls both; counters [ntests, ntrav, nrays] i64), both still on
-        the device."""
+        the device.  graphs: the frame may run its tiles as graphs
+        (`_graph_frame`).  Then, on a card, rep.graphs holds what the
+        replica knows of the tile, by its rectangle: nothing the first
+        time (the tile renders eagerly, its draws and launch functions
+        noted in a SeenTile); the second time it is captured and replayed,
+        and from then on replayed (a TileGraph); None where its capture
+        failed (render/graphs.py)."""
+        timer = get_timer()
+        key = (x0, y0, tile_w, tile_h) if graphs and rep.graphs_here else None
+        held = rep.graphs.get(key)
+        with timer.span("tile", x0=x0, y0=y0):
+            if isinstance(held, SeenTile) and held.capturable():
+                with timer.span("tile.capture"):
+                    if rep.graph_pool is None:
+                        rep.graph_pool = torch.cuda.graph_pool_handle()
+                    held = rep.graphs[key] = capture_tile(
+                        lambda stream: self._tile_work(
+                            x0, y0, tile_w, tile_h, jitter, weights, rep,
+                            stream),
+                        held, rep.device, rep.graph_pool)
+            if isinstance(held, TileGraph) and held.replayable():
+                with timer.span("tile.rays"):
+                    held.recorder.refill(rep.sampler(x0, y0))
+                with timer.span("tile.integrate"):
+                    out = held.replay()
+                timer.count("graph_tiles")
+                return out
+            if key is None or key in rep.graphs:
+                return self._tile_work(x0, y0, tile_w, tile_h, jitter,
+                                       weights, rep)
+            noting = NotingStream(rep.sampler(x0, y0))
+            with timer.recording_launches() as launches:
+                out = self._tile_work(x0, y0, tile_w, tile_h, jitter,
+                                      weights, rep, noting)
+            rep.graphs[key] = SeenTile(noting.draws, launches)
+            return out
+
+    def _tile_work(self, x0, y0, tile_w, tile_h, jitter, weights, rep,
+                   stream=None):
+        """The tile's work (`_tile`) with its random stream (by default
+        the replica's sampler's, for the tile's origin)."""
         S = jitter.shape[0]
         opt = self.desc.options
         timer = get_timer()
-        with timer.span("tile", x0=x0, y0=y0):
-            with timer.span("tile.rays"):
+        with timer.span("tile.rays"):
+            if stream is None:
                 stream = rep.sampler(x0, y0)
-                lens_u = None
-                if self.camera.dof_active:
-                    lens_u = stream.uniform((LENS_FOLD,),
-                                            (tile_h * tile_w * S, 2))
-                org, dirn = tile_eye_rays(self.camera, x0, y0, tile_w,
-                                          tile_h, jitter, lens_u)
-            with timer.span("tile.integrate"):
-                radiance, aux = self.integrator(
-                    rep.scene, rep.lights, org, dirn, stream,
-                    gather_nsamples=opt.gather_nsamples,
-                    max_depth=opt.max_ray_depth, bgcolor=tuple(opt.bgcolor),
-                    textures=rep.textures, **rep.method_kwargs,
-                )
-            with timer.span("tile.filter"):
-                return self._filter(radiance, aux, org, dirn, tile_w, tile_h,
-                                    weights, rep)
+            lens_u = None
+            if self.camera.dof_active:
+                lens_u = stream.uniform((LENS_FOLD,),
+                                        (tile_h * tile_w * S, 2))
+            org, dirn = tile_eye_rays(self.camera, x0, y0, tile_w,
+                                      tile_h, jitter, lens_u)
+        with timer.span("tile.integrate"):
+            radiance, aux = self.integrator(
+                rep.scene, rep.lights, org, dirn, stream,
+                gather_nsamples=opt.gather_nsamples,
+                max_depth=opt.max_ray_depth, bgcolor=tuple(opt.bgcolor),
+                textures=rep.textures, **rep.method_kwargs,
+            )
+        with timer.span("tile.filter"):
+            return self._filter(radiance, aux, org, dirn, tile_w, tile_h,
+                                weights, rep)
 
     def _filter(self, radiance, aux, org, dirn, tile_w, tile_h, weights,
                 rep):
@@ -307,8 +421,9 @@ class Renderer:
         opt = self.desc.options
         W, H = opt.width, opt.height
         xsamples, ysamples, jitter_np, weights_np = self._subsamples()
-        consts = [_on_device(jitter_np, weights_np, rep.device)
+        consts = [self._consts(rep, jitter_np, weights_np)
                   for rep in self.replicas]
+        graphs = self._graph_frame(jitter_np, weights_np)
 
         # RiCropWindow -> raster rect [ceil(W*xmin), ceil(W*xmax) - 1]
         cxmin, cxmax, cymin, cymax = self.camera.crop_window
@@ -356,9 +471,10 @@ class Renderer:
         def tile_fn(slot, x0, y0):
             i = slot - first
             return self._tile(x0, y0, tile_w, tile_h, *consts[i],
-                              self.replicas[i])
+                              self.replicas[i], graphs)
 
         timer = get_timer()
+        timer.count("graph_tiles", 0)  # a frame of eager tiles counts 0
         timer.start("Render frame")
         # the tiles not done, in rounds of the mesh's size, every round
         # enqueued before the first pull: the devices run ahead of the pulls
@@ -446,7 +562,7 @@ class _OnDevice:
 
 def _on_device(jitter_np, weights_np, device):
     """The subpixel positions and their weights as f32 tensors on
-    `device` (copied once a frame, outside any tile: two host syncs)."""
+    `device` (two host syncs; once a replica, Renderer._consts)."""
     return (host_sync(torch.Tensor.to,
                       torch.tensor(jitter_np, dtype=torch.float32), device),
             host_sync(torch.Tensor.to, torch.from_numpy(weights_np), device))

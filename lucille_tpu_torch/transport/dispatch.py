@@ -23,12 +23,20 @@ shaders read the atlas, the dirt map does not (nor does lucille_tpu's).
 The shader method also takes `shader_table`, built once per Renderer
 (transport/shaded.build_shader_table), as lucille_tpu's tile kernel
 does (lucille_tpu/render/renderer.py:66-69).
+
+An integrator that may be captured as a CUDA graph (render/graphs.py)
+carries `graph_key`: a function of no arguments that gives the switches
+it reads at call time, for the tile graph's key.  Its tile makes no host
+sync and draws its random numbers from the tile's stream alone.  The AO
+integrator carries one (the tile BVH's gather mode, LUCILLE_BVH_AO);
+Whitted, the path tracer, the dirt map and the shaders render eagerly.
 """
 
 from __future__ import annotations
 
 import math
 
+from lucille_tpu_torch.accel.bvh_ao import gather_mode
 from lucille_tpu_torch.base.log import LOG_WARN, log_once
 from lucille_tpu_torch.sampling.jitter import StreamKey
 from lucille_tpu_torch.transport.ao import ao_radiance
@@ -94,4 +102,5 @@ def get_integrator(name: str):
         return ao_radiance(scene, org, dirn, stream, ntheta, ntheta,
                            lights=lights, textures=textures)
 
+    ao_fn.graph_key = gather_mode
     return ao_fn

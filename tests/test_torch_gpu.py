@@ -18,7 +18,8 @@ relative plus 1e-3.
 The tile-BVH kernels visit leaves in another order than their twins
 test slots, so a triangle id may also differ at an exact tie in t across
 two leaves (the ray onto a shared edge below); hits and occlusion do not
-depend on the order.
+depend on the order.  A frame whose tiles replay their CUDA graphs
+(render/graphs.py) equals the eager frame bit for bit.
 """
 
 import functools
@@ -1813,3 +1814,198 @@ def test_fur_frame_on_the_card_matches_the_cpu():
     got = cs.check_frame_twins("fur-twins", cs.fur_twins_state)
     assert got.shape == (60, 80, 3) and np.isfinite(got).all()
     assert bvh_isect.CLOSEST_COUNTS.kernel > 0
+
+
+# -- tile graphs (render/graphs.py) ---------------------------------------
+
+GRAPH_CELLS = {  # 6 tiles of 32 a frame, as the benchmark's cells have 6
+    "bundled-ao": lambda cs: cs.bundled_state(96, 64, 2, 16, sunsky=False),
+    "bundled-sunsky": lambda cs: cs.bundled_state(96, 64, 2, 16),
+    "heightfield256": lambda cs: cs.heightfield_state(256, 96, 64,
+                                                      pixelsamples=2,
+                                                      gather=16),
+}
+
+
+def _graph_pair(cell, integrator=None):
+    """(a Renderer of the cell whose tiles replay their graphs, one whose
+    integrator is wrapped so its tiles render eagerly); `integrator`
+    wraps the first one's integrator."""
+    import chip_smoke as cs
+
+    from lucille_tpu_torch.render.renderer import Renderer
+
+    graphs, eager = (Renderer(GRAPH_CELLS[cell](cs).scene, tile_size=32,
+                              device="cuda") for _ in range(2))
+    ao = eager.integrator
+    eager.integrator = lambda *a, **k: ao(*a, **k)  # no graph_key: eager
+    if integrator is not None:
+        graphs.integrator = integrator(graphs.integrator)
+    return graphs, eager
+
+
+def _traced_frame(r, kernels=False, **kw):
+    """r.render_frame(**kw) under the profiler: (image, the frame's root
+    span attrs), and with `kernels` (CUDA activity too) the hand-written
+    kernels its device trace shows (chip_smoke.traced_launches)."""
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
+
+    from lucille_tpu_torch.base.timer import get_timer
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if kernels else [])
+    with profile(activities=activities) as prof:
+        img = r.render_frame(**kw)
+        if kernels:
+            torch.cuda.synchronize()
+    attrs = get_timer().recorded_frames(1)[0].spans[0].attrs
+    return (img, attrs, cs.traced_launches(prof)) if kernels else (img, attrs)
+
+
+def _launches():
+    import chip_smoke as cs
+
+    return {k: (c.kernel, c.plain) for k, c in cs.counters().items()}
+
+
+def _reset_launches():
+    import chip_smoke as cs
+
+    for c in cs.counters().values():
+        c.reset()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", sorted(GRAPH_CELLS))
+def test_replayed_frames_equal_eager_frames(cell):
+    """Over two seeds and three frames each, a frame whose tiles replay
+    their graphs is bit-equal to the eager frame, replays every tile
+    (graph_tiles = tiles) and waits on the card once a tile.  Its
+    launches are the eager frame's, both as its wrappers count them (a
+    replayed tile adds its capture's) and as its device trace shows
+    them; the eager frame's trace shows what its wrappers count.  The
+    first frame renders eagerly and notes its tiles, and copies the
+    subpixel table and weights (2 more syncs); the second captures each
+    tile and replays it."""
+    _need_card()
+    import chip_smoke as cs
+
+    from lucille_tpu_torch.render.graphs import TileGraph
+
+    graphs, eager = _graph_pair(cell)
+    n = 0
+    for seed in (7, 2**31 + 5):
+        for k in range(3):
+            graphs.sampler.seed = eager.sampler.seed = seed + k
+            _reset_launches()
+            want, _attrs, want_traced = _traced_frame(eager, kernels=True)
+            want_launches = _launches()
+            assert want_traced == cs.by_kernel(
+                {name: c for name, (c, _p) in want_launches.items()})
+            _reset_launches()
+            got, attrs, traced = _traced_frame(graphs, kernels=True)
+            np.testing.assert_array_equal(got, want)
+            assert traced == want_traced
+            assert _launches() == want_launches
+            assert attrs["tiles"] == 6
+            assert attrs["graph_tiles"] == (0 if n == 0 else 6)
+            assert attrs["host_syncs"] == (8 if n == 0 else 6)
+            n += 1
+    made = graphs.replicas[0].graphs
+    assert len(made) == 6
+    assert all(isinstance(g, TileGraph) for g in made.values())
+
+
+@pytest.mark.gpu
+def test_tiles_handed_out_survive_later_frames():
+    """What tile_cb receives and render_frame returns from a replayed
+    frame stays as it was through the next frames."""
+    _need_card()
+    graphs, _eager = _graph_pair("bundled-ao")
+    graphs.render_frame()  # each tile seen
+    graphs.render_frame()  # each tile captured
+    tiles = []
+    graphs.sampler.seed = 3
+    img = graphs.render_frame(tile_cb=lambda x0, y0, t: tiles.append(t))
+    kept, img0 = [t.copy() for t in tiles], img.copy()
+    for seed in (4, 5):
+        graphs.sampler.seed = seed
+        assert not np.array_equal(graphs.render_frame(), img0)
+    for t, k in zip(tiles, kept):
+        np.testing.assert_array_equal(t, k)
+    np.testing.assert_array_equal(img, img0)
+
+
+@pytest.mark.gpu
+def test_replayed_frame_waits_once_a_tile_under_sync_debug():
+    """Under torch's sync debug mode "error" a replayed frame raises
+    nothing, and counts 6 host syncs, one event wait a tile."""
+    _need_card()
+    graphs, _eager = _graph_pair("bundled-sunsky")
+    graphs.render_frame()  # each tile seen
+    graphs.render_frame()  # each tile captured
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _img, attrs = _traced_frame(graphs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert attrs["host_syncs"] == 6 and attrs["graph_tiles"] == 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("before", [1, 2])
+def test_recorders_around_launch_functions_see_the_frame(before):
+    """The benchmark's recorders (benchmark/harness/capture.recording)
+    replace the AO gather's launch function, after the tiles were seen
+    once (their capture waits) or twice (their graphs wait): the frame
+    under them renders eagerly and records its 6 gathers; the frame after
+    replays."""
+    _need_card()
+    import sys
+    from pathlib import Path
+
+    bench = str(Path(__file__).resolve().parent.parent / "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from harness.capture import recording
+
+    graphs, eager = _graph_pair("bundled-ao")
+    for _ in range(before):
+        graphs.render_frame()
+    captures = {}
+    with recording(captures):
+        got, attrs = _traced_frame(graphs)
+    assert len(captures["ao_gather"]) == 6
+    assert attrs["graph_tiles"] == 0
+    np.testing.assert_array_equal(got, eager.render_frame())
+    _img, attrs = _traced_frame(graphs)
+    assert attrs["graph_tiles"] == 6
+
+
+@pytest.mark.gpu
+def test_a_tile_that_syncs_falls_back_to_eager():
+    """An integrator that declares itself capturable but reads a device
+    value in its tile fails its capture: every tile renders eagerly, with
+    the eager frame's pixels, frame after frame."""
+    _need_card()
+
+    def syncing(ao):
+        def stub(*args, **kwargs):
+            radiance, aux = ao(*args, **kwargs)
+            if aux["hit"].sum().item() < 0:  # a host sync, never true
+                raise AssertionError
+            return radiance, aux
+
+        stub.graph_key = ao.graph_key
+        return stub
+
+    graphs, eager = _graph_pair("bundled-ao", syncing)
+    for seed in (1, 2):
+        graphs.sampler.seed = eager.sampler.seed = seed
+        got, attrs = _traced_frame(graphs)
+        np.testing.assert_array_equal(got, eager.render_frame())
+        assert attrs["graph_tiles"] == 0
+    graphs_made = graphs.replicas[0].graphs
+    assert len(graphs_made) == 6 and all(g is None for g in graphs_made.values())
