@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 # frame k of a run draws its random numbers with the seed
-# frame_seed(run seed, k); frame 0 is the warm frame
+# frame_seed(run seed, k); both warm frames draw with frame 0's seed
 FRAME_STRIDE = 1 << 16
 
 

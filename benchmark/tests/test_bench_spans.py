@@ -28,9 +28,9 @@ def test_a_traced_run_reads_the_ports_spans(root, cell):
     m = got["metrics"]
     for name in SPAN_METRICS:
         assert m[name]["unit"] == "ms/frame" and m[name]["value"] > 0
-    # two copies a pulled tile, and the frame's subpixel table and
-    # weights copied to the device
-    assert m["host_syncs"] == {"value": 2.0 * TILES + 2,
+    # one event wait a pulled tile; the traced frames are not the
+    # renderer's first, so its constants are on the device already
+    assert m["host_syncs"] == {"value": float(TILES),
                                "unit": "syncs/frame"}
 
 
