@@ -2389,7 +2389,7 @@ def whitted_gather_inputs(r):
     fold(0) (the bounce), fold(1000) (the first light)."""
     from lucille_tpu_torch.accel.dispatch import closest_hit
     from lucille_tpu_torch.sampling.jitter import StreamKey
-    from lucille_tpu_torch.transport.ao import ortho_basis
+    from lucille_tpu_torch.ops.frame import ortho_basis
     from lucille_tpu_torch.transport.common import face_forward, interp_hit
 
     org, dirn, x0, y0 = first_tile_rays(r)
@@ -2684,7 +2684,7 @@ def check_dense_scan(results):
     from lucille_tpu_torch.accel.ao import MAX_TRIS_FOR_MEGAKERNEL
     from lucille_tpu_torch.render.renderer import Renderer
     from lucille_tpu_torch.render.tiles import tile_list
-    from lucille_tpu_torch.transport.ao import gather_kind
+    from lucille_tpu_torch.accel.gather import gather_kind
 
     for sunsky in (False, True):
         label = "heightfield258-scan" + ("-sunsky" if sunsky else "")
@@ -2800,8 +2800,9 @@ def check_tmax_kernels(results):
     import torch
 
     from lucille_tpu_torch.accel.dispatch import closest_hit
+    from lucille_tpu_torch.accel.gather import scan_dirs
     from lucille_tpu_torch.render.renderer import Renderer
-    from lucille_tpu_torch.transport.ao import _scan_dirs, shading_frame
+    from lucille_tpu_torch.transport.ao import shading_frame
 
     r = Renderer(bundled_state(640, 480, 3, 64, sunsky=False,
                                method="dirtmap").scene,
@@ -2814,8 +2815,8 @@ def check_tmax_kernels(results):
     d = scene.bbox_max - scene.bbox_min
     gather_dist = 0.25 * torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
     si = 7  # a stratum near the horizon: its rays meet the most occluders
-    wdir = _scan_dirs(b0, b1, b2, r.sampler(x0, y0).uniform((si,), (B, 2)),
-                      si, 8, 8)
+    wdir = scan_dirs(b0, b1, b2, r.sampler(x0, y0).uniform((si,), (B, 2)),
+                     si, 8, 8)
     entry = check_tmax_kernel("dirtmap-gather", scene, P_off, wdir,
                               gather_dist.expand(B).contiguous(),
                               res["hit"], 65536, results)
@@ -3579,7 +3580,8 @@ def check_grid_kernels(label, r, results, log):
     record of the walk's reads), registers and spills.  Appends to
     results[name]."""
     from lucille_tpu_torch.accel import ugrid
-    from lucille_tpu_torch.transport.ao import _scan_dirs, shading_frame
+    from lucille_tpu_torch.accel.gather import scan_dirs
+    from lucille_tpu_torch.transport.ao import shading_frame
 
     scene = r.scene
     if scene.accel != "ugrid":
@@ -3603,8 +3605,8 @@ def check_grid_kernels(label, r, results, log):
     ms = cuda_ms(lambda: ugrid.closest_hit(scene, org, dirn), 10)
     hit = got["tri"] >= 0
     P_off, b0, b1, b2 = shading_frame(scene, org, dirn, {**got, "hit": hit})
-    wdir = _scan_dirs(b0, b1, b2, r.sampler(x0, y0).uniform((7,), (B, 2)),
-                      7, 8, 8)
+    wdir = scan_dirs(b0, b1, b2, r.sampler(x0, y0).uniform((7,), (B, 2)),
+                     7, 8, 8)
     occ = ugrid.grid_walk_kernel(scene, P_off, wdir, None, hit, any_hit=True)
     any_reads = {}
     occ_ref = ugrid.grid_walk_reference(scene, P_off, wdir, None, hit,

@@ -6,7 +6,7 @@ Hit lanes are compacted to the front in the JAX package's exact order —
 a stable hit-first partition below 8 triangle tiles, the stable
 (normal octant, Morton cell) sort from 8 tiles — because the per-lane
 jitter is indexed by compacted slot: slot j reads jitter[:, j].  The
-counts are scattered back to raster order.
+counts are scattered back to raster order (`to_raster`).
 
 `ao_occlusion_bits` (pallas_ao_occlusion_bits) returns, beside the
 counts, which strata are occluded — ceil(S/32) int32 rows, bit s % 32 of
@@ -36,11 +36,6 @@ from lucille_tpu_torch.accel.isect import DET_EPS
 from lucille_tpu_torch.accel.pack import SUB, TC
 from lucille_tpu_torch.base.timer import traced
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
-from lucille_tpu_torch.lights.sunsky import (
-    _XYZ2RGB_CIE,
-    _folded_basis,
-    sky_frame,
-)
 
 R2_A1 = 0.7548776662466927  # R2 additive-recurrence constants (plastic
 R2_A2 = 0.5698402909980532  # number alpha, alpha^2), rounded to f32 in use
@@ -98,6 +93,17 @@ def compaction_order(bbox_min, bbox_max, P_off, b2, hit, n_tri_tiles: int):
     return order, hit.to(torch.int32).sum(dtype=torch.int32)
 
 
+def to_raster(order: torch.Tensor, x: torch.Tensor, dim: int = 0):
+    """x in compacted (or sorted) order along `dim` (0 or 1) scattered back
+    to raster order: slot j of x lands at lane order[j]."""
+    out = torch.empty_like(x)
+    if dim == 0:
+        out[order] = x
+    else:
+        out[:, order] = x
+    return out
+
+
 def _gather(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int, nphi: int,
             want_bits: bool):
     """The compacted gather: (order, nhit () i32, rays (12, B) [P_off | b0
@@ -146,9 +152,7 @@ def ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     how many of the ntheta * nphi strata are occluded (0 where not hit)."""
     order, _nhit, _rays, occ_sorted = _gather(scene, P_off, b0, b1, b2, hit,
                                               jitter, ntheta, nphi, False)
-    occ = torch.empty_like(occ_sorted)
-    occ[order] = occ_sorted
-    return occ
+    return to_raster(order, occ_sorted)
 
 
 def ao_occlusion_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
@@ -162,13 +166,8 @@ def ao_occlusion_bits(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
     slot)."""
     order, _nhit, _rays, (occ_sorted, bits_sorted) = _gather(
         scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi, True)
-    occ = torch.empty_like(occ_sorted)
-    occ[order] = occ_sorted
-    bits = torch.empty_like(bits_sorted)
-    bits[:, order] = bits_sorted
-    u01 = torch.empty_like(jitter)
-    u01[:, order] = jitter
-    return occ, bits, u01
+    return (to_raster(order, occ_sorted), to_raster(order, bits_sorted, 1),
+            to_raster(order, jitter, 1))
 
 
 def ao_sunsky(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
@@ -191,9 +190,7 @@ def ao_sunsky(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
         col_sorted = torch.zeros((P_off.shape[0], 3), device=P_off.device)
         col_sorted[:n] = sky_gather_reference(rays[:, :n], jitter[:, :n],
                                               bits[:, :n], ntheta, nphi, sky)
-    col = torch.empty_like(col_sorted)
-    col[order] = col_sorted
-    return col
+    return to_raster(order, col_sorted)
 
 
 def gather_layout(S: int, B: int) -> tuple[int, int, int]:
@@ -285,20 +282,6 @@ def ao_occlusion_kernel(scene, rays, jitter, nact, ntheta: int, nphi: int,
     return (out, gather_stats(stats)) if counters else out
 
 
-def sky_params(sky) -> np.ndarray:
-    """The sky's constants as csrc/ao.cu's SkyParams holds them, in its
-    order: (40,) f32, each the f32 rounding of a PreethamSunSky
-    field, as torch rounds a Python float against an f32 tensor: the
-    sun's direction, Yz, xz, yz, the Perez A..E of Y, of x and of y,
-    theta_s, the folded basis rows S0, S1, S2 (`_folded_basis`) and the
-    CIEsystem matrix by rows."""
-    perez = [getattr(sky, f"{c}{k}") for k in "Yxy" for c in "ABCDE"]
-    vals = [*sky.sun_direction(), sky.Yz, sky.xz, sky.yz, *perez,
-            sky.theta_s, *(v for row in _folded_basis() for v in row),
-            *_XYZ2RGB_CIE.ravel()]
-    return np.array(vals, dtype=np.float32)
-
-
 @traced("accel.sky_gather_kernel")
 def sky_gather_kernel(rays, jitter, bits, nact, ntheta: int, nphi: int, sky,
                       counters: bool = False):
@@ -308,9 +291,10 @@ def sky_gather_kernel(rays, jitter, bits, nact, ntheta: int, nphi: int, sky,
     rays (12, B) [P_off | b0 | b1 | b2] and jitter (2, B) f32 as
     ao_occlusion_kernel takes them, bits (ceil(S/32), B) i32 its output,
     all in compacted order; nact () i32 on the device (lanes at or past
-    it report 0); sky a PreethamSunSky.  Returns col (B, 3) f32, each live
-    lane's sky radiance summed over its open strata, in compacted order;
-    with counters, (col, {"open_pairs", "live_lanes"}: () i64 on the
+    it report 0); sky a PreethamSunSky, whose `kernel_params` the kernel
+    takes by value.  Returns col (B, 3) f32, each live lane's sky
+    radiance summed over its open strata, in compacted order; with
+    counters, (col, {"open_pairs", "live_lanes"}: () i64 on the
     device), read nowhere on the render paths."""
     B = rays.shape[1]
     dev = rays.device
@@ -330,7 +314,7 @@ def sky_gather_kernel(rays, jitter, bits, nact, ntheta: int, nphi: int, sky,
                              f"{a.device}")
     if nact.dtype != torch.int32 or nact.numel() != 1 or nact.device != dev:
         raise ValueError("nact: need one int32 on the rays' device")
-    params = sky_params(sky)
+    params = sky.kernel_params()
     col = torch.empty((B, 3), dtype=torch.float32, device=dev)
     stats = (torch.zeros(2, dtype=torch.int64, device=dev) if counters
              else None)
@@ -355,15 +339,15 @@ def sky_gather_reference(rays, jitter, bits, ntheta: int, nphi: int, sky):
     """Plain torch twin of sky_gather_kernel for lanes that all hit: rays
     (12, n), jitter (2, n), bits (ceil(S/32), n) i32.  Every stratum of
     every lane at once: the open strata (`unpack_bits`), their directions
-    (`stratum_directions`), sky.sky_rgb along them in the sky's z-up
-    frame, the sum over the open strata in stratum order (the kernel's
-    order, and lucille_tpu's scan's; torch's `.sum(dim=0)` orders its
-    terms by the tensor's layout).  Returns (n, 3) f32."""
+    (`stratum_directions`), sky.sky_rgb_world along them, the sum over
+    the open strata in stratum order (the kernel's order, and
+    lucille_tpu's scan's; torch's `.sum(dim=0)` orders its terms by the
+    tensor's layout).  Returns (n, 3) f32."""
     SKY_COUNTS.plain += 1
     vis = ~unpack_bits(bits, ntheta * nphi)  # (S, n)
     b0, b1, b2 = (rays[3 * c:3 * c + 3].T for c in (1, 2, 3))
     d = stratum_directions(b0, b1, b2, jitter, ntheta, nphi)  # (S, n, 3)
-    rgb = vis[..., None] * sky.sky_rgb(sky_frame(d))
+    rgb = vis[..., None] * sky.sky_rgb_world(d)
     col = torch.zeros_like(rgb[0])
     for s in range(rgb.shape[0]):
         col = col + rgb[s]

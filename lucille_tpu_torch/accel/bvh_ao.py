@@ -75,6 +75,7 @@ from lucille_tpu_torch.accel.ao import (
     _spread3,
     compaction_order,
     stratum_directions,
+    to_raster,
 )
 from lucille_tpu_torch.accel.bvh_isect import (
     STACK,
@@ -87,7 +88,6 @@ from lucille_tpu_torch.accel.isect import NSTAT, walk_stats
 from lucille_tpu_torch.accel.pack import TC
 from lucille_tpu_torch.base.timer import traced
 from lucille_tpu_torch.kernels.build import LaunchCounts, check, library
-from lucille_tpu_torch.lights.sunsky import sky_frame
 
 CONE_K = 4  # strata per warp: lucille_tpu's measured default (_cone_k)
 MORTON_TILES = 1 << 20  # selects compaction_order's Morton branch
@@ -211,8 +211,7 @@ def bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
         scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi)
     res = any_hit(scene, oo, dd)
     occ_g = res["occ"].to(torch.float32).reshape(NG, S, G).sum(dim=1)
-    occ = torch.empty(Bpad, dtype=torch.float32, device=P_off.device)
-    occ[order] = occ_g.reshape(-1)
+    occ = to_raster(order, occ_g.reshape(-1))
     stats = {"ntrav": res["ntrav"], "ntests": res["ntests"]}
     return occ[:B] * hit.to(torch.float32), stats
 
@@ -244,8 +243,7 @@ def bvh_ao_rebinned(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
                       torch.full_like(mo, 1 << 30))
     order = torch.argsort(key)
     occ_sorted = any_hit(scene, o[order], d[order])["occ"]
-    occ = torch.empty(S * B, dtype=torch.float32, device=P_off.device)
-    occ[order] = occ_sorted.to(torch.float32)
+    occ = to_raster(order, occ_sorted.to(torch.float32))
     return occ.reshape(S, B).sum(dim=0) * hit.to(torch.float32)
 
 
@@ -253,20 +251,19 @@ def bvh_ao_sunsky(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
                   nphi: int, sky):
     """Sky radiance summed over each lane's unoccluded strata on a pbvh
     scene (pallas_bvh_ao_sunsky): the cone-tiled gather rays of
-    bvh_ao_occlusion through the tile-BVH any-hit, vis x sky.sky_rgb of
-    the direction in the sky's z-up frame (the reference's y/z swap,
-    lightsource.c:152-155), summed over a lane's strata.  Operands as
-    bvh_ao_occlusion; sky: lights/sunsky.PreethamSunSky.  Returns (B, 3)
-    f32, 0 where not hit.  lucille_tpu drops this gather's counters
-    (transport/ao.py:227-229); so does the port."""
+    bvh_ao_occlusion through the tile-BVH any-hit, vis x
+    sky.sky_rgb_world of the direction (the sky applies the reference's
+    y/z swap, lightsource.c:152-155), summed over a lane's strata.
+    Operands as bvh_ao_occlusion; sky: lights/sunsky.PreethamSunSky.
+    Returns (B, 3) f32, 0 where not hit.  lucille_tpu drops this
+    gather's counters (transport/ao.py:227-229); so does the port."""
     B = P_off.shape[0]
     oo, dd, order, (NG, S, G, Bpad) = conetile_rays(
         scene, P_off, b0, b1, b2, hit, jitter, ntheta, nphi)
     vis = ~any_hit(scene, oo, dd)["occ"]
-    sky_rgb = sky.sky_rgb(sky_frame(dd))
+    sky_rgb = sky.sky_rgb_world(dd)
     col_g = (vis[:, None] * sky_rgb).reshape(NG, S, G, 3).sum(dim=1)
-    col = torch.empty((Bpad, 3), dtype=torch.float32, device=P_off.device)
-    col[order] = col_g.reshape(-1, 3)
+    col = to_raster(order, col_g.reshape(-1, 3))
     return col[:B] * hit[:, None].to(torch.float32)
 
 
@@ -295,9 +292,7 @@ def bvh_ao_fused(scene, P_off, b0, b1, b2, hit, jitter, ntheta: int,
             tris, rays[:, :n], jitter[:, :n], ntheta, nphi)
     else:
         raise ValueError(f"unsupported device {dev}")
-    occ = torch.empty_like(occ_s)
-    occ[order] = occ_s
-    return occ, stats
+    return to_raster(order, occ_s), stats
 
 
 def fused_layout(S: int):

@@ -30,8 +30,7 @@ import numpy as np
 import torch
 
 from lucille_tpu_torch.accel.dispatch import any_hit
-from lucille_tpu_torch.shading.reflection import _dot, cosweight_sample
-from lucille_tpu_torch.transport.ao import ortho_basis
+from lucille_tpu_torch.ops.frame import cosweight_sample, dot, ortho_basis
 
 
 def latlong_directions(h: int, w: int):
@@ -82,7 +81,7 @@ def _visibility(scene, P, N, wi, active) -> torch.Tensor:
 
 
 def _cos(N, wi) -> torch.Tensor:
-    return torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+    return torch.clamp_min(dot(N, wi)[:, 0], 0.0)
 
 
 def sample_env_importance(table: EnvImportanceTable, scene, P, N, key,

@@ -9,13 +9,12 @@ the per-light loop unrolled in Python.  Random numbers come from a
 folded at the same places.
 
 A constant dome light's hemisphere visibility is the AO gather's job, as
-in lucille_tpu (`_hemisphere_occlusion`): the dense tiles' fused gather
-(accel/ao.ao_occlusion, kernel 3) up to 131,072 padded triangles under
-lucille_tpu's "pallas" request, the tile BVH's gather
-(accel/bvh_ao.bvh_ao_occlusion: the cone-tiled gather, kernel 6 under
-LUCILLE_BVH_AO=fused, the re-binned gather under =rebinned) on pbvh
-scenes; anything else (the dense scan, "bruteforce", "mxu", the grid)
-takes the cosine-weighted loop of shadow rays, as in lucille_tpu.  A dome or IBL light with
+in lucille_tpu (`_hemisphere_occlusion`), where a fused gather serves the
+scene (accel/gather.fused_serves: the dense tiles' fused gather up to
+131,072 padded triangles under lucille_tpu's "pallas" request, the tile
+BVH's gather on pbvh scenes); anything else (the dense scan,
+"bruteforce", "mxu", the grid) takes the cosine-weighted loop of shadow
+rays, as in lucille_tpu.  A dome or IBL light with
 an environment texture goes through the sampler its RIB selects
 (`_env_contribution`, lights/ibl.py).  `light_wi_cl` is one (direction,
 shadowed colour) sample of a light, the binding of RSL `illuminance`
@@ -28,12 +27,10 @@ import math
 
 import torch
 
-from lucille_tpu_torch.accel.ao import ao_occlusion
-from lucille_tpu_torch.accel.bvh_ao import bvh_ao_occlusion
+from lucille_tpu_torch.accel import gather
 from lucille_tpu_torch.accel.dispatch import any_hit
 from lucille_tpu_torch.device import const_vec
 from lucille_tpu_torch.lights import ibl
-from lucille_tpu_torch.lights.sunsky import sky_frame
 from lucille_tpu_torch.lights.tables import (
     LIGHT_AREA,
     LIGHT_DISTANT,
@@ -43,8 +40,12 @@ from lucille_tpu_torch.lights.tables import (
     LIGHT_SUN,
     LIGHT_SUNSKY,
 )
-from lucille_tpu_torch.shading.reflection import _dot, cosweight_sample
-from lucille_tpu_torch.transport.ao import _norm, gather_kind, ortho_basis
+from lucille_tpu_torch.ops.frame import (
+    cosweight_sample,
+    dot,
+    norm,
+    ortho_basis,
+)
 
 GATHER_LIGHTS = (LIGHT_DOME, LIGHT_AREA, LIGHT_SUNSKY, LIGHT_IBL)
 
@@ -65,7 +66,7 @@ def delta_direction(light, like: torch.Tensor) -> torch.Tensor:
     lightsource.c:155-158)."""
     sgn = 1.0 if light.type == LIGHT_SUN else -1.0
     wi = sgn * _vec(light.direction, like)
-    return (wi / torch.clamp_min(_norm(wi), 1e-20)).expand(like.shape)
+    return (wi / torch.clamp_min(norm(wi), 1e-20)).expand(like.shape)
 
 
 def occlusion(scene, org, wi, tmax=None, active=None) -> torch.Tensor:
@@ -98,16 +99,19 @@ def sample_area_light(light, u: torch.Tensor):
         a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
         a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0],
     ], dim=-1)
-    nrm = nrm / torch.clamp_min(_norm(nrm), 1e-20)
+    nrm = nrm / torch.clamp_min(norm(nrm), 1e-20)
     pdf_area = 1.0 / max(tris["total_area"], 1e-20)
     return pts, nrm, torch.full((u.shape[0],), pdf_area, device=u.device)
 
 
 def _hemisphere_occlusion(scene, P, N, key, nsamples: int, active):
     """Stratified hemisphere occlusion counts (B,) f32 through the AO
-    gathers (module docstring), or None where no gather serves the scene
-    or nsamples has no ntheta x nphi grid.  The gather's (2, B) jitter is
-    key.uniform((2, B)), as the TPU gathers draw uniform(key, (2, B))."""
+    gathers (module docstring), or None where no fused gather serves the
+    scene or nsamples has no ntheta x nphi grid.  The gather's (2, B)
+    jitter is key.uniform((2, B)), as the TPU gathers draw uniform(key,
+    (2, B))."""
+    if not gather.fused_serves(scene):
+        return None
     nt = math.isqrt(nsamples)
     while nt > 1 and nsamples % nt:
         nt -= 1
@@ -118,15 +122,8 @@ def _hemisphere_occlusion(scene, P, N, key, nsamples: int, active):
     hit = active if active is not None else torch.ones(
         B, dtype=torch.bool, device=P.device)
     b0, b1, b2 = ortho_basis(N)
-    P_off = P + N * scene.eps
-    kind = gather_kind(scene)
-    if kind == "fused-dense":
-        return ao_occlusion(scene, P_off, b0, b1, b2, hit,
-                            key.uniform((2, B)), nt, nph)
-    if kind == "bvh" and scene.n_nodes > 0:
-        return bvh_ao_occlusion(scene, P_off, b0, b1, b2, hit,
-                                key.uniform((2, B)), nt, nph)[0]
-    return None
+    return gather.occlusion(scene, P + N * scene.eps, b0, b1, b2, hit, key,
+                            nt, nph)[0]
 
 
 def _cosweight_gather(scene, light, P, N, key, nsamples: int, active):
@@ -141,8 +138,7 @@ def _cosweight_gather(scene, light, P, N, key, nsamples: int, active):
         wi, _pdf = cosweight_sample(ur[:, 0], ur[:, 1], basis)
         vis = _shadow(scene, P, N, wi, active=active)
         if light.type == LIGHT_SUNSKY and light.sunsky is not None:
-            # the sky's z-up frame (lightsource.c:152-155)
-            li = light.sunsky.sky_rgb(sky_frame(wi))
+            li = light.sunsky.sky_rgb_world(wi)
         else:
             li = col[None, :]
         total = total + vis[:, None] * li * math.pi
@@ -153,10 +149,10 @@ def _area_geometry(light, P, u):
     """(wi, r, r2, cos_l, pdf_a) of one sample u (B, 3) on an area light."""
     pts, ln, pdf_a = sample_area_light(light, u)
     d = pts - P
-    r2 = torch.clamp_min(_dot(d, d)[:, 0], 1e-10)
+    r2 = torch.clamp_min(dot(d, d)[:, 0], 1e-10)
     r = torch.sqrt(r2)
     wi = d / r[:, None]
-    cos_l = torch.clamp_min(-_dot(ln, wi)[:, 0], 0.0)
+    cos_l = torch.clamp_min(-dot(ln, wi)[:, 0], 0.0)
     return wi, r, r2, cos_l, pdf_a
 
 
@@ -168,15 +164,15 @@ def light_contribution(scene, light, P, N, key, nsamples: int = 1,
     col = light_color(light, P)
     if light.type in (LIGHT_DISTANT, LIGHT_SUN):
         wi = delta_direction(light, P)
-        cos = torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+        cos = torch.clamp_min(dot(N, wi)[:, 0], 0.0)
         return (cos * _shadow(scene, P, N, wi, active=active))[:, None] * col
 
     if light.type == LIGHT_POINT:
         d = _vec(light.position, P) - P
-        r2 = torch.clamp_min(_dot(d, d)[:, 0], 1e-12)
+        r2 = torch.clamp_min(dot(d, d)[:, 0], 1e-12)
         r = torch.sqrt(r2)
         wi = d / r[:, None]
-        cos = torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+        cos = torch.clamp_min(dot(N, wi)[:, 0], 0.0)
         # occluders beyond the light do not count
         vis = _shadow(scene, P, N, wi, r - 2.0 * scene.eps, active)
         return (cos * vis / r2)[:, None] * col
@@ -201,7 +197,7 @@ def light_contribution(scene, light, P, N, key, nsamples: int = 1,
         for si in range(nsamples):
             u = key.fold(si).uniform((P.shape[0], 3))
             wi, r, r2, cos_l, pdf_a = _area_geometry(light, P, u)
-            cos_s = torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+            cos_s = torch.clamp_min(dot(N, wi)[:, 0], 0.0)
             vis = _shadow(scene, P, N, wi, r - 2.0 * scene.eps, active)
             g = cos_s * cos_l / r2
             total = total + (vis * g / torch.clamp_min(pdf_a, 1e-20)
@@ -253,7 +249,7 @@ def light_wi_cl(scene, light, P, N, key, index: int = 0):
         return wi, _shadow(scene, P, N, wi)[:, None] * col
     if light.type == LIGHT_POINT:
         d = _vec(light.position, P) - P
-        r2 = torch.clamp_min(_dot(d, d)[:, 0], 1e-12)
+        r2 = torch.clamp_min(dot(d, d)[:, 0], 1e-12)
         r = torch.sqrt(r2)
         wi = d / r[:, None]
         vis = _shadow(scene, P, N, wi, r - 2.0 * scene.eps)
@@ -268,13 +264,13 @@ def light_wi_cl(scene, light, P, N, key, index: int = 0):
         wi, _pdf = cosweight_sample(ur[:, 0], ur[:, 1], ortho_basis(N))
         vis = _shadow(scene, P, N, wi)
         if light.type == LIGHT_SUNSKY and light.sunsky is not None:
-            li = light.sunsky.sky_rgb(sky_frame(wi))
+            li = light.sunsky.sky_rgb_world(wi)
         elif light.env is not None:
             li = light.env.fetch(wi) * col[None, :]  # texture.c:238
         else:
             li = col.expand(P.shape)
         # Cl scaled so that Cl (L.N) integrates like the cosine gather
-        cos = torch.clamp_min(_dot(N, wi)[:, 0], 1e-6)
+        cos = torch.clamp_min(dot(N, wi)[:, 0], 1e-6)
         return wi, vis[:, None] * li * (math.pi / cos)[:, None] / math.pi
     return None, None
 
@@ -320,13 +316,13 @@ def direct_specular(scene, lights, P, N, V, roughness, key,
             wi = delta_direction(light, P)
         elif light.type == LIGHT_POINT:
             d = _vec(light.position, P) - P
-            wi = d / torch.clamp_min(_norm(d), 1e-10)
+            wi = d / torch.clamp_min(norm(d), 1e-10)
         else:
             continue  # dome and area highlights are path tracing's
         h = wi + V
-        h = h / torch.clamp_min(_norm(h), 1e-20)
-        ndoth = torch.clamp_min(_dot(N, h)[:, 0], 0.0)
-        cos = torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+        h = h / torch.clamp_min(norm(h), 1e-20)
+        ndoth = torch.clamp_min(dot(N, h)[:, 0], 0.0)
+        cos = torch.clamp_min(dot(N, wi)[:, 0], 0.0)
         vis = _shadow(scene, P, N, wi, active=active)
         total = total + (vis * (cos > 0) * torch.pow(ndoth, inv_r)
                          )[:, None] * light_color(light, P)

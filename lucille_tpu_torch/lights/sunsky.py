@@ -18,6 +18,10 @@ a 240x240x9 tile) before it meets the CIE weights; the three basis
 spectra are folded into the weights once, S_k @ W (3,) each, and
 xyz0 = S0W + M1 S1W + M2 S2W.  The sum is linear, so only the rounding
 differs from the JAX package's (tests/test_torch_sunsky.py holds it).
+
+The sky owns its frame and its kernel's constants: callers hand
+`sky_rgb_world` world directions, and `kernel_params` packs the
+constants csrc/ao.cu's sky_gather_kernel reads.
 """
 
 from __future__ import annotations
@@ -250,6 +254,24 @@ class PreethamSunSky:
              for c in range(3)], dim=-1)
         rgb = torch.clamp_min(rgb, 0.0)
         return torch.where((cz > 0.0)[..., None], rgb, 0.0)
+
+    def sky_rgb_world(self, directions: torch.Tensor) -> torch.Tensor:
+        """`sky_rgb` of world directions (..., 3), turned into the sky's
+        z-up frame first (`sky_frame`, lightsource.c:152-155)."""
+        return self.sky_rgb(sky_frame(directions))
+
+    def kernel_params(self) -> np.ndarray:
+        """The sky's constants as csrc/ao.cu's SkyParams holds them, in
+        its order: (40,) f32, each the f32 rounding of a field, as torch
+        rounds a Python float against an f32 tensor: the sun's direction,
+        Yz, xz, yz, the Perez A..E of Y, of x and of y, theta_s, the folded
+        basis rows S0, S1, S2 (`_folded_basis`) and the CIEsystem matrix by
+        rows."""
+        perez = [getattr(self, f"{c}{k}") for k in "Yxy" for c in "ABCDE"]
+        vals = [*self.sun_direction(), self.Yz, self.xz, self.yz, *perez,
+                self.theta_s, *(v for row in _folded_basis() for v in row),
+                *_XYZ2RGB_CIE.ravel()]
+        return np.array(vals, dtype=np.float32)
 
     def sun_spectrum(self, turbidity: float | None = None) -> np.ndarray:
         """Attenuated direct-beam solar spectrum, 380..780 nm at 10 nm

@@ -9,11 +9,11 @@ src/render/reflection.c), with the same f32 formulas:
   sign(in . n); eta a scalar or one per lane;
 - `fresnel` (reflection.c:221): exact dielectric coefficients;
 - `fresnel_schlick`: Schlick's approximation (brdf.c's fresnel_approx);
-- `cosweight_sample` (reflection.c:131): cosine-weighted hemisphere;
 - `cosn_sample`: a cos^N lobe about an axis (brdf.c:431-462).
 
 Dot products and norms over the last axis (size 3) are summed left to
-right (transport/ao._norm), so they round as the JAX package's do.
+right (ops/frame.py, which also holds the frame and `cosweight_sample`),
+so they round as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -22,22 +22,16 @@ import math
 
 import torch
 
-from lucille_tpu_torch.transport.ao import _norm, ortho_basis
-
-
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a . b over the last axis (size 3), keepdim, summed left to right."""
-    return (a[..., 0:1] * b[..., 0:1] + a[..., 1:2] * b[..., 1:2]
-            + a[..., 2:3] * b[..., 2:3])
+from lucille_tpu_torch.ops.frame import dot, norm, ortho_basis
 
 
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
-    return v / torch.clamp_min(_norm(v), eps)
+    return v / torch.clamp_min(norm(v), eps)
 
 
 def reflect(inc: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """r = inc - 2 n (inc . n)   (reflection.c:26-50)."""
-    return inc - 2.0 * _dot(inc, n) * n
+    return inc - 2.0 * dot(inc, n) * n
 
 
 def refract(inc: torch.Tensor, n: torch.Tensor, eta):
@@ -45,7 +39,7 @@ def refract(inc: torch.Tensor, n: torch.Tensor, eta):
     relative IOR (n2 / n1 entering), a tensor on inc's device ((B,) per
     lane) or a Python number (nothing is copied to the device; 1 / eta is
     formed in f32 on the host).  Returns (dir (..., 3), tir (...,) bool)."""
-    cos1 = _dot(inc, n)
+    cos1 = dot(inc, n)
     entering = cos1 < 0.0
     if torch.is_tensor(eta):
         eta = eta.to(torch.float32)
@@ -72,7 +66,7 @@ def fresnel(inc: torch.Tensor, n: torch.Tensor, eta):
     eta = torch.as_tensor(eta, dtype=torch.float32, device=inc.device)
     r = normalize(reflect(inc, n))
     t, tir = refract(inc, n, eta)
-    d = _dot(inc, n)[..., 0]
+    d = dot(inc, n)[..., 0]
     c1 = d.abs()
     # g^2 = eta^2 + c^2 - 1 (with eta oriented to the incident side)
     e = torch.where(d < 0.0, eta, 1.0 / eta)
@@ -94,20 +88,6 @@ def fresnel_schlick(cos_theta, f0: float = 0.1):
     p = 1.0 - cos_theta
     p5 = (p * p) * (p * p) * p
     return f0 + (1.0 - f0) * p5
-
-
-def cosweight_sample(u0: torch.Tensor, u1: torch.Tensor, basis):
-    """Cosine-weighted hemisphere direction (reflection.c:131-160).  u0,
-    u1 (...,) uniforms; basis (b0, b1, n) each (..., 3).  Returns (dir
-    (..., 3), pdf (...,))."""
-    b0, b1, n = basis
-    cos_t = torch.sqrt(torch.clamp_min(u0, 0.0))
-    phi = (2.0 * math.pi) * u1
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - u0, 0.0))
-    x = torch.cos(phi) * sin_t
-    y = torch.sin(phi) * sin_t
-    d = x[..., None] * b0 + y[..., None] * b1 + cos_t[..., None] * n
-    return d, cos_t / math.pi
 
 
 def cosn_sample(u0: torch.Tensor, u1: torch.Tensor, axis: torch.Tensor,

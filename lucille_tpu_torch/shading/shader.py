@@ -42,8 +42,8 @@ from lucille_tpu_torch.accel.dispatch import any_hit
 from lucille_tpu_torch.base.log import LOG_WARN, log_once
 from lucille_tpu_torch.device import const_vec
 from lucille_tpu_torch.lights.sampling import direct_diffuse, direct_specular
+from lucille_tpu_torch.ops.frame import ortho_basis
 from lucille_tpu_torch.shading.reflection import reflect
-from lucille_tpu_torch.transport.ao import ortho_basis
 
 
 @dataclass

@@ -73,11 +73,11 @@ import torch
 from lucille_tpu_torch.base.log import LOG_WARN, log_once
 from lucille_tpu_torch.imageio.loader import find_file
 from lucille_tpu_torch.lights.sampling import light_wi_cl
+from lucille_tpu_torch.ops.frame import norm as _len3
 from lucille_tpu_torch.ops.noise import _perm, perlin3
 from lucille_tpu_torch.shading.reflection import reflect as _reflect
 from lucille_tpu_torch.shading.reflection import refract as _refract
 from lucille_tpu_torch.shading.shader import param_value
-from lucille_tpu_torch.transport.ao import _norm as _len3
 
 # ---------------------------------------------------------------------------
 # Lexer

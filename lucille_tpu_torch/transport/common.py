@@ -9,8 +9,8 @@ Counterpart of lucille_tpu/transport/common.py:
   packs them;
 - `face_forward` flips a normal against the incoming ray;
 - `background_radiance` is what an escaped ray sees: the option's
-  bgcolor plus the sky of a sunsky light (lights/sunsky.sky_rgb in the
-  sky's z-up frame), the colour of a constant dome, and a dome or IBL
+  bgcolor plus the sky of a sunsky light (lights/sunsky's
+  `sky_rgb_world`), the colour of a constant dome, and a dome or IBL
   light's environment map along the ray (lights/envmap.EnvMap.fetch)
   times its colour;
 - `apply_texture` modulates an albedo by the material's texture at the
@@ -24,8 +24,8 @@ from __future__ import annotations
 import torch
 
 from lucille_tpu_torch.device import const_vec
-from lucille_tpu_torch.lights.sunsky import sky_frame
-from lucille_tpu_torch.shading.reflection import _dot, normalize
+from lucille_tpu_torch.ops.frame import dot
+from lucille_tpu_torch.shading.reflection import normalize
 
 
 def interp_hit(scene, res, org: torch.Tensor, dirn: torch.Tensor) -> dict:
@@ -89,7 +89,7 @@ def apply_texture(scene, textures, h, albedo):
 
 def face_forward(N: torch.Tensor, dirn: torch.Tensor) -> torch.Tensor:
     """N flipped to the hemisphere facing against the ray direction."""
-    return N * torch.where(_dot(N, dirn) > 0.0, -1.0, 1.0)
+    return N * torch.where(dot(N, dirn) > 0.0, -1.0, 1.0)
 
 
 def background_radiance(lights, dirn: torch.Tensor,
@@ -101,7 +101,7 @@ def background_radiance(lights, dirn: torch.Tensor,
     out = const_vec(bgcolor, dirn.device).expand(dirn.shape)
     for light in lights or ():
         if light.type == "sunsky" and light.sunsky is not None:
-            out = out + light.sunsky.sky_rgb(sky_frame(dirn))
+            out = out + light.sunsky.sky_rgb_world(dirn)
         elif light.type in ("dome", "ibl"):
             col = const_vec(light.color, dirn.device) * light.intensity
             if light.env is not None:

@@ -10,7 +10,7 @@ shading_frame`: interpolated normal, Frisvad basis, eps-offset origin),
 then ntheta x nphi strata.  Stratum si draws its jitter from the tile's
 stream at the path (si,), lucille_tpu's fold_in(key, si), builds its
 directions with lucille_tpu's formulas (those of the AO scans,
-`transport/ao._scan_dirs`), and traces them with the closest hit bounded
+`accel/gather.scan_dirs`), and traces them with the closest hit bounded
 by gather_dist: dense tiles (kernel 1, csrc/isect.cu) or tile BVH
 (kernel 4, csrc/bvh.cu).  A hit at t weighs max(0, 1 - t / gather_dist);
 Lo = clip(1 - dirt / S, 0, 1) on the eye hits, 0 elsewhere.  The gather
@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 
 from lucille_tpu_torch.accel.dispatch import closest_hit
-from lucille_tpu_torch.transport.ao import _scan_dirs, shading_frame
+from lucille_tpu_torch.accel.gather import scan_dirs
+from lucille_tpu_torch.transport.ao import shading_frame
 
 
 def dirtmap_radiance(scene, org, dirn, stream, ntheta: int, nphi: int,
@@ -52,8 +53,8 @@ def dirtmap_radiance(scene, org, dirn, stream, ntheta: int, nphi: int,
     nsamples = ntheta * nphi
     dirt = torch.zeros(B, dtype=torch.float32, device=org.device)
     for si in range(nsamples):
-        wdir = _scan_dirs(b0, b1, b2, stream.uniform((si,), (B, 2)), si,
-                          ntheta, nphi)
+        wdir = scan_dirs(b0, b1, b2, stream.uniform((si,), (B, 2)), si,
+                         ntheta, nphi)
         r = closest_hit(scene, P_off, wdir, tmax=tmax, active=hit)
         dirt = dirt + torch.where(
             r["hit"], torch.clamp_min(1.0 - r["t"] / gather_dist, 0.0), 0.0)

@@ -42,8 +42,7 @@ from lucille_tpu_torch.lights.tables import (
     LIGHT_POINT,
     LIGHT_SUN,
 )
-from lucille_tpu_torch.shading.reflection import _dot, cosweight_sample
-from lucille_tpu_torch.transport.ao import ortho_basis
+from lucille_tpu_torch.ops.frame import cosweight_sample, dot, ortho_basis
 from lucille_tpu_torch.transport.common import (
     apply_texture,
     background_radiance,
@@ -77,23 +76,23 @@ def _sample_one_light(scene, lights, P, N, key, active=None):
         col = light_color(light, P)
         if light.type in (LIGHT_DISTANT, LIGHT_SUN):
             wi = delta_direction(light, P)
-            cos = torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+            cos = torch.clamp_min(dot(N, wi)[:, 0], 0.0)
             vis = 1.0 - occlusion(scene, org, wi, active=active)
             contrib = (cos * vis)[:, None] * col * nl  # / (1 / nl) pick pdf
             pdf_sa = torch.full((B,), math.inf, device=P.device)
         elif light.type == LIGHT_POINT:
             d = _vec(light.position, P) - P
-            r2 = torch.clamp_min(_dot(d, d)[:, 0], 1e-10)
+            r2 = torch.clamp_min(dot(d, d)[:, 0], 1e-10)
             r = torch.sqrt(r2)
             wi = d / r[:, None]
-            cos = torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+            cos = torch.clamp_min(dot(N, wi)[:, 0], 0.0)
             vis = 1.0 - occlusion(scene, org, wi, r - 2 * scene.eps, active)
             contrib = (cos * vis / r2)[:, None] * col * nl
             pdf_sa = torch.full((B,), math.inf, device=P.device)
         elif light.tris is not None:  # an area light
             u = key.fold(i + 1).uniform((B, 3))
             wi, r, r2, cos_l, pdf_a = _area_geometry(light, P, u)
-            cos_s = torch.clamp_min(_dot(N, wi)[:, 0], 0.0)
+            cos_s = torch.clamp_min(dot(N, wi)[:, 0], 0.0)
             vis = 1.0 - occlusion(scene, org, wi, r - 2 * scene.eps, active)
             g = cos_s * cos_l / r2
             pdf_sa = pdf_a * r2 / torch.clamp_min(cos_l, 1e-8)

@@ -32,6 +32,7 @@ import torch
 
 from lucille_tpu_torch.accel.dispatch import closest_hit
 from lucille_tpu_torch.base.log import LOG_WARN, log_once
+from lucille_tpu_torch.ops.frame import ortho_basis
 from lucille_tpu_torch.shading.shader import (
     BUILTINS,
     ShaderContext,
@@ -40,7 +41,6 @@ from lucille_tpu_torch.shading.shader import (
     get_shader,
 )
 from lucille_tpu_torch.shading.sl import find_sl
-from lucille_tpu_torch.transport.ao import ortho_basis
 from lucille_tpu_torch.transport.common import (
     background_radiance,
     face_forward,

@@ -35,8 +35,8 @@ from lucille_tpu_torch.accel.dispatch import any_hit
 from lucille_tpu_torch.device import const_vec
 from lucille_tpu_torch.lights.tables import LIGHT_DISTANT, LIGHT_POINT, LIGHT_SUN
 from lucille_tpu_torch.lights.sampling import light_color
-from lucille_tpu_torch.shading.reflection import _dot, refract
-from lucille_tpu_torch.transport.ao import _norm
+from lucille_tpu_torch.ops.frame import dot, norm
+from lucille_tpu_torch.shading.reflection import refract
 
 SSS_LIGHTS = (LIGHT_DISTANT, LIGHT_SUN, LIGHT_POINT)
 # the scatter depth's uniforms on [1e-6, 1), formed in f32 as
@@ -76,17 +76,17 @@ def single_scattering(scene, lights, P, N, I, key, sigma_t: float = 2.19,
             col = light_color(light, P)[None, :]
             if light.type == LIGHT_POINT:
                 d = const_vec(light.position, P.device) - s_o
-                r = torch.clamp_min(_norm(d)[:, 0], 1e-9)
+                r = torch.clamp_min(norm(d)[:, 0], 1e-9)
                 wi = d / r[:, None]
                 col = col / torch.clamp_min(r * r, 1e-6)[:, None]
             else:  # -direction for the sun too, as lucille_tpu's sss does
                 wi = -const_vec(light.direction, P.device)
-                wi = (wi / torch.clamp_min(_norm(wi[None])[0], 1e-20)
+                wi = (wi / torch.clamp_min(norm(wi[None])[0], 1e-20)
                       ).expand(P.shape)
             # the depth light travels inside the medium: the scatter depth
             # projected onto the light's direction
-            cos_i = torch.clamp_min(_dot(N, wi)[:, 0], 1e-3)
-            si_dist = s_dist * torch.clamp_min(_dot(-To, N)[:, 0], 1e-3) \
+            cos_i = torch.clamp_min(dot(N, wi)[:, 0], 1e-3)
+            si_dist = s_dist * torch.clamp_min(dot(-To, N)[:, 0], 1e-3) \
                 / cos_i
             entry = s_o + wi * si_dist[:, None]
             vis = 1.0 - any_hit(scene, entry + N * scene.eps, wi)["occ"].to(
@@ -97,7 +97,7 @@ def single_scattering(scene, lights, P, N, I, key, sigma_t: float = 2.19,
             else:
                 from lucille_tpu_torch.ops.mie import phase_lookup
 
-                phase = phase_lookup(phase_table, _dot(To, wi)[:, 0])
+                phase = phase_lookup(phase_table, dot(To, wi)[:, 0])
             contrib = (albedo_ss * phase * ft * atten * vis * cos_i
                        )[:, None] * col
             total = total + contrib / n_lights

@@ -255,7 +255,7 @@ def main(argv) -> int:
 
     def grid(label, make_state, tile):
         from lucille_tpu_torch.accel import ugrid
-        from lucille_tpu_torch.transport.ao import _scan_dirs
+        from lucille_tpu_torch.accel.gather import scan_dirs
 
         r = renderer(label, make_state, tile)
         org, dirn, x0, y0 = cs.first_tile_rays(r)
@@ -264,8 +264,8 @@ def main(argv) -> int:
         hit = got["tri"] >= 0
         P_off, b0, b1, b2 = shading_frame(r.scene, org, dirn,
                                           {**got, "hit": hit})
-        wdir = _scan_dirs(b0, b1, b2, r.sampler(x0, y0).uniform((7,), (B, 2)),
-                          7, 8, 8)
+        wdir = scan_dirs(b0, b1, b2, r.sampler(x0, y0).uniform((7,), (B, 2)),
+                         7, 8, 8)
         for name, fn, live in (
                 ("closest_hit", lambda: closest_hit(r.scene, org, dirn), B),
                 ("any_hit", lambda: any_hit(r.scene, P_off, wdir,

@@ -117,7 +117,7 @@ def test_rebinned_gather_sorts_its_rays(monkeypatch):
     direction octant first, and the parked (dead) rays last."""
     from lucille_tpu_torch.accel import bvh_ao
     from lucille_tpu_torch.scene.compile import compile_scene
-    from lucille_tpu_torch.transport.ao import ortho_basis
+    from lucille_tpu_torch.ops.frame import ortho_basis
 
     scene = compile_scene(heightfield_state(35, accel="bvh").scene, "cpu")
     rng = np.random.default_rng(3)

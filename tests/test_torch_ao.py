@@ -193,7 +193,7 @@ def test_gather_need_counts(n_tris):
 
     from lucille_tpu_torch.accel import ao
     from lucille_tpu_torch.scene.types import from_numpy
-    from lucille_tpu_torch.transport.ao import ortho_basis
+    from lucille_tpu_torch.ops.frame import ortho_basis
 
     scene = from_numpy(_soup(n_tris), "cpu")
     B, ntheta, nphi = 200, 3, 4
@@ -322,7 +322,7 @@ def test_gather_walk_counts(n_tris, nphi):
 
     from lucille_tpu_torch.accel.ao import AO_BLOCK, gather_layout
     from lucille_tpu_torch.scene.types import from_numpy
-    from lucille_tpu_torch.transport.ao import ortho_basis
+    from lucille_tpu_torch.ops.frame import ortho_basis
 
     scene = from_numpy(_soup(n_tris), "cpu")
     B, n_live, ntheta = 200, 150, 3
@@ -424,7 +424,8 @@ def test_ortho_basis_and_interp_normal_close():
     from lucille_tpu.transport.ao import _interp_normal as jax_interp
     from lucille_tpu.transport.ao import ortho_basis as jax_basis
     from lucille_tpu_torch.scene.types import from_numpy
-    from lucille_tpu_torch.transport.ao import _interp_normal, ortho_basis
+    from lucille_tpu_torch.ops.frame import ortho_basis
+    from lucille_tpu_torch.transport.ao import _interp_normal
 
     rng = np.random.default_rng(4)
     N = rng.normal(size=(2000, 3))

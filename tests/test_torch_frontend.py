@@ -1,5 +1,5 @@
-"""The port's own host front end against lucille_tpu's, and the rule that
-the port imports nothing of the JAX package.
+"""The port's own host front end against lucille_tpu's, the rule that
+the port imports nothing of the JAX package, and the port's layering.
 
 Every RIB the port's tests render goes through both packages' parsers:
 the bundled scene as shipped (its sunsky light and the sun beside it),
@@ -13,6 +13,8 @@ so equal means exactly equal.
 
 import ast
 import dataclasses
+import importlib
+import importlib.util
 
 import numpy as np
 import pytest
@@ -153,13 +155,23 @@ def test_sunsky_light_records_match():
 
 
 def _imports(path):
-    """Top-level names of every module an import statement names."""
-    tree = ast.parse(path.read_text(), str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            yield from (a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
-            yield node.module.split(".")[0]
+    """(enclosing function or None, module, name or None) of every import
+    statement in the file, at any depth (function-level imports
+    included): ``import a.b`` gives (fn, "a.b", None), ``from a.b import
+    c`` gives (fn, "a.b", "c")."""
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                yield from walk(child, child.name)
+            elif isinstance(child, ast.Import):
+                yield from ((fn, a.name, None) for a in child.names)
+            elif (isinstance(child, ast.ImportFrom) and child.module
+                    and not child.level):
+                yield from ((fn, child.module, a.name) for a in child.names)
+            else:
+                yield from walk(child, fn)
+
+    yield from walk(ast.parse(path.read_text(), str(path)), None)
 
 
 def test_port_imports_nothing_of_the_jax_package():
@@ -171,10 +183,81 @@ def test_port_imports_nothing_of_the_jax_package():
     files += [REPO / "chip_smoke.py", REPO / "profile_frame.py",
               REPO / "profile_gather.py", REPO / "profile_lanes.py"]
     assert len(files) > 40
-    bad = [(str(p.relative_to(REPO)), m) for p in files for m in _imports(p)
-           if m in ("jax", "jaxlib", "lucille_tpu", "tools_tpu",
-                    "bench_large")]
+    bad = [(str(p.relative_to(REPO)), m) for p in files
+           for _fn, m, _name in _imports(p)
+           if m.split(".")[0] in ("jax", "jaxlib", "lucille_tpu", "tools_tpu",
+                                  "bench_large")]
     assert not bad, bad
+
+
+PORT = REPO / "lucille_tpu_torch"
+# The port's layers run ops < accel < lights < shading < transport <
+# render, with parallel/ under render: what each layer may not import.
+ABOVE = {
+    "ops": ("accel", "lights", "shading", "transport", "render"),
+    "accel": ("lights", "shading", "transport", "render"),
+    "lights": ("shading", "transport", "render"),
+    "shading": ("transport", "render"),
+    "parallel": ("render",),
+}
+# The one import that points up: lucille_tpu's own API renders a sharded
+# frame through a Renderer, imported inside that function.
+UPWARD = {("parallel/mesh.py", "render_frame_sharded",
+           "lucille_tpu_torch.render.renderer")}
+
+
+def _layering_faults(case):
+    """What breaks the layering `case` names: an import of a layer above
+    (ABOVE), gather_kind named outside accel/gather.py, or a name that a
+    card-only script imports from the port and its module lacks."""
+    if case in ABOVE:
+        return [(str(p.relative_to(PORT)), fn, m)
+                for p in sorted((PORT / case).rglob("*.py"))
+                for fn, m, name in _imports(p)
+                if (m if name is None else f"{m}.{name}").split(".")[:2]
+                in (["lucille_tpu_torch", up] for up in ABOVE[case])
+                and (str(p.relative_to(PORT)), fn, m) not in UPWARD]
+    if case == "gather_kind":
+        def named(node):
+            return ((isinstance(node, ast.Name) and node.id == "gather_kind")
+                    or (isinstance(node, ast.Attribute)
+                        and node.attr == "gather_kind")
+                    or (isinstance(node, ast.alias)
+                        and node.name == "gather_kind")
+                    or (isinstance(node, ast.FunctionDef)
+                        and node.name == "gather_kind"))
+        return [str(p.relative_to(PORT)) for p in sorted(PORT.rglob("*.py"))
+                if p != PORT / "accel" / "gather.py"
+                and any(named(n) for n in ast.walk(ast.parse(p.read_text())))]
+    bad = []
+    for p in [REPO / "chip_smoke.py", *sorted(REPO.glob("profile_*.py"))]:
+        for _fn, m, name in _imports(p):
+            if m.split(".")[0] != "lucille_tpu_torch":
+                continue
+            found = _module_found(m) and (
+                name is None or hasattr(importlib.import_module(m), name)
+                or _module_found(f"{m}.{name}"))
+            if not found:
+                bad.append((p.name, m, name))
+    return bad
+
+
+def _module_found(name) -> bool:
+    try:
+        return importlib.util.find_spec(name) is not None
+    except ModuleNotFoundError:  # a parent package is missing
+        return False
+
+
+@pytest.mark.parametrize("case", [*ABOVE, "gather_kind", "card_scripts"])
+def test_port_imports_point_down(case):
+    """The port's imports point down its layers (ABOVE), the one named
+    exception aside (UPWARD); which hemisphere gather serves a scene is
+    read in accel/gather.py alone (gather_kind named in no other module of
+    the package); and every name chip_smoke.py and the profile_*.py
+    scripts import from the port inside their functions, which only the
+    card runs, is there on the CPU."""
+    assert not _layering_faults(case)
 
 
 def test_port_logs_under_its_own_name():

@@ -69,7 +69,7 @@ def _gather_inputs(n_tris, B):
     """A dense soup scene on cuda and B lanes of AO gather input: rays
     (12, B) [P | b0 | b1 | b2] at random points with random normals, and
     (2, B) uniforms."""
-    from lucille_tpu_torch.transport.ao import ortho_basis
+    from lucille_tpu_torch.ops.frame import ortho_basis
 
     scene = _soup_scene(n_tris)
     rng = np.random.default_rng(1)
@@ -1093,7 +1093,7 @@ def test_bvh_ao_gather_matches_plain():
     _need_card()
     from lucille_tpu_torch.accel import bvh_ao, bvh_isect
     from lucille_tpu_torch.accel.pack import pack_tris
-    from lucille_tpu_torch.transport.ao import ortho_basis
+    from lucille_tpu_torch.ops.frame import ortho_basis
 
     scene = _soup_scene(3000, accel="bvh")
     rng = np.random.default_rng(1)
@@ -1177,7 +1177,7 @@ def test_bvh_ao_fused_kernel_matches_plain(n_tris, ntheta, nphi):
     _need_card()
     from lucille_tpu_torch.accel import bvh_ao
     from lucille_tpu_torch.accel.bvh_isect import STACK
-    from lucille_tpu_torch.transport.ao import ortho_basis
+    from lucille_tpu_torch.ops.frame import ortho_basis
 
     if n_tris == "deep":
         tris, nodes, leaf_real = _chain_tree(STACK)
@@ -1223,7 +1223,7 @@ def test_bvh_ao_fused_gather_selected_by_the_switch(monkeypatch):
     wavefront with no hit does no work and reports zeros."""
     _need_card()
     from lucille_tpu_torch.accel import bvh_ao, bvh_isect
-    from lucille_tpu_torch.transport.ao import ortho_basis
+    from lucille_tpu_torch.ops.frame import ortho_basis
 
     scene = _soup_scene(3000, accel="bvh")
     rng = np.random.default_rng(1)

@@ -240,7 +240,7 @@ def test_unported_features_raise(what, tmp_path):
     from lucille_tpu_torch.accel.ao import MAX_TRIS_FOR_MEGAKERNEL
     from lucille_tpu_torch.render.renderer import Renderer
     from lucille_tpu_torch.ri.types import LightDesc
-    from lucille_tpu_torch.transport.ao import gather_kind
+    from lucille_tpu_torch.accel.gather import gather_kind
 
     desc = bundled_state(16, 16).scene
     if what == "sunsky":

@@ -46,7 +46,7 @@ def low_threshold(monkeypatch):
     monkeypatch.setattr("lucille_tpu.accel.pallas_ao.MAX_TRIS_FOR_MEGAKERNEL",
                         THRESHOLD)
     monkeypatch.setattr(
-        "lucille_tpu_torch.transport.ao.MAX_TRIS_FOR_MEGAKERNEL", THRESHOLD)
+        "lucille_tpu_torch.accel.gather.MAX_TRIS_FOR_MEGAKERNEL", THRESHOLD)
 
 
 def _counts():
@@ -68,7 +68,8 @@ def test_scan_wavefront_matches_jax(sunsky, low_threshold):
     from lucille_tpu.transport.ao import ao_radiance as jax_ao
     from lucille_tpu_torch.lights.tables import build_light_tables
     from lucille_tpu_torch.scene.compile import compile_scene
-    from lucille_tpu_torch.transport.ao import ao_radiance, gather_kind
+    from lucille_tpu_torch.accel.gather import gather_kind
+    from lucille_tpu_torch.transport.ao import ao_radiance
     from test_torch_whitted import eye_rays
 
     B, S = 512, NTHETA * NPHI

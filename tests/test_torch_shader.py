@@ -65,7 +65,7 @@ def wavefront(kind, B=512, seed=3, key=21, light=None):
     from lucille_tpu_torch.accel.dispatch import closest_hit
     from lucille_tpu_torch.sampling.jitter import StreamKey
     from lucille_tpu_torch.shading.shader import ShaderContext, ShaderGlobals
-    from lucille_tpu_torch.transport.ao import ortho_basis
+    from lucille_tpu_torch.ops.frame import ortho_basis
     from lucille_tpu_torch.transport.common import face_forward, interp_hit
 
     if kind == "hf_lit":

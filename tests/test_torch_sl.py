@@ -280,7 +280,7 @@ def lit_wavefront():
     from lucille_tpu_torch.accel.dispatch import closest_hit
     from lucille_tpu_torch.sampling.jitter import StreamKey
     from lucille_tpu_torch.shading.shader import ShaderContext, ShaderGlobals
-    from lucille_tpu_torch.transport.ao import ortho_basis
+    from lucille_tpu_torch.ops.frame import ortho_basis
     from lucille_tpu_torch.transport.common import face_forward, interp_hit
 
     sj, lj, cam = compiled("materials", "jax")

@@ -271,16 +271,15 @@ def test_ao_sunsky_cpu_route_equals_the_bits_arithmetic(scene, ntheta, nphi):
 
 
 def test_sky_params_follow_the_kernels_struct():
-    """accel/ao.sky_params: each float the f32 rounding (as torch rounds
-    a Python float against an f32 tensor) of the PreethamSunSky field
-    that csrc/ao.cu's SkyParams holds at that place; as many as the
-    struct holds, its SKY_NPARAMS, the count lt_sky_gather refuses
-    anything else than, which it takes as an int after the params'
-    pointer."""
+    """PreethamSunSky.kernel_params: each float the f32 rounding (as
+    torch rounds a Python float against an f32 tensor) of the
+    PreethamSunSky field that csrc/ao.cu's SkyParams holds at that place;
+    as many as the struct holds, its SKY_NPARAMS, the count lt_sky_gather
+    refuses anything else than, which it takes as an int after the
+    params' pointer."""
     import ctypes
     import re
 
-    from lucille_tpu_torch.accel import ao
     from lucille_tpu_torch.kernels.build import CSRC, SIGNATURES
     from lucille_tpu_torch.lights.sunsky import (
         _XYZ2RGB_CIE,
@@ -289,7 +288,7 @@ def test_sky_params_follow_the_kernels_struct():
     )
 
     sky = PreethamSunSky(turbidity=3.1, julian_day=200, hour=14.25)
-    got = ao.sky_params(sky)
+    got = sky.kernel_params()
     assert got.dtype == np.float32 and got.shape == (40,)
     fields = {
         "sun": sky.sun_direction(), "Yz": [sky.Yz], "xz": [sky.xz],

@@ -184,8 +184,8 @@ def _unit(rng, n):
 def test_reflection_matches_jax(fn):
     from lucille_tpu.shading import reflection as jref
     from lucille_tpu.transport.ao import ortho_basis as j_basis
+    from lucille_tpu_torch.ops import frame
     from lucille_tpu_torch.shading import reflection as tref
-    from lucille_tpu_torch.transport.ao import ortho_basis
 
     rng = np.random.default_rng(3)
     n = 4096
@@ -208,7 +208,7 @@ def test_reflection_matches_jax(fn):
                   jref.fresnel_schlick(jnp.asarray(u0)))]
     elif fn == "cosweight_sample":
         pairs = list(zip(
-            tref.cosweight_sample(t(u0), t(u1), ortho_basis(t(nrm))),
+            frame.cosweight_sample(t(u0), t(u1), frame.ortho_basis(t(nrm))),
             jref.cosweight_sample(jnp.asarray(u0), jnp.asarray(u1),
                                   j_basis(jnp.asarray(nrm)))))
     else:
